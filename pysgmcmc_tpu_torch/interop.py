@@ -1,0 +1,66 @@
+"""Weights and sampler state carried between the JAX package and the port.
+
+Everything crosses as numpy arrays, so this module imports no JAX: pass
+``np.asarray``-able leaves (JAX arrays qualify) and get tensors back, or the
+reverse.  Parameter dicts keep the JAX key names and shapes, with the
+leading chain axis where JAX stacks chains.
+
+Examples
+--------
+>>> import numpy as np
+>>> params = params_from_numpy({"w1": np.ones((2, 3), np.float32)}, "cpu")
+>>> params["w1"].shape, params_to_numpy(params)["w1"].dtype
+(torch.Size([2, 3]), dtype('float32'))
+"""
+
+import numpy as np
+import torch
+
+from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
+from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCState
+
+
+def params_from_numpy(params, device):
+    """Dict of arrays (e.g. JAX ``dense_network`` params, single or stacked)
+    -> dict of tensors on ``device`` (copies)."""
+    return {name: torch.tensor(np.asarray(leaf), device=device)
+            for name, leaf in params.items()}
+
+
+def params_to_numpy(params):
+    """Dict of tensors -> dict of numpy arrays."""
+    return {name: leaf.detach().cpu().numpy() for name, leaf in params.items()}
+
+
+def sghmc_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``SGHMCState`` (or anything with its fields: ``position``,
+    ``momentum``, ``stats.tau/g/v_hat/minv``, ``step``) -> the port's
+    :class:`SGHMCState` on ``device``."""
+    stats = state.stats
+    return SGHMCState(
+        position=params_from_numpy(state.position, device),
+        momentum=params_from_numpy(state.momentum, device),
+        stats=AdaptiveStats(
+            tau=params_from_numpy(stats.tau, device),
+            g=params_from_numpy(stats.g, device),
+            v_hat=params_from_numpy(stats.v_hat, device),
+            minv=params_from_numpy(stats.minv, device),
+        ),
+        step=torch.tensor(np.asarray(state.step), dtype=torch.int64,
+                          device=device),
+        schedule_state=schedule_state,
+    )
+
+
+def sghmc_state_to_numpy(state):
+    """The port's :class:`SGHMCState` -> ``{"position", "momentum", "tau",
+    "g", "v_hat", "minv": dicts of arrays, "step": array}``."""
+    return {
+        "position": params_to_numpy(state.position),
+        "momentum": params_to_numpy(state.momentum),
+        "tau": params_to_numpy(state.stats.tau),
+        "g": params_to_numpy(state.stats.g),
+        "v_hat": params_to_numpy(state.stats.v_hat),
+        "minv": params_to_numpy(state.stats.minv),
+        "step": np.asarray(state.step.cpu()),
+    }

@@ -1,0 +1,85 @@
+"""Network architectures for Bayesian neural networks (PyTorch port of
+:func:`pysgmcmc_tpu.models.architectures.dense_network`).
+
+The reference's ``len(units)``-layer tanh heteroscedastic regression net:
+tanh hidden layers, a linear mean head, and a learned log-variance output
+bias (initialised to ``log(1e-3)``) as the second output column.  Weights
+are He-normal (fan-in, normal truncated at two standard deviations), biases
+zero.  Parameters are a dict of tensors with the JAX package's key names and
+shapes (``w1`` is ``(H,)`` for one input, the head weight is ``(H,)``,
+``log_variance_bias`` is ``(1, 1)``); any leading axes (chains, ensemble
+members) broadcast through ``apply``.
+
+Examples
+--------
+>>> import torch
+>>> init, apply = dense_network(n_inputs=1, device="cpu")
+>>> params = init(torch.Generator().manual_seed(0))
+>>> params["w1"].shape, params["w4"].shape, params["log_variance_bias"].shape
+(torch.Size([50]), torch.Size([50]), torch.Size([1, 1]))
+>>> apply(params, torch.zeros(5, 1)).shape
+torch.Size([5, 2])
+"""
+
+import math
+
+import torch
+
+# stddev correction of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's "truncated_normal" constant)
+_TRUNC_STD = 0.87962566103423978
+
+
+def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
+                  device):
+    """The reference BNN architecture as an ``(init, apply)`` pair.
+
+    ``init(generator, batch_shape=())`` draws one network per element of
+    ``batch_shape`` (e.g. ``(n_chains,)``) on ``device`` from the
+    ``torch.Generator``; ``apply(params, x)`` maps ``(..., N, n_inputs)``
+    inputs to ``(..., N, 2)``: column 0 the predicted mean, column 1 the
+    (input-independent, learned) log predictive variance.
+    """
+    if device is None:
+        raise ValueError("dense_network: pass an explicit device")
+    layer_sizes = [n_inputs, *units, 1]
+    n_layers = len(layer_sizes) - 1
+    head = "w{}".format(n_layers)
+    squeeze_first = n_inputs == 1
+
+    def init(generator, batch_shape=()):
+        batch_shape = tuple(batch_shape)
+        params = {}
+        for i, (fan_in, fan_out) in enumerate(
+                zip(layer_sizes[:-1], layer_sizes[1:])):
+            w = torch.empty(batch_shape + (fan_in, fan_out), dtype=dtype,
+                            device=device)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            params["w{}".format(i + 1)] = w * (
+                math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+            params["b{}".format(i + 1)] = torch.zeros(
+                batch_shape + (fan_out,), dtype=dtype, device=device)
+        params["log_variance_bias"] = torch.full(
+            batch_shape + (1, 1), math.log(1e-3), dtype=dtype, device=device)
+        if squeeze_first:
+            params["w1"] = params["w1"][..., 0, :]
+        params[head] = params[head][..., 0]
+        return params
+
+    def apply(params, x):
+        x = torch.as_tensor(x, dtype=dtype)
+        w1 = params["w1"]
+        if squeeze_first:
+            h = torch.tanh(x * w1[..., None, :] + params["b1"][..., None, :])
+        else:
+            h = torch.tanh(torch.matmul(x, w1) + params["b1"][..., None, :])
+        for i in range(2, n_layers):
+            h = torch.tanh(torch.matmul(h, params["w{}".format(i)])
+                           + params["b{}".format(i)][..., None, :])
+        mean = (torch.matmul(h, params[head][..., :, None])[..., 0]
+                + params["b{}".format(n_layers)])
+        log_var = params["log_variance_bias"][..., 0].expand(mean.shape)
+        return torch.stack([mean, log_var], dim=-1)
+
+    return init, apply

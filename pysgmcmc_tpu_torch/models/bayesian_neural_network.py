@@ -1,0 +1,479 @@
+"""Bayesian neural network trained with SG-MCMC (PyTorch port of
+:mod:`pysgmcmc_tpu.models.bayesian_neural_network`).
+
+After Springenberg et al., NIPS 2016: ``train`` samples network weights with
+SGHMC, ``predict`` averages over the collected weight snapshots.  The port
+runs the flagship path, ``network="dense", step_impl="fused"``: burn-in on
+kernel B2 and sampling on kernel B1 (:mod:`pysgmcmc_tpu_torch.parallel.
+packed`), across ``n_chains`` independent chains.  Other networks, step
+implementations and samplers raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
+
+Priors and likelihood match the reference: heteroscedastic Gaussian log
+likelihood scaled by 1/batch_size, a Gaussian prior on the log predictive
+variance and an L2 weight prior, both scaled by 1/N.
+
+Examples
+--------
+>>> import math, torch
+>>> round(float(weight_prior_log_like({"w": torch.ones(2, 2)})), 3)
+-0.5
+>>> round(float(log_variance_prior_log_like(
+...     torch.full((1, 1), math.log(1e-6)))), 3)
+2.303
+"""
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from pysgmcmc_tpu_torch.models.architectures import dense_network
+from pysgmcmc_tpu_torch.models.base_model import (
+    BaseModel,
+    zero_mean_unit_var_normalization,
+    zero_mean_unit_var_unnormalization,
+)
+from pysgmcmc_tpu_torch.ops.fused_step import MAX_INPUTS
+from pysgmcmc_tpu_torch.parallel.packed import (
+    burnin_chain_fused,
+    resolve_noise_impl,
+    sample_chain_fused,
+)
+from pysgmcmc_tpu_torch.sampling import Sampler
+from pysgmcmc_tpu_torch.stepsize_schedules import (
+    ConstantStepsizeSchedule,
+    StepsizeSchedule,
+)
+from pysgmcmc_tpu_torch.utils.numeric import safe_divide
+from pysgmcmc_tpu_torch.utils.pytree import tree_size
+
+
+def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
+    """Gaussian prior (in log space) on the predicted log variance:
+    ``mean(sum(-(log_var - log(mean))^2 / (2 var) - 0.5 log(var), axis=1))``."""
+    dtype, device = log_var.dtype, log_var.device
+    mean = torch.as_tensor(mean, dtype=dtype, device=device)
+    var = torch.as_tensor(var, dtype=dtype, device=device)
+    return torch.mean(torch.sum(
+        safe_divide(-torch.square(log_var - torch.log(mean)), 2.0 * var)
+        - 0.5 * torch.log(var), dim=1))
+
+
+def weight_prior_log_like(params, wdecay=1.0):
+    """L2 (Gaussian) prior over all parameters, normalized by their count."""
+    leaves = list(params.values())
+    log_like = sum(torch.sum(-wdecay * 0.5 * torch.square(leaf))
+                   for leaf in leaves)
+    n_params = sum(leaf.numel() for leaf in leaves)
+    return safe_divide(log_like, torch.as_tensor(
+        n_params, dtype=log_like.dtype, device=log_like.device))
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        "BayesianNeuralNetwork: {} is not ported to PyTorch yet "
+        "(ROADMAP.md {})".format(what, item))
+
+
+class BayesianNeuralNetwork(BaseModel):
+    """SG-MCMC Bayesian neural network for regression.
+
+    Parameters and defaults are the JAX package's (reference ctor
+    defaults: batch 20, constant stepsize ``sqrt(1e-4)``, 100 nets thinned
+    every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``,
+    which must be given: ``"cuda"`` runs the kernels, ``"cpu"`` their plain
+    PyTorch versions.  The ported path is ``network="dense",
+    step_impl="fused"`` with SGHMC; ``noise_impl`` is ``"auto"`` /
+    ``"box_muller"`` (the kernels' Philox stream) or ``"zero"`` (the
+    degenerate stream of the parity tests).
+    """
+
+    def __init__(
+        self,
+        sampling_method=Sampler.SGHMC,
+        get_net=None,
+        batch_size=20,
+        stepsize_schedule=None,
+        n_nets=100,
+        n_iters=50000,
+        burn_in_steps=1000,
+        sample_steps=100,
+        normalize_input=True,
+        normalize_output=True,
+        seed=0,
+        dtype=torch.float32,
+        compute_dtype=None,
+        n_chains=1,
+        mesh=None,
+        log_every=512,
+        network="reference",
+        step_impl="pytree",
+        units=(50, 50, 50),
+        pair_dots=False,
+        noise_impl="auto",
+        device=None,
+        **sampler_kwargs,
+    ):
+        super().__init__()
+        if not isinstance(n_nets, int) or n_nets <= 0:
+            raise ValueError("n_nets must be a positive integer")
+        if not isinstance(n_iters, int) or n_iters <= 0:
+            raise ValueError("n_iters must be a positive integer")
+        if not isinstance(burn_in_steps, int) or burn_in_steps < 0:
+            raise ValueError("burn_in_steps must be a non-negative integer")
+        if not isinstance(sample_steps, int) or sample_steps <= 0:
+            raise ValueError("sample_steps must be a positive integer")
+        if not isinstance(batch_size, int) or batch_size <= 0:
+            raise ValueError("batch_size must be a positive integer")
+        if not Sampler.is_supported(sampling_method):
+            raise ValueError(
+                "BayesianNeuralNetwork received unsupported input for "
+                "parameter 'sampling_method'. Input was: {!r}.\n"
+                "Supported sampling methods are enumerated in the "
+                "'Sampler' enum type.".format(sampling_method)
+            )
+        if stepsize_schedule is None:
+            stepsize_schedule = ConstantStepsizeSchedule(float(np.sqrt(1e-4)))
+        if not isinstance(stepsize_schedule, StepsizeSchedule):
+            stepsize_schedule = ConstantStepsizeSchedule(float(stepsize_schedule))
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        if not isinstance(n_chains, int) or n_chains <= 0:
+            raise ValueError("n_chains must be a positive integer")
+        if n_chains > 1 and n_nets % n_chains != 0:
+            raise ValueError(
+                "n_nets ({}) must be divisible by n_chains ({})".format(
+                    n_nets, n_chains))
+        if log_every is not None and (
+            not isinstance(log_every, int) or log_every <= 0
+        ):
+            raise ValueError("log_every must be a positive integer or None")
+        if network not in ("reference", "dense"):
+            raise ValueError("network must be 'reference' or 'dense'")
+        if step_impl not in ("pytree", "fused", "lanes"):
+            raise ValueError(
+                "step_impl must be 'pytree', 'fused' or 'lanes'")
+        units = tuple(int(u) for u in units)
+        if not units or any(u <= 0 for u in units):
+            raise ValueError("units must be positive layer widths")
+        if step_impl == "fused":
+            if network != "dense":
+                raise ValueError("step_impl='fused' requires network='dense'")
+            if not 2 <= len(units) <= 4:
+                raise ValueError(
+                    "step_impl='fused' supports 2-4 hidden layers; "
+                    "got units={!r} (use step_impl='lanes' for other "
+                    "topologies)".format(tuple(units)))
+            if len(set(units)) != 1:
+                raise ValueError(
+                    "step_impl='fused' requires equal hidden widths")
+            if get_net is not None:
+                raise ValueError(
+                    "step_impl='fused' supports the dense NxH architecture "
+                    "family (via units=); pass get_net only with "
+                    "step_impl='lanes' or 'pytree'")
+        if pair_dots:
+            if step_impl != "fused":
+                raise ValueError("pair_dots requires step_impl='fused'")
+            if len(units) != 3:
+                raise ValueError(
+                    "pair_dots supports the flagship 3-hidden-layer "
+                    "topology only; got units={!r}".format(tuple(units)))
+        if noise_impl not in ("auto", "box_muller", "hadamard_clt", "zero"):
+            raise ValueError(
+                "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
+                + repr(noise_impl))
+        if device is None:
+            raise ValueError(
+                "BayesianNeuralNetwork: pass device= ('cuda' or 'cpu')")
+
+        # the paths the port has not reached yet
+        if network != "dense":
+            raise _not_ported("network={!r}".format(network), "queue A item 6")
+        if step_impl != "fused":
+            raise _not_ported("step_impl={!r}".format(step_impl),
+                              "queue A items 6 and 10")
+        if sampling_method != Sampler.SGHMC:
+            raise _not_ported("sampling_method={}".format(sampling_method),
+                              "queue A item 9")
+        if mesh is not None:
+            raise _not_ported("mesh", "queue A item 15")
+        if pair_dots:
+            raise _not_ported("pair_dots=True", "queue B, B-pair")
+        if compute_dtype is not None:
+            raise _not_ported("compute_dtype", "queue A items 6 and 14")
+        if dtype != torch.float32:
+            raise _not_ported("dtype={}".format(dtype), "queue A item 6")
+        resolve_noise_impl(noise_impl)  # raises on hadamard_clt
+
+        self.sampling_method = sampling_method
+        self.get_net = get_net
+        self.batch_size = batch_size
+        self.stepsize_schedule = stepsize_schedule
+        self.n_nets = n_nets
+        self.n_iters = n_iters
+        self.burn_in_steps = burn_in_steps
+        self.sample_steps = sample_steps
+        self.normalize_input = normalize_input
+        self.normalize_output = normalize_output
+        self.seed = seed
+        self.n_chains = n_chains
+        self.mesh = mesh
+        self.log_every = log_every
+        self.units = units
+        self.pair_dots = bool(pair_dots)
+        self.noise_impl = noise_impl
+        self.network = network
+        self.step_impl = step_impl
+        self.compute_dtype = compute_dtype
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.sampler_kwargs = sampler_kwargs
+
+        self.samples = None  # dict of tensors, leading axis n_nets
+        self.is_trained = False
+        self.phase_seconds = {}
+
+    #  Likelihood ------------------------------------------------------------
+
+    def negative_log_likelihood(self, apply_fn, params, x, y, n_examples):
+        """NLL and MSE of one network's ``params`` on minibatch ``(x, y)``
+        (``y`` shaped ``(N, 1)``); returns ``(nll, mse)``."""
+        net_out = apply_fn(params, x)
+        f_mean = net_out[:, 0:1]
+        f_log_var = net_out[:, 1:2]
+        f_var_inv = 1.0 / (torch.exp(f_log_var) + 1e-16)
+        mse = torch.square(y - f_mean)
+        log_like = torch.sum(
+            torch.sum(-mse * (0.5 * f_var_inv) - 0.5 * f_log_var, dim=1))
+        log_like = log_like / self.batch_size
+        log_like = log_like + log_variance_prior_log_like(f_log_var) / n_examples
+        log_like = log_like + weight_prior_log_like(params) / n_examples
+        return -log_like, torch.mean(mse)
+
+    #  Training ---------------------------------------------------------------
+
+    def _n_collect(self, target=None):
+        target = self.n_nets if target is None else target
+        budget = max(0, (self.n_iters - self.burn_in_steps) // self.sample_steps)
+        n_collect = min(target, budget)
+        if n_collect < target:
+            logging.warning(
+                "BayesianNeuralNetwork: iteration budget n_iters=%d only "
+                "allows %d of the requested %d posterior samples",
+                self.n_iters, n_collect, self.n_nets,
+            )
+        if n_collect == 0:
+            raise ValueError(
+                "BayesianNeuralNetwork: n_iters={} is too small to collect "
+                "any samples (burn_in_steps={}, sample_steps={})".format(
+                    self.n_iters, self.burn_in_steps, self.sample_steps
+                )
+            )
+        return n_collect
+
+    def _initial_positions(self, init_fn, generator, n_chains):
+        """Stacked He-normal initial weights of every chain."""
+        return init_fn(generator, (n_chains,))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @BaseModel._check_shapes_train
+    def train(self, X, y, *args, **kwargs):
+        """Sample ``n_nets`` network-weight snapshots from the posterior:
+        burn-in on kernel B2, then one B1 launch of ``sample_steps`` steps
+        per collected snapshot.  ``phase_seconds`` records the wall time of
+        each phase."""
+        start_time = time.time()
+        self.X, self.y = X, y
+
+        x_train = np.asarray(X, dtype=np.float64)
+        y_train = np.asarray(y, dtype=np.float64)
+        if self.normalize_input:
+            x_train, self.x_mean, self.x_std = zero_mean_unit_var_normalization(
+                x_train)
+        if self.normalize_output:
+            y_train, self.y_mean, self.y_std = zero_mean_unit_var_normalization(
+                y_train)
+
+        n_datapoints, n_inputs = x_train.shape
+        if n_inputs > MAX_INPUTS:
+            raise ValueError(
+                "step_impl='fused' supports up to {} input features (the "
+                "flagship architecture family); got n_inputs={}".format(
+                    MAX_INPUTS, n_inputs))
+        x_dev = torch.as_tensor(x_train, dtype=self.dtype, device=self.device)
+        y_dev = torch.as_tensor(y_train, dtype=self.dtype, device=self.device)
+
+        # the architecture is fixed here, at train time: predict() serves
+        # what was trained even if self.units is changed afterwards
+        init_fn, apply_fn = dense_network(
+            n_inputs, units=self.units, dtype=self.dtype, device=self.device)
+        self._apply_fn = apply_fn
+        self._n_inputs = n_inputs
+        self._train_fused(init_fn, apply_fn, x_dev, y_dev, n_datapoints,
+                          start_time)
+
+    def _train_fused(self, init_fn, apply_fn, x_dev, y_dev, n_datapoints,
+                     start_time):
+        n_chains = max(1, self.n_chains)
+        per_chain = self._n_collect(
+            self.n_nets // n_chains if self.n_chains > 1 else None)
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        positions = self._initial_positions(init_fn, generator, n_chains)
+        n_params = tree_size(positions) // n_chains
+        prior_scale = 1.0 / (n_params * float(n_datapoints))
+
+        def cost_fn(params, batch):
+            # likelihood + log-variance prior only: the weight prior is
+            # folded into the sampler update via gaussian_prior_scale
+            x_batch, y_batch = batch
+            net_out = apply_fn(params, x_batch)
+            f_mean = net_out[:, 0:1]
+            f_log_var = net_out[:, 1:2]
+            f_var_inv = 1.0 / (torch.exp(f_log_var) + 1e-16)
+            mse = torch.square(y_batch - f_mean)
+            ll = torch.sum(torch.sum(
+                -mse * (0.5 * f_var_inv) - 0.5 * f_log_var, dim=1)
+            ) / self.batch_size
+            return -(ll + log_variance_prior_log_like(f_log_var)
+                     / n_datapoints)
+
+        kwargs = dict(self.sampler_kwargs)
+        kwargs.setdefault("scale_grad", float(n_datapoints))
+        kwargs.setdefault("burn_in_steps", self.burn_in_steps)
+        kwargs.setdefault("gaussian_prior_scale", prior_scale)
+        sampler = Sampler.get_sampler(
+            self.sampling_method, cost_fn=cost_fn,
+            stepsize_schedule=self.stepsize_schedule, dtype=self.dtype,
+            **kwargs)
+        states = sampler.init(positions)
+
+        y_col = y_dev.reshape(-1, 1)
+        metrics_fn = torch.func.vmap(
+            lambda pos: self.negative_log_likelihood(
+                apply_fn, pos, x_dev, y_col, n_datapoints))
+
+        def log_point(iteration, positions_now, n_samples=None):
+            if self.log_every is None or not logging.getLogger(
+            ).isEnabledFor(logging.INFO):
+                return
+            with torch.no_grad():
+                nll, mse = metrics_fn(positions_now)
+            suffix = "" if n_samples is None else " Samples = {}".format(
+                n_samples)
+            logging.info(
+                "Iter %8d : NLL = %.4e MSE = %.4e%s Time = %5.2f",
+                iteration, float(nll.mean()), float(mse.mean()), suffix,
+                time.time() - start_time)
+
+        log_point(0, states.position)
+        if self.log_every is not None and self.burn_in_steps > 0:
+            n_full, rem = divmod(self.burn_in_steps, self.log_every)
+            seg_lengths = [self.log_every] * n_full + ([rem] if rem else [])
+        else:
+            seg_lengths = (
+                [self.burn_in_steps] if self.burn_in_steps > 0 else [])
+        iteration = 0
+        self._sync()
+        phase_start = time.perf_counter()
+        for n_steps in seg_lengths:
+            states = burnin_chain_fused(
+                sampler, states, generator, n_steps, x_dev, y_dev,
+                batch_size=self.batch_size, noise_impl=self.noise_impl)
+            iteration += n_steps
+            log_point(iteration, states.position)
+        self._sync()
+        self.phase_seconds["burn_in"] = time.perf_counter() - phase_start
+
+        phase_start = time.perf_counter()
+
+        def sample_seg(states, n_keep):
+            return sample_chain_fused(
+                sampler, states, generator, n_keep, x_dev, y_dev,
+                batch_size=self.batch_size, keep_every=self.sample_steps,
+                multistep=True, noise_impl=self.noise_impl)
+
+        if self.log_every is not None:
+            # one launch per collected sample, logged like the reference's
+            # per-sample progress line
+            chunks = []
+            for j in range(per_chain):
+                states, pos, _ = sample_seg(states, 1)
+                chunks.append(pos)
+                iteration += self.sample_steps
+                log_point(iteration, states.position,
+                          n_samples=(j + 1) * n_chains)
+            samples = {name: torch.cat([c[name] for c in chunks], dim=1)
+                       for name in chunks[0]}
+        else:
+            states, samples, _ = sample_seg(states, per_chain)
+        self._sync()
+        self.phase_seconds["sampling"] = time.perf_counter() - phase_start
+
+        # pool: (n_chains, per_chain, ...) -> (n_chains * per_chain, ...)
+        self.samples = {name: leaf.reshape((-1,) + leaf.shape[2:])
+                        for name, leaf in samples.items()}
+        self._n_collected = n_chains * per_chain
+        self.is_trained = True
+        logging.info(
+            "BayesianNeuralNetwork(flash-SGHMC): %d chains x %d samples "
+            "in %.2fs", n_chains, per_chain, time.time() - start_time)
+
+    #  Prediction ----------------------------------------------------------
+
+    def compute_network_output(self, params, input_data):
+        """Forward pass of one weight sample."""
+        return self._apply_fn(params, torch.as_tensor(
+            input_data, dtype=self.dtype, device=self.device))
+
+    @BaseModel._check_shapes_predict
+    def predict(self, X_test, return_individual_predictions=False,
+                compute_dtype=None, *args, **kwargs):
+        """Ensemble predictive mean and variance at ``X_test``: one batched
+        forward over the stacked posterior samples."""
+        if not self.is_trained:
+            raise ValueError(
+                "Calling `bnn.predict()` on an untrained Bayesian Neural "
+                "Network 'bnn' is not supported! Please call `bnn.train()` "
+                "before calling `bnn.predict()`"
+            )
+        if compute_dtype is not None and compute_dtype != self.dtype:
+            raise _not_ported("predict(compute_dtype=...)", "queue A item 14")
+
+        x_test = np.asarray(X_test, dtype=np.float64)
+        if self.normalize_input:
+            x_test, _, _ = zero_mean_unit_var_normalization(
+                x_test, self.x_mean, self.x_std)
+        x_dev = torch.as_tensor(x_test, dtype=self.dtype, device=self.device)
+        with torch.no_grad():
+            outputs = self._apply_fn(self.samples, x_dev)
+        f_out = outputs[:, :, 0].cpu().numpy()
+        theta_noise = np.exp(outputs[:, :, 1].cpu().numpy())
+
+        if return_individual_predictions:
+            if self.normalize_output:
+                f_out = zero_mean_unit_var_unnormalization(
+                    f_out, self.y_mean, self.y_std)
+                theta_noise *= self.y_std**2
+            return f_out, theta_noise
+
+        mean_prediction = np.mean(f_out, axis=0)
+        variance_prediction = np.mean((f_out - mean_prediction) ** 2, axis=0)
+
+        if self.normalize_output:
+            mean_prediction = zero_mean_unit_var_unnormalization(
+                mean_prediction, self.y_mean, self.y_std)
+            variance_prediction *= self.y_std**2
+        return mean_prediction, variance_prediction
+
+
+__all__ = [
+    "BayesianNeuralNetwork",
+    "log_variance_prior_log_like",
+    "weight_prior_log_like",
+]

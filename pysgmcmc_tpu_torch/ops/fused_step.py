@@ -1,0 +1,586 @@
+"""flash-SGHMC on Hopper: k whole BNN SGHMC steps per kernel launch.
+
+PyTorch port of the multi-step kernels of :mod:`pysgmcmc_tpu.ops.fused_step`:
+
+- :func:`fused_bnn_multistep` (B1, the sampling phase) and
+  :func:`fused_bnn_multistep_burnin` (B2, the self-tuning burn-in) launch the
+  hand-written CUDA kernels of ``csrc/fused_step.cu`` on CUDA tensors, and run
+  their plain PyTorch versions (:func:`fused_bnn_multistep_ref`,
+  :func:`fused_bnn_multistep_burnin_ref`) on CPU tensors.  Any other device
+  raises; nothing falls back from the kernel to the plain version.
+- Each step: draw a minibatch window, forward through the dense tanh network,
+  heteroscedastic Gaussian NLL plus the log-variance prior, hand-written
+  backward pass, Gaussian weight-prior fold ``g + prior_scale * theta``,
+  noise, SGHMC update.  The semantics are the JAX kernels' at the level of
+  unpacked parameters; the TPU slab layout does not carry over.
+
+State layout: each chain's parameters are one contiguous float32 vector in
+the order of :class:`FusedLayout` (``w1, b1, w2, b2, ..., w_head, b_head,
+log_variance_bias``; matrices row-major ``(in, out)``), so state is
+``(n_chains, P)``.  :func:`pack` / :func:`unpack` convert from and to the
+dict of tensors.
+
+Randomness: Philox4x32-10 keyed by a 64-bit seed, counter ``(chain,
+absolute step, element, purpose)``.  Normals are Box-Muller on two uniforms
+``u = ((bits >> 8) + 1) * 2**-24`` in (0, 1]; the window index is
+``min(floor(u * n_windows), n_windows - 1)``.  The plain versions implement
+the same stream with int64 arithmetic, so one launch of ``2k`` steps equals
+two launches of ``k``.  For tests, both kernels also take ``noise``
+``(k, n_chains, P)`` and ``widx`` ``(k, n_chains)`` to read instead of
+drawing.
+
+Examples
+--------
+>>> import torch
+>>> lay = FusedLayout(n_inputs=1, hidden=50, depth=3)
+>>> lay.n_params
+5252
+>>> x = torch.arange(6.0).reshape(6, 1)
+>>> x_win, y_win = data_windows(x, x[:, 0], 4)
+>>> x_win.tolist()
+[[0.0, 1.0, 2.0, 3.0], [1.0, 2.0, 3.0, 4.0], [2.0, 3.0, 4.0, 5.0]]
+"""
+
+import math
+from typing import NamedTuple
+
+import torch
+
+LOG_MP = math.log(1e-6)   # log-variance prior mean (reference)
+VAR_P = 0.01              # log-variance prior variance
+MIN_DEPTH, MAX_DEPTH = 2, 4
+MAX_INPUTS = 4
+
+PURPOSE_WINDOW, PURPOSE_NOISE = 0, 1
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+#  Layout ---------------------------------------------------------------------
+
+class FusedLayout(NamedTuple):
+    """Flat per-chain parameter layout of the dense network family."""
+
+    n_inputs: int
+    hidden: int
+    depth: int
+
+    def entries(self):
+        """``[(name, shape), ...]`` in storage order."""
+        h, head = self.hidden, self.depth + 1
+        w1 = (h,) if self.n_inputs == 1 else (self.n_inputs, h)
+        out = [("w1", w1), ("b1", (h,))]
+        for layer in range(2, head):
+            out += [("w{}".format(layer), (h, h)), ("b{}".format(layer), (h,))]
+        out += [("w{}".format(head), (h,)), ("b{}".format(head), (1,)),
+                ("log_variance_bias", (1, 1))]
+        return out
+
+    def offsets(self):
+        """``{name: (offset, shape)}``."""
+        out, offset = {}, 0
+        for name, shape in self.entries():
+            out[name] = (offset, shape)
+            offset += math.prod(shape)
+        return out
+
+    @property
+    def n_params(self):
+        return sum(math.prod(shape) for _, shape in self.entries())
+
+
+def fused_layout(params):
+    """The :class:`FusedLayout` of a stacked dense-network dict (leaves
+    ``(n_chains, ...)``); raises outside the fused family's domain."""
+    depth = sum(1 for k in params if k.startswith("w")) - 1
+    if not MIN_DEPTH <= depth <= MAX_DEPTH:
+        raise ValueError(
+            "fused kernels support {}-{} hidden dense layers; got a "
+            "{}-hidden-layer network".format(MIN_DEPTH, MAX_DEPTH, depth))
+    hidden = params["w2"].shape[-1]
+    if any(params["w{}".format(i)].shape[-2:] != (hidden, hidden)
+           for i in range(2, depth + 1)):
+        raise ValueError("fused kernels require equal hidden widths")
+    w1 = params["w1"]
+    n_inputs = 1 if w1.ndim == 2 else w1.shape[-2]
+    if not 1 <= n_inputs <= MAX_INPUTS:
+        raise ValueError(
+            "fused kernels support 1..{} input features; got {}".format(
+                MAX_INPUTS, n_inputs))
+    return FusedLayout(n_inputs, hidden, depth)
+
+
+def layout_for(n_params, n_inputs, hidden):
+    """The layout of ``n_params``-long chain vectors (solves for depth)."""
+    for depth in range(MIN_DEPTH, MAX_DEPTH + 1):
+        lay = FusedLayout(n_inputs, hidden, depth)
+        if lay.n_params == n_params:
+            return lay
+    raise ValueError(
+        "no dense network with {} input(s), width {} and {}-{} hidden layers "
+        "has {} parameters".format(n_inputs, hidden, MIN_DEPTH, MAX_DEPTH,
+                                   n_params))
+
+
+def pack(params, layout):
+    """Stacked dict (leaves ``(n_chains, ...)``) -> ``(n_chains, P)`` float32."""
+    n = params["w1"].shape[0]
+    return torch.cat(
+        [params[name].reshape(n, -1).to(torch.float32)
+         for name, _ in layout.entries()], dim=1).contiguous()
+
+
+def unpack(flat, layout):
+    """``(n_chains, P)`` -> stacked dict of views into ``flat``."""
+    n = flat.shape[0]
+    return {
+        name: flat[:, off:off + math.prod(shape)].reshape((n,) + shape)
+        for name, (off, shape) in layout.offsets().items()
+    }
+
+
+#  Windows --------------------------------------------------------------------
+
+def data_windows(x, y, batch_size):
+    """Contiguous minibatch windows: ``x_win[w, b] = x[w + b]``.
+
+    Returns ``(x_win, y_win)`` with ``n_windows = n - batch_size + 1``:
+    ``x_win`` is ``(n_windows, batch_size)`` for one input feature and
+    ``(n_windows, batch_size, n_inputs)`` otherwise, ``y_win`` is
+    ``(n_windows, batch_size)``, both float32 on ``x``'s device.  The JAX
+    version pads the batch axis to the TPU kernel's 24 rows; the port does
+    not.
+    """
+    x = torch.as_tensor(x, dtype=torch.float32)
+    if x.ndim == 1:
+        x = x[:, None]
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device).reshape(-1)
+    n = x.shape[0]
+    if not 1 <= batch_size <= n:
+        raise ValueError(
+            "data_windows: batch_size {} must lie in [1, {}]".format(
+                batch_size, n))
+    n_windows = n - batch_size + 1
+    idx = (torch.arange(n_windows, device=x.device)[:, None]
+           + torch.arange(batch_size, device=x.device)[None, :])
+    x_win = x[idx]
+    if x.shape[1] == 1:
+        x_win = x_win[:, :, 0]
+    return x_win.contiguous(), y[idx].contiguous()
+
+
+#  Philox4x32-10 in int64 arithmetic -------------------------------------------
+
+def _mulhilo(a, m):
+    """``(hi, lo)`` 32-bit words of ``a * m`` for uint32 ``a`` (int64 tensor
+    or int) and constant ``m``, without overflowing int64."""
+    t = a * (m & 0xFFFF)          # < 2**48
+    u = a * (m >> 16)             # < 2**48
+    hi = (u + (t >> 16)) >> 16
+    lo = (((u & 0xFFFF) << 16) + t) & _MASK32
+    return hi, lo
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al. 2011) on uint32 words held in int64.
+
+    ``counter`` is four broadcastable int64 tensors (or ints), ``key`` two
+    ints; returns the four output words as int64 tensors.
+    """
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def bits_to_uniform(bits):
+    """uint32 words (int64) -> float32 uniforms in (0, 1], exactly."""
+    return ((bits >> 8) + 1).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def _seed_key(seed):
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError("seed must lie in [0, 2**64); got {}".format(seed))
+    return seed & _MASK32, seed >> 32
+
+
+def philox_windows(seed, step, n_chains, n_windows, device):
+    """Each chain's window index at absolute ``step`` (int64, ``(n_chains,)``)."""
+    chain = torch.arange(n_chains, dtype=torch.int64, device=device)
+    bits = philox4x32_10((chain, step & _MASK32, 0, PURPOSE_WINDOW),
+                         _seed_key(seed))[0]
+    u = bits_to_uniform(bits)
+    return torch.clamp((u * n_windows).to(torch.int64), max=n_windows - 1)
+
+
+def philox_normals(seed, step, n_chains, n_params, device):
+    """The ``(n_chains, n_params)`` standard normals of absolute ``step``."""
+    chain = torch.arange(n_chains, dtype=torch.int64, device=device)[:, None]
+    element = torch.arange(n_params, dtype=torch.int64, device=device)[None, :]
+    r = philox4x32_10((chain, step & _MASK32, element, PURPOSE_NOISE),
+                      _seed_key(seed))
+    u1, u2 = bits_to_uniform(r[0]), bits_to_uniform(r[1])
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+
+
+#  Plain versions ---------------------------------------------------------------
+
+def _fwd_bwd(theta, layout, xb, yb, inv_b, inv_n):
+    """Forward + likelihood + backward for every chain.
+
+    ``theta`` ``(n, P)``, ``xb`` ``(n, B, n_inputs)``, ``yb`` ``(n, B)``.
+    Returns ``(cost (n, 1), grad (n, P))``; the gradient excludes the
+    Gaussian weight prior (the update folds it in).
+    """
+    n = theta.shape[0]
+    p = unpack(theta, layout)
+    head = layout.depth + 1
+    acts = [torch.tanh(
+        torch.bmm(xb, p["w1"].reshape(n, layout.n_inputs, layout.hidden))
+        + p["b1"][:, None, :])]
+    for layer in range(2, head):
+        acts.append(torch.tanh(
+            torch.bmm(acts[-1], p["w{}".format(layer)])
+            + p["b{}".format(layer)][:, None, :]))
+    a_last = acts[-1]
+    w_head = p["w{}".format(head)]
+    f_mean = (torch.bmm(a_last, w_head[:, :, None])[:, :, 0]
+              + p["b{}".format(head)])
+    lvb = p["log_variance_bias"].reshape(n, 1)
+
+    e_lv = torch.exp(lvb)
+    var_inv = 1.0 / (e_lv + 1e-16)
+    diff = f_mean - yb
+    mse = diff * diff
+    ll = torch.sum(-mse * (0.5 * var_inv) - 0.5 * lvb, dim=1,
+                   keepdim=True) * inv_b
+    dev = lvb - LOG_MP
+    p_term = -(dev * dev) / (2.0 * VAR_P) - 0.5 * math.log(VAR_P)
+    cost = -(ll + p_term * inv_n)
+    d_mean = diff * var_inv * inv_b
+    d_lvb = (-torch.sum(mse * (0.5 * e_lv) * (var_inv * var_inv) - 0.5,
+                        dim=1, keepdim=True) * inv_b
+             + dev / VAR_P * inv_n)
+
+    grads = {
+        "w{}".format(head): torch.bmm(d_mean[:, None, :], a_last)[:, 0],
+        "b{}".format(head): d_mean.sum(dim=1, keepdim=True),
+        "log_variance_bias": d_lvb,
+    }
+    dz = (d_mean[:, :, None] * w_head[:, None, :]) * (1.0 - a_last * a_last)
+    for layer in range(head - 1, 1, -1):
+        a_in = acts[layer - 2]
+        grads["w{}".format(layer)] = torch.bmm(a_in.transpose(1, 2), dz)
+        grads["b{}".format(layer)] = dz.sum(dim=1)
+        da = torch.bmm(dz, p["w{}".format(layer)].transpose(1, 2))
+        dz = da * (1.0 - a_in * a_in)
+    grads["w1"] = torch.bmm(xb.transpose(1, 2), dz)
+    grads["b1"] = dz.sum(dim=1)
+    return cost, pack(grads, layout)
+
+
+def _windows_3d(x_win):
+    return x_win[:, :, None] if x_win.ndim == 2 else x_win
+
+
+def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device):
+    """Window rows and noise of step ``t`` (test inputs or the Philox stream)."""
+    if widx is not None:
+        w = widx[t].to(torch.int64)
+    else:
+        w = philox_windows(seed, step, n, x_win.shape[0], device)
+    if noise is not None:
+        eta = noise[t]
+    else:
+        eta = philox_normals(seed, step, n, layout.n_params, device)
+    return w, eta
+
+
+def _sigma(es, mdecay, minv):
+    es2 = es * es
+    return torch.sqrt(torch.clamp(2.0 * es2 * mdecay * minv - es2 * es2,
+                                  min=1e-16))
+
+
+def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
+                            mdecay=0.05, scale_grad=1.0, prior_scale=0.0,
+                            batch_size=20, n_data=100,
+                            state_dtype=torch.float32, k_steps=1, h=50,
+                            pair_dots=False, noise_impl="box_muller",
+                            step0=0, noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep` (same arguments,
+    same result up to float32 summation order)."""
+    layout, eps_tab = _validate(
+        "fused_bnn_multistep", theta, [v, minv], x_win, y_win, eps, seed,
+        scale_grad, batch_size, state_dtype, k_steps, h, pair_dots,
+        noise_impl, noise, widx)
+    n = theta.shape[0]
+    xw = _windows_3d(x_win)
+    inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    cost = None
+    for t in range(k_steps):
+        w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
+                              widx, theta.device)
+        cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
+        eps_t, es = eps_tab[t, 0], eps_tab[t, 1]
+        g = grad + prior_scale * theta
+        v_new = (v - eps_t * eps_t * minv * g - mdecay * v
+                 + _sigma(es, mdecay, minv) * eta)
+        v = torch.where(minv > 0.0, v_new, torch.zeros_like(v_new))
+        theta = theta + v
+    return theta, v, cost
+
+
+def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
+                                   eps, seed, mdecay=0.05, scale_grad=1.0,
+                                   prior_scale=0.0, batch_size=20,
+                                   n_data=100, state_dtype=torch.float32,
+                                   k_steps=1, h=50, pair_dots=False,
+                                   noise_impl="box_muller", step0=0,
+                                   noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_burnin`."""
+    layout, eps_tab = _validate(
+        "fused_bnn_multistep_burnin", theta, [v, tau, g, v_hat], x_win,
+        y_win, eps, seed, scale_grad, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
+    n = theta.shape[0]
+    xw = _windows_3d(x_win)
+    inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    small = 1e-16
+    cost = minv = None
+    for t in range(k_steps):
+        w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
+                              widx, theta.device)
+        cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
+        eps_t, es = eps_tab[t, 0], eps_tab[t, 1]
+        gg = grad + prior_scale * theta
+        sq = torch.sqrt(torch.clamp(v_hat, min=0.0))
+        minv = 1.0 / (sq + 2.0 * torch.sign(sq) * small + small)
+        denom = v_hat + 2.0 * torch.sign(v_hat) * small + small
+        r = 1.0 / (tau + 1.0)
+        tau, g, v_hat = (tau + (-g * g * tau) / denom + 1.0,
+                         g - r * g + r * gg,
+                         v_hat - r * v_hat + r * gg * gg)
+        v = (v - eps_t * eps_t * minv * gg - mdecay * v
+             + _sigma(es, mdecay, minv) * eta)
+        theta = theta + v
+    return theta, v, tau, g, v_hat, minv, cost
+
+
+#  Validation shared by the kernels and their plain versions ------------------
+
+def _validate(name, theta, state, x_win, y_win, eps, seed, scale_grad,
+              batch_size, state_dtype, k_steps, h, pair_dots, noise_impl,
+              noise, widx):
+    """Check every operand; returns ``(layout, eps_table (k, 2))``."""
+    _seed_key(seed)
+    if pair_dots:
+        raise NotImplementedError(
+            "{}: pair_dots (block-diagonal chain pairs) is not ported yet "
+            "(ROADMAP.md queue B, B-pair)".format(name))
+    if noise_impl != "box_muller":
+        if noise_impl == "hadamard_clt":
+            raise NotImplementedError(
+                "{}: noise_impl='hadamard_clt' is not ported yet "
+                "(ROADMAP.md queue A item 6)".format(name))
+        raise ValueError(
+            "{}: noise_impl must be 'box_muller'; got {!r}".format(
+                name, noise_impl))
+    if state_dtype != torch.float32:
+        raise NotImplementedError(
+            "{}: only float32 momentum/mass state is ported; bfloat16 state "
+            "is ROADMAP.md queue A item 6".format(name))
+    if int(k_steps) < 1:
+        raise ValueError("{}: k_steps must be >= 1; got {}".format(
+            name, k_steps))
+    device = theta.device
+    if theta.ndim != 2 or theta.dtype != torch.float32:
+        raise ValueError(
+            "{}: theta must be a float32 (n_chains, P) tensor; got {} "
+            "{}".format(name, theta.dtype, tuple(theta.shape)))
+    for arr in state:
+        if (arr.shape != theta.shape or arr.dtype != torch.float32
+                or arr.device != device):
+            raise ValueError(
+                "{}: every state tensor must match theta ({} float32 on "
+                "{}); got {} {} on {}".format(
+                    name, tuple(theta.shape), device, tuple(arr.shape),
+                    arr.dtype, arr.device))
+    if x_win.ndim not in (2, 3) or y_win.ndim != 2 \
+            or x_win.shape[:2] != y_win.shape:
+        raise ValueError(
+            "{}: x_win must be (n_windows, batch) or (n_windows, batch, "
+            "n_inputs) and y_win (n_windows, batch) from data_windows; got "
+            "{} and {}".format(name, tuple(x_win.shape), tuple(y_win.shape)))
+    for arr in (x_win, y_win):
+        if arr.dtype != torch.float32 or arr.device != device:
+            raise ValueError(
+                "{}: window tables must be float32 on {}".format(name, device))
+    if x_win.shape[1] != batch_size:
+        raise ValueError(
+            "{}: batch_size {} does not match the windows' {} rows".format(
+                name, batch_size, x_win.shape[1]))
+    n_inputs = 1 if x_win.ndim == 2 else x_win.shape[2]
+    layout = layout_for(theta.shape[1], n_inputs, int(h))
+    k_steps = int(k_steps)
+    n = theta.shape[0]
+    if noise is not None and (
+            noise.shape != (k_steps, n, layout.n_params)
+            or noise.dtype != torch.float32 or noise.device != device):
+        raise ValueError(
+            "{}: noise must be float32 ({}, {}, {}) on {}".format(
+                name, k_steps, n, layout.n_params, device))
+    if widx is not None:
+        if (widx.shape != (k_steps, n) or widx.dtype != torch.int32
+                or widx.device != device):
+            raise ValueError(
+                "{}: widx must be int32 ({}, {}) on {}".format(
+                    name, k_steps, n, device))
+        if widx.numel() and (int(widx.min()) < 0
+                             or int(widx.max()) >= x_win.shape[0]):
+            raise ValueError("{}: widx out of [0, {})".format(
+                name, x_win.shape[0]))
+    eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
+    if eps_vec.numel() not in (1, k_steps):
+        raise ValueError(
+            "{}: eps must be a scalar or a (k_steps,) vector".format(name))
+    eps_vec = eps_vec.to(device).expand(k_steps)
+    eps_scaled = eps_vec / torch.sqrt(
+        torch.tensor(scale_grad, dtype=torch.float32, device=device))
+    return layout, torch.stack([eps_vec, eps_scaled], dim=1).contiguous()
+
+
+#  Kernel wrappers ----------------------------------------------------------------
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel_operands(name, layout, burnin, tensors):
+    """Contiguity and shared-memory checks for a CUDA launch."""
+    from pysgmcmc_tpu_torch.ops import _build
+
+    for arr in tensors:
+        if arr is not None and not arr.is_contiguous():
+            raise ValueError("{}: CUDA operands must be contiguous".format(name))
+    lib = _build.load()
+    batch = tensors[-1].shape[1]  # y_win
+    need = lib.fused_step_smem_bytes(
+        int(burnin), layout.n_params, layout.n_inputs, layout.hidden,
+        layout.depth, batch)
+    if need > _build.MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            "{}: one chain's state and scratch need {} bytes of shared "
+            "memory, more than the {} a block may use; this network is too "
+            "large for the resident-state kernel".format(
+                name, need, _build.MAX_SMEM_BYTES))
+    return lib, _build
+
+
+def _require_device(name, theta):
+    if theta.device.type not in ("cpu", "cuda"):
+        raise ValueError("{}: tensors must be on the CPU or a CUDA device; "
+                         "got {}".format(name, theta.device))
+    return theta.device.type == "cuda"
+
+
+def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
+                        mdecay=0.05, scale_grad=1.0, prior_scale=0.0,
+                        batch_size=20, n_data=100, state_dtype=torch.float32,
+                        k_steps=1, h=50, pair_dots=False,
+                        noise_impl="box_muller", step0=0, noise=None,
+                        widx=None):
+    """``k_steps`` fused SGHMC sampling steps with a frozen ``minv`` (B1).
+
+    ``theta``/``v``/``minv`` are ``(n_chains, P)`` float32 in the
+    :class:`FusedLayout` of a ``h``-wide network; ``x_win``/``y_win`` the
+    shared window tables of :func:`data_windows`; ``eps`` a scalar or a
+    ``(k_steps,)`` vector of per-step stepsizes; ``seed`` the 64-bit Philox
+    key and ``step0`` the absolute step of the first step.  Returns
+    ``(theta', v', cost)`` with ``cost`` ``(n_chains, 1)``, the final
+    step's.  CUDA tensors launch the kernel; CPU tensors run
+    :func:`fused_bnn_multistep_ref`.
+    """
+    name = "fused_bnn_multistep"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_ref(
+            theta, v, minv, x_win, y_win, eps, seed, mdecay, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, k_steps, h,
+            pair_dots, noise_impl, step0, noise, widx)
+    layout, eps_tab = _validate(
+        name, theta, [v, minv], x_win, y_win, eps, seed, scale_grad,
+        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    lib, build = _kernel_operands(
+        name, layout, False, [theta, v, minv, noise, widx, x_win, y_win])
+    n = theta.shape[0]
+    theta_out = torch.empty_like(theta)
+    v_out = torch.empty_like(v)
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):  # the launch uses the current device
+        build.check(lib.fused_bnn_multistep_launch(
+            _ptr(theta), _ptr(v), _ptr(minv), _ptr(x_win), _ptr(y_win),
+            _ptr(eps_tab), _ptr(noise), _ptr(widx), _ptr(theta_out),
+            _ptr(v_out), _ptr(cost), n, layout.n_inputs, layout.hidden,
+            layout.depth, batch_size, x_win.shape[0], int(k_steps),
+            layout.n_params, int(seed), (int(step0) & _MASK32),
+            float(mdecay), float(prior_scale), 1.0 / batch_size,
+            1.0 / n_data, torch.cuda.current_stream().cuda_stream))
+    fused_bnn_multistep.launches += 1
+    return theta_out, v_out, cost
+
+
+fused_bnn_multistep.launches = 0
+
+
+def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
+                               seed, mdecay=0.05, scale_grad=1.0,
+                               prior_scale=0.0, batch_size=20, n_data=100,
+                               state_dtype=torch.float32, k_steps=1, h=50,
+                               pair_dots=False, noise_impl="box_muller",
+                               step0=0, noise=None, widx=None):
+    """``k_steps`` fused SGHMC burn-in steps (B2): the Springenberg et al.
+    tau/g/v_hat EMAs with ``minv = 1/sqrt(old v_hat)``, all reading old
+    values.  Arguments as :func:`fused_bnn_multistep`.  Returns
+    ``(theta', v', tau', g', v_hat', minv, cost)`` where ``minv`` is the
+    mass-matrix inverse the final step used (the value the sampling phase
+    freezes)."""
+    name = "fused_bnn_multistep_burnin"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_burnin_ref(
+            theta, v, tau, g, v_hat, x_win, y_win, eps, seed, mdecay,
+            scale_grad, prior_scale, batch_size, n_data, state_dtype,
+            k_steps, h, pair_dots, noise_impl, step0, noise, widx)
+    layout, eps_tab = _validate(
+        name, theta, [v, tau, g, v_hat], x_win, y_win, eps, seed,
+        scale_grad, batch_size, state_dtype, k_steps, h, pair_dots,
+        noise_impl, noise, widx)
+    lib, build = _kernel_operands(
+        name, layout, True,
+        [theta, v, tau, g, v_hat, noise, widx, x_win, y_win])
+    n = theta.shape[0]
+    outs = [torch.empty_like(theta) for _ in range(6)]
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):  # the launch uses the current device
+        build.check(lib.fused_bnn_multistep_burnin_launch(
+            _ptr(theta), _ptr(v), _ptr(tau), _ptr(g), _ptr(v_hat),
+            _ptr(x_win), _ptr(y_win), _ptr(eps_tab), _ptr(noise), _ptr(widx),
+            *[_ptr(o) for o in outs], _ptr(cost),
+            n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
+            x_win.shape[0], int(k_steps), layout.n_params, int(seed),
+            (int(step0) & _MASK32), float(mdecay), float(prior_scale),
+            1.0 / batch_size, 1.0 / n_data,
+            torch.cuda.current_stream().cuda_stream))
+    fused_bnn_multistep_burnin.launches += 1
+    return (*outs, cost)
+
+
+fused_bnn_multistep_burnin.launches = 0

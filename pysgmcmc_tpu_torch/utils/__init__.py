@@ -1,0 +1,16 @@
+from pysgmcmc_tpu_torch.utils.numeric import safe_divide, safe_sqrt
+from pysgmcmc_tpu_torch.utils.pytree import (
+    tree_cast,
+    tree_map,
+    tree_size,
+    tree_zeros_like,
+)
+
+__all__ = [
+    "safe_divide",
+    "safe_sqrt",
+    "tree_cast",
+    "tree_map",
+    "tree_size",
+    "tree_zeros_like",
+]

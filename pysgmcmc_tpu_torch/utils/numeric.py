@@ -1,0 +1,26 @@
+"""Numerically-safe elementwise helpers (PyTorch port of
+:mod:`pysgmcmc_tpu.utils.numeric`).
+
+Examples
+--------
+>>> import torch
+>>> bool(torch.isfinite(safe_divide(torch.tensor(1.0), torch.tensor(0.0))))
+True
+>>> float(safe_sqrt(torch.tensor(-1e-16)))
+0.0
+"""
+
+import torch
+
+
+def safe_divide(x, y, small_constant=1e-16):
+    """Divide ``x / y``, nudging ``y`` away from zero in a sign-aware way:
+    ``x / (y + 2 * sign(y) * c + c)`` (the reference's guard)."""
+    y = torch.as_tensor(y)
+    return x / (y + 2.0 * torch.sign(y) * small_constant + small_constant)
+
+
+def safe_sqrt(x, clip_value_min=0.0, clip_value_max=float("inf")):
+    """``sqrt(clip(x, min, max))`` — no NaNs from tiny negative inputs."""
+    return torch.sqrt(torch.clamp(torch.as_tensor(x), clip_value_min,
+                                  clip_value_max))

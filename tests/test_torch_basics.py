@@ -1,0 +1,189 @@
+"""Leaf modules of the PyTorch port against the JAX package, the Philox
+stream against its known answers and N(0, 1), and the port's import
+boundary (no JAX)."""
+
+import doctest
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.stats
+import torch
+
+from pysgmcmc_tpu import sampling as jax_sampling
+from pysgmcmc_tpu import stepsize_schedules as jax_schedules
+from pysgmcmc_tpu.diagnostics import objective_functions as jax_objectives
+from pysgmcmc_tpu.models import base_model as jax_base_model
+from pysgmcmc_tpu.ops import fused_step as jfs
+from pysgmcmc_tpu.utils import numeric as jax_numeric
+import pysgmcmc_tpu_torch.interop
+import pysgmcmc_tpu_torch.models.architectures
+import pysgmcmc_tpu_torch.models.bayesian_neural_network
+import pysgmcmc_tpu_torch.samplers._adaptive
+import pysgmcmc_tpu_torch.samplers.sghmc
+import pysgmcmc_tpu_torch.utils.pytree
+from pysgmcmc_tpu_torch import sampling, stepsize_schedules
+from pysgmcmc_tpu_torch.diagnostics import objective_functions
+from pysgmcmc_tpu_torch.models import base_model
+from pysgmcmc_tpu_torch.ops import fused_step as fs
+from pysgmcmc_tpu_torch.utils import numeric, pytree
+
+
+def _edge_inputs():
+    rng = np.random.RandomState(0)
+    vals = rng.standard_normal(64).astype(np.float32) * 3.0
+    vals[:6] = [0.0, -0.0, 1e-16, -1e-16, -1e-30, 1e30]
+    return vals
+
+
+def test_safe_divide_matches_jax_exactly():
+    x = np.linspace(-2.0, 2.0, 64).astype(np.float32)
+    y = _edge_inputs()
+    want = np.asarray(jax_numeric.safe_divide(jnp.asarray(x), jnp.asarray(y)))
+    got = numeric.safe_divide(torch.tensor(x), torch.tensor(y)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_safe_sqrt_matches_jax_exactly():
+    x = _edge_inputs()
+    want = np.asarray(jax_numeric.safe_sqrt(jnp.asarray(x)))
+    np.testing.assert_array_equal(numeric.safe_sqrt(torch.tensor(x)).numpy(),
+                                  want)
+
+
+def test_constant_schedule_matches_jax():
+    want = jax_schedules.ConstantStepsizeSchedule(0.01)
+    got = stepsize_schedules.ConstantStepsizeSchedule(0.01)
+    assert [next(got) for _ in range(4)] == [next(want) for _ in range(4)]
+    assert got.value(got.init(), 123) == want.value(want.init(), 123)
+    assert got.init() == want.init()
+    assert str(got) == str(want)
+
+
+@pytest.mark.parametrize("n_inputs,batch", [(1, 20), (3, 7), (1, 24)])
+def test_windows_match_jax_exactly(n_inputs, batch):
+    rng = np.random.RandomState(1)
+    x = rng.uniform(size=(100, n_inputs)).astype(np.float32)
+    y = rng.standard_normal(100).astype(np.float32)
+    jx, jy = jfs.data_windows(x, y, batch)
+    tx, ty = fs.data_windows(torch.tensor(x), torch.tensor(y), batch)
+    assert tx.shape[0] == 100 - batch + 1 == jx.shape[0]
+    # the JAX tables carry zero rows past the batch (the TPU's 24-row pad)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx)[:, :batch])
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy)[:, :batch])
+    assert not np.asarray(jx)[:, batch:].any()
+
+
+def test_sinc_matches_jax():
+    x = np.random.RandomState(2).uniform(size=(50, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        objective_functions.sinc(torch.tensor(x)).numpy(),
+        np.asarray(jax_objectives.sinc(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+
+
+def test_normalization_helpers_match_jax():
+    x = np.random.RandomState(3).standard_normal((30, 2))
+    for name in ("zero_mean_unit_var_normalization", "zero_one_normalization"):
+        got = getattr(base_model, name)(x)
+        want = getattr(jax_base_model, name)(x)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_tree_helpers():
+    tree = {"w": torch.ones(2, 3), "b": torch.ones(3, dtype=torch.float64)}
+    assert pytree.tree_size(tree) == 9
+    zeros = pytree.tree_zeros_like(tree)
+    assert zeros["b"].dtype == torch.float64 and not zeros["w"].any()
+    assert pytree.tree_cast(tree, torch.float16)["b"].dtype == torch.float16
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+])
+def test_philox_known_answers(counter, key, want):
+    """Random123's Philox4x32-10 known-answer vectors."""
+    words = [torch.tensor([c], dtype=torch.int64) for c in counter]
+    got = fs.philox4x32_10(words, key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_philox_normals_pass_ks_test():
+    z = fs.philox_normals(2**33 + 7, 5, 16, 2000, "cpu").numpy().ravel()
+    assert np.isfinite(z).all()
+    assert scipy.stats.kstest(z, "norm").pvalue > 1e-3
+    assert abs(z.mean()) < 0.01 and abs(z.std() - 1.0) < 0.01
+
+
+def test_philox_windows_are_uniform():
+    counts = np.bincount(
+        np.concatenate([fs.philox_windows(11, s, 500, 81, "cpu").numpy()
+                        for s in range(20)]), minlength=81)
+    assert counts.size == 81
+    assert scipy.stats.chisquare(counts).pvalue > 1e-3
+
+
+def test_bits_to_uniform_range():
+    bits = torch.tensor([0, 255, 256, 0xFFFFFFFF], dtype=torch.int64)
+    u = fs.bits_to_uniform(bits)
+    assert u.dtype == torch.float32
+    assert u.tolist() == [2.0**-24, 2.0**-24, 2.0**-23, 1.0]
+
+
+def test_sampler_factory_matches_jax():
+    sampler = sampling.Sampler.get_sampler(
+        sampling.Sampler.SGHMC, cost_fn=lambda p: p["x"].sum(), mdecay=0.1)
+    assert type(sampler).__name__ == "SGHMCSampler" and sampler.mdecay == 0.1
+    for method in ("SGHMC", "SGLD", "SVGD", "PSGLD", "SGNHT",
+                   "RelativisticSGHMC"):
+        port, ref = sampling.Sampler[method], jax_sampling.Sampler[method]
+        assert sampling.Sampler.is_supported(port) == \
+            jax_sampling.Sampler.is_supported(ref)
+        assert sampling.Sampler.is_burn_in_mcmc(port) == \
+            jax_sampling.Sampler.is_burn_in_mcmc(ref)
+    for bad in ("nope", 0):
+        with pytest.raises(ValueError) as got:
+            sampling.Sampler.get_sampler(bad, cost_fn=abs)
+        with pytest.raises(ValueError) as want:
+            jax_sampling.Sampler.get_sampler(bad, cost_fn=abs)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as got:
+        sampling.Sampler.get_sampler(sampling.Sampler.SGHMC, cost_fn=abs, x=1)
+    with pytest.raises(ValueError) as want:
+        jax_sampling.Sampler.get_sampler(
+            jax_sampling.Sampler.SGHMC, cost_fn=abs, x=1)
+    assert str(got.value).split("supported parameters")[0] == \
+        str(want.value).split("supported parameters")[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sampling.Sampler.get_sampler(sampling.Sampler.SGLD, cost_fn=abs)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, pysgmcmc_tpu_torch, pysgmcmc_tpu_torch.interop; "
+            "sys.exit(int('jax' in sys.modules))")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=repo)
+    assert proc.returncode == 0, proc.stderr or "jax was imported"
+
+
+# every port module with docstring examples, as tests/test_doctests.py does
+# for the JAX package
+PORT_MODULES = [
+    base_model, fs, numeric, objective_functions, pytree, sampling,
+    stepsize_schedules, pysgmcmc_tpu_torch.interop,
+    pysgmcmc_tpu_torch.models.architectures,
+    pysgmcmc_tpu_torch.models.bayesian_neural_network,
+    pysgmcmc_tpu_torch.samplers._adaptive, pysgmcmc_tpu_torch.samplers.sghmc,
+]
+
+
+@pytest.mark.parametrize("module", PORT_MODULES, ids=lambda m: m.__name__)
+def test_port_doctests(module):
+    results = doctest.testmod(module, verbose=False)
+    assert results.failed == 0 and results.attempted > 0, module.__name__

@@ -1,0 +1,261 @@
+"""The slice as a whole: the port's fused ``BayesianNeuralNetwork`` (train
+then predict) against the JAX package's, and its validation against JAX's.
+
+JAX runs its Pallas kernels in interpret mode on the CPU, whose zero-bit
+PRNG gives zero noise and window 0 every step; the port runs its kernels'
+plain versions on the degenerate stream that reproduces this
+(``noise_impl="zero"``), from the same initial weights (carried across
+with ``pysgmcmc_tpu_torch.interop``).
+"""
+
+import logging
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pysgmcmc_tpu.models.architectures import dense_network as jax_dense
+from pysgmcmc_tpu.models.bayesian_neural_network import (
+    BayesianNeuralNetwork as JaxBNN,
+)
+from pysgmcmc_tpu_torch import interop
+from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
+from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+from pysgmcmc_tpu_torch.samplers import SGHMCSampler
+
+SLICE = dict(network="dense", step_impl="fused", n_chains=2, n_nets=4,
+             burn_in_steps=8, sample_steps=4, n_iters=16, log_every=None)
+# Measured deviation of the port from JAX on this slice (f32 port vs the
+# TPU kernel's bf16 MXU operands, 16 steps): samples 4.7e-3 (w4), predictive
+# mean 7.1e-4, variance 1.8e-4.  The bounds are about twice that.
+SAMPLES_ATOL, MEAN_ATOL, VAR_ATOL = 1e-2, 2e-3, 5e-4
+
+
+def _data():
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    return x, np.sinc(x[:, 0] * 10 - 5)
+
+
+def _jax_initial_positions(seed, n_chains):
+    """The weights JAX's _train_fused draws: vmap(init)(split(key_net))."""
+    key_net = jax.random.split(jax.random.PRNGKey(seed), 4)[0]
+    init, _ = jax_dense(1)
+    return jax.vmap(init)(jax.random.split(key_net, n_chains))
+
+
+def _port_bnn(**kwargs):
+    """The port's BNN on the degenerate stream, starting from JAX's
+    initial weights (test hook: ``_initial_positions``)."""
+    bnn = BayesianNeuralNetwork(device="cpu", noise_impl="zero", **kwargs)
+    positions = _jax_initial_positions(bnn.seed, bnn.n_chains)
+    bnn._initial_positions = (
+        lambda init_fn, generator, n: interop.params_from_numpy(
+            positions, "cpu"))
+    return bnn
+
+
+@pytest.fixture(scope="module")
+def trained():
+    x, y = _data()
+    jax_bnn = JaxBNN(**SLICE)
+    jax_bnn.train(x, y)
+    port_bnn = _port_bnn(**SLICE)
+    port_bnn.train(x, y)
+    return jax_bnn, port_bnn
+
+
+def test_samples_match_jax(trained):
+    jax_bnn, port_bnn = trained
+    assert set(port_bnn.samples) == set(jax_bnn.samples)
+    for key, want in jax_bnn.samples.items():
+        got = port_bnn.samples[key].numpy()
+        assert got.shape == want.shape, key
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                   atol=SAMPLES_ATOL, err_msg=key)
+
+
+def test_predict_matches_jax(trained):
+    jax_bnn, port_bnn = trained
+    x_grid = np.linspace(0.0, 1.0, 50)[:, None]
+    want_mean, want_var = jax_bnn.predict(x_grid)
+    mean, var = port_bnn.predict(x_grid)
+    assert mean.shape == want_mean.shape == (50,)
+    assert var.shape == want_var.shape == (50,)
+    np.testing.assert_allclose(mean, want_mean, rtol=0, atol=MEAN_ATOL)
+    np.testing.assert_allclose(var, want_var, rtol=0, atol=VAR_ATOL)
+    f_out, noise = port_bnn.predict(x_grid, return_individual_predictions=True)
+    want_f, want_noise = jax_bnn.predict(
+        x_grid, return_individual_predictions=True)
+    assert f_out.shape == want_f.shape == (4, 50)
+    np.testing.assert_allclose(f_out, want_f, rtol=0, atol=5 * MEAN_ATOL)
+    np.testing.assert_allclose(noise, want_noise, rtol=1e-2)
+
+
+def test_network_output_and_base_model_helpers_match_jax(trained):
+    """One sample's forward pass and the BaseModel helpers the port copies.
+    The outputs deviate by up to 4.4e-3 (measured), carried over from the
+    samples, so they take the samples' bound."""
+    jax_bnn, port_bnn = trained
+    x = np.linspace(-1.0, 1.0, 9)[:, None]
+    for i in range(2):
+        want = jax_bnn.compute_network_output(
+            {k: v[i] for k, v in jax_bnn.samples.items()}, x)
+        got = port_bnn.compute_network_output(
+            {k: v[i] for k, v in port_bnn.samples.items()}, x)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=SAMPLES_ATOL)
+    for name in ("get_incumbent", "get_json_data"):
+        got, want = getattr(port_bnn, name)(), getattr(jax_bnn, name)()
+        if name == "get_json_data":
+            assert got == want
+        else:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_predict_uses_the_trained_architecture(trained):
+    """The serving path captures the architecture at train time (the JAX
+    package re-reads the mutable ``units``, ROADMAP C)."""
+    _, port_bnn = trained
+    x_grid = np.linspace(0.0, 1.0, 7)[:, None]
+    before = port_bnn.predict(x_grid)
+    units = port_bnn.units
+    port_bnn.units = (13, 13)
+    try:
+        after = port_bnn.predict(x_grid)
+    finally:
+        port_bnn.units = units
+    np.testing.assert_array_equal(before[0], after[0])
+
+
+def test_log_every_segments_match_one_segment(caplog):
+    """Burn-in chunked at log boundaries and one launch per collected
+    sample give the same chains as one segment (the stream is keyed by the
+    absolute step), and log the reference's progress lines."""
+    x, y = _data()
+    whole = _port_bnn(**SLICE)
+    whole.train(x, y)
+    chunked = _port_bnn(**dict(SLICE, log_every=3))
+    with caplog.at_level(logging.INFO):
+        chunked.train(x, y)
+    for key, leaf in whole.samples.items():
+        assert torch.equal(leaf, chunked.samples[key]), key
+    lines = [r.getMessage() for r in caplog.records if "NLL" in r.getMessage()]
+    # iteration 0, burn-in 3 + 3 + 2, then one line per collected sample
+    assert len(lines) == 1 + 3 + 2
+    assert "Samples = 4" in lines[-1]
+
+
+def test_philox_training_is_reproducible_and_learns():
+    x, y = _data()
+    kw = dict(SLICE, burn_in_steps=200, n_iters=216, seed=3)
+    a = BayesianNeuralNetwork(device="cpu", **kw)
+    b = BayesianNeuralNetwork(device="cpu", **kw)
+    a.train(x, y)
+    b.train(x, y)
+    for key, leaf in a.samples.items():
+        assert torch.equal(leaf, b.samples[key]), key
+    mean, var = a.predict(x)
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+    assert np.mean((mean - y) ** 2) < np.var(y)
+    assert set(a.phase_seconds) == {"burn_in", "sampling"}
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(n_nets=0), dict(n_iters=0), dict(burn_in_steps=-1),
+    dict(sample_steps=0), dict(batch_size=0), dict(sampling_method="SGHMC"),
+    dict(n_chains=0), dict(n_chains=3, n_nets=4), dict(log_every=0),
+    dict(network="conv"), dict(step_impl="scan"), dict(units=()),
+    dict(network="reference", step_impl="fused"),
+    dict(network="dense", step_impl="fused", units=(8,) * 5),
+    dict(network="dense", step_impl="fused", units=(8, 9)),
+    dict(network="dense", step_impl="fused", get_net=(None, None)),
+    dict(pair_dots=True), dict(network="dense", step_impl="fused",
+                               units=(8, 8), pair_dots=True),
+    dict(network="dense", step_impl="fused", noise_impl="clt"),
+])
+def test_constructor_errors_match_jax(kwargs):
+    with pytest.raises(ValueError) as want:
+        JaxBNN(**kwargs)
+    with pytest.raises(ValueError) as got:
+        BayesianNeuralNetwork(device="cpu", **kwargs)
+    # the port drops the TPU slot limit ("H <= 114") from one message
+    assert str(got.value) == str(want.value).replace("H <= 114, ", "")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(), dict(network="dense"), dict(network="dense", step_impl="lanes"),
+    dict(network="dense", step_impl="pytree"),
+    dict(network="dense", step_impl="fused", sampling_method="SGLD"),
+    dict(network="dense", step_impl="fused", mesh=object()),
+    dict(network="dense", step_impl="fused", pair_dots=True),
+    dict(network="dense", step_impl="fused", compute_dtype=torch.bfloat16),
+    dict(network="dense", step_impl="fused", dtype=torch.float64),
+    dict(network="dense", step_impl="fused", noise_impl="hadamard_clt"),
+])
+def test_unported_paths_raise(kwargs):
+    from pysgmcmc_tpu_torch.sampling import Sampler
+
+    if kwargs.get("sampling_method") == "SGLD":
+        kwargs = dict(kwargs, sampling_method=Sampler.SGLD)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BayesianNeuralNetwork(device="cpu", **kwargs)
+
+
+def test_device_must_be_explicit():
+    with pytest.raises(ValueError, match="device"):
+        BayesianNeuralNetwork(network="dense", step_impl="fused")
+
+
+def test_train_and_predict_errors_match_jax():
+    x, y = _data()
+    with pytest.raises(ValueError) as want:
+        JaxBNN(**SLICE).predict(x)
+    with pytest.raises(ValueError) as got:
+        BayesianNeuralNetwork(device="cpu", **SLICE).predict(x)
+    assert str(got.value) == str(want.value)
+    small = dict(SLICE, n_iters=8)
+    with pytest.raises(ValueError) as want:
+        JaxBNN(**small).train(x, y)
+    with pytest.raises(ValueError) as got:
+        BayesianNeuralNetwork(device="cpu", **small).train(x, y)
+    assert str(got.value) == str(want.value)
+    wide = np.repeat(x, 5, axis=1)
+    with pytest.raises(ValueError) as want:
+        JaxBNN(**SLICE).train(wide, y)
+    with pytest.raises(ValueError) as got:
+        BayesianNeuralNetwork(device="cpu", **SLICE).train(wide, y)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(AssertionError):
+        BayesianNeuralNetwork(device="cpu", **SLICE).train(x, y[:, None])
+
+
+def test_drivers_shapes_and_bookkeeping():
+    """burn-in hands the final minv to the sampling phase; positions and
+    costs are shaped as in the JAX drivers."""
+    x, y = _data()
+    n, h = 3, 6
+    init, _ = dense_network(1, units=(h, h), device="cpu")
+    sampler = SGHMCSampler(lambda p, b: None, stepsize_schedule=0.01,
+                           scale_grad=100.0, gaussian_prior_scale=1e-3)
+    gen = torch.Generator().manual_seed(0)
+    states = sampler.init(init(gen, (n,)))
+    burned = burnin_chain_fused(sampler, states, gen, 5, x, y)
+    assert int(burned.step) == 5
+    for leaf in burned.stats.minv.values():
+        assert torch.isfinite(leaf).all() and (leaf > 0).all()
+    assert burnin_chain_fused(sampler, burned, gen, 0, x, y) is burned
+    out, pos, costs = sample_chain_fused(
+        sampler, burned, gen, 2, x, y, keep_every=3, multistep=True)
+    assert int(out.step) == 11
+    assert costs.shape == (n, 2) and torch.isfinite(costs).all()
+    assert pos["w2"].shape == (n, 2, h, h) and pos["w1"].shape == (n, 2, h)
+    assert torch.equal(pos["w2"][:, -1], out.position["w2"])
+    assert out.stats is burned.stats  # frozen in the sampling phase
+    _, none, _ = sample_chain_fused(sampler, burned, gen, 1, x, y,
+                                    multistep=True, collect_positions=False)
+    assert none is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sample_chain_fused(sampler, burned, gen, 1, x, y)
