@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card (flagship shapes,
-injected noise and the Philox stream), times both at the main path's shape,
-then trains and predicts the flagship BNN (3x50 tanh, 8192 chains, sinc
-data) through ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork`` and
-checks the result.  The second-to-last line is the kernels' JSON record,
-the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero; without a CUDA device, or without the package beside this
-script, it exits non-zero before printing any result.
+Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` and prints
+their ``ptxas`` registers and spills, holds each of the six kernels (B1, B2,
+B3, B4-sgld, B5-sgld, B6) against its plain PyTorch version on the card
+(flagship shapes, injected noise and the Philox stream), times both at the
+main path's shape, checks the one-step driver against the multi-step driver
+and the small main paths on the card against the CPU, then trains and
+predicts the two flagship BNNs (3x50 tanh, 8192 chains, sinc data, SGHMC and
+SGLD) through ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork`` and checks
+the results.  Each kernel's launches are counted over the path that runs it
+(the flagships for B1/B2 and B5-sgld/B6, the one-step driver for B3 and
+B4-sgld).  The second-to-last line is the kernels' JSON record, the last
+line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero; without a CUDA device, or without the package beside this script,
+it exits non-zero before printing any result.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -25,15 +31,35 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_DATA, BATCH, H = 100, 20, 50
 CHECK_CHAINS, CHECK_STEPS = 256, 16
 MAIN_CHAINS, BURN_IN, SAMPLE_STEPS = 8192, 3000, 200
+ONE_STEP_TIMED = 20          # launches timed per one-step kernel (median)
+DRIVER_CHAINS, DRIVER_SAMPLES, DRIVER_KEEP = 1024, 2, 10  # 20 steps
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL * max|plain|.
 # The two sum the 20x50 dot products in different orders (sequential f32
 # loops vs cuBLAS bmm) and use different libm builds (tanhf/logf/cosf within
 # 2 ulp); 16 steps carry these rounding differences, which stay near 1e-6 of
 # each tensor's scale, so 2e-4 flags real disagreement only.
 REL_TOL = 2e-4
-# the main path at a small size, run on the card and on the CPU
-SMALL = dict(network="dense", step_impl="fused", n_chains=4, n_nets=8,
-             burn_in_steps=64, sample_steps=16, n_iters=96, log_every=None)
+# SGLD moves theta by eps * minv * g (SGHMC: eps**2 * minv * g): on the
+# unadapted check stats eps = 0.01 overflows within a few steps, in the plain
+# version too, so the SGLD kernel checks run at eps = 1e-3.
+EPS, EPS_SGLD = 0.01, 1e-3
+# the main paths at a small size, run on the card and on the CPU.  SGLD's
+# is shorter: from this unadapted start its first burn-in steps (minv = 1,
+# eps * g of order 10) are chaotic, and over SGHMC's 96 steps a 1e-7 relative
+# perturbation of the initial weights grows to 0.28 on the plain version
+# alone; over 16 steps it grows to 4e-6 (measured on the CPU), so card and
+# CPU still agree to REL_TOL there.
+SMALL = {"SGHMC": dict(network="dense", step_impl="fused", n_chains=4,
+                       n_nets=8, burn_in_steps=64, sample_steps=16,
+                       n_iters=96, log_every=None)}
+SMALL["SGLD"] = dict(SMALL["SGHMC"], burn_in_steps=8, sample_steps=4,
+                     n_iters=16)
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# f32 outside the tensor cores, and HBM3 bandwidth.
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# ptxas names the instantiations fused_kernel<rule, burn-in, gathered>
+INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
+             (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6"}
 
 
 def _import_port():
@@ -69,7 +95,12 @@ def _time_ms(torch, fn):
     return start.elapsed_time(end), out
 
 
-def _compare(torch, name, got, want):
+def _median_ms(torch, fn, repeats):
+    times = sorted(_time_ms(torch, fn)[0] for _ in range(repeats))
+    return times[len(times) // 2]
+
+
+def _compare(torch, name, got, want, what="kernel-plain"):
     """Max abs error over the outputs; raises beyond REL_TOL."""
     worst = 0.0
     for label, k, p in zip(name[1], got, want):
@@ -78,17 +109,63 @@ def _compare(torch, name, got, want):
                 name[0], label))
         err = float((k - p).abs().max())
         scale = float(p.abs().max())
-        print("  {} {}: max|kernel-plain| = {:.3e} (scale {:.3e})".format(
-            name[0], label, err, scale))
+        print("  {} {}: max|{}| = {:.3e} (scale {:.3e})".format(
+            name[0], label, what, err, scale))
         if err > REL_TOL * scale:
             raise AssertionError(
-                "{}: {} disagrees with the plain version: {:.3e} > {:.1e} x "
-                "{:.3e}".format(name[0], label, err, REL_TOL, scale))
+                "{}: {} disagrees ({}): {:.3e} > {:.1e} x {:.3e}".format(
+                    name[0], label, what, err, REL_TOL, scale))
         worst = max(worst, err)
     return worst
 
 
-def _small_main_path(torch, x_np, y_np):
+def _ptxas_report(log_text):
+    """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v."""
+    out = {}
+    pattern = re.compile(
+        r"fused_kernelILi(\d)ELb(\d)ELb(\d)E.*?\n\s*(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) "
+        r"registers", re.S)
+    for m in pattern.finditer(log_text):
+        name = INSTANCES[tuple(int(m.group(i)) for i in (1, 2, 3))]
+        out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
+                    "loads".format(m.group(7), m.group(5), m.group(6))
+    if set(out) != set(INSTANCES.values()):
+        raise AssertionError("ptxas report lacks kernels: {}".format(
+            sorted(set(INSTANCES.values()) - set(out))))
+    return out
+
+
+def _flops_per_chain_step(lay, batch, rule_flops):
+    """f32 operations of one chain-step: the forward and backward products
+    of ``_fwd_bwd`` (2 per multiply-add) plus the update rule's elementwise
+    arithmetic on every parameter.  Philox's integer rounds and the
+    transcendentals (tanh, log, cos, sqrt) are not counted."""
+    b, h, k, d = batch, lay.hidden, lay.n_inputs, lay.depth
+    fwd = 2 * b * k * h + (d - 1) * 2 * b * h * h + 2 * b * h
+    bwd = 2 * b * h + (d - 1) * 2 * (2 * b * h * h) + 2 * b * k * h
+    return fwd + bwd + rule_flops * lay.n_params
+
+
+# elementwise f32 operations per parameter of each update rule, counted from
+# the kernel source: prior fold 2; SGHMC noise scale 7 and momentum update 8,
+# SGLD noise scale 5 (sampling) or 6 (burn-in) and increment 6; the mask 1
+# (sampling) and the position add 1; burn-in adds the EMAs and minv, 30.
+RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
+              "B6": 45}
+
+
+def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the f32 operations over the f32 peak."""
+    compute_ms = n_chains * steps * flops_per_chain_step / F32_FLOPS * 1e3
+    memory_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    if compute_ms >= memory_ms:
+        return compute_ms, "operations"
+    return memory_ms, "bytes"
+
+
+def _small_main_path(torch, x_np, y_np, sampling_method):
     """Train and predict a small BNN through the port's entry points twice,
     on the card (kernels) and on the CPU (plain versions), from the same
     initial weights on the degenerate stream (zero noise, window 0); returns
@@ -97,12 +174,15 @@ def _small_main_path(torch, x_np, y_np):
 
     from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 
+    small = SMALL[sampling_method.value]
     init_fn, _ = dense_network(1, units=(H, H, H), device="cpu")
-    start = init_fn(torch.Generator().manual_seed(7), (SMALL["n_chains"],))
+    start = init_fn(torch.Generator().manual_seed(7), (small["n_chains"],))
     x_grid = np.linspace(0.0, 1.0, 50)[:, None]
     runs = {}
+    label = "small {} main path".format(sampling_method.value)
     for device in ("cuda", "cpu"):
-        bnn = BayesianNeuralNetwork(device=device, noise_impl="zero", **SMALL)
+        bnn = BayesianNeuralNetwork(sampling_method=sampling_method,
+                                    device=device, noise_impl="zero", **small)
         bnn._initial_positions = (
             lambda init_fn, generator, n, d=device:
             {k: v.to(d) for k, v in start.items()})
@@ -112,11 +192,128 @@ def _small_main_path(torch, x_np, y_np):
     for key, want in runs["cpu"][0].items():
         got = runs["cuda"][0][key].cpu()
         worst = max(worst, _compare(
-            torch, ("small main path", ("samples " + key,)), [got], [want]))
+            torch, (label, ("samples " + key,)), [got], [want], "card-CPU"))
     mean_gpu, mean_cpu = (torch.as_tensor(runs[d][1]) for d in ("cuda", "cpu"))
     return max(worst, _compare(
-        torch, ("small main path", ("predictive mean",)), [mean_gpu],
-        [mean_cpu]))
+        torch, (label, ("predictive mean",)), [mean_gpu], [mean_cpu],
+        "card-CPU"))
+
+
+def _one_step_check(torch, fs, kind, theta, state, x_win, y_win, common,
+                    streams):
+    """CHECK_STEPS launches of a one-step kernel against as many of its plain
+    version, each carrying its own chain; returns the worst error."""
+    fn, ref = ((fs.fused_bnn_step, fs.fused_bnn_step_ref) if kind == "B3"
+               else (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref))
+    labels = ("theta", "v", "cost") if kind == "B3" else ("theta", "cost")
+    n = theta.shape[0]
+    worst = 0.0
+    for stream, extra in streams:
+        runs = []
+        for wrapper in (fn, ref):
+            cur = [theta] + list(state)
+            for t in range(CHECK_STEPS):
+                if stream == "injected":
+                    widx = extra["widx"][t]
+                    kw = dict(noise=extra["noise"][t])
+                else:
+                    step = extra["step0"] + t
+                    widx = fs.philox_windows(987654321, step, n,
+                                             x_win.shape[0], theta.device)
+                    kw = dict(step=step)
+                x_sel, y_sel = fs.gather_batch(x_win, y_win, widx)
+                out = wrapper(*cur, x_sel, y_sel, common["eps"], 987654321,
+                              **common["kw"], **kw)
+                cur = list(out[:-1]) + [state[-1]]  # minv stays frozen
+            runs.append(list(out))
+        torch.cuda.synchronize()
+        worst = max(worst, _compare(torch, (kind + "/" + stream, labels),
+                                    runs[0], runs[1]))
+    return worst
+
+
+def _driver_check(torch, x, y, sampler_cls, eps, device):
+    """The one-step driver (B3 / B4-sgld per step) against the multi-step
+    driver (B1 / B5-sgld) from the same adapted state and generator seed;
+    returns (worst error, one-step launches of the multistep=False run)."""
+    from pysgmcmc_tpu_torch.models import dense_network
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+    from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+
+    init_fn, _ = dense_network(1, units=(H, H, H), device=device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    n_params = fs.FusedLayout(1, H, 3).n_params
+    sampler = sampler_cls(lambda p, b: None, stepsize_schedule=eps,
+                          scale_grad=float(N_DATA),
+                          gaussian_prior_scale=1.0 / (n_params * N_DATA))
+    states = burnin_chain_fused(
+        sampler, sampler.init(init_fn(gen, (DRIVER_CHAINS,))), gen, 200,
+        x, y)
+    kernel = fs.fused_bnn_step if sampler_cls.__name__ == "SGHMCSampler" \
+        else fs.fused_bnn_step_sgld
+    runs = []
+    for multistep in (True, False):
+        kernel.launches = 0
+        runs.append(sample_chain_fused(
+            sampler, states, torch.Generator(device=device).manual_seed(5),
+            DRIVER_SAMPLES, x, y, keep_every=DRIVER_KEEP,
+            multistep=multistep))
+        launches = kernel.launches
+    torch.cuda.synchronize()
+    label = "one-step driver ({})".format(sampler_cls.__name__)
+    keys = sorted(runs[0][1])
+    worst = _compare(torch, (label, ["positions " + k for k in keys]),
+                     [runs[1][1][k] for k in keys],
+                     [runs[0][1][k] for k in keys], "one-step - multi-step")
+    if int(runs[0][0].step) != int(runs[1][0].step):
+        raise AssertionError("{}: step counters differ".format(label))
+    return worst, launches
+
+
+def _flagship(torch, x_np, y_np, sampling_method, kernels, card):
+    """Train + predict the 8192-chain flagship through the port's BNN with
+    every kernel count set to 0 just before; returns the launches."""
+    import numpy as np
+
+    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
+
+    for fn in kernels.values():
+        fn.launches = 0
+    bnn = BayesianNeuralNetwork(
+        sampling_method=sampling_method, network="dense", step_impl="fused",
+        n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS, burn_in_steps=BURN_IN,
+        sample_steps=SAMPLE_STEPS, n_iters=BURN_IN + SAMPLE_STEPS)
+    t0 = time.perf_counter()
+    bnn.train(x_np, y_np)
+    train_s = time.perf_counter() - t0
+    x_grid = np.linspace(0.0, 1.0, 200)[:, None]
+    t0 = time.perf_counter()
+    mean, var = bnn.predict(x_grid)
+    predict_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    label = "{} main path".format(sampling_method.value)
+    mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
+    print("{}: {} chains, {} burn-in + {} sampling steps, {} samples; train "
+          "{:.2f} s, predict {:.3f} s; launches {}".format(
+              label, MAIN_CHAINS, BURN_IN, SAMPLE_STEPS,
+              len(bnn.samples["w2"]), train_s, predict_s, launches))
+    if not (np.isfinite(mean).all() and np.isfinite(var).all()):
+        raise AssertionError("{}: predictions are not finite".format(label))
+    if mean.shape != (200,) or var.shape != (200,):
+        raise AssertionError("{}: prediction shapes {} {}".format(
+            label, mean.shape, var.shape))
+    if not mse < 0.1:
+        raise AssertionError("{}: predictive MSE {} >= 0.1".format(label, mse))
+    if min(launches.values()) < 1:
+        raise AssertionError("{}: a kernel was not launched: {}".format(
+            label, launches))
+    print("{}: predictive MSE on sinc: {:.3e} (gate 0.1)".format(label, mse))
+    for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
+        seconds = bnn.phase_seconds[phase]
+        print("{}: {} update-steps/s: {:.4e} ({} chains x {} steps in {:.3f} "
+              "s; {})".format(label, phase, MAIN_CHAINS * steps / seconds,
+                              MAIN_CHAINS, steps, seconds, card))
+    return launches
 
 
 def main():
@@ -127,8 +324,10 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _import_port()
-    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
+    from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import _build, fused_step as fs
+    from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
+    from pysgmcmc_tpu_torch.sampling import Sampler
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,6 +345,9 @@ def main():
     _build.load()
     print("build: {} in {:.1f} s (0.0 = already built)".format(
         os.path.relpath(_build.library_path(), HERE), seconds))
+    with open(_build.log_path()) as f:
+        for name, line in sorted(_ptxas_report(f.read()).items()):
+            print("ptxas {}: {}".format(name, line))
 
     x_np, y_np, x, y = _data(torch, device)
     x_win, y_win = fs.data_windows(x, y, BATCH)
@@ -161,12 +363,13 @@ def main():
             return (u - 0.5) * scale
         return lo + (hi - lo) * u
 
-    common = dict(mdecay=0.05, scale_grad=float(N_DATA),
-                  prior_scale=1.0 / (P * N_DATA), batch_size=BATCH,
-                  n_data=N_DATA, h=H)
-    eps = 0.01
+    base = dict(scale_grad=float(N_DATA), prior_scale=1.0 / (P * N_DATA),
+                batch_size=BATCH, n_data=N_DATA, h=H)
+    sghmc = dict(base, mdecay=0.05)
+    sgld = dict(base, a_coef=1.0)
+    err = {}
 
-    # ---- B2 then B1: kernel vs plain at the flagship shapes ----
+    # ---- every kernel vs its plain version at the flagship shapes ----
     n = CHECK_CHAINS
     theta = fs.pack(init_fn(gen, (n,)), lay)
     noise = torch.randn((CHECK_STEPS, n, P), generator=gen, device=device)
@@ -176,113 +379,157 @@ def main():
                ("philox", dict(step0=12345))]
     # adaptation stats inside the EMAs' stable range (g^2 <= v_hat keeps
     # tau' = tau (1 - g^2 / v_hat) + 1 >= 1)
-    b2_args = (theta, rand(n, scale=2e-3), rand(n, 1.0, 5.0),
-               rand(n, scale=2.0), rand(n, 1.0, 5.0), x_win, y_win, eps,
-               987654321)
-    b2_labels = ("theta", "v", "tau", "g", "v_hat", "minv", "cost")
-    b2_err = 0.0
-    for stream, extra in streams:
-        got = fs.fused_bnn_multistep_burnin(
-            *b2_args, k_steps=CHECK_STEPS, **common, **extra)
-        want = fs.fused_bnn_multistep_burnin_ref(
-            *b2_args, k_steps=CHECK_STEPS, **common, **extra)
-        torch.cuda.synchronize()
-        b2_err = max(b2_err, _compare(
-            torch, ("B2/" + stream, b2_labels), got, want))
-    b1_args = (theta, rand(n, scale=2e-3), rand(n, 0.2, 1.2), x_win, y_win,
-               eps, 987654321)
-    b1_err = 0.0
-    for stream, extra in streams:
-        got = fs.fused_bnn_multistep(*b1_args, k_steps=CHECK_STEPS, **common,
-                                     **extra)
-        want = fs.fused_bnn_multistep_ref(*b1_args, k_steps=CHECK_STEPS,
-                                          **common, **extra)
-        torch.cuda.synchronize()
-        b1_err = max(b1_err, _compare(
-            torch, ("B1/" + stream, ("theta", "v", "cost")), got, want))
-    del noise, widx
+    stats = (rand(n, 1.0, 5.0), rand(n, scale=2.0), rand(n, 1.0, 5.0))
+    v0, minv0 = rand(n, scale=2e-3), rand(n, 0.2, 1.2)
+    multi = [
+        ("B2", fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep_burnin_ref,
+         (theta, v0) + stats, EPS, sghmc,
+         ("theta", "v", "tau", "g", "v_hat", "minv", "cost")),
+        ("B1", fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+         (theta, v0, minv0), EPS, sghmc, ("theta", "v", "cost")),
+        ("B6", fs.fused_bnn_multistep_burnin_sgld,
+         fs.fused_bnn_multistep_burnin_sgld_ref, (theta,) + stats, EPS_SGLD,
+         sgld, ("theta", "tau", "g", "v_hat", "minv", "cost")),
+        ("B5-sgld", fs.fused_bnn_multistep_sgld,
+         fs.fused_bnn_multistep_sgld_ref, (theta, minv0), EPS_SGLD, sgld,
+         ("theta", "cost")),
+    ]
+    for name, fn, ref, state, eps, kw, labels in multi:
+        err[name] = 0.0
+        for stream, extra in streams:
+            args = (*state, x_win, y_win, eps, 987654321)
+            got = fn(*args, k_steps=CHECK_STEPS, **kw, **extra)
+            want = ref(*args, k_steps=CHECK_STEPS, **kw, **extra)
+            torch.cuda.synchronize()
+            err[name] = max(err[name], _compare(
+                torch, (name + "/" + stream, labels), got, want))
+    err["B3"] = _one_step_check(
+        torch, fs, "B3", theta, (v0, minv0), x_win, y_win,
+        dict(eps=EPS, kw=sghmc), streams)
+    err["B4-sgld"] = _one_step_check(
+        torch, fs, "B4-sgld", theta, (minv0,), x_win, y_win,
+        dict(eps=EPS_SGLD, kw=sgld), streams)
+    del noise, widx, stats, v0, minv0
 
     # ---- times at the main path's shape: 8192 chains, k = 200 ----
     n, k = MAIN_CHAINS, SAMPLE_STEPS
     theta = fs.pack(init_fn(gen, (n,)), lay)
     zeros, ones = torch.zeros_like(theta), torch.ones_like(theta)
-    b2_big = (theta, zeros, ones, ones, ones, x_win, y_win, eps, 42)
-    timed = {}
-    for label, fn in (("B2", fs.fused_bnn_multistep_burnin),
-                      ("B2 plain", fs.fused_bnn_multistep_burnin_ref)):
-        fn(*b2_big, k_steps=2, **common)  # warm-up
-        timed[label], out = _time_ms(
-            torch, lambda: fn(*b2_big, k_steps=k, **common))
-    minv = out[5]
-    b1_big = (out[0], out[1], minv, x_win, y_win, eps, 43)
-    for label, fn in (("B1", fs.fused_bnn_multistep),
-                      ("B1 plain", fs.fused_bnn_multistep_ref)):
-        fn(*b1_big, k_steps=2, step0=k, **common)
-        timed[label], _ = _time_ms(
-            torch, lambda: fn(*b1_big, k_steps=k, step0=k, **common))
-    for label in ("B2", "B1"):
+    timed, bounds = {}, {}
+    f4 = 4 * n * P  # bytes of one (n, P) f32 tensor
+    table = 4 * n_windows * BATCH * 2  # the x and y window tables
+
+    def time_multi(name, fn, ref, args, kw, n_in, n_out, step0=0):
+        fn(*args, k_steps=2, step0=step0, **kw)  # warm-up
+        timed[name], out = _time_ms(
+            torch, lambda: fn(*args, k_steps=k, step0=step0, **kw))
+        ref(*args, k_steps=2, step0=step0, **kw)
+        timed[name + " plain"], _ = _time_ms(
+            torch, lambda: ref(*args, k_steps=k, step0=step0, **kw))
+        flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
+        bounds[name] = _bound(n, k, flops,
+                              (n_in + n_out) * f4 + table + 4 * n)
+        return out
+
+    out = time_multi("B2", fs.fused_bnn_multistep_burnin,
+                     fs.fused_bnn_multistep_burnin_ref,
+                     (theta, zeros, ones, ones, ones, x_win, y_win, EPS, 42),
+                     sghmc, 5, 6)
+    time_multi("B1", fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+               (out[0], out[1], out[5], x_win, y_win, EPS, 43), sghmc, 3, 2,
+               step0=k)
+    out = time_multi("B6", fs.fused_bnn_multistep_burnin_sgld,
+                     fs.fused_bnn_multistep_burnin_sgld_ref,
+                     (theta, ones, ones, ones, x_win, y_win, EPS_SGLD, 44),
+                     sgld, 4, 5)
+    time_multi("B5-sgld", fs.fused_bnn_multistep_sgld,
+               fs.fused_bnn_multistep_sgld_ref,
+               (out[0], out[4], x_win, y_win, EPS_SGLD, 45), sgld, 2, 1,
+               step0=k)
+    minv_big = out[4]
+    for name in ("B2", "B1", "B6", "B5-sgld"):
         print("time {} at {} chains x {} steps: kernel {:.2f} ms, plain "
-              "{:.2f} ms ({})".format(label, n, k, timed[label],
-                                      timed[label + " plain"], card))
-    del theta, zeros, ones, b2_big, b1_big, out, minv
+              "{:.2f} ms, bound {:.2f} ms ({}) ({})".format(
+                  name, n, k, timed[name], timed[name + " plain"],
+                  bounds[name][0], bounds[name][1], card))
+    # one-step kernels: one launch (one step) at 8192 chains, Philox stream
+    sel = fs.gather_batch(x_win, y_win, fs.philox_windows(46, 0, n, n_windows,
+                                                          device))
+    one_step = {
+        "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref,
+               (theta, zeros, minv_big), EPS, sghmc, 3, 2),
+        "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref,
+                    (theta, minv_big), EPS_SGLD, sgld, 2, 1),
+    }
+    for name, (fn, ref, state, eps, kw, n_in, n_out) in one_step.items():
+        def launch(f=fn, s=state, e=eps, w=kw):
+            return f(*s, *sel, e, 46, step=0, **w)
+
+        def plain(f=ref, s=state, e=eps, w=kw):
+            return f(*s, *sel, e, 46, step=0, **w)
+
+        launch()
+        timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
+        plain()
+        timed[name + " plain"] = _median_ms(torch, plain, 5)
+        flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
+        bounds[name] = _bound(n, 1, flops, (n_in + n_out) * f4
+                              + 4 * n * BATCH * 2 + 4 * n)
+        print("time {} per launch (one step) at {} chains: kernel {:.3f} ms "
+              "(median of {}), plain {:.3f} ms (median of 5), bound {:.3f} "
+              "ms ({}) ({})".format(name, n, timed[name], ONE_STEP_TIMED,
+                                    timed[name + " plain"], bounds[name][0],
+                                    bounds[name][1], card))
+    del theta, zeros, ones, out, minv_big, sel
     torch.cuda.empty_cache()
 
-    # ---- the main path on a small input: card vs plain versions ----
-    print("small main path ({} chains, {} steps) on the card vs the CPU: "
-          "max|diff| = {:.3e}".format(
-              SMALL["n_chains"], SMALL["n_iters"],
-              _small_main_path(torch, x_np, y_np)))
+    # ---- the one-step driver vs the multi-step driver on the card ----
+    launches = {}
+    for sampler_cls, eps, name in ((SGHMCSampler, EPS, "B3"),
+                                   (SGLDSampler, EPS, "B4-sgld")):
+        err_driver, launches[name] = _driver_check(
+            torch, x, y, sampler_cls, eps, device)
+        print("one-step driver ({}): {} chains x {} steps, max|one-step - "
+              "multi-step| = {:.3e}, {} launches".format(
+                  sampler_cls.__name__, DRIVER_CHAINS,
+                  DRIVER_SAMPLES * DRIVER_KEEP, err_driver, launches[name]))
+        if launches[name] != DRIVER_SAMPLES * DRIVER_KEEP:
+            raise AssertionError("{}: {} launches, want {}".format(
+                name, launches[name], DRIVER_SAMPLES * DRIVER_KEEP))
 
-    # ---- the main path: train + predict through the port's BNN ----
-    fs.fused_bnn_multistep.launches = 0
-    fs.fused_bnn_multistep_burnin.launches = 0
-    bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", n_chains=MAIN_CHAINS,
-        n_nets=MAIN_CHAINS, burn_in_steps=BURN_IN,
-        sample_steps=SAMPLE_STEPS, n_iters=BURN_IN + SAMPLE_STEPS,
-        device="cuda")
-    t0 = time.perf_counter()
-    bnn.train(x_np, y_np)
-    train_s = time.perf_counter() - t0
-    x_grid = np.linspace(0.0, 1.0, 200)[:, None]
-    t0 = time.perf_counter()
-    mean, var = bnn.predict(x_grid)
-    predict_s = time.perf_counter() - t0
-    launches = {"B1": fs.fused_bnn_multistep.launches,
-                "B2": fs.fused_bnn_multistep_burnin.launches}
-    mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
-    print("main path: {} chains, {} burn-in + {} sampling steps, {} "
-          "samples; train {:.2f} s, predict {:.3f} s; launches {}".format(
-              MAIN_CHAINS, BURN_IN, SAMPLE_STEPS, len(bnn.samples["w2"]),
-              train_s, predict_s, launches))
-    if not (np.isfinite(mean).all() and np.isfinite(var).all()):
-        raise AssertionError("predictions are not finite")
-    if mean.shape != (200,) or var.shape != (200,):
-        raise AssertionError("prediction shapes {} {}".format(
-            mean.shape, var.shape))
-    if not mse < 0.1:
-        raise AssertionError("predictive MSE {} >= 0.1".format(mse))
-    if min(launches.values()) < 1:
-        raise AssertionError("a kernel was not launched: {}".format(launches))
-    print("predictive MSE on sinc: {:.3e} (gate 0.1)".format(mse))
-    for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
-        seconds = bnn.phase_seconds[phase]
-        print("{} update-steps/s: {:.4e} ({} chains x {} steps in {:.3f} s; "
-              "{})".format(phase, MAIN_CHAINS * steps / seconds, MAIN_CHAINS,
-                           steps, seconds, card))
+    # ---- the main paths on a small input: card vs plain versions ----
+    for method in (Sampler.SGHMC, Sampler.SGLD):
+        print("small {} main path ({} chains, {} steps) on the card vs the "
+              "CPU: max|diff| = {:.3e}".format(
+                  method.value, SMALL[method.value]["n_chains"],
+                  SMALL[method.value]["n_iters"],
+                  _small_main_path(torch, x_np, y_np, method)))
 
+    # ---- the main paths: train + predict through the port's BNN ----
+    launches.update(_flagship(
+        torch, x_np, y_np, Sampler.SGHMC,
+        {"B1": fs.fused_bnn_multistep, "B2": fs.fused_bnn_multistep_burnin},
+        card))
+    launches.update(_flagship(
+        torch, x_np, y_np, Sampler.SGLD,
+        {"B5-sgld": fs.fused_bnn_multistep_sgld,
+         "B6": fs.fused_bnn_multistep_burnin_sgld}, card))
+
+    source = "pysgmcmc_tpu_torch/csrc/fused_step.cu"
+    replaces = {"B2": ("fused_bnn_multistep_burnin", 2823),
+                "B1": ("fused_bnn_multistep", 1007),
+                "B6": ("fused_bnn_multistep_burnin_sgld", 2929),
+                "B5-sgld": ("fused_bnn_multistep_sgld", 2223),
+                "B3": ("fused_bnn_step", 616),
+                "B4-sgld": ("fused_bnn_step_sgld", 2002)}
     records = [
-        {"name": "fused_bnn_multistep_burnin", "route": "cuda",
-         "source": "pysgmcmc_tpu_torch/csrc/fused_step.cu",
-         "replaces": "pysgmcmc_tpu/ops/fused_step.py:2823",
-         "launches": launches["B2"], "max_abs_err": b2_err,
-         "ms": timed["B2"], "plain_ms": timed["B2 plain"]},
-        {"name": "fused_bnn_multistep", "route": "cuda",
-         "source": "pysgmcmc_tpu_torch/csrc/fused_step.cu",
-         "replaces": "pysgmcmc_tpu/ops/fused_step.py:1007",
-         "launches": launches["B1"], "max_abs_err": b1_err,
-         "ms": timed["B1"], "plain_ms": timed["B1 plain"]},
-    ]
+        {"name": fn_name, "route": "cuda", "source": source,
+         "replaces": "pysgmcmc_tpu/ops/fused_step.py:{}".format(line),
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": timed[name], "plain_ms": timed[name + " plain"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name, (fn_name, line) in replaces.items()]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,38 @@
-// flash-SGHMC for Hopper: k SGHMC steps of the dense tanh BNN per launch.
+// flash-SGHMC and flash-SGLD for Hopper: whole SG-MCMC steps of the dense
+// tanh BNN per launch.
 //
-// Replaces the TPU Pallas kernels
-//   B1  pysgmcmc_tpu/ops/fused_step.py::fused_bnn_multistep
-//       (generator _make_multistep_kernel_family, sampling phase)
-//   B2  pysgmcmc_tpu/ops/fused_step.py::fused_bnn_multistep_burnin
-//       (generator _make_multistep_kernel_burnin, self-tuning burn-in)
-// with the same semantics at the unpacked-parameter level: per step, draw a
-// minibatch window, run the forward pass, the heteroscedastic Gaussian NLL
-// plus the log-variance prior, the hand-written backward pass, fold the
-// Gaussian weight prior into the gradient, draw the noise and apply the
-// SGHMC update (B1: frozen minv; B2: the tau/g/v_hat EMAs and
-// minv = 1/sqrt(old v_hat), all reading OLD values).
+// Replaces the TPU Pallas kernels of pysgmcmc_tpu/ops/fused_step.py
+//   B1       fused_bnn_multistep              k SGHMC sampling steps
+//   B2       fused_bnn_multistep_burnin       k SGHMC self-tuning burn-in steps
+//   B3       fused_bnn_step                   one SGHMC step, gathered minibatch
+//   B4-sgld  fused_bnn_step_sgld              one SGLD step, gathered minibatch
+//   B5-sgld  fused_bnn_multistep_sgld         k SGLD sampling steps
+//   B6       fused_bnn_multistep_burnin_sgld  k SGLD burn-in steps
+// (generators _make_kernel_family, _make_multistep_kernel_family and
+// _make_multistep_kernel_burnin) with the same semantics at the
+// unpacked-parameter level: per step, take the chain's minibatch (a window
+// drawn from the shared window table, or the rows the caller gathered), run
+// the forward pass, the heteroscedastic Gaussian NLL plus the log-variance
+// prior, the hand-written backward pass, fold the Gaussian weight prior into
+// the gradient, draw the noise and apply the rule's update.  Sampling phase:
+// frozen minv.  Burn-in: the tau/g/v_hat EMAs and minv = 1/sqrt(old v_hat),
+// all reading OLD values.  SGHMC moves v then theta; SGLD moves theta alone,
+// with noise sqrt(2 eps minv A / scale_grad), i.e. scaling with eps.
 //
-// Design.  One thread block owns one chain.  At launch it loads the chain's
-// whole state (theta, v and minv, or theta, v, tau, g, v_hat) plus a
-// gradient buffer into dynamic shared memory, runs the k steps there and
-// writes the state back once: the counterpart of the TPU kernel's VMEM
-// residency.  Device memory then sees only the state's load and store per
-// launch and the small window reads per step, so once the state is resident
-// the kernel is bound by FP32 FMA issue and shared-memory bandwidth in the
-// six batch x H x H products of each step, not by HBM.  All arithmetic is
-// f32 on the CUDA cores (no tensor cores yet) and the layout is the port's
-// flat per-chain vector (pysgmcmc_tpu_torch/ops/fused_step.py, FusedLayout):
+// Design.  One kernel body, templated on the rule (SGHMC / SGLD), the phase
+// (sampling / burn-in) and the minibatch source (window table / gathered
+// rows), as JAX's KernelRule.  One thread block owns one chain.  At launch it
+// loads the chain's whole state (theta, v for SGHMC, then minv or tau, g,
+// v_hat) plus a gradient buffer into dynamic shared memory, runs the k steps
+// there and writes the state back once: the counterpart of the TPU kernel's
+// VMEM residency.  Device memory then sees only the state's load and store
+// per launch and the small window reads per step, so once the state is
+// resident a multi-step kernel is bound by FP32 FMA issue and shared-memory
+// bandwidth in the six batch x H x H products of each step, not by HBM.  The
+// one-step kernels (B3, B4-sgld) load and store the whole state every step.
+// All arithmetic is f32 on the CUDA cores (no tensor cores yet) and the
+// layout is the port's flat per-chain vector (pysgmcmc_tpu_torch/ops/
+// fused_step.py, FusedLayout):
 //   w1 (k*H) | b1 (H) | w2 (H*H) | b2 (H) | ... | wD (H*H) | bD (H)
 //   | w_head (H) | b_head (1) | log_variance_bias (1)
 // Weight matrices are row-major (in, out).
@@ -32,8 +43,8 @@
 // u = ((bits >> 8) + 1) * 2^-24 in (0, 1] is exact in f32 and shared with
 // the plain PyTorch version, which implements the same stream.
 //
-// Built with nvcc into a shared library with a plain C interface; each
-// entry returns cudaGetLastError() after its launch.
+// Built with nvcc into a shared library with a plain C interface, one entry
+// per TPU kernel; each returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,29 +61,39 @@ constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kSmall = 1e-16f;
 
+// The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
+enum KernelId { kB1 = 1, kB2, kB3, kB4Sgld, kB5Sgld, kB6 };
+enum Rule { kSghmc = 0, kSgld = 1 };
+
 struct Args {
   const float* theta;
-  const float* v;
-  const float* minv;   // B1 only
-  const float* tau;    // B2 only
-  const float* g;      // B2 only
-  const float* v_hat;  // B2 only
+  const float* v;      // SGHMC only
+  const float* minv;   // sampling phase only
+  const float* tau;    // burn-in only
+  const float* g;      // burn-in only
+  const float* v_hat;  // burn-in only
   float* theta_out;
-  float* v_out;
-  float* tau_out;      // B2 only
-  float* g_out;        // B2 only
-  float* v_hat_out;    // B2 only
-  float* minv_out;     // B2 only: the minv the final step used
+  float* v_out;        // SGHMC only
+  float* tau_out;      // burn-in only
+  float* g_out;        // burn-in only
+  float* v_hat_out;    // burn-in only
+  float* minv_out;     // burn-in only: the minv the final step used
   float* cost_out;     // (n_chains,): the final step's cost
-  const float* x_win;  // (n_windows, batch, n_inputs)
-  const float* y_win;  // (n_windows, batch)
-  const float* eps_tab;  // (k_steps, 2): eps, eps / sqrt(scale_grad)
+  // window tables (n_windows, batch, n_inputs) and (n_windows, batch), or
+  // for the one-step kernels each chain's rows (n_chains, batch, n_inputs)
+  // and (n_chains, batch)
+  const float* x_win;
+  const float* y_win;
+  // per-step table: SGHMC (k_steps, 2) = eps, eps / sqrt(scale_grad);
+  // SGLD (k_steps, 4) = eps, A, A / scale_grad (sampling) or sg_safe
+  // (burn-in), prior_scale
+  const float* tab;
   const float* noise;    // optional (k_steps, n_chains, n_params)
   const int* widx;       // optional (k_steps, n_chains)
   int n_chains, n_inputs, hidden, depth, batch, n_windows, k_steps, n_params;
   unsigned long long seed;
   unsigned step0;
-  float mdecay, prior_scale, inv_b, inv_n;
+  float mdecay, prior_scale, inv_b, inv_n;  // mdecay, prior_scale: SGHMC
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
@@ -277,28 +298,33 @@ __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
   __syncthreads();
 }
 
-// Draws (or reads) this step's window and stages its rows in shared memory.
-__device__ void load_window(const Args& a, int t, unsigned step,
-                            const Scratch& s) {
+// Stages this step's minibatch rows in shared memory: the chain's own
+// gathered rows, or a window drawn (or read from widx) from the shared table.
+template <bool kGathered>
+__device__ void load_batch(const Args& a, int t, unsigned step,
+                           const Scratch& s) {
   const int c = blockIdx.x;
-  if (threadIdx.x == 0) {
-    int w;
-    if (a.widx != nullptr) {
-      w = a.widx[static_cast<size_t>(t) * a.n_chains + c];
-    } else {
-      const float u = bits_to_uniform(draw(a, c, step, 0u, kPurposeWindow).x);
-      w = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
-              a.n_windows - 1);
+  int row = c;
+  if constexpr (!kGathered) {
+    if (threadIdx.x == 0) {
+      int w;
+      if (a.widx != nullptr) {
+        w = a.widx[static_cast<size_t>(t) * a.n_chains + c];
+      } else {
+        const float u = bits_to_uniform(draw(a, c, step, 0u, kPurposeWindow).x);
+        w = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
+                a.n_windows - 1);
+      }
+      reinterpret_cast<int*>(s.scal)[1] = w;
     }
-    reinterpret_cast<int*>(s.scal)[1] = w;
+    __syncthreads();
+    row = reinterpret_cast<const int*>(s.scal)[1];
   }
-  __syncthreads();
-  const int w = reinterpret_cast<const int*>(s.scal)[1];
   const int bk = a.batch * a.n_inputs;
   for (int i = threadIdx.x; i < bk; i += kThreads)
-    s.x[i] = a.x_win[static_cast<size_t>(w) * bk + i];
+    s.x[i] = a.x_win[static_cast<size_t>(row) * bk + i];
   for (int i = threadIdx.x; i < a.batch; i += kThreads)
-    s.y[i] = a.y_win[static_cast<size_t>(w) * a.batch + i];
+    s.y[i] = a.y_win[static_cast<size_t>(row) * a.batch + i];
   __syncthreads();
 }
 
@@ -312,8 +338,32 @@ __device__ __forceinline__ float noise_at(const Args& a, int t, unsigned step,
   return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
 }
 
-template <bool kBurnin>
-__global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
+// The burn-in EMAs at element p, all reading OLD values (JAX
+// _sghmc_burnin_step_math / _sgld_burnin_step_math); returns the minv this
+// step uses, 1/sqrt(old v_hat) with the reference's guards.
+__device__ __forceinline__ float adapt(float* s_tau, float* s_g, float* s_vhat,
+                                       int p, float gg) {
+  const float tau = s_tau[p], gm = s_g[p], vh = s_vhat[p];
+  const float sq = sqrtf(fmaxf(vh, 0.0f));
+  const float minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
+  const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
+  const float r = 1.0f / (tau + 1.0f);
+  s_tau[p] = tau + (-gm * gm * tau) / denom + 1.0f;
+  s_g[p] = gm - r * gm + r * gg;
+  s_vhat[p] = vh - r * vh + r * gg * gg;
+  return minv;
+}
+
+// Number of P-long arrays a block keeps in shared memory: theta, v (SGHMC),
+// the gradient, then minv (sampling) or tau, g, v_hat (burn-in).
+__host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
+  return 1 + (rule == kSghmc ? 1 : 0) + 1 + (burnin ? 3 : 1);
+}
+
+template <int kRule, bool kBurnin, bool kGathered>
+__global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
+  constexpr bool kMomentum = kRule == kSghmc;
+  constexpr int kCols = kRule == kSghmc ? 2 : 4;
   extern __shared__ float smem[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -322,12 +372,12 @@ __global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
   const Layout L = make_layout(a.n_inputs, a.hidden, a.depth);
 
   float* s_theta = smem;
-  float* s_v = s_theta + P;
-  float* s_grad = s_v + P;
-  float* s_minv = s_grad + P;  // B1
-  float* s_tau = s_grad + P;   // B2
-  float* s_g = s_tau + P;      // B2
-  float* s_vhat = s_g + P;     // B2
+  float* s_v = s_theta + P;                       // SGHMC
+  float* s_grad = s_theta + (kMomentum ? 2 : 1) * P;
+  float* s_minv = s_grad + P;                     // sampling
+  float* s_tau = s_grad + P;                      // burn-in
+  float* s_g = s_tau + P;                         // burn-in
+  float* s_vhat = s_g + P;                        // burn-in
   float* rest = s_grad + (kBurnin ? 4 : 2) * P;
   Scratch s;
   s.act = rest;
@@ -341,8 +391,8 @@ __global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     s_theta[p] = a.theta[base + p];
-    s_v[p] = a.v[base + p];
-    if (kBurnin) {
+    if constexpr (kMomentum) s_v[p] = a.v[base + p];
+    if constexpr (kBurnin) {
       s_tau[p] = a.tau[base + p];
       s_g[p] = a.g[base + p];
       s_vhat[p] = a.v_hat[base + p];
@@ -354,37 +404,57 @@ __global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
 
   for (int t = 0; t < a.k_steps; ++t) {
     const unsigned step = a.step0 + static_cast<unsigned>(t);
-    load_window(a, t, step, s);
+    load_batch<kGathered>(a, t, step, s);
     fwd_bwd(a, L, s_theta, s_grad, s);
-    const float eps = a.eps_tab[2 * t];
-    const float es = a.eps_tab[2 * t + 1];
-    const float es2 = es * es;
+    const float* row = a.tab + static_cast<size_t>(t) * kCols;
     const bool last = t == a.k_steps - 1;
-    for (int p = tid; p < P; p += kThreads) {
-      const float eta = noise_at(a, t, step, p);
-      const float th = s_theta[p];
-      const float vv = s_v[p];
-      const float gg = s_grad[p] + a.prior_scale * th;
-      float minv;
-      if (kBurnin) {
-        const float tau = s_tau[p], gm = s_g[p], vh = s_vhat[p];
-        const float sq = sqrtf(fmaxf(vh, 0.0f));
-        minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
-        const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
-        const float r = 1.0f / (tau + 1.0f);
-        s_tau[p] = tau + (-gm * gm * tau) / denom + 1.0f;
-        s_g[p] = gm - r * gm + r * gg;
-        s_vhat[p] = vh - r * vh + r * gg * gg;
-        if (last) a.minv_out[base + p] = minv;
-      } else {
-        minv = s_minv[p];
+    if constexpr (kRule == kSghmc) {
+      const float eps = row[0];
+      const float es = row[1];
+      const float es2 = es * es;
+      for (int p = tid; p < P; p += kThreads) {
+        const float eta = noise_at(a, t, step, p);
+        const float th = s_theta[p];
+        const float vv = s_v[p];
+        const float gg = s_grad[p] + a.prior_scale * th;
+        float minv;
+        if constexpr (kBurnin) {
+          minv = adapt(s_tau, s_g, s_vhat, p, gg);
+          if (last) a.minv_out[base + p] = minv;
+        } else {
+          minv = s_minv[p];
+        }
+        const float sigma =
+            sqrtf(fmaxf(2.0f * es2 * a.mdecay * minv - es2 * es2, 1e-16f));
+        float vn = vv - eps * eps * minv * gg - a.mdecay * vv + sigma * eta;
+        if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;
+        s_v[p] = vn;
+        s_theta[p] = th + vn;
       }
-      const float sigma =
-          sqrtf(fmaxf(2.0f * es2 * a.mdecay * minv - es2 * es2, 1e-16f));
-      float vn = vv - eps * eps * minv * gg - a.mdecay * vv + sigma * eta;
-      if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;
-      s_v[p] = vn;
-      s_theta[p] = th + vn;
+    } else {
+      // JAX _sgld_rule (sampling) and _sgld_burnin_step_math (burn-in)
+      const float eps = row[0];
+      const float A = row[1];
+      const float cdiv = row[2];
+      const float prior_scale = row[3];
+      for (int p = tid; p < P; p += kThreads) {
+        const float eta = noise_at(a, t, step, p);
+        const float th = s_theta[p];
+        const float gg = s_grad[p] + prior_scale * th;
+        if constexpr (kBurnin) {
+          const float minv = adapt(s_tau, s_g, s_vhat, p, gg);
+          if (last) a.minv_out[base + p] = minv;
+          const float sigma =
+              sqrtf(fmaxf(2.0f * eps * ((minv * A) / cdiv), 0.0f));
+          s_theta[p] = th + (-eps * minv * A * gg + sigma * eta);
+        } else {
+          const float minv = s_minv[p];
+          const float sigma = sqrtf(fmaxf(2.0f * eps * minv * cdiv, 0.0f));
+          float delta = -eps * minv * A * gg + sigma * eta;
+          if (!(minv > 0.0f)) delta = 0.0f;
+          s_theta[p] = th + delta;
+        }
+      }
     }
     if (last && tid == 0) a.cost_out[c] = s.scal[0];
     __syncthreads();
@@ -392,8 +462,8 @@ __global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     a.theta_out[base + p] = s_theta[p];
-    a.v_out[base + p] = s_v[p];
-    if (kBurnin) {
+    if constexpr (kMomentum) a.v_out[base + p] = s_v[p];
+    if constexpr (kBurnin) {
       a.tau_out[base + p] = s_tau[p];
       a.g_out[base + p] = s_g[p];
       a.v_hat_out[base + p] = s_vhat[p];
@@ -401,123 +471,207 @@ __global__ void __launch_bounds__(kThreads) multistep_kernel(Args a) {
   }
 }
 
-size_t smem_bytes(bool burnin, int n_params, int n_inputs, int hidden,
-                  int depth, int batch) {
-  const size_t state = static_cast<size_t>(burnin ? 6 : 4) * n_params;
+size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
+                  int hidden, int depth, int batch) {
+  const size_t state =
+      static_cast<size_t>(state_arrays(rule, burnin)) * n_params;
   const size_t scratch = static_cast<size_t>(depth + 2) * batch * hidden +
                          static_cast<size_t>(batch) * n_inputs + 3 * batch + 2;
   return (state + scratch) * sizeof(float);
 }
 
-template <bool kBurnin>
+template <int kRule, bool kBurnin, bool kGathered>
 int launch(const Args& a, void* stream) {
-  const size_t bytes = smem_bytes(kBurnin, a.n_params, a.n_inputs, a.hidden,
-                                  a.depth, a.batch);
+  const size_t bytes = smem_bytes(kRule, kBurnin, a.n_params, a.n_inputs,
+                                  a.hidden, a.depth, a.batch);
   cudaError_t err = cudaFuncSetAttribute(
-      multistep_kernel<kBurnin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      fused_kernel<kRule, kBurnin, kGathered>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  multistep_kernel<kBurnin><<<a.n_chains, kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(a);
+  fused_kernel<kRule, kBurnin, kGathered>
+      <<<a.n_chains, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+Args common_args(const float* x, const float* y, const float* tab,
+                 const float* noise, float* theta_out, float* cost_out,
+                 int n_chains, int n_inputs, int hidden, int depth, int batch,
+                 int n_params, unsigned long long seed, unsigned step0,
+                 float inv_b, float inv_n) {
+  Args a = {};
+  a.x_win = x;
+  a.y_win = y;
+  a.tab = tab;
+  a.noise = noise;
+  a.theta_out = theta_out;
+  a.cost_out = cost_out;
+  a.n_chains = n_chains;
+  a.n_inputs = n_inputs;
+  a.hidden = hidden;
+  a.depth = depth;
+  a.batch = batch;
+  a.n_windows = n_chains;  // gathered rows: one per chain
+  a.k_steps = 1;
+  a.n_params = n_params;
+  a.seed = seed;
+  a.step0 = step0;
+  a.inv_b = inv_b;
+  a.inv_n = inv_n;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of a kernel needs, in bytes (burnin: B2 if 1).
-unsigned long long fused_step_smem_bytes(int burnin, int n_params,
+// Shared memory one block of kernel `kernel` (a KernelId) needs, in bytes.
+unsigned long long fused_step_smem_bytes(int kernel, int n_params,
                                          int n_inputs, int hidden, int depth,
                                          int batch) {
-  return smem_bytes(burnin != 0, n_params, n_inputs, hidden, depth, batch);
+  const int rule = (kernel == kB1 || kernel == kB2 || kernel == kB3)
+                       ? kSghmc : kSgld;
+  const bool burnin = kernel == kB2 || kernel == kB6;
+  return smem_bytes(rule, burnin, n_params, n_inputs, hidden, depth, batch);
 }
 
 const char* fused_step_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// B1: k sampling steps with a frozen minv.
+// B1: k SGHMC sampling steps with a frozen minv.
 int fused_bnn_multistep_launch(
     const float* theta, const float* v, const float* minv, const float* x_win,
-    const float* y_win, const float* eps_tab, const float* noise,
+    const float* y_win, const float* tab, const float* noise,
     const int* widx, float* theta_out, float* v_out, float* cost_out,
     int n_chains, int n_inputs, int hidden, int depth, int batch,
     int n_windows, int k_steps, int n_params, unsigned long long seed,
     unsigned step0, float mdecay, float prior_scale, float inv_b, float inv_n,
     void* stream) {
-  Args a = {};
+  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step0, inv_b, inv_n);
   a.theta = theta;
   a.v = v;
   a.minv = minv;
-  a.theta_out = theta_out;
   a.v_out = v_out;
-  a.cost_out = cost_out;
-  a.x_win = x_win;
-  a.y_win = y_win;
-  a.eps_tab = eps_tab;
-  a.noise = noise;
   a.widx = widx;
-  a.n_chains = n_chains;
-  a.n_inputs = n_inputs;
-  a.hidden = hidden;
-  a.depth = depth;
-  a.batch = batch;
   a.n_windows = n_windows;
   a.k_steps = k_steps;
-  a.n_params = n_params;
-  a.seed = seed;
-  a.step0 = step0;
   a.mdecay = mdecay;
   a.prior_scale = prior_scale;
-  a.inv_b = inv_b;
-  a.inv_n = inv_n;
-  return launch<false>(a, stream);
+  return launch<kSghmc, false, false>(a, stream);
 }
 
-// B2: k self-tuning burn-in steps; minv_out gets the final step's minv.
+// B2: k SGHMC self-tuning burn-in steps; minv_out gets the final step's minv.
 int fused_bnn_multistep_burnin_launch(
     const float* theta, const float* v, const float* tau, const float* g,
     const float* v_hat, const float* x_win, const float* y_win,
-    const float* eps_tab, const float* noise, const int* widx,
+    const float* tab, const float* noise, const int* widx,
     float* theta_out, float* v_out, float* tau_out, float* g_out,
     float* v_hat_out, float* minv_out, float* cost_out, int n_chains,
     int n_inputs, int hidden, int depth, int batch, int n_windows,
     int k_steps, int n_params, unsigned long long seed, unsigned step0,
     float mdecay, float prior_scale, float inv_b, float inv_n, void* stream) {
-  Args a = {};
+  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step0, inv_b, inv_n);
   a.theta = theta;
   a.v = v;
   a.tau = tau;
   a.g = g;
   a.v_hat = v_hat;
-  a.theta_out = theta_out;
   a.v_out = v_out;
   a.tau_out = tau_out;
   a.g_out = g_out;
   a.v_hat_out = v_hat_out;
   a.minv_out = minv_out;
-  a.cost_out = cost_out;
-  a.x_win = x_win;
-  a.y_win = y_win;
-  a.eps_tab = eps_tab;
-  a.noise = noise;
   a.widx = widx;
-  a.n_chains = n_chains;
-  a.n_inputs = n_inputs;
-  a.hidden = hidden;
-  a.depth = depth;
-  a.batch = batch;
   a.n_windows = n_windows;
   a.k_steps = k_steps;
-  a.n_params = n_params;
-  a.seed = seed;
-  a.step0 = step0;
   a.mdecay = mdecay;
   a.prior_scale = prior_scale;
-  a.inv_b = inv_b;
-  a.inv_n = inv_n;
-  return launch<true>(a, stream);
+  return launch<kSghmc, true, false>(a, stream);
+}
+
+// B3: one SGHMC sampling step on each chain's gathered rows; the noise is
+// injected (n_chains, n_params) or Philox at absolute step `step`.
+int fused_bnn_step_launch(
+    const float* theta, const float* v, const float* minv, const float* x_sel,
+    const float* y_sel, const float* tab, const float* noise,
+    float* theta_out, float* v_out, float* cost_out, int n_chains,
+    int n_inputs, int hidden, int depth, int batch, int n_params,
+    unsigned long long seed, unsigned step, float mdecay, float prior_scale,
+    float inv_b, float inv_n, void* stream) {
+  Args a = common_args(x_sel, y_sel, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step, inv_b, inv_n);
+  a.theta = theta;
+  a.v = v;
+  a.minv = minv;
+  a.v_out = v_out;
+  a.mdecay = mdecay;
+  a.prior_scale = prior_scale;
+  return launch<kSghmc, false, true>(a, stream);
+}
+
+// B4-sgld: one SGLD sampling step on each chain's gathered rows.
+int fused_bnn_step_sgld_launch(
+    const float* theta, const float* minv, const float* x_sel,
+    const float* y_sel, const float* tab, const float* noise,
+    float* theta_out, float* cost_out, int n_chains, int n_inputs,
+    int hidden, int depth, int batch, int n_params, unsigned long long seed,
+    unsigned step, float inv_b, float inv_n, void* stream) {
+  Args a = common_args(x_sel, y_sel, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step, inv_b, inv_n);
+  a.theta = theta;
+  a.minv = minv;
+  return launch<kSgld, false, true>(a, stream);
+}
+
+// B5-sgld: k SGLD sampling steps with a frozen minv.
+int fused_bnn_multistep_sgld_launch(
+    const float* theta, const float* minv, const float* x_win,
+    const float* y_win, const float* tab, const float* noise,
+    const int* widx, float* theta_out, float* cost_out, int n_chains,
+    int n_inputs, int hidden, int depth, int batch, int n_windows,
+    int k_steps, int n_params, unsigned long long seed, unsigned step0,
+    float inv_b, float inv_n, void* stream) {
+  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step0, inv_b, inv_n);
+  a.theta = theta;
+  a.minv = minv;
+  a.widx = widx;
+  a.n_windows = n_windows;
+  a.k_steps = k_steps;
+  return launch<kSgld, false, false>(a, stream);
+}
+
+// B6: k SGLD burn-in steps; minv_out gets the final step's minv.
+int fused_bnn_multistep_burnin_sgld_launch(
+    const float* theta, const float* tau, const float* g, const float* v_hat,
+    const float* x_win, const float* y_win, const float* tab,
+    const float* noise, const int* widx, float* theta_out, float* tau_out,
+    float* g_out, float* v_hat_out, float* minv_out, float* cost_out,
+    int n_chains, int n_inputs, int hidden, int depth, int batch,
+    int n_windows, int k_steps, int n_params, unsigned long long seed,
+    unsigned step0, float inv_b, float inv_n, void* stream) {
+  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
+                       n_chains, n_inputs, hidden, depth, batch, n_params,
+                       seed, step0, inv_b, inv_n);
+  a.theta = theta;
+  a.tau = tau;
+  a.g = g;
+  a.v_hat = v_hat;
+  a.tau_out = tau_out;
+  a.g_out = g_out;
+  a.v_hat_out = v_hat_out;
+  a.minv_out = minv_out;
+  a.widx = widx;
+  a.n_windows = n_windows;
+  a.k_steps = k_steps;
+  return launch<kSgld, true, false>(a, stream);
 }
 
 }  // extern "C"

@@ -18,6 +18,7 @@ import torch
 
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCState
+from pysgmcmc_tpu_torch.samplers.sgld import SGLDState
 
 
 def params_from_numpy(params, device):
@@ -32,35 +33,55 @@ def params_to_numpy(params):
     return {name: leaf.detach().cpu().numpy() for name, leaf in params.items()}
 
 
+def _stats_from_numpy(stats, device):
+    return AdaptiveStats(
+        tau=params_from_numpy(stats.tau, device),
+        g=params_from_numpy(stats.g, device),
+        v_hat=params_from_numpy(stats.v_hat, device),
+        minv=params_from_numpy(stats.minv, device),
+    )
+
+
+def _step_from_numpy(step, device):
+    return torch.tensor(np.asarray(step), dtype=torch.int64, device=device)
+
+
 def sghmc_state_from_numpy(state, device, schedule_state=()):
     """A JAX ``SGHMCState`` (or anything with its fields: ``position``,
     ``momentum``, ``stats.tau/g/v_hat/minv``, ``step``) -> the port's
     :class:`SGHMCState` on ``device``."""
-    stats = state.stats
     return SGHMCState(
         position=params_from_numpy(state.position, device),
         momentum=params_from_numpy(state.momentum, device),
-        stats=AdaptiveStats(
-            tau=params_from_numpy(stats.tau, device),
-            g=params_from_numpy(stats.g, device),
-            v_hat=params_from_numpy(stats.v_hat, device),
-            minv=params_from_numpy(stats.minv, device),
-        ),
-        step=torch.tensor(np.asarray(state.step), dtype=torch.int64,
-                          device=device),
+        stats=_stats_from_numpy(state.stats, device),
+        step=_step_from_numpy(state.step, device),
         schedule_state=schedule_state,
     )
 
 
-def sghmc_state_to_numpy(state):
-    """The port's :class:`SGHMCState` -> ``{"position", "momentum", "tau",
-    "g", "v_hat", "minv": dicts of arrays, "step": array}``."""
-    return {
+def sgld_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``SGLDState`` (``position``, ``stats.tau/g/v_hat/minv``,
+    ``step``) -> the port's :class:`SGLDState` on ``device``."""
+    return SGLDState(
+        position=params_from_numpy(state.position, device),
+        stats=_stats_from_numpy(state.stats, device),
+        step=_step_from_numpy(state.step, device),
+        schedule_state=schedule_state,
+    )
+
+
+def state_to_numpy(state):
+    """The port's :class:`SGHMCState` or :class:`SGLDState` ->
+    ``{"position", "momentum" (SGHMC only), "tau", "g", "v_hat", "minv":
+    dicts of arrays, "step": array}``."""
+    out = {
         "position": params_to_numpy(state.position),
-        "momentum": params_to_numpy(state.momentum),
         "tau": params_to_numpy(state.stats.tau),
         "g": params_to_numpy(state.stats.g),
         "v_hat": params_to_numpy(state.stats.v_hat),
         "minv": params_to_numpy(state.stats.minv),
         "step": np.asarray(state.step.cpu()),
     }
+    if hasattr(state, "momentum"):
+        out["momentum"] = params_to_numpy(state.momentum)
+    return out

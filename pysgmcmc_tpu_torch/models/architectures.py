@@ -31,17 +31,16 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
-                  device):
+                  device="cuda"):
     """The reference BNN architecture as an ``(init, apply)`` pair.
 
     ``init(generator, batch_shape=())`` draws one network per element of
-    ``batch_shape`` (e.g. ``(n_chains,)``) on ``device`` from the
+    ``batch_shape`` (e.g. ``(n_chains,)``) on ``device`` (the card unless
+    ``"cpu"`` is asked for) from the
     ``torch.Generator``; ``apply(params, x)`` maps ``(..., N, n_inputs)``
     inputs to ``(..., N, 2)``: column 0 the predicted mean, column 1 the
     (input-independent, learned) log predictive variance.
     """
-    if device is None:
-        raise ValueError("dense_network: pass an explicit device")
     layer_sizes = [n_inputs, *units, 1]
     n_layers = len(layer_sizes) - 1
     head = "w{}".format(n_layers)

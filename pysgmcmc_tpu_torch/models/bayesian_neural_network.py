@@ -2,12 +2,13 @@
 :mod:`pysgmcmc_tpu.models.bayesian_neural_network`).
 
 After Springenberg et al., NIPS 2016: ``train`` samples network weights with
-SGHMC, ``predict`` averages over the collected weight snapshots.  The port
-runs the flagship path, ``network="dense", step_impl="fused"``: burn-in on
-kernel B2 and sampling on kernel B1 (:mod:`pysgmcmc_tpu_torch.parallel.
-packed`), across ``n_chains`` independent chains.  Other networks, step
-implementations and samplers raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+SGHMC or SGLD, ``predict`` averages over the collected weight snapshots.
+The port runs the fused path, ``network="dense", step_impl="fused"``:
+burn-in on kernel B2 (SGHMC) or B6 (SGLD) and sampling on kernel B1 or
+B5-sgld (:mod:`pysgmcmc_tpu_torch.parallel.packed`), across ``n_chains``
+independent chains, on the card unless ``device="cpu"`` is asked for.
+Other networks, step implementations and samplers raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Priors and likelihood match the reference: heteroscedastic Gaussian log
 likelihood scaled by 1/batch_size, a Gaussian prior on the log predictive
@@ -82,10 +83,12 @@ class BayesianNeuralNetwork(BaseModel):
 
     Parameters and defaults are the JAX package's (reference ctor
     defaults: batch 20, constant stepsize ``sqrt(1e-4)``, 100 nets thinned
-    every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``,
-    which must be given: ``"cuda"`` runs the kernels, ``"cpu"`` their plain
-    PyTorch versions.  The ported path is ``network="dense",
-    step_impl="fused"`` with SGHMC; ``noise_impl`` is ``"auto"`` /
+    every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``:
+    ``"cuda"`` (the default) runs the kernels and raises in ``train`` when
+    no CUDA device is present, ``"cpu"`` runs their plain PyTorch versions.
+    The ported path is ``network="dense", step_impl="fused"`` with SGHMC
+    or SGLD (which takes ``A`` where SGHMC takes ``mdecay``, through
+    ``**sampler_kwargs``); ``noise_impl`` is ``"auto"`` /
     ``"box_muller"`` (the kernels' Philox stream) or ``"zero"`` (the
     degenerate stream of the parity tests).
     """
@@ -113,7 +116,7 @@ class BayesianNeuralNetwork(BaseModel):
         units=(50, 50, 50),
         pair_dots=False,
         noise_impl="auto",
-        device=None,
+        device="cuda",
         **sampler_kwargs,
     ):
         super().__init__()
@@ -185,9 +188,6 @@ class BayesianNeuralNetwork(BaseModel):
             raise ValueError(
                 "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
                 + repr(noise_impl))
-        if device is None:
-            raise ValueError(
-                "BayesianNeuralNetwork: pass device= ('cuda' or 'cpu')")
 
         # the paths the port has not reached yet
         if network != "dense":
@@ -195,7 +195,7 @@ class BayesianNeuralNetwork(BaseModel):
         if step_impl != "fused":
             raise _not_ported("step_impl={!r}".format(step_impl),
                               "queue A items 6 and 10")
-        if sampling_method != Sampler.SGHMC:
+        if sampling_method not in (Sampler.SGHMC, Sampler.SGLD):
             raise _not_ported("sampling_method={}".format(sampling_method),
                               "queue A item 9")
         if mesh is not None:
@@ -278,6 +278,13 @@ class BayesianNeuralNetwork(BaseModel):
         """Stacked He-normal initial weights of every chain."""
         return init_fn(generator, (n_chains,))
 
+    def _check_device(self):
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BayesianNeuralNetwork: device={!r} but no CUDA device is "
+                "available; pass device='cpu' to run the kernels' plain "
+                "PyTorch versions on the CPU".format(str(self.device)))
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -285,9 +292,10 @@ class BayesianNeuralNetwork(BaseModel):
     @BaseModel._check_shapes_train
     def train(self, X, y, *args, **kwargs):
         """Sample ``n_nets`` network-weight snapshots from the posterior:
-        burn-in on kernel B2, then one B1 launch of ``sample_steps`` steps
-        per collected snapshot.  ``phase_seconds`` records the wall time of
-        each phase."""
+        burn-in on kernel B2 (SGHMC) or B6 (SGLD), then one B1 / B5-sgld
+        launch of ``sample_steps`` steps per collected snapshot.
+        ``phase_seconds`` records the wall time of each phase."""
+        self._check_device()
         start_time = time.time()
         self.X, self.y = X, y
 
@@ -421,8 +429,9 @@ class BayesianNeuralNetwork(BaseModel):
         self._n_collected = n_chains * per_chain
         self.is_trained = True
         logging.info(
-            "BayesianNeuralNetwork(flash-SGHMC): %d chains x %d samples "
-            "in %.2fs", n_chains, per_chain, time.time() - start_time)
+            "BayesianNeuralNetwork(fused %s): %d chains x %d samples "
+            "in %.2fs", self.sampling_method.value, n_chains, per_chain,
+            time.time() - start_time)
 
     #  Prediction ----------------------------------------------------------
 

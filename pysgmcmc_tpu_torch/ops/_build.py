@@ -3,8 +3,10 @@
 ``csrc/fused_step.cu`` is compiled with ``nvcc`` at first use into a shared
 library with a plain C interface, under ``pysgmcmc_tpu_torch/_build/``,
 named by a hash of the source and the flags (so an edited source rebuilds),
-and loaded with ``ctypes``.  Nothing here runs at import time: the CPU test
-suite imports every module on a machine without ``nvcc``.
+and loaded with ``ctypes``.  The compiler's report (``ptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside the library as a
+``.log`` file.  Nothing here runs at import time: the CPU test suite imports
+every module on a machine without ``nvcc``.
 """
 
 import ctypes
@@ -19,25 +21,44 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fused_step.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # largest dynamic shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
+_U32 = ctypes.c_uint
 _SIGNATURES = {
-    "fused_step_smem_bytes": (ctypes.c_ulonglong, [_I, _I, _I, _I, _I, _I]),
+    "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
     "fused_step_error_string": (ctypes.c_char_p, [_I]),
+    # B1
     "fused_bnn_multistep_launch": (_I, [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I,
-        ctypes.c_ulonglong, ctypes.c_uint, _F, _F, _F, _F, _P]),
+        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
+    # B2
     "fused_bnn_multistep_burnin_launch": (_I, [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I,
-        ctypes.c_ulonglong, ctypes.c_uint, _F, _F, _F, _F, _P]),
+        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
+    # B3
+    "fused_bnn_step_launch": (_I, [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
+    # B4-sgld
+    "fused_bnn_step_sgld_launch": (_I, [
+        _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
+    # B5-sgld
+    "fused_bnn_multistep_sgld_launch": (_I, [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
+    # B6
+    "fused_bnn_multistep_burnin_sgld_launch": (_I, [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
 }
 
 _lib = None
@@ -65,6 +86,11 @@ def library_path():
         BUILD_DIR, "fused_step_{}.so".format(digest.hexdigest()[:16]))
 
 
+def log_path():
+    """The ``ptxas -v`` report of :func:`library_path`'s build."""
+    return os.path.splitext(library_path())[0] + ".log"
+
+
 def build():
     """Compile the kernels if this source has no library yet; returns
     ``(path, seconds_spent_compiling)``."""
@@ -83,6 +109,8 @@ def build():
             raise RuntimeError(
                 "nvcc failed on {}:\n{}{}".format(
                     SOURCE, proc.stdout, proc.stderr))
+        with open(log_path(), "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
     finally:
         if os.path.exists(tmp):

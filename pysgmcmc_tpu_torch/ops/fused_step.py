@@ -1,18 +1,24 @@
-"""flash-SGHMC on Hopper: k whole BNN SGHMC steps per kernel launch.
+"""flash-SGHMC and flash-SGLD on Hopper: whole BNN sampler steps per kernel
+launch.
 
-PyTorch port of the multi-step kernels of :mod:`pysgmcmc_tpu.ops.fused_step`:
+PyTorch port of the fused kernels of :mod:`pysgmcmc_tpu.ops.fused_step`.
+Each wrapper launches a hand-written CUDA kernel of ``csrc/fused_step.cu``
+on CUDA tensors and runs its plain PyTorch version (``*_ref``) on CPU
+tensors; any other device raises, and nothing falls back from a kernel to
+its plain version.
 
-- :func:`fused_bnn_multistep` (B1, the sampling phase) and
-  :func:`fused_bnn_multistep_burnin` (B2, the self-tuning burn-in) launch the
-  hand-written CUDA kernels of ``csrc/fused_step.cu`` on CUDA tensors, and run
-  their plain PyTorch versions (:func:`fused_bnn_multistep_ref`,
-  :func:`fused_bnn_multistep_burnin_ref`) on CPU tensors.  Any other device
-  raises; nothing falls back from the kernel to the plain version.
-- Each step: draw a minibatch window, forward through the dense tanh network,
-  heteroscedastic Gaussian NLL plus the log-variance prior, hand-written
-  backward pass, Gaussian weight-prior fold ``g + prior_scale * theta``,
-  noise, SGHMC update.  The semantics are the JAX kernels' at the level of
-  unpacked parameters; the TPU slab layout does not carry over.
+- B1 :func:`fused_bnn_multistep` / B2 :func:`fused_bnn_multistep_burnin`:
+  k SGHMC sampling / self-tuning burn-in steps per launch.
+- B5-sgld :func:`fused_bnn_multistep_sgld` / B6
+  :func:`fused_bnn_multistep_burnin_sgld`: the same for SGLD.
+- B3 :func:`fused_bnn_step` / B4-sgld :func:`fused_bnn_step_sgld`: one
+  SGHMC / SGLD step on each chain's pre-gathered minibatch
+  (:func:`gather_batch`), with injected or Philox noise.
+- Each step: take a minibatch window, forward through the dense tanh
+  network, heteroscedastic Gaussian NLL plus the log-variance prior,
+  hand-written backward pass, Gaussian weight-prior fold ``g + prior_scale *
+  theta``, noise, update.  The semantics are the JAX kernels' at the level
+  of unpacked parameters; the TPU slab layout does not carry over.
 
 State layout: each chain's parameters are one contiguous float32 vector in
 the order of :class:`FusedLayout` (``w1, b1, w2, b2, ..., w_head, b_head,
@@ -25,8 +31,10 @@ absolute step, element, purpose)``.  Normals are Box-Muller on two uniforms
 ``u = ((bits >> 8) + 1) * 2**-24`` in (0, 1]; the window index is
 ``min(floor(u * n_windows), n_windows - 1)``.  The plain versions implement
 the same stream with int64 arithmetic, so one launch of ``2k`` steps equals
-two launches of ``k``.  For tests, both kernels also take ``noise``
-``(k, n_chains, P)`` and ``widx`` ``(k, n_chains)`` to read instead of
+two launches of ``k``, and k one-step launches on the windows of
+:func:`philox_windows` equal one multi-step launch.  For tests, the kernels
+also take ``noise`` (``(k, n_chains, P)``; ``(n_chains, P)`` for the
+one-step kernels) and ``widx`` ``(k, n_chains)`` to read instead of
 drawing.
 
 Examples
@@ -39,6 +47,8 @@ Examples
 >>> x_win, y_win = data_windows(x, x[:, 0], 4)
 >>> x_win.tolist()
 [[0.0, 1.0, 2.0, 3.0], [1.0, 2.0, 3.0, 4.0], [2.0, 3.0, 4.0, 5.0]]
+>>> gather_batch(x_win, y_win, torch.tensor([2, 0]))[1].tolist()
+[[2.0, 3.0, 4.0, 5.0], [0.0, 1.0, 2.0, 3.0]]
 """
 
 import math
@@ -304,10 +314,44 @@ def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device):
     return w, eta
 
 
-def _sigma(es, mdecay, minv):
+def _sghmc_velocity(v, minv, gg, eta, row, mdecay):
+    """SGHMC momentum update (JAX ``_sghmc_rule``); ``row`` is ``(eps,
+    eps / sqrt(scale_grad))``."""
+    eps_t, es = row[0], row[1]
     es2 = es * es
-    return torch.sqrt(torch.clamp(2.0 * es2 * mdecay * minv - es2 * es2,
-                                  min=1e-16))
+    sigma = torch.sqrt(torch.clamp(2.0 * es2 * mdecay * minv - es2 * es2,
+                                   min=1e-16))
+    return v - eps_t * eps_t * minv * gg - mdecay * v + sigma * eta
+
+
+def _sgld_delta(minv, gg, eta, row, burnin):
+    """SGLD position increment (JAX ``_sgld_rule`` and
+    ``_sgld_burnin_step_math``); ``row`` is ``(eps, A, c, prior_scale)``
+    with ``c = A / scale_grad`` in sampling and the guarded ``sg_safe`` in
+    burn-in.  The noise scales with ``eps``, not ``eps**2``."""
+    eps, a_coef, c = row[0], row[1], row[2]
+    if burnin:
+        sigma = torch.sqrt(torch.clamp(2.0 * eps * ((minv * a_coef) / c),
+                                       min=0.0))
+    else:
+        sigma = torch.sqrt(torch.clamp(2.0 * eps * minv * c, min=0.0))
+    return -eps * minv * a_coef * gg + sigma * eta
+
+
+def _adapt(tau, g, v_hat, gg):
+    """The burn-in EMAs, all reading old values; returns ``(minv, tau', g',
+    v_hat')`` with ``minv = 1/sqrt(old v_hat)`` (guarded)."""
+    small = 1e-16
+    sq = torch.sqrt(torch.clamp(v_hat, min=0.0))
+    minv = 1.0 / (sq + 2.0 * torch.sign(sq) * small + small)
+    denom = v_hat + 2.0 * torch.sign(v_hat) * small + small
+    r = 1.0 / (tau + 1.0)
+    return (minv, tau + (-g * g * tau) / denom + 1.0, g - r * g + r * gg,
+            v_hat - r * v_hat + r * gg * gg)
+
+
+def _masked(minv, x):
+    return torch.where(minv > 0.0, x, torch.zeros_like(x))
 
 
 def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
@@ -318,23 +362,21 @@ def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
                             step0=0, noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep` (same arguments,
     same result up to float32 summation order)."""
-    layout, eps_tab = _validate(
+    layout, eps_vec = _validate(
         "fused_bnn_multistep", theta, [v, minv], x_win, y_win, eps, seed,
-        scale_grad, batch_size, state_dtype, k_steps, h, pair_dots,
-        noise_impl, noise, widx)
+        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    tab = _sghmc_table(eps_vec, scale_grad)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
     cost = None
-    for t in range(k_steps):
+    for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
                               widx, theta.device)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
-        eps_t, es = eps_tab[t, 0], eps_tab[t, 1]
-        g = grad + prior_scale * theta
-        v_new = (v - eps_t * eps_t * minv * g - mdecay * v
-                 + _sigma(es, mdecay, minv) * eta)
-        v = torch.where(minv > 0.0, v_new, torch.zeros_like(v_new))
+        gg = grad + prior_scale * theta
+        v = _masked(minv, _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay))
         theta = theta + v
     return theta, v, cost
 
@@ -347,40 +389,145 @@ def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
                                    noise_impl="box_muller", step0=0,
                                    noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_burnin`."""
-    layout, eps_tab = _validate(
+    layout, eps_vec = _validate(
         "fused_bnn_multistep_burnin", theta, [v, tau, g, v_hat], x_win,
-        y_win, eps, seed, scale_grad, batch_size, state_dtype, k_steps, h,
-        pair_dots, noise_impl, noise, widx)
+        y_win, eps, seed, batch_size, state_dtype, k_steps, h, pair_dots,
+        noise_impl, noise, widx)
+    tab = _sghmc_table(eps_vec, scale_grad)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
-    small = 1e-16
     cost = minv = None
-    for t in range(k_steps):
+    for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
                               widx, theta.device)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
-        eps_t, es = eps_tab[t, 0], eps_tab[t, 1]
         gg = grad + prior_scale * theta
-        sq = torch.sqrt(torch.clamp(v_hat, min=0.0))
-        minv = 1.0 / (sq + 2.0 * torch.sign(sq) * small + small)
-        denom = v_hat + 2.0 * torch.sign(v_hat) * small + small
-        r = 1.0 / (tau + 1.0)
-        tau, g, v_hat = (tau + (-g * g * tau) / denom + 1.0,
-                         g - r * g + r * gg,
-                         v_hat - r * v_hat + r * gg * gg)
-        v = (v - eps_t * eps_t * minv * gg - mdecay * v
-             + _sigma(es, mdecay, minv) * eta)
+        minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
+        v = _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay)
         theta = theta + v
     return theta, v, tau, g, v_hat, minv, cost
 
 
-#  Validation shared by the kernels and their plain versions ------------------
+def fused_bnn_step_ref(theta, v, minv, x_sel, y_sel, eps, seed,
+                       mdecay=0.05, scale_grad=1.0, prior_scale=0.0,
+                       batch_size=20, n_data=100, state_dtype=torch.float32,
+                       select_in_kernel=False, pair_dots=False, n_inputs=1,
+                       h=50, noise_impl="box_muller", step=0, noise=None):
+    """Plain PyTorch version of :func:`fused_bnn_step`."""
+    if select_in_kernel:
+        _no_noise_with_selection("fused_bnn_step", noise)
+        return fused_bnn_multistep_ref(
+            theta, v, minv, x_sel, y_sel, eps, seed, mdecay, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, 1, h, pair_dots,
+            noise_impl, step)
+    layout, eps_vec = _validate(
+        "fused_bnn_step", theta, [v, minv], x_sel, y_sel, eps, seed,
+        batch_size, state_dtype, 1, h, pair_dots, noise_impl, noise, None,
+        n_inputs)
+    eta = _one_step_noise(theta, layout, seed, step, noise)
+    cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
+                          1.0 / batch_size, 1.0 / n_data)
+    gg = grad + prior_scale * theta
+    v = _masked(minv, _sghmc_velocity(
+        v, minv, gg, eta, _sghmc_table(eps_vec, scale_grad)[0], mdecay))
+    return theta + v, v, cost
 
-def _validate(name, theta, state, x_win, y_win, eps, seed, scale_grad,
-              batch_size, state_dtype, k_steps, h, pair_dots, noise_impl,
-              noise, widx):
-    """Check every operand; returns ``(layout, eps_table (k, 2))``."""
+
+def fused_bnn_step_sgld_ref(theta, minv, x_sel, y_sel, eps, seed,
+                            a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
+                            batch_size=20, n_data=100, n_inputs=1, h=50,
+                            noise_impl="box_muller", step=0, noise=None):
+    """Plain PyTorch version of :func:`fused_bnn_step_sgld`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_step_sgld", theta, [minv], x_sel, y_sel, eps, seed,
+        batch_size, torch.float32, 1, h, False, noise_impl, noise, None,
+        n_inputs)
+    eta = _one_step_noise(theta, layout, seed, step, noise)
+    cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
+                          1.0 / batch_size, 1.0 / n_data)
+    row = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)[0]
+    gg = grad + row[3] * theta
+    return theta + _masked(minv, _sgld_delta(minv, gg, eta, row, False)), cost
+
+
+def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
+                                 a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
+                                 batch_size=20, n_data=100, k_steps=1, h=50,
+                                 pair_dots=False, noise_impl="box_muller",
+                                 step0=0, noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_sgld`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_multistep_sgld", theta, [minv], x_win, y_win, eps, seed,
+        batch_size, torch.float32, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
+    n = theta.shape[0]
+    xw = _windows_3d(x_win)
+    inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    cost = None
+    for t in range(int(k_steps)):
+        w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
+                              widx, theta.device)
+        cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
+        gg = grad + tab[t, 3] * theta
+        theta = theta + _masked(minv, _sgld_delta(minv, gg, eta, tab[t],
+                                                  False))
+    return theta, cost
+
+
+def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
+                                        eps, seed, a_coef=1.0,
+                                        scale_grad=1.0, prior_scale=0.0,
+                                        batch_size=20, n_data=100,
+                                        k_steps=1, h=50, pair_dots=False,
+                                        noise_impl="box_muller", step0=0,
+                                        noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_burnin_sgld`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_multistep_burnin_sgld", theta, [tau, g, v_hat], x_win,
+        y_win, eps, seed, batch_size, torch.float32, k_steps, h, pair_dots,
+        noise_impl, noise, widx)
+    tab = _sgld_table(eps_vec, a_coef, _sg_safe(scale_grad), prior_scale)
+    n = theta.shape[0]
+    xw = _windows_3d(x_win)
+    inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    cost = minv = None
+    for t in range(int(k_steps)):
+        w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
+                              widx, theta.device)
+        cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
+        gg = grad + tab[t, 3] * theta
+        minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
+        theta = theta + _sgld_delta(minv, gg, eta, tab[t], True)
+    return theta, tau, g, v_hat, minv, cost
+
+
+def _one_step_noise(theta, layout, seed, step, noise):
+    if noise is not None:
+        return noise
+    return philox_normals(seed, step, theta.shape[0], layout.n_params,
+                          theta.device)
+
+
+def _no_noise_with_selection(name, noise):
+    if noise is not None:
+        raise ValueError(
+            "{}: select_in_kernel does not combine with injected noise".format(
+                name))
+
+
+#  Validation and per-step tables, shared by the kernels and their plain versions
+
+def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
+              k_steps, h, pair_dots, noise_impl, noise, widx, n_inputs=None):
+    """Check every operand; returns ``(layout, eps (k_steps,))``.
+
+    ``x``/``y`` are the shared window tables of :func:`data_windows`; with
+    ``n_inputs`` given (the one-step kernels) they are instead each chain's
+    gathered minibatch (:func:`gather_batch`), ``(n_chains, batch)`` or
+    ``(n_chains, batch, n_inputs)``, and ``noise`` is ``(n_chains, P)``.
+    """
     _seed_key(seed)
     if pair_dots:
         raise NotImplementedError(
@@ -414,30 +561,43 @@ def _validate(name, theta, state, x_win, y_win, eps, seed, scale_grad,
                 "{}); got {} {} on {}".format(
                     name, tuple(theta.shape), device, tuple(arr.shape),
                     arr.dtype, arr.device))
-    if x_win.ndim not in (2, 3) or y_win.ndim != 2 \
-            or x_win.shape[:2] != y_win.shape:
+    n = theta.shape[0]
+    gathered = n_inputs is not None
+    if gathered:
+        want_ndim = 2 if n_inputs == 1 else 3
+        if (x.ndim != want_ndim or y.ndim != 2 or x.shape[:2] != y.shape
+                or x.shape[0] != n
+                or (want_ndim == 3 and x.shape[2] != n_inputs)):
+            raise ValueError(
+                "{}: x_sel must be (n_chains, batch) for one input or "
+                "(n_chains, batch, n_inputs) and y_sel (n_chains, batch) "
+                "from gather_batch, with n_chains = {} and n_inputs = {}; "
+                "got {} and {}".format(name, n, n_inputs, tuple(x.shape),
+                                       tuple(y.shape)))
+    elif x.ndim not in (2, 3) or y.ndim != 2 or x.shape[:2] != y.shape:
         raise ValueError(
             "{}: x_win must be (n_windows, batch) or (n_windows, batch, "
             "n_inputs) and y_win (n_windows, batch) from data_windows; got "
-            "{} and {}".format(name, tuple(x_win.shape), tuple(y_win.shape)))
-    for arr in (x_win, y_win):
+            "{} and {}".format(name, tuple(x.shape), tuple(y.shape)))
+    for arr in (x, y):
         if arr.dtype != torch.float32 or arr.device != device:
             raise ValueError(
-                "{}: window tables must be float32 on {}".format(name, device))
-    if x_win.shape[1] != batch_size:
+                "{}: minibatch tables must be float32 on {}".format(
+                    name, device))
+    if x.shape[1] != batch_size:
         raise ValueError(
-            "{}: batch_size {} does not match the windows' {} rows".format(
-                name, batch_size, x_win.shape[1]))
-    n_inputs = 1 if x_win.ndim == 2 else x_win.shape[2]
-    layout = layout_for(theta.shape[1], n_inputs, int(h))
+            "{}: batch_size {} does not match the minibatch's {} rows".format(
+                name, batch_size, x.shape[1]))
+    layout = layout_for(theta.shape[1], 1 if x.ndim == 2 else x.shape[2],
+                        int(h))
     k_steps = int(k_steps)
-    n = theta.shape[0]
-    if noise is not None and (
-            noise.shape != (k_steps, n, layout.n_params)
-            or noise.dtype != torch.float32 or noise.device != device):
-        raise ValueError(
-            "{}: noise must be float32 ({}, {}, {}) on {}".format(
-                name, k_steps, n, layout.n_params, device))
+    noise_shape = ((n, layout.n_params) if gathered
+                   else (k_steps, n, layout.n_params))
+    if noise is not None and (noise.shape != noise_shape
+                              or noise.dtype != torch.float32
+                              or noise.device != device):
+        raise ValueError("{}: noise must be float32 {} on {}".format(
+            name, noise_shape, device))
     if widx is not None:
         if (widx.shape != (k_steps, n) or widx.dtype != torch.int32
                 or widx.device != device):
@@ -445,36 +605,72 @@ def _validate(name, theta, state, x_win, y_win, eps, seed, scale_grad,
                 "{}: widx must be int32 ({}, {}) on {}".format(
                     name, k_steps, n, device))
         if widx.numel() and (int(widx.min()) < 0
-                             or int(widx.max()) >= x_win.shape[0]):
+                             or int(widx.max()) >= x.shape[0]):
             raise ValueError("{}: widx out of [0, {})".format(
-                name, x_win.shape[0]))
+                name, x.shape[0]))
     eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
     if eps_vec.numel() not in (1, k_steps):
         raise ValueError(
             "{}: eps must be a scalar or a (k_steps,) vector".format(name))
-    eps_vec = eps_vec.to(device).expand(k_steps)
-    eps_scaled = eps_vec / torch.sqrt(
-        torch.tensor(scale_grad, dtype=torch.float32, device=device))
-    return layout, torch.stack([eps_vec, eps_scaled], dim=1).contiguous()
+    return layout, eps_vec.to(device).expand(k_steps)
+
+
+def _sghmc_table(eps_vec, scale_grad):
+    """SGHMC per-step table ``(k, 2)``: eps, eps / sqrt(scale_grad)."""
+    eps_scaled = eps_vec / torch.sqrt(torch.tensor(
+        scale_grad, dtype=torch.float32, device=eps_vec.device))
+    return torch.stack([eps_vec, eps_scaled], dim=1).contiguous()
+
+
+def _sgld_table(eps_vec, a_coef, c, prior_scale):
+    """SGLD per-step table ``(k, 4)``: eps, A, c, prior_scale, with ``c`` the
+    host-computed ``A / scale_grad`` (sampling) or ``sg_safe`` (burn-in)."""
+    cols = [eps_vec] + [torch.full_like(eps_vec, float(value))
+                        for value in (a_coef, c, prior_scale)]
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def _sg_safe(scale_grad):
+    """``scale_grad`` nudged from zero in float32, as JAX's B6 driver does
+    (``sg + 2 sign(sg) 1e-16 + 1e-16``)."""
+    sg = torch.tensor(scale_grad, dtype=torch.float32)
+    return float(sg + 2.0 * torch.sign(sg) * 1e-16 + 1e-16)
+
+
+def gather_batch(x_win, y_win, widx):
+    """Each chain's minibatch rows: ``(x_win[widx], y_win[widx])``.
+
+    The windows of JAX's ``gather_batch``, without the TPU kernel's padding
+    to 24 rows and its ones lane: ``x_sel`` is ``(n_chains, batch)`` for
+    one input feature and ``(n_chains, batch, n_inputs)`` otherwise,
+    ``y_sel`` ``(n_chains, batch)``.
+    """
+    widx = torch.as_tensor(widx, device=x_win.device).to(torch.int64)
+    return x_win[widx].contiguous(), y_win[widx].contiguous()
 
 
 #  Kernel wrappers ----------------------------------------------------------------
+
+# kernel ids of csrc/fused_step.cu (its KernelId enum)
+B1, B2, B3, B4_SGLD, B5_SGLD, B6 = 1, 2, 3, 4, 5, 6
+
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _kernel_operands(name, layout, burnin, tensors):
-    """Contiguity and shared-memory checks for a CUDA launch."""
+def _kernel_operands(name, layout, kernel_id, tensors):
+    """Contiguity and shared-memory checks for a CUDA launch; the last of
+    ``tensors`` is the ``(rows, batch)`` y table."""
     from pysgmcmc_tpu_torch.ops import _build
 
     for arr in tensors:
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
     lib = _build.load()
-    batch = tensors[-1].shape[1]  # y_win
+    batch = tensors[-1].shape[1]
     need = lib.fused_step_smem_bytes(
-        int(burnin), layout.n_params, layout.n_inputs, layout.hidden,
+        kernel_id, layout.n_params, layout.n_inputs, layout.hidden,
         layout.depth, batch)
     if need > _build.MAX_SMEM_BYTES:
         raise NotImplementedError(
@@ -490,6 +686,10 @@ def _require_device(name, theta):
         raise ValueError("{}: tensors must be on the CPU or a CUDA device; "
                          "got {}".format(name, theta.device))
     return theta.device.type == "cuda"
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
@@ -515,12 +715,12 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
             theta, v, minv, x_win, y_win, eps, seed, mdecay, scale_grad,
             prior_scale, batch_size, n_data, state_dtype, k_steps, h,
             pair_dots, noise_impl, step0, noise, widx)
-    layout, eps_tab = _validate(
-        name, theta, [v, minv], x_win, y_win, eps, seed, scale_grad,
-        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+    layout, eps_vec = _validate(
+        name, theta, [v, minv], x_win, y_win, eps, seed, batch_size,
+        state_dtype, k_steps, h, pair_dots, noise_impl, noise, widx)
+    tab = _sghmc_table(eps_vec, scale_grad)
     lib, build = _kernel_operands(
-        name, layout, False, [theta, v, minv, noise, widx, x_win, y_win])
+        name, layout, B1, [theta, v, minv, noise, widx, x_win, y_win])
     n = theta.shape[0]
     theta_out = torch.empty_like(theta)
     v_out = torch.empty_like(v)
@@ -528,12 +728,12 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
     with torch.cuda.device(theta.device):  # the launch uses the current device
         build.check(lib.fused_bnn_multistep_launch(
             _ptr(theta), _ptr(v), _ptr(minv), _ptr(x_win), _ptr(y_win),
-            _ptr(eps_tab), _ptr(noise), _ptr(widx), _ptr(theta_out),
+            _ptr(tab), _ptr(noise), _ptr(widx), _ptr(theta_out),
             _ptr(v_out), _ptr(cost), n, layout.n_inputs, layout.hidden,
             layout.depth, batch_size, x_win.shape[0], int(k_steps),
             layout.n_params, int(seed), (int(step0) & _MASK32),
             float(mdecay), float(prior_scale), 1.0 / batch_size,
-            1.0 / n_data, torch.cuda.current_stream().cuda_stream))
+            1.0 / n_data, _stream()))
     fused_bnn_multistep.launches += 1
     return theta_out, v_out, cost
 
@@ -559,28 +759,202 @@ def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
             theta, v, tau, g, v_hat, x_win, y_win, eps, seed, mdecay,
             scale_grad, prior_scale, batch_size, n_data, state_dtype,
             k_steps, h, pair_dots, noise_impl, step0, noise, widx)
-    layout, eps_tab = _validate(
+    layout, eps_vec = _validate(
         name, theta, [v, tau, g, v_hat], x_win, y_win, eps, seed,
-        scale_grad, batch_size, state_dtype, k_steps, h, pair_dots,
-        noise_impl, noise, widx)
+        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    tab = _sghmc_table(eps_vec, scale_grad)
     lib, build = _kernel_operands(
-        name, layout, True,
-        [theta, v, tau, g, v_hat, noise, widx, x_win, y_win])
+        name, layout, B2, [theta, v, tau, g, v_hat, noise, widx, x_win, y_win])
     n = theta.shape[0]
     outs = [torch.empty_like(theta) for _ in range(6)]
     cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):  # the launch uses the current device
+    with torch.cuda.device(theta.device):
         build.check(lib.fused_bnn_multistep_burnin_launch(
             _ptr(theta), _ptr(v), _ptr(tau), _ptr(g), _ptr(v_hat),
-            _ptr(x_win), _ptr(y_win), _ptr(eps_tab), _ptr(noise), _ptr(widx),
+            _ptr(x_win), _ptr(y_win), _ptr(tab), _ptr(noise), _ptr(widx),
             *[_ptr(o) for o in outs], _ptr(cost),
             n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
             x_win.shape[0], int(k_steps), layout.n_params, int(seed),
             (int(step0) & _MASK32), float(mdecay), float(prior_scale),
-            1.0 / batch_size, 1.0 / n_data,
-            torch.cuda.current_stream().cuda_stream))
+            1.0 / batch_size, 1.0 / n_data, _stream()))
     fused_bnn_multistep_burnin.launches += 1
     return (*outs, cost)
 
 
 fused_bnn_multistep_burnin.launches = 0
+
+
+def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
+                   scale_grad=1.0, prior_scale=0.0, batch_size=20,
+                   n_data=100, state_dtype=torch.float32,
+                   select_in_kernel=False, pair_dots=False, n_inputs=1,
+                   h=50, noise_impl="box_muller", step=0, noise=None):
+    """One fused SGHMC step on each chain's gathered minibatch (B3).
+
+    ``x_sel``/``y_sel`` are the rows :func:`gather_batch` picked for each
+    chain; ``noise`` is ``(n_chains, P)`` injected normals, or ``None`` for
+    the Philox stream at absolute ``step`` (the counters of
+    :func:`fused_bnn_multistep`, so k launches of this kernel on the
+    windows :func:`philox_windows` draws follow one B1 launch of k steps).
+    Other arguments as :func:`fused_bnn_multistep`; returns ``(theta', v',
+    cost)``.  ``select_in_kernel=True`` takes the shared window tables
+    instead and is B1 at ``k_steps=1``: it calls :func:`fused_bnn_multistep`
+    and counts as a B1 launch.  CPU tensors run :func:`fused_bnn_step_ref`.
+    """
+    name = "fused_bnn_step"
+    if select_in_kernel:
+        _no_noise_with_selection(name, noise)
+        return fused_bnn_multistep(
+            theta, v, minv, x_sel, y_sel, eps, seed, mdecay, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, 1, h, pair_dots,
+            noise_impl, step)
+    if not _require_device(name, theta):
+        return fused_bnn_step_ref(
+            theta, v, minv, x_sel, y_sel, eps, seed, mdecay, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, False, pair_dots,
+            n_inputs, h, noise_impl, step, noise)
+    layout, eps_vec = _validate(
+        name, theta, [v, minv], x_sel, y_sel, eps, seed, batch_size,
+        state_dtype, 1, h, pair_dots, noise_impl, noise, None, n_inputs)
+    tab = _sghmc_table(eps_vec, scale_grad)
+    lib, build = _kernel_operands(
+        name, layout, B3, [theta, v, minv, noise, x_sel, y_sel])
+    n = theta.shape[0]
+    theta_out = torch.empty_like(theta)
+    v_out = torch.empty_like(v)
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        build.check(lib.fused_bnn_step_launch(
+            _ptr(theta), _ptr(v), _ptr(minv), _ptr(x_sel), _ptr(y_sel),
+            _ptr(tab), _ptr(noise), _ptr(theta_out), _ptr(v_out), _ptr(cost),
+            n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
+            layout.n_params, int(seed), (int(step) & _MASK32),
+            float(mdecay), float(prior_scale), 1.0 / batch_size,
+            1.0 / n_data, _stream()))
+    fused_bnn_step.launches += 1
+    return theta_out, v_out, cost
+
+
+fused_bnn_step.launches = 0
+
+
+def fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps, seed, a_coef=1.0,
+                        scale_grad=1.0, prior_scale=0.0, batch_size=20,
+                        n_data=100, n_inputs=1, h=50,
+                        noise_impl="box_muller", step=0, noise=None):
+    """One fused SGLD step on each chain's gathered minibatch (B4-sgld):
+    ``theta += where(minv > 0, -eps minv A g + sqrt(2 eps minv A /
+    scale_grad) eta, 0)`` with ``g`` the gradient plus ``prior_scale *
+    theta``.  Arguments as :func:`fused_bnn_step`, with ``a_coef`` (the
+    sampler's ``A``) for ``mdecay`` and no momentum; returns ``(theta',
+    cost)``.  CPU tensors run :func:`fused_bnn_step_sgld_ref`."""
+    name = "fused_bnn_step_sgld"
+    if not _require_device(name, theta):
+        return fused_bnn_step_sgld_ref(
+            theta, minv, x_sel, y_sel, eps, seed, a_coef, scale_grad,
+            prior_scale, batch_size, n_data, n_inputs, h, noise_impl, step,
+            noise)
+    layout, eps_vec = _validate(
+        name, theta, [minv], x_sel, y_sel, eps, seed, batch_size,
+        torch.float32, 1, h, False, noise_impl, noise, None, n_inputs)
+    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
+    lib, build = _kernel_operands(
+        name, layout, B4_SGLD, [theta, minv, noise, x_sel, y_sel])
+    n = theta.shape[0]
+    theta_out = torch.empty_like(theta)
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        build.check(lib.fused_bnn_step_sgld_launch(
+            _ptr(theta), _ptr(minv), _ptr(x_sel), _ptr(y_sel), _ptr(tab),
+            _ptr(noise), _ptr(theta_out), _ptr(cost), n, layout.n_inputs,
+            layout.hidden, layout.depth, batch_size, layout.n_params,
+            int(seed), (int(step) & _MASK32), 1.0 / batch_size,
+            1.0 / n_data, _stream()))
+    fused_bnn_step_sgld.launches += 1
+    return theta_out, cost
+
+
+fused_bnn_step_sgld.launches = 0
+
+
+def fused_bnn_multistep_sgld(theta, minv, x_win, y_win, eps, seed,
+                             a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
+                             batch_size=20, n_data=100, k_steps=1, h=50,
+                             pair_dots=False, noise_impl="box_muller",
+                             step0=0, noise=None, widx=None):
+    """``k_steps`` fused SGLD sampling steps with a frozen ``minv``
+    (B5-sgld).  The update is :func:`fused_bnn_step_sgld`'s, the windows
+    and noise :func:`fused_bnn_multistep`'s.  Returns ``(theta', cost)``.
+    CPU tensors run :func:`fused_bnn_multistep_sgld_ref`."""
+    name = "fused_bnn_multistep_sgld"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_sgld_ref(
+            theta, minv, x_win, y_win, eps, seed, a_coef, scale_grad,
+            prior_scale, batch_size, n_data, k_steps, h, pair_dots,
+            noise_impl, step0, noise, widx)
+    layout, eps_vec = _validate(
+        name, theta, [minv], x_win, y_win, eps, seed, batch_size,
+        torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
+    lib, build = _kernel_operands(
+        name, layout, B5_SGLD, [theta, minv, noise, widx, x_win, y_win])
+    n = theta.shape[0]
+    theta_out = torch.empty_like(theta)
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        build.check(lib.fused_bnn_multistep_sgld_launch(
+            _ptr(theta), _ptr(minv), _ptr(x_win), _ptr(y_win), _ptr(tab),
+            _ptr(noise), _ptr(widx), _ptr(theta_out), _ptr(cost), n,
+            layout.n_inputs, layout.hidden, layout.depth, batch_size,
+            x_win.shape[0], int(k_steps), layout.n_params, int(seed),
+            (int(step0) & _MASK32), 1.0 / batch_size, 1.0 / n_data,
+            _stream()))
+    fused_bnn_multistep_sgld.launches += 1
+    return theta_out, cost
+
+
+fused_bnn_multistep_sgld.launches = 0
+
+
+def fused_bnn_multistep_burnin_sgld(theta, tau, g, v_hat, x_win, y_win, eps,
+                                    seed, a_coef=1.0, scale_grad=1.0,
+                                    prior_scale=0.0, batch_size=20,
+                                    n_data=100, k_steps=1, h=50,
+                                    pair_dots=False, noise_impl="box_muller",
+                                    step0=0, noise=None, widx=None):
+    """``k_steps`` fused SGLD burn-in steps (B6): the EMAs of
+    :func:`fused_bnn_multistep_burnin` and the update ``theta += -eps minv
+    A g + sqrt(max(2 eps (minv A) / sg_safe, 0)) eta`` with ``sg_safe =
+    scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16``.  Returns ``(theta',
+    tau', g', v_hat', minv, cost)``, ``minv`` the value the final step used.
+    CPU tensors run :func:`fused_bnn_multistep_burnin_sgld_ref`."""
+    name = "fused_bnn_multistep_burnin_sgld"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_burnin_sgld_ref(
+            theta, tau, g, v_hat, x_win, y_win, eps, seed, a_coef,
+            scale_grad, prior_scale, batch_size, n_data, k_steps, h,
+            pair_dots, noise_impl, step0, noise, widx)
+    layout, eps_vec = _validate(
+        name, theta, [tau, g, v_hat], x_win, y_win, eps, seed, batch_size,
+        torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+    tab = _sgld_table(eps_vec, a_coef, _sg_safe(scale_grad), prior_scale)
+    lib, build = _kernel_operands(
+        name, layout, B6, [theta, tau, g, v_hat, noise, widx, x_win, y_win])
+    n = theta.shape[0]
+    outs = [torch.empty_like(theta) for _ in range(5)]
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        build.check(lib.fused_bnn_multistep_burnin_sgld_launch(
+            _ptr(theta), _ptr(tau), _ptr(g), _ptr(v_hat), _ptr(x_win),
+            _ptr(y_win), _ptr(tab), _ptr(noise), _ptr(widx),
+            *[_ptr(o) for o in outs], _ptr(cost), n, layout.n_inputs,
+            layout.hidden, layout.depth, batch_size, x_win.shape[0],
+            int(k_steps), layout.n_params, int(seed),
+            (int(step0) & _MASK32), 1.0 / batch_size, 1.0 / n_data,
+            _stream()))
+    fused_bnn_multistep_burnin_sgld.launches += 1
+    return (*outs, cost)
+
+
+fused_bnn_multistep_burnin_sgld.launches = 0

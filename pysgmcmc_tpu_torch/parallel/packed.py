@@ -1,15 +1,19 @@
 """Chain drivers over the fused BNN kernels (PyTorch port of the fused
-drivers of :mod:`pysgmcmc_tpu.parallel.packed`).
+drivers of :mod:`pysgmcmc_tpu.parallel.packed`), for SGHMC and SGLD.
 
 :func:`burnin_chain_fused` runs the whole self-tuning burn-in of every chain
-as one launch of kernel B2 (:func:`~pysgmcmc_tpu_torch.ops.fused_step.
-fused_bnn_multistep_burnin`); :func:`sample_chain_fused` runs the sampling
-phase as one launch of kernel B1 (:func:`~pysgmcmc_tpu_torch.ops.fused_step.
-fused_bnn_multistep`) per collected sample.  Both evaluate the stepsize
-schedule at the absolute steps ``step0 + t`` and ship a per-step table, and
-both draw one 64-bit Philox seed per call from the caller's
-``torch.Generator``; the kernels key their streams on (chain, absolute step),
-so no launch-length bound or re-seeding is needed.
+as one launch of kernel B2 (SGHMC, :func:`~pysgmcmc_tpu_torch.ops.
+fused_step.fused_bnn_multistep_burnin`) or B6 (SGLD, ``fused_bnn_multistep_
+burnin_sgld``).  :func:`sample_chain_fused` runs the sampling phase as one
+launch of B1 / B5-sgld per collected sample (``multistep=True``) or as one
+launch of B3 / B4-sgld per step (``multistep=False``), each step's windows
+drawn on the device with :func:`~pysgmcmc_tpu_torch.ops.fused_step.
+philox_windows` and gathered with ``gather_batch``.  The drivers evaluate
+the stepsize schedule at the absolute steps ``step0 + t`` and ship a per-step
+table, and draw one 64-bit Philox seed per call from the caller's
+``torch.Generator``; the kernels key their streams on (chain, absolute
+step), so no launch-length bound or re-seeding is needed, and the two
+sampling granularities give the same chains from the same seed.
 
 ``noise_impl``: ``'auto'`` and ``'box_muller'`` are the Philox Box-Muller
 stream; ``'zero'`` is the degenerate stream (zero noise, window 0 every
@@ -23,12 +27,19 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
     data_windows,
     fused_bnn_multistep,
     fused_bnn_multistep_burnin,
+    fused_bnn_multistep_burnin_sgld,
+    fused_bnn_multistep_sgld,
+    fused_bnn_step,
+    fused_bnn_step_sgld,
     fused_layout,
+    gather_batch,
     pack,
+    philox_windows,
     unpack,
 )
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
+from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
 
 
 def resolve_noise_impl(noise_impl):
@@ -48,10 +59,12 @@ def resolve_noise_impl(noise_impl):
 
 
 def _check_driver(name, sampler, mesh, pair_dots):
-    if not isinstance(sampler, SGHMCSampler):
+    """Raises on what the port's drivers do not take; returns True for
+    SGHMC and False for SGLD."""
+    if not isinstance(sampler, (SGHMCSampler, SGLDSampler)):
         raise NotImplementedError(
-            "{}: only SGHMC is ported; {} is ROADMAP.md queue A item 9".format(
-                name, type(sampler).__name__))
+            "{}: only SGHMC and SGLD are ported; {} is ROADMAP.md queue A "
+            "item 9".format(name, type(sampler).__name__))
     if mesh is not None:
         raise NotImplementedError(
             "{}: mesh sharding is not ported yet (ROADMAP.md queue A item "
@@ -60,6 +73,7 @@ def _check_driver(name, sampler, mesh, pair_dots):
         raise NotImplementedError(
             "{}: pair_dots is not ported yet (ROADMAP.md queue B, "
             "B-pair)".format(name))
+    return isinstance(sampler, SGHMCSampler)
 
 
 def _draw_seed(generator):
@@ -95,18 +109,20 @@ def _data(x, y, batch_size, device):
 def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
                        state_dtype=torch.float32, mesh=None, pair_dots=False,
                        noise_impl="auto"):
-    """Run ``n_steps`` burn-in steps of every chain in one B2 launch.
+    """Run ``n_steps`` burn-in steps of every chain in one B2 (SGHMC) or B6
+    (SGLD) launch.
 
-    ``states`` is a stacked :class:`SGHMCState` (leaves ``(n_chains, ...)``)
-    of dense-network positions, ``key`` a ``torch.Generator`` on the states'
-    device, ``x``/``y`` the raw training data.  Returns the advanced states
-    with ``stats.minv`` holding the mass-matrix inverse the final step used
-    (the value the sampling phase freezes).
+    ``states`` is a stacked :class:`SGHMCState` or :class:`SGLDState`
+    (leaves ``(n_chains, ...)``) of dense-network positions, ``key`` a
+    ``torch.Generator`` on the states' device, ``x``/``y`` the raw training
+    data.  Returns the advanced states with ``stats.minv`` holding the
+    mass-matrix inverse the final step used (the value the sampling phase
+    freezes).
     """
     if int(n_steps) < 1:
         return states
     name = "burnin_chain_fused"
-    _check_driver(name, sampler, mesh, pair_dots)
+    sghmc = _check_driver(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
@@ -116,77 +132,125 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     n_steps = int(n_steps)
     noise, widx = _stream_inputs(noise_impl, n_steps, theta.shape[0],
                                  layout.n_params, device)
-    theta, v, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin(
-        theta, pack(states.momentum, layout),
-        pack(states.stats.tau, layout), pack(states.stats.g, layout),
-        pack(states.stats.v_hat, layout), x_win, y_win,
-        _eps_table(sampler, states.schedule_state, step0, n_steps),
-        _draw_seed(key), mdecay=sampler.mdecay,
+    stats = [pack(leaf, layout) for leaf in states.stats[:3]]  # tau, g, v_hat
+    common = dict(
         scale_grad=sampler.scale_grad,
         prior_scale=sampler.gaussian_prior_scale, batch_size=batch_size,
-        n_data=n_data, state_dtype=state_dtype, k_steps=n_steps,
-        h=layout.hidden, step0=step0, noise=noise, widx=widx)
-    return SGHMCState(
+        n_data=n_data, k_steps=n_steps, h=layout.hidden, step0=step0,
+        noise=noise, widx=widx)
+    eps = _eps_table(sampler, states.schedule_state, step0, n_steps)
+    if sghmc:
+        theta, v, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin(
+            theta, pack(states.momentum, layout), *stats, x_win, y_win, eps,
+            _draw_seed(key), mdecay=sampler.mdecay, state_dtype=state_dtype,
+            **common)
+    else:
+        theta, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin_sgld(
+            theta, *stats, x_win, y_win, eps, _draw_seed(key),
+            a_coef=sampler.A, **common)
+    fields = dict(
         position=unpack(theta, layout),
-        momentum=unpack(v, layout),
         stats=AdaptiveStats(
             tau=unpack(tau, layout), g=unpack(g, layout),
             v_hat=unpack(v_hat, layout), minv=unpack(minv, layout)),
         step=states.step + n_steps,
         schedule_state=states.schedule_state,
     )
+    if sghmc:
+        return SGHMCState(momentum=unpack(v, layout), **fields)
+    return SGLDState(**fields)
 
 
 def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
                        keep_every=1, state_dtype=torch.float32,
                        collect_positions=True, mesh=None, multistep=False,
                        pair_dots=False, noise_impl="auto"):
-    """Sampling-phase driver: ``n_samples`` launches of B1, each advancing
-    every chain ``keep_every`` steps with the frozen ``stats.minv``.
+    """Sampling-phase driver: ``n_samples`` collected samples, each after
+    ``keep_every`` steps of every chain with the frozen ``stats.minv``.
 
-    Returns ``(states, positions, costs)``: ``positions`` stacks the
-    position after each launch as leaves ``(n_chains, n_samples, ...)``
-    (``None`` without ``collect_positions``), ``costs`` is
-    ``(n_chains, n_samples)``, each launch's final-step cost.  Only the
-    multi-step kernel is ported: ``multistep=False`` raises.
+    ``multistep=True`` advances the ``keep_every`` steps in one launch of B1
+    (SGHMC) or B5-sgld (SGLD); ``multistep=False`` launches B3 / B4-sgld
+    once per step on the windows :func:`philox_windows` draws for that step
+    (window 0 under ``noise_impl='zero'``), which gives the multi-step
+    kernels' chains.  Returns ``(states, positions, costs)``: ``positions``
+    stacks the position after each sample as leaves ``(n_chains, n_samples,
+    ...)`` (``None`` without ``collect_positions``), ``costs`` is
+    ``(n_chains, n_samples)``, each sample's final-step cost.
     """
     name = "sample_chain_fused"
-    if not multistep:
-        raise NotImplementedError(
-            "{}: the per-step kernel (multistep=False, kernel B3) is not "
-            "ported yet (ROADMAP.md queue A item 6)".format(name))
-    _check_driver(name, sampler, mesh, pair_dots)
+    sghmc = _check_driver(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
-    v = pack(states.momentum, layout)
+    v = pack(states.momentum, layout) if sghmc else None
     minv = pack(states.stats.minv, layout)
     device = theta.device
+    n = theta.shape[0]
     x_win, y_win, n_data = _data(x, y, batch_size, device)
     seed = _draw_seed(key)
     step = int(torch.max(states.step))
+    if sghmc:
+        rule = dict(mdecay=sampler.mdecay, state_dtype=state_dtype)
+    else:
+        rule = dict(a_coef=sampler.A)
+    common = dict(scale_grad=sampler.scale_grad,
+                  prior_scale=sampler.gaussian_prior_scale,
+                  batch_size=batch_size, n_data=n_data, h=layout.hidden,
+                  **rule)
+
+    def multistep_launch(theta, v, step):
+        noise, widx = _stream_inputs(noise_impl, keep_every, n,
+                                     layout.n_params, device)
+        eps = _eps_table(sampler, states.schedule_state, step, keep_every)
+        kw = dict(common, k_steps=keep_every, step0=step, noise=noise,
+                  widx=widx)
+        if sghmc:
+            return fused_bnn_multistep(theta, v, minv, x_win, y_win, eps,
+                                       seed, **kw)
+        theta, cost = fused_bnn_multistep_sgld(theta, minv, x_win, y_win,
+                                               eps, seed, **kw)
+        return theta, None, cost
+
+    def one_step_launch(theta, v, step):
+        if noise_impl == "zero":
+            widx = torch.zeros(n, dtype=torch.int64, device=device)
+            noise = torch.zeros((n, layout.n_params), dtype=torch.float32,
+                                device=device)
+        else:
+            widx = philox_windows(seed, step, n, x_win.shape[0], device)
+            noise = None
+        x_sel, y_sel = gather_batch(x_win, y_win, widx)
+        eps = _eps_table(sampler, states.schedule_state, step, 1)
+        kw = dict(common, n_inputs=layout.n_inputs, step=step, noise=noise)
+        if sghmc:
+            return fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed,
+                                  **kw)
+        theta, cost = fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps,
+                                          seed, **kw)
+        return theta, None, cost
+
     positions, costs = [], []
     for _ in range(int(n_samples)):
-        noise, widx = _stream_inputs(noise_impl, keep_every, theta.shape[0],
-                                     layout.n_params, device)
-        theta, v, cost = fused_bnn_multistep(
-            theta, v, minv, x_win, y_win,
-            _eps_table(sampler, states.schedule_state, step, keep_every),
-            seed, mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
-            prior_scale=sampler.gaussian_prior_scale, batch_size=batch_size,
-            n_data=n_data, state_dtype=state_dtype, k_steps=keep_every,
-            h=layout.hidden, step0=step, noise=noise, widx=widx)
-        step += keep_every
+        if multistep:
+            theta, v, cost = multistep_launch(theta, v, step)
+            step += keep_every
+        else:
+            for _ in range(keep_every):
+                theta, v, cost = one_step_launch(theta, v, step)
+                step += 1
         if collect_positions:
             positions.append(unpack(theta, layout))
         costs.append(cost[:, 0])
-    new_states = SGHMCState(
+    fields = dict(
         position=unpack(theta, layout),
-        momentum=unpack(v, layout),
         stats=states.stats,
         step=states.step + int(n_samples) * keep_every,
         schedule_state=states.schedule_state,
     )
+    if sghmc:
+        new_states = SGHMCState(momentum=unpack(v, layout), **fields)
+    else:
+        new_states = SGLDState(**fields)
     if collect_positions:
         positions = {name: torch.stack([p[name] for p in positions], dim=1)
                      for name in positions[0]}

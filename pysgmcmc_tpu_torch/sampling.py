@@ -2,8 +2,8 @@
 :mod:`pysgmcmc_tpu.sampling`).
 
 ``Sampler`` lists every method the JAX package supports, with the same
-predicates and error texts.  Only SGHMC is ported so far: the others raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+predicates and error texts.  SGHMC and SGLD are ported so far: the others
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Examples
 --------
@@ -35,7 +35,7 @@ class Sampler(Enum):
     @staticmethod
     def is_supported(sampling_method):
         """True iff ``sampling_method`` can drive model training (in the
-        JAX package; the port trains with SGHMC only so far)."""
+        JAX package; the port trains with SGHMC and SGLD so far)."""
         return sampling_method in (
             Sampler.SGHMC,
             Sampler.SGLD,
@@ -54,8 +54,12 @@ class Sampler(Enum):
             from pysgmcmc_tpu_torch.samplers.sghmc import (
                 SGHMCSampler as sampler_cls,
             )
-        elif sampling_method in (cls.SGLD, cls.RelativisticSGHMC, cls.SVGD,
-                                 cls.PSGLD, cls.SGNHT):
+        elif sampling_method == cls.SGLD:
+            from pysgmcmc_tpu_torch.samplers.sgld import (
+                SGLDSampler as sampler_cls,
+            )
+        elif sampling_method in (cls.RelativisticSGHMC, cls.SVGD, cls.PSGLD,
+                                 cls.SGNHT):
             raise NotImplementedError(
                 "sampling.Sampler.get_sampler: {!r} is not ported to PyTorch "
                 "yet (ROADMAP.md queue A, items 9 and 12)".format(

@@ -24,6 +24,7 @@ import pysgmcmc_tpu_torch.models.architectures
 import pysgmcmc_tpu_torch.models.bayesian_neural_network
 import pysgmcmc_tpu_torch.samplers._adaptive
 import pysgmcmc_tpu_torch.samplers.sghmc
+import pysgmcmc_tpu_torch.samplers.sgld
 import pysgmcmc_tpu_torch.utils.pytree
 from pysgmcmc_tpu_torch import sampling, stepsize_schedules
 from pysgmcmc_tpu_torch.diagnostics import objective_functions
@@ -159,8 +160,10 @@ def test_sampler_factory_matches_jax():
             jax_sampling.Sampler.SGHMC, cost_fn=abs, x=1)
     assert str(got.value).split("supported parameters")[0] == \
         str(want.value).split("supported parameters")[0]
+    assert type(sampling.Sampler.get_sampler(
+        sampling.Sampler.SGLD, cost_fn=abs)).__name__ == "SGLDSampler"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.Sampler.get_sampler(sampling.Sampler.SGLD, cost_fn=abs)
+        sampling.Sampler.get_sampler(sampling.Sampler.PSGLD, cost_fn=abs)
 
 
 def test_port_imports_no_jax():
@@ -180,6 +183,7 @@ PORT_MODULES = [
     pysgmcmc_tpu_torch.models.architectures,
     pysgmcmc_tpu_torch.models.bayesian_neural_network,
     pysgmcmc_tpu_torch.samplers._adaptive, pysgmcmc_tpu_torch.samplers.sghmc,
+    pysgmcmc_tpu_torch.samplers.sgld,
 ]
 
 

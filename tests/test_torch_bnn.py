@@ -8,6 +8,7 @@ plain versions on the degenerate stream that reproduces this
 with ``pysgmcmc_tpu_torch.interop``).
 """
 
+import inspect
 import logging
 
 import jax
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pysgmcmc_tpu import sampling as jax_sampling
 from pysgmcmc_tpu.models.architectures import dense_network as jax_dense
 from pysgmcmc_tpu.models.bayesian_neural_network import (
     BayesianNeuralNetwork as JaxBNN,
@@ -23,6 +25,7 @@ from pysgmcmc_tpu_torch import interop
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler
+from pysgmcmc_tpu_torch.sampling import Sampler
 
 SLICE = dict(network="dense", step_impl="fused", n_chains=2, n_nets=4,
              burn_in_steps=8, sample_steps=4, n_iters=16, log_every=None)
@@ -30,6 +33,14 @@ SLICE = dict(network="dense", step_impl="fused", n_chains=2, n_nets=4,
 # TPU kernel's bf16 MXU operands, 16 steps): samples 4.7e-3 (w4), predictive
 # mean 7.1e-4, variance 1.8e-4.  The bounds are about twice that.
 SAMPLES_ATOL, MEAN_ATOL, VAR_ATOL = 1e-2, 2e-3, 5e-4
+# The same for SGLD (B6 burn-in, B5-sgld sampling), measured: samples 1.8e-2
+# (w4, at scale 4.0), predictive mean 3.2e-2, variance 3.5e-2 (scale 2.0),
+# one member's mean 7.0e-2, noise 0.6 % relative.  SGLD moves theta by
+# eps * minv * g (SGHMC: eps**2 * minv * g) from the same unadapted start,
+# so the weights move 100x further and carry the TPU kernel's bf16 rounding
+# with them (about 0.4 % of their scale).  The bounds are about twice that.
+SGLD_SAMPLES_ATOL, SGLD_MEAN_ATOL, SGLD_VAR_ATOL = 4e-2, 7e-2, 7e-2
+SGLD_MEMBER_ATOL, SGLD_NOISE_RTOL = 0.15, 1.5e-2
 
 
 def _data():
@@ -66,6 +77,16 @@ def trained():
     return jax_bnn, port_bnn
 
 
+@pytest.fixture(scope="module")
+def trained_sgld():
+    x, y = _data()
+    jax_bnn = JaxBNN(sampling_method=jax_sampling.Sampler.SGLD, **SLICE)
+    jax_bnn.train(x, y)
+    port_bnn = _port_bnn(sampling_method=Sampler.SGLD, **SLICE)
+    port_bnn.train(x, y)
+    return jax_bnn, port_bnn
+
+
 def test_samples_match_jax(trained):
     jax_bnn, port_bnn = trained
     assert set(port_bnn.samples) == set(jax_bnn.samples)
@@ -91,6 +112,32 @@ def test_predict_matches_jax(trained):
     assert f_out.shape == want_f.shape == (4, 50)
     np.testing.assert_allclose(f_out, want_f, rtol=0, atol=5 * MEAN_ATOL)
     np.testing.assert_allclose(noise, want_noise, rtol=1e-2)
+
+
+def test_sgld_samples_match_jax(trained_sgld):
+    jax_bnn, port_bnn = trained_sgld
+    assert set(port_bnn.samples) == set(jax_bnn.samples)
+    for key, want in jax_bnn.samples.items():
+        got = port_bnn.samples[key].numpy()
+        assert got.shape == want.shape, key
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                   atol=SGLD_SAMPLES_ATOL, err_msg=key)
+
+
+def test_sgld_predict_matches_jax(trained_sgld):
+    jax_bnn, port_bnn = trained_sgld
+    x_grid = np.linspace(0.0, 1.0, 50)[:, None]
+    want_mean, want_var = jax_bnn.predict(x_grid)
+    mean, var = port_bnn.predict(x_grid)
+    assert mean.shape == want_mean.shape == (50,)
+    np.testing.assert_allclose(mean, want_mean, rtol=0, atol=SGLD_MEAN_ATOL)
+    np.testing.assert_allclose(var, want_var, rtol=0, atol=SGLD_VAR_ATOL)
+    f_out, noise = port_bnn.predict(x_grid, return_individual_predictions=True)
+    want_f, want_noise = jax_bnn.predict(
+        x_grid, return_individual_predictions=True)
+    assert f_out.shape == want_f.shape == (4, 50)
+    np.testing.assert_allclose(f_out, want_f, rtol=0, atol=SGLD_MEMBER_ATOL)
+    np.testing.assert_allclose(noise, want_noise, rtol=SGLD_NOISE_RTOL)
 
 
 def test_network_output_and_base_model_helpers_match_jax(trained):
@@ -188,7 +235,7 @@ def test_constructor_errors_match_jax(kwargs):
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(network="dense"), dict(network="dense", step_impl="lanes"),
     dict(network="dense", step_impl="pytree"),
-    dict(network="dense", step_impl="fused", sampling_method="SGLD"),
+    dict(network="dense", step_impl="fused", sampling_method="PSGLD"),
     dict(network="dense", step_impl="fused", mesh=object()),
     dict(network="dense", step_impl="fused", pair_dots=True),
     dict(network="dense", step_impl="fused", compute_dtype=torch.bfloat16),
@@ -196,17 +243,24 @@ def test_constructor_errors_match_jax(kwargs):
     dict(network="dense", step_impl="fused", noise_impl="hadamard_clt"),
 ])
 def test_unported_paths_raise(kwargs):
-    from pysgmcmc_tpu_torch.sampling import Sampler
-
-    if kwargs.get("sampling_method") == "SGLD":
-        kwargs = dict(kwargs, sampling_method=Sampler.SGLD)
+    if kwargs.get("sampling_method") == "PSGLD":
+        kwargs = dict(kwargs, sampling_method=Sampler.PSGLD)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BayesianNeuralNetwork(device="cpu", **kwargs)
 
 
-def test_device_must_be_explicit():
-    with pytest.raises(ValueError, match="device"):
-        BayesianNeuralNetwork(network="dense", step_impl="fused")
+def test_default_device_is_the_card(monkeypatch):
+    """The entry points run on the card unless the CPU is asked for; without
+    a card, train raises instead of running on the CPU."""
+    bnn = BayesianNeuralNetwork(**SLICE)
+    assert bnn.device == torch.device("cuda")
+    assert inspect.signature(dense_network).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y = _data()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bnn.train(x, y)
+    assert not bnn.is_trained
 
 
 def test_train_and_predict_errors_match_jax():
@@ -257,5 +311,6 @@ def test_drivers_shapes_and_bookkeeping():
     _, none, _ = sample_chain_fused(sampler, burned, gen, 1, x, y,
                                     multistep=True, collect_positions=False)
     assert none is None
+    unported = type("PSGLDSampler", (), {})()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_chain_fused(sampler, burned, gen, 1, x, y)
+        sample_chain_fused(unported, burned, gen, 1, x, y)

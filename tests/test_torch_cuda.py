@@ -3,10 +3,11 @@ one).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Each kernel is held against its plain PyTorch version on the same inputs,
-under injected noise and windows and under the Philox stream, with the
-tolerance ``chip_smoke.py`` uses: 2e-4 of each output's scale (summation
-order and libm ulps, carried through the steps).
+Each kernel (B1, B2, B3, B4-sgld, B5-sgld, B6) is held against its plain
+PyTorch version on the same inputs, under injected noise and windows and
+under the Philox stream, with the tolerance ``chip_smoke.py`` uses: 2e-4 of
+each output's scale (summation order and libm ulps, carried through the
+steps).
 """
 
 import numpy as np
@@ -15,6 +16,9 @@ import torch
 
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
+from pysgmcmc_tpu_torch.parallel import sample_chain_fused
+from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
+from pysgmcmc_tpu_torch.sampling import Sampler
 
 REL_TOL = 2e-4
 
@@ -44,36 +48,92 @@ def _state(device, n, h=50, depth=3, seed=0):
     return lay, state, x_win, y_win, gen
 
 
+# kernel -> (wrapper, plain version, state arguments, stepsize); the
+# one-step kernels (B3, B4-sgld) take gathered rows instead of windows.
+# SGLD moves theta by eps * minv * g, not SGHMC's eps**2 * minv * g: on these
+# unadapted stats eps = 0.01 drives its chains to overflow within 8 steps
+# (the plain version too), so the SGLD kernels run at eps = 1e-3.
+KERNELS = {
+    "B1": (fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+           ("theta", "v", "minv"), 0.01),
+    "B2": (fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep_burnin_ref,
+           ("theta", "v", "tau", "g", "v_hat"), 0.01),
+    "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref,
+           ("theta", "v", "minv"), 0.01),
+    "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref,
+                ("theta", "minv"), 1e-3),
+    "B5-sgld": (fs.fused_bnn_multistep_sgld, fs.fused_bnn_multistep_sgld_ref,
+                ("theta", "minv"), 1e-3),
+    "B6": (fs.fused_bnn_multistep_burnin_sgld,
+           fs.fused_bnn_multistep_burnin_sgld_ref,
+           ("theta", "tau", "g", "v_hat"), 1e-3),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["B1", "B2"])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("stream", ["injected", "philox"])
 def test_kernel_matches_plain_version(kernel, stream, cuda_device):
     n, k = 64, 8
     lay, st, x_win, y_win, gen = _state(cuda_device, n)
-    if kernel == "B2":
-        fn, ref = fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep_burnin_ref
-        names = ("theta", "v", "tau", "g", "v_hat")
+    fn, ref, names, eps = KERNELS[kernel]
+    one_step = kernel in ("B3", "B4-sgld")
+    extra = {}
+    if one_step:
+        widx = torch.randint(0, x_win.shape[0], (n,), generator=gen,
+                             device=cuda_device)
+        x_win, y_win = fs.gather_batch(x_win, y_win, widx)
+        shape = (n, lay.n_params)
+        extra["step"] = 2**32 - 1
     else:
-        fn, ref = fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref
-        names = ("theta", "v", "minv")
-    extra = dict(step0=2**32 - 3)  # the step counter wraps inside the launch
+        shape = (k, n, lay.n_params)
+        extra.update(k_steps=k, step0=2**32 - 3)  # the counter wraps
     if stream == "injected":
-        extra = dict(
-            noise=torch.randn((k, n, lay.n_params), generator=gen,
-                              device=cuda_device),
-            widx=torch.randint(0, x_win.shape[0], (k, n), generator=gen,
-                               device=cuda_device, dtype=torch.int32))
-    args = [st[name] for name in names] + [x_win, y_win, 0.01, 2**63 + 5]
-    common = dict(k_steps=k, scale_grad=100.0,
-                  prior_scale=1.0 / (lay.n_params * 100), **extra)
+        extra.pop("step", None)
+        extra.pop("step0", None)
+        extra["noise"] = torch.randn(shape, generator=gen, device=cuda_device)
+        if not one_step:
+            extra["widx"] = torch.randint(
+                0, x_win.shape[0], (k, n), generator=gen, device=cuda_device,
+                dtype=torch.int32)
+    args = [st[name] for name in names] + [x_win, y_win, eps, 2**63 + 5]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  **extra)
     before = fn.launches
     got = fn(*args, **common)
     assert fn.launches == before + 1
     want = ref(*args, **common)
     torch.cuda.synchronize()
+    assert len(got) == len(want)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= REL_TOL * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler_cls", [SGHMCSampler, SGLDSampler])
+def test_one_step_driver_matches_multistep_driver(sampler_cls, cuda_device):
+    """k launches of B3 / B4-sgld follow one B1 / B5-sgld launch of k steps
+    from the same state and seed (same windows, same noise)."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    init, _ = dense_network(1, device=cuda_device)
+    eps = 0.01 if sampler_cls is SGHMCSampler else 1e-3  # as KERNELS
+    sampler = sampler_cls(lambda p, b: None, stepsize_schedule=eps,
+                          scale_grad=100.0, gaussian_prior_scale=1e-4)
+    states = sampler.init(init(torch.Generator(cuda_device).manual_seed(0),
+                               (32,)))
+    states = states._replace(step=states.step + 50)
+    runs = [sample_chain_fused(
+        sampler, states, torch.Generator(cuda_device).manual_seed(3), 2, x, y,
+        keep_every=5, multistep=multistep) for multistep in (True, False)]
+    for key, want in runs[0][1].items():
+        got = runs[1][1][key]
+        assert torch.isfinite(want).all(), key
+        assert float((got - want).abs().max()) <= \
+            REL_TOL * float(want.abs().max()), key
+    assert int(runs[0][0].step) == int(runs[1][0].step) == 60
 
 
 @pytest.mark.cuda
@@ -94,18 +154,24 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
 
 
 @pytest.mark.cuda
-def test_bnn_trains_on_the_card(cuda_device):
+@pytest.mark.parametrize("method", ["SGHMC", "SGLD"])
+def test_bnn_trains_on_the_card(method, cuda_device):
     rng = np.random.RandomState(0)
     x = rng.uniform(0.0, 1.0, (100, 1))
     y = np.sinc(x[:, 0] * 10 - 5)
-    fs.fused_bnn_multistep.launches = 0
-    fs.fused_bnn_multistep_burnin.launches = 0
+    if method == "SGHMC":
+        burnin, sampling = fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep
+    else:
+        burnin = fs.fused_bnn_multistep_burnin_sgld
+        sampling = fs.fused_bnn_multistep_sgld
+    burnin.launches = sampling.launches = 0
     bnn = BayesianNeuralNetwork(
-        network="dense", step_impl="fused", n_chains=256, n_nets=512,
-        burn_in_steps=1500, sample_steps=50, n_iters=1600, device="cuda")
+        sampling_method=Sampler[method], network="dense", step_impl="fused",
+        n_chains=256, n_nets=512, burn_in_steps=1500, sample_steps=50,
+        n_iters=1600)  # on the card by default
     bnn.train(x, y)
-    assert fs.fused_bnn_multistep_burnin.launches == 3  # log_every = 512
-    assert fs.fused_bnn_multistep.launches == 2
+    assert burnin.launches == 3  # log_every = 512
+    assert sampling.launches == 2
     assert bnn.samples["w2"].is_cuda and bnn.samples["w2"].shape[0] == 512
     mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
     assert np.isfinite(mean).all() and np.isfinite(var).all()

@@ -149,7 +149,7 @@ def test_sghmc_step_matches_jax(phase):
             port_state, None, batch,
             noise=interop.params_from_numpy(eta, "cpu"), phase=phase)
     assert int(port_state.step) == int(state.step) == 2
-    got = interop.sghmc_state_to_numpy(port_state)
+    got = interop.state_to_numpy(port_state)
     for field, want in (("position", state.position),
                         ("momentum", state.momentum),
                         ("tau", state.stats.tau), ("g", state.stats.g),
