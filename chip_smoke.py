@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` and prints
 their ``ptxas`` registers and spills, holds each of the six kernels (B1, B2,
 B3, B4-sgld, B5-sgld, B6) against its plain PyTorch version on the card
-(flagship shapes, injected noise and the Philox stream), times both at the
+(flagship shapes, from burned-in states, injected noise and the Philox
+stream, each check beside the plain version's own floor), times both at the
 main path's shape, checks the one-step driver against the multi-step driver
 and the small main paths on the card against the CPU, then trains and
 predicts the two flagship BNNs (3x50 tanh, 8192 chains, sinc data, SGHMC and
@@ -29,31 +30,39 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_DATA, BATCH, H = 100, 20, 50
+SEED = 987654321
 CHECK_CHAINS, CHECK_STEPS = 256, 16
 MAIN_CHAINS, BURN_IN, SAMPLE_STEPS = 8192, 3000, 200
 ONE_STEP_TIMED = 20          # launches timed per one-step kernel (median)
 DRIVER_CHAINS, DRIVER_SAMPLES, DRIVER_KEEP = 1024, 2, 10  # 20 steps
-# kernel vs plain version, per output: |kernel - plain| <= REL_TOL * max|plain|.
-# The two sum the 20x50 dot products in different orders (sequential f32
-# loops vs cuBLAS bmm) and use different libm builds (tanhf/logf/cosf within
-# 2 ulp); 16 steps carry these rounding differences, which stay near 1e-6 of
-# each tensor's scale, so 2e-4 flags real disagreement only.
+BURNED_IN = 200  # burn-in steps at EPS before the kernel checks and drivers
+# kernel vs plain version, per output: |kernel - plain| <= REL_TOL * the
+# largest |plain| in the same chain's row (one row for costs and vectors), so
+# no chain sets the limit for another.  The two sum the 20x50 dot products in
+# different orders (sequential f32 loops vs cuBLAS bmm) and use different
+# libm builds (tanhf/logf/cosf within 2 ulp).  Every check starts from the
+# state a BURNED_IN-step burn-in at EPS leaves (as the main path hands it to
+# the kernels, with minv in [1e-3, 1e4]), and also runs the plain
+# version from theta * (1 + 1e-7 xi): that moves the outputs by the floor,
+# which must stay below REL_TOL / 4, so that 2e-4 flags real disagreement
+# and not rounding amplified by the path.
 REL_TOL = 2e-4
-# SGLD moves theta by eps * minv * g (SGHMC: eps**2 * minv * g): on the
-# unadapted check stats eps = 0.01 overflows within a few steps, in the plain
-# version too, so the SGLD kernel checks run at eps = 1e-3.
+# SGHMC moves theta by eps**2 * minv * g, SGLD by eps * minv * g: SGLD's
+# chains at EPS amplify a 1e-7 nudge beyond the floor within 16 steps (the
+# script measures and prints it, "not checked"), so its kernels are checked
+# over CHECK_STEPS steps at EPS_SGLD and over one step at EPS.
 EPS, EPS_SGLD = 0.01, 1e-3
-# the main paths at a small size, run on the card and on the CPU.  SGLD's
-# is shorter: from this unadapted start its first burn-in steps (minv = 1,
-# eps * g of order 10) are chaotic, and over SGHMC's 96 steps a 1e-7 relative
-# perturbation of the initial weights grows to 0.28 on the plain version
-# alone; over 16 steps it grows to 4e-6 (measured on the CPU), so card and
-# CPU still agree to REL_TOL there.
+# the main paths at a small size, run on the card and on the CPU from the
+# same initial weights and seed.  SGHMC on the degenerate stream (zero
+# noise, window 0).  SGLD there is preconditioned gradient descent on one
+# window at the edge of stability and amplifies a 1e-7 nudge to order one,
+# so it runs on the Philox stream, which the plain versions reproduce, at
+# EPS_SGLD (the script prints the floor at EPS).
 SMALL = {"SGHMC": dict(network="dense", step_impl="fused", n_chains=4,
                        n_nets=8, burn_in_steps=64, sample_steps=16,
-                       n_iters=96, log_every=None)}
-SMALL["SGLD"] = dict(SMALL["SGHMC"], burn_in_steps=8, sample_steps=4,
-                     n_iters=16)
+                       n_iters=96, log_every=None, noise_impl="zero")}
+SMALL["SGLD"] = dict(SMALL["SGHMC"], noise_impl="auto",
+                     stepsize_schedule=EPS_SGLD)
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -100,22 +109,55 @@ def _median_ms(torch, fn, repeats):
     return times[len(times) // 2]
 
 
-def _compare(torch, name, got, want, what="kernel-plain"):
-    """Max abs error over the outputs; raises beyond REL_TOL."""
+def _rows(t):
+    """An output as rows: one per chain (or sample) where each holds several
+    values, else a single row."""
+    if t.ndim > 1 and t[0].numel() > 1:
+        return t.reshape(t.shape[0], -1)
+    return t.reshape(1, -1)
+
+
+def _rel_err(got, want):
+    """The largest |got - want| of each row over that row's largest |want|,
+    maximised over the rows."""
+    g, w = _rows(got), _rows(want)
+    return float(((g - w).abs().amax(1) / w.abs().amax(1)).max())
+
+
+def _nudge(torch, theta):
+    """``theta * (1 + 1e-7 xi)``: where the plain version takes this start,
+    its outputs measure how far the path amplifies a rounding-sized
+    difference (the check's floor)."""
+    gen = torch.Generator(device=theta.device).manual_seed(99)
+    return theta * (1.0 + 1e-7 * torch.randn(
+        theta.shape, generator=gen, device=theta.device))
+
+
+def _compare(torch, name, got, want, floor=None, what="kernel-plain"):
+    """Max abs error over the outputs; raises beyond REL_TOL of a row's
+    scale, or where a floor is given and is not below REL_TOL / 4."""
     worst = 0.0
     for label, k, p in zip(name[1], got, want):
         if not torch.isfinite(k).all():
             raise AssertionError("{}: kernel output {} is not finite".format(
                 name[0], label))
-        err = float((k - p).abs().max())
-        scale = float(p.abs().max())
-        print("  {} {}: max|{}| = {:.3e} (scale {:.3e})".format(
-            name[0], label, what, err, scale))
-        if err > REL_TOL * scale:
-            raise AssertionError(
-                "{}: {} disagrees ({}): {:.3e} > {:.1e} x {:.3e}".format(
-                    name[0], label, what, err, REL_TOL, scale))
+        err, rel = float((k - p).abs().max()), _rel_err(k, p)
+        print("  {} {}: max|{}| = {:.3e}, {:.3e} of its row's scale".format(
+            name[0], label, what, err, rel))
+        if not rel <= REL_TOL:
+            raise AssertionError("{}: {} disagrees ({}): {:.3e} > {:.1e} of "
+                                 "its row's scale".format(name[0], label,
+                                                          what, rel, REL_TOL))
         worst = max(worst, err)
+    if floor is None:
+        return worst
+    print("  {}: floor (plain version from a 1e-7 nudge) {:.3e}".format(
+        name[0], floor))
+    if not floor < REL_TOL / 4:
+        raise AssertionError(
+            "{}: a 1e-7 nudge moves the plain version by {:.3e} of a row's "
+            "scale: the check cannot tell rounding from disagreement".format(
+                name[0], floor))
     return worst
 
 
@@ -165,90 +207,135 @@ def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
     return memory_ms, "bytes"
 
 
-def _small_main_path(torch, x_np, y_np, sampling_method):
-    """Train and predict a small BNN through the port's entry points twice,
-    on the card (kernels) and on the CPU (plain versions), from the same
-    initial weights on the degenerate stream (zero noise, window 0); returns
-    the largest |card - CPU| over the samples and the predictive mean."""
+def _train_small(torch, x_np, y_np, method, start, device, **overrides):
+    """Train and predict the small BNN of ``SMALL`` from the weights
+    ``start`` through the port's entry points; returns the samples, one row
+    of all parameters per sample, and the predictive mean."""
     import numpy as np
 
-    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
+    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
 
-    small = SMALL[sampling_method.value]
+    bnn = BayesianNeuralNetwork(sampling_method=method, device=device,
+                                **dict(SMALL[method.value], **overrides))
+    bnn._initial_positions = (
+        lambda init_fn, generator, n: {k: v.to(device)
+                                       for k, v in start.items()})
+    bnn.train(x_np, y_np)
+    samples = torch.cat([bnn.samples[k].reshape(len(bnn.samples[k]), -1)
+                         for k in sorted(bnn.samples)], dim=1).cpu()
+    mean = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])[0]
+    return samples, torch.as_tensor(mean)
+
+
+def _small_main_path(torch, x_np, y_np, method, check=True, **overrides):
+    """The small main path on the card (kernels) against the CPU (plain
+    versions) from the same initial weights; returns the largest |card -
+    CPU|.  With ``check=False`` only the CPU floor is measured and
+    printed."""
+    from pysgmcmc_tpu_torch.models import dense_network
+
     init_fn, _ = dense_network(1, units=(H, H, H), device="cpu")
-    start = init_fn(torch.Generator().manual_seed(7), (small["n_chains"],))
-    x_grid = np.linspace(0.0, 1.0, 50)[:, None]
-    runs = {}
-    label = "small {} main path".format(sampling_method.value)
-    for device in ("cuda", "cpu"):
-        bnn = BayesianNeuralNetwork(sampling_method=sampling_method,
-                                    device=device, noise_impl="zero", **small)
-        bnn._initial_positions = (
-            lambda init_fn, generator, n, d=device:
-            {k: v.to(d) for k, v in start.items()})
-        bnn.train(x_np, y_np)
-        runs[device] = (bnn.samples, bnn.predict(x_grid)[0])
-    worst = 0.0
-    for key, want in runs["cpu"][0].items():
-        got = runs["cuda"][0][key].cpu()
-        worst = max(worst, _compare(
-            torch, (label, ("samples " + key,)), [got], [want], "card-CPU"))
-    mean_gpu, mean_cpu = (torch.as_tensor(runs[d][1]) for d in ("cuda", "cpu"))
-    return max(worst, _compare(
-        torch, (label, ("predictive mean",)), [mean_gpu], [mean_cpu],
-        "card-CPU"))
+    start = init_fn(torch.Generator().manual_seed(7),
+                    (SMALL[method.value]["n_chains"],))
+    cpu = _train_small(torch, x_np, y_np, method, start, "cpu", **overrides)
+    nudged = _train_small(torch, x_np, y_np, method,
+                          {k: _nudge(torch, v) for k, v in start.items()},
+                          "cpu", **overrides)
+    floor = max(_rel_err(a, b) for a, b in zip(nudged, cpu))
+    label = "small {} main path{}".format(method.value, "".join(
+        " {}={}".format(k, v) for k, v in overrides.items()))
+    if not check:
+        print("  {}: not checked, floor {:.3e}".format(label, floor))
+        return None
+    card = _train_small(torch, x_np, y_np, method, start, "cuda", **overrides)
+    return _compare(torch, (label, ("samples", "predictive mean")), card,
+                    cpu, floor, what="card-CPU")
 
 
-def _one_step_check(torch, fs, kind, theta, state, x_win, y_win, common,
-                    streams):
-    """CHECK_STEPS launches of a one-step kernel against as many of its plain
-    version, each carrying its own chain; returns the worst error."""
-    fn, ref = ((fs.fused_bnn_step, fs.fused_bnn_step_ref) if kind == "B3"
-               else (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref))
-    labels = ("theta", "v", "cost") if kind == "B3" else ("theta", "cost")
-    n = theta.shape[0]
-    worst = 0.0
-    for stream, extra in streams:
-        runs = []
-        for wrapper in (fn, ref):
-            cur = [theta] + list(state)
-            for t in range(CHECK_STEPS):
-                if stream == "injected":
-                    widx = extra["widx"][t]
-                    kw = dict(noise=extra["noise"][t])
-                else:
-                    step = extra["step0"] + t
-                    widx = fs.philox_windows(987654321, step, n,
-                                             x_win.shape[0], theta.device)
-                    kw = dict(step=step)
-                x_sel, y_sel = fs.gather_batch(x_win, y_win, widx)
-                out = wrapper(*cur, x_sel, y_sel, common["eps"], 987654321,
-                              **common["kw"], **kw)
-                cur = list(out[:-1]) + [state[-1]]  # minv stays frozen
-            runs.append(list(out))
-        torch.cuda.synchronize()
-        worst = max(worst, _compare(torch, (kind + "/" + stream, labels),
-                                    runs[0], runs[1]))
-    return worst
+def _run(fs, wrapper, one_step, state, x_win, y_win, eps, kw, k, stream,
+         extra):
+    """k steps of a kernel (or its plain version) from ``state``: one launch
+    of a multi-step kernel, or k launches of a one-step kernel, each on the
+    previous one's output with minv frozen.  Returns the last outputs."""
+    injected = stream == "injected"
+    if not one_step:
+        if injected:
+            extra = dict(noise=extra["noise"][:k], widx=extra["widx"][:k])
+        return wrapper(*state, x_win, y_win, eps, SEED, k_steps=k, **kw,
+                       **extra)
+    n = state[0].shape[0]
+    cur = list(state)
+    for t in range(k):
+        if injected:
+            widx, step_kw = extra["widx"][t], dict(noise=extra["noise"][t])
+        else:
+            step = extra["step0"] + t
+            widx = fs.philox_windows(SEED, step, n, x_win.shape[0],
+                                     state[0].device)
+            step_kw = dict(step=step)
+        out = wrapper(*cur, *fs.gather_batch(x_win, y_win, widx), eps, SEED,
+                      **kw, **step_kw)
+        cur = list(out[:-1]) + [state[-1]]
+    return out
 
 
-def _driver_check(torch, x, y, sampler_cls, eps, device):
-    """The one-step driver (B3 / B4-sgld per step) against the multi-step
-    driver (B1 / B5-sgld) from the same adapted state and generator seed;
-    returns (worst error, one-step launches of the multistep=False run)."""
+def _kernel_checks(torch, fs, checks, x_win, y_win, streams):
+    """Every kernel against its plain version on the same inputs; returns
+    ``{kernel: max abs error}``.  ``checks`` holds ``(name, kernel, plain
+    version, state, keywords, output labels, one-step?, plan)`` with
+    ``plan`` a list of ``(eps, steps, checked)``; an unchecked entry only
+    measures and prints the floor."""
+    err = {}
+    for name, fn, ref, state, kw, labels, one_step, plan in checks:
+        err[name] = 0.0
+        for eps, k, checked in plan:
+            for stream, extra in streams:
+                def run(wrapper, start=state):
+                    return _run(fs, wrapper, one_step, start, x_win, y_win,
+                                eps, kw, k, stream, extra)
+
+                want = run(ref)
+                floor = max(_rel_err(a, b) for a, b in zip(
+                    run(ref, (_nudge(torch, state[0]),) + state[1:]), want))
+                tag = "{}/{}/eps {:g} x {}".format(name, stream, eps, k)
+                if not checked:
+                    print("  {}: not checked, floor {:.3e}".format(tag, floor))
+                    continue
+                got = run(fn)
+                torch.cuda.synchronize()
+                err[name] = max(err[name], _compare(torch, (tag, labels), got,
+                                                    want, floor))
+    return err
+
+
+def _burned_in(torch, x, y, sampler_cls, n_chains, device):
+    """A sampler and its states after BURNED_IN burn-in steps at EPS from
+    He-normal weights, through the port's burn-in driver (B2 / B6)."""
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import fused_step as fs
-    from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+    from pysgmcmc_tpu_torch.parallel import burnin_chain_fused
 
     init_fn, _ = dense_network(1, units=(H, H, H), device=device)
     gen = torch.Generator(device=device).manual_seed(11)
     n_params = fs.FusedLayout(1, H, 3).n_params
-    sampler = sampler_cls(lambda p, b: None, stepsize_schedule=eps,
+    sampler = sampler_cls(lambda p, b: None, stepsize_schedule=EPS,
                           scale_grad=float(N_DATA),
                           gaussian_prior_scale=1.0 / (n_params * N_DATA))
     states = burnin_chain_fused(
-        sampler, sampler.init(init_fn(gen, (DRIVER_CHAINS,))), gen, 200,
+        sampler, sampler.init(init_fn(gen, (n_chains,))), gen, BURNED_IN,
         x, y)
+    return sampler, states
+
+
+def _driver_check(torch, x, y, sampler_cls, device):
+    """The one-step driver (B3 / B4-sgld per step) against the multi-step
+    driver (B1 / B5-sgld) from the same adapted state and generator seed;
+    returns (worst error, one-step launches of the multistep=False run)."""
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+    from pysgmcmc_tpu_torch.parallel import sample_chain_fused
+
+    sampler, states = _burned_in(torch, x, y, sampler_cls, DRIVER_CHAINS,
+                                 device)
     kernel = fs.fused_bnn_step if sampler_cls.__name__ == "SGHMCSampler" \
         else fs.fused_bnn_step_sgld
     runs = []
@@ -264,7 +351,8 @@ def _driver_check(torch, x, y, sampler_cls, eps, device):
     keys = sorted(runs[0][1])
     worst = _compare(torch, (label, ["positions " + k for k in keys]),
                      [runs[1][1][k] for k in keys],
-                     [runs[0][1][k] for k in keys], "one-step - multi-step")
+                     [runs[0][1][k] for k in keys],
+                     what="one-step - multi-step")
     if int(runs[0][0].step) != int(runs[1][0].step):
         raise AssertionError("{}: step counters differ".format(label))
     return worst, launches
@@ -356,60 +444,60 @@ def main():
     lay = fs.FusedLayout(1, H, 3)
     P = lay.n_params
     gen = torch.Generator(device=device).manual_seed(1234)
-
-    def rand(n, lo=None, hi=None, scale=None):
-        u = torch.rand((n, P), generator=gen, device=device)
-        if scale is not None:
-            return (u - 0.5) * scale
-        return lo + (hi - lo) * u
-
     base = dict(scale_grad=float(N_DATA), prior_scale=1.0 / (P * N_DATA),
                 batch_size=BATCH, n_data=N_DATA, h=H)
     sghmc = dict(base, mdecay=0.05)
     sgld = dict(base, a_coef=1.0)
-    err = {}
 
     # ---- every kernel vs its plain version at the flagship shapes ----
     n = CHECK_CHAINS
-    theta = fs.pack(init_fn(gen, (n,)), lay)
     noise = torch.randn((CHECK_STEPS, n, P), generator=gen, device=device)
     widx = torch.randint(0, n_windows, (CHECK_STEPS, n), generator=gen,
                          device=device, dtype=torch.int32)
     streams = [("injected", dict(noise=noise, widx=widx)),
                ("philox", dict(step0=12345))]
-    # adaptation stats inside the EMAs' stable range (g^2 <= v_hat keeps
-    # tau' = tau (1 - g^2 / v_hat) + 1 >= 1)
-    stats = (rand(n, 1.0, 5.0), rand(n, scale=2.0), rand(n, 1.0, 5.0))
-    v0, minv0 = rand(n, scale=2e-3), rand(n, 0.2, 1.2)
-    multi = [
+    state = {}
+    for sampler_cls in (SGHMCSampler, SGLDSampler):
+        burned = _burned_in(torch, x, y, sampler_cls, n, device)[1]
+        rule = sampler_cls.__name__[:-7]
+        state[rule] = {"theta": fs.pack(burned.position, lay)}
+        state[rule].update(zip(("tau", "g", "v_hat", "minv"), (
+            fs.pack(leaf, lay) for leaf in burned.stats)))
+        if rule == "SGHMC":
+            state[rule]["v"] = fs.pack(burned.momentum, lay)
+        print("{} check state after {} burn-in steps at eps {:g}: ".format(
+            rule, BURNED_IN, EPS) + ", ".join(
+                "{} in [{:.3e}, {:.3e}]".format(k, float(t.min()),
+                                                float(t.max()))
+                for k, t in sorted(state[rule].items())))
+    sghmc_plan = [(EPS, CHECK_STEPS, True)]
+    sgld_plan = [(EPS_SGLD, CHECK_STEPS, True), (EPS, 1, True),
+                 (EPS, CHECK_STEPS, False)]
+    checks = [
         ("B2", fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep_burnin_ref,
-         (theta, v0) + stats, EPS, sghmc,
-         ("theta", "v", "tau", "g", "v_hat", "minv", "cost")),
-        ("B1", fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
-         (theta, v0, minv0), EPS, sghmc, ("theta", "v", "cost")),
+         "SGHMC", ("theta", "v", "tau", "g", "v_hat"),
+         ("theta", "v", "tau", "g", "v_hat", "minv", "cost"), False,
+         sghmc_plan),
+        ("B1", fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref, "SGHMC",
+         ("theta", "v", "minv"), ("theta", "v", "cost"), False, sghmc_plan),
+        ("B3", fs.fused_bnn_step, fs.fused_bnn_step_ref, "SGHMC",
+         ("theta", "v", "minv"), ("theta", "v", "cost"), True, sghmc_plan),
         ("B6", fs.fused_bnn_multistep_burnin_sgld,
-         fs.fused_bnn_multistep_burnin_sgld_ref, (theta,) + stats, EPS_SGLD,
-         sgld, ("theta", "tau", "g", "v_hat", "minv", "cost")),
+         fs.fused_bnn_multistep_burnin_sgld_ref, "SGLD",
+         ("theta", "tau", "g", "v_hat"),
+         ("theta", "tau", "g", "v_hat", "minv", "cost"), False, sgld_plan),
         ("B5-sgld", fs.fused_bnn_multistep_sgld,
-         fs.fused_bnn_multistep_sgld_ref, (theta, minv0), EPS_SGLD, sgld,
-         ("theta", "cost")),
+         fs.fused_bnn_multistep_sgld_ref, "SGLD", ("theta", "minv"),
+         ("theta", "cost"), False, sgld_plan),
+        ("B4-sgld", fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref, "SGLD",
+         ("theta", "minv"), ("theta", "cost"), True, sgld_plan[:2]),
     ]
-    for name, fn, ref, state, eps, kw, labels in multi:
-        err[name] = 0.0
-        for stream, extra in streams:
-            args = (*state, x_win, y_win, eps, 987654321)
-            got = fn(*args, k_steps=CHECK_STEPS, **kw, **extra)
-            want = ref(*args, k_steps=CHECK_STEPS, **kw, **extra)
-            torch.cuda.synchronize()
-            err[name] = max(err[name], _compare(
-                torch, (name + "/" + stream, labels), got, want))
-    err["B3"] = _one_step_check(
-        torch, fs, "B3", theta, (v0, minv0), x_win, y_win,
-        dict(eps=EPS, kw=sghmc), streams)
-    err["B4-sgld"] = _one_step_check(
-        torch, fs, "B4-sgld", theta, (minv0,), x_win, y_win,
-        dict(eps=EPS_SGLD, kw=sgld), streams)
-    del noise, widx, stats, v0, minv0
+    err = _kernel_checks(torch, fs, [
+        (name, fn, ref, tuple(state[rule][k] for k in inputs),
+         sghmc if rule == "SGHMC" else sgld, labels, one_step, plan)
+        for name, fn, ref, rule, inputs, labels, one_step, plan in checks],
+        x_win, y_win, streams)
+    del noise, widx, state
 
     # ---- times at the main path's shape: 8192 chains, k = 200 ----
     n, k = MAIN_CHAINS, SAMPLE_STEPS
@@ -485,10 +573,9 @@ def main():
 
     # ---- the one-step driver vs the multi-step driver on the card ----
     launches = {}
-    for sampler_cls, eps, name in ((SGHMCSampler, EPS, "B3"),
-                                   (SGLDSampler, EPS, "B4-sgld")):
+    for sampler_cls, name in ((SGHMCSampler, "B3"), (SGLDSampler, "B4-sgld")):
         err_driver, launches[name] = _driver_check(
-            torch, x, y, sampler_cls, eps, device)
+            torch, x, y, sampler_cls, device)
         print("one-step driver ({}): {} chains x {} steps, max|one-step - "
               "multi-step| = {:.3e}, {} launches".format(
                   sampler_cls.__name__, DRIVER_CHAINS,
@@ -504,6 +591,8 @@ def main():
                   method.value, SMALL[method.value]["n_chains"],
                   SMALL[method.value]["n_iters"],
                   _small_main_path(torch, x_np, y_np, method)))
+    _small_main_path(torch, x_np, y_np, Sampler.SGLD, check=False,
+                     stepsize_schedule=EPS)
 
     # ---- the main paths: train + predict through the port's BNN ----
     launches.update(_flagship(

@@ -72,6 +72,16 @@ struct Args {
   const float* tau;    // burn-in only
   const float* g;      // burn-in only
   const float* v_hat;  // burn-in only
+  // window tables (n_windows, batch, n_inputs) and (n_windows, batch), or
+  // for the one-step kernels each chain's rows (n_chains, batch, n_inputs)
+  // and (n_chains, batch)
+  const float* x_win;
+  const float* y_win;
+  // per-step table: SGHMC (k_steps, 2) = eps, eps / sqrt(scale_grad);
+  // SGLD (k_steps,) = eps
+  const float* tab;
+  const float* noise;  // optional (k_steps, n_chains, n_params)
+  const int* widx;     // optional (k_steps, n_chains)
   float* theta_out;
   float* v_out;        // SGHMC only
   float* tau_out;      // burn-in only
@@ -79,22 +89,15 @@ struct Args {
   float* v_hat_out;    // burn-in only
   float* minv_out;     // burn-in only: the minv the final step used
   float* cost_out;     // (n_chains,): the final step's cost
-  // window tables (n_windows, batch, n_inputs) and (n_windows, batch), or
-  // for the one-step kernels each chain's rows (n_chains, batch, n_inputs)
-  // and (n_chains, batch)
-  const float* x_win;
-  const float* y_win;
-  // per-step table: SGHMC (k_steps, 2) = eps, eps / sqrt(scale_grad);
-  // SGLD (k_steps, 4) = eps, A, A / scale_grad (sampling) or sg_safe
-  // (burn-in), prior_scale
-  const float* tab;
-  const float* noise;    // optional (k_steps, n_chains, n_params)
-  const int* widx;       // optional (k_steps, n_chains)
   int n_chains, n_inputs, hidden, depth, batch, n_windows, k_steps, n_params;
   unsigned long long seed;
   unsigned step0;
-  float mdecay, prior_scale, inv_b, inv_n;  // mdecay, prior_scale: SGHMC
+  // coef: mdecay (SGHMC) or A (SGLD); cdiv (SGLD): A / scale_grad in
+  // sampling, sg_safe = scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16 in
+  // burn-in, both computed on the host
+  float coef, cdiv, prior_scale, inv_b, inv_n;
 };
+
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
                                                unsigned k1) {
@@ -363,7 +366,7 @@ __host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
 template <int kRule, bool kBurnin, bool kGathered>
 __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
   constexpr bool kMomentum = kRule == kSghmc;
-  constexpr int kCols = kRule == kSghmc ? 2 : 4;
+  constexpr int kCols = kRule == kSghmc ? 2 : 1;
   extern __shared__ float smem[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -408,15 +411,17 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
     fwd_bwd(a, L, s_theta, s_grad, s);
     const float* row = a.tab + static_cast<size_t>(t) * kCols;
     const bool last = t == a.k_steps - 1;
+    const float prior_scale = a.prior_scale;
     if constexpr (kRule == kSghmc) {
       const float eps = row[0];
       const float es = row[1];
       const float es2 = es * es;
+      const float mdecay = a.coef;
       for (int p = tid; p < P; p += kThreads) {
         const float eta = noise_at(a, t, step, p);
         const float th = s_theta[p];
         const float vv = s_v[p];
-        const float gg = s_grad[p] + a.prior_scale * th;
+        const float gg = s_grad[p] + prior_scale * th;
         float minv;
         if constexpr (kBurnin) {
           minv = adapt(s_tau, s_g, s_vhat, p, gg);
@@ -425,8 +430,8 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
           minv = s_minv[p];
         }
         const float sigma =
-            sqrtf(fmaxf(2.0f * es2 * a.mdecay * minv - es2 * es2, 1e-16f));
-        float vn = vv - eps * eps * minv * gg - a.mdecay * vv + sigma * eta;
+            sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
+        float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
         if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;
         s_v[p] = vn;
         s_theta[p] = th + vn;
@@ -434,9 +439,8 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
     } else {
       // JAX _sgld_rule (sampling) and _sgld_burnin_step_math (burn-in)
       const float eps = row[0];
-      const float A = row[1];
-      const float cdiv = row[2];
-      const float prior_scale = row[3];
+      const float A = a.coef;
+      const float cdiv = a.cdiv;
       for (int p = tid; p < P; p += kThreads) {
         const float eta = noise_at(a, t, step, p);
         const float th = s_theta[p];
@@ -493,33 +497,6 @@ int launch(const Args& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-Args common_args(const float* x, const float* y, const float* tab,
-                 const float* noise, float* theta_out, float* cost_out,
-                 int n_chains, int n_inputs, int hidden, int depth, int batch,
-                 int n_params, unsigned long long seed, unsigned step0,
-                 float inv_b, float inv_n) {
-  Args a = {};
-  a.x_win = x;
-  a.y_win = y;
-  a.tab = tab;
-  a.noise = noise;
-  a.theta_out = theta_out;
-  a.cost_out = cost_out;
-  a.n_chains = n_chains;
-  a.n_inputs = n_inputs;
-  a.hidden = hidden;
-  a.depth = depth;
-  a.batch = batch;
-  a.n_windows = n_chains;  // gathered rows: one per chain
-  a.k_steps = 1;
-  a.n_params = n_params;
-  a.seed = seed;
-  a.step0 = step0;
-  a.inv_b = inv_b;
-  a.inv_n = inv_n;
-  return a;
-}
-
 }  // namespace
 
 extern "C" {
@@ -538,140 +515,43 @@ const char* fused_step_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// One entry per TPU kernel, all with the same arguments (the Args fields in
+// order, then the stream); a kernel reads only the operands of its rule and
+// phase, and the others may be NULL.  The one-step kernels (B3, B4-sgld) take
+// each chain's gathered rows as x/y (n_windows = n_chains, k_steps = 1) and
+// the noise of absolute step `step0`.
+#define FUSED_STEP_ENTRY(entry, rule, burnin, gathered)                      \
+  int entry(const float* theta, const float* v, const float* minv,          \
+            const float* tau, const float* g, const float* v_hat,           \
+            const float* x, const float* y, const float* tab,               \
+            const float* noise, const int* widx, float* theta_out,          \
+            float* v_out, float* tau_out, float* g_out, float* v_hat_out,   \
+            float* minv_out, float* cost_out, int n_chains, int n_inputs,   \
+            int hidden, int depth, int batch, int n_windows, int k_steps,   \
+            int n_params, unsigned long long seed, unsigned step0,          \
+            float coef, float cdiv, float prior_scale, float inv_b,         \
+            float inv_n, void* stream) {                                    \
+    const Args a = {theta,     v,         minv,     tau,      g,            \
+                    v_hat,     x,         y,        tab,      noise,        \
+                    widx,      theta_out, v_out,    tau_out,  g_out,        \
+                    v_hat_out, minv_out,  cost_out, n_chains, n_inputs,     \
+                    hidden,    depth,     batch,    n_windows, k_steps,     \
+                    n_params,  seed,      step0,    coef,     cdiv,         \
+                    prior_scale, inv_b,   inv_n};                           \
+    return launch<rule, burnin, gathered>(a, stream);                       \
+  }
+
 // B1: k SGHMC sampling steps with a frozen minv.
-int fused_bnn_multistep_launch(
-    const float* theta, const float* v, const float* minv, const float* x_win,
-    const float* y_win, const float* tab, const float* noise,
-    const int* widx, float* theta_out, float* v_out, float* cost_out,
-    int n_chains, int n_inputs, int hidden, int depth, int batch,
-    int n_windows, int k_steps, int n_params, unsigned long long seed,
-    unsigned step0, float mdecay, float prior_scale, float inv_b, float inv_n,
-    void* stream) {
-  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step0, inv_b, inv_n);
-  a.theta = theta;
-  a.v = v;
-  a.minv = minv;
-  a.v_out = v_out;
-  a.widx = widx;
-  a.n_windows = n_windows;
-  a.k_steps = k_steps;
-  a.mdecay = mdecay;
-  a.prior_scale = prior_scale;
-  return launch<kSghmc, false, false>(a, stream);
-}
-
+FUSED_STEP_ENTRY(fused_bnn_multistep_launch, kSghmc, false, false)
 // B2: k SGHMC self-tuning burn-in steps; minv_out gets the final step's minv.
-int fused_bnn_multistep_burnin_launch(
-    const float* theta, const float* v, const float* tau, const float* g,
-    const float* v_hat, const float* x_win, const float* y_win,
-    const float* tab, const float* noise, const int* widx,
-    float* theta_out, float* v_out, float* tau_out, float* g_out,
-    float* v_hat_out, float* minv_out, float* cost_out, int n_chains,
-    int n_inputs, int hidden, int depth, int batch, int n_windows,
-    int k_steps, int n_params, unsigned long long seed, unsigned step0,
-    float mdecay, float prior_scale, float inv_b, float inv_n, void* stream) {
-  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step0, inv_b, inv_n);
-  a.theta = theta;
-  a.v = v;
-  a.tau = tau;
-  a.g = g;
-  a.v_hat = v_hat;
-  a.v_out = v_out;
-  a.tau_out = tau_out;
-  a.g_out = g_out;
-  a.v_hat_out = v_hat_out;
-  a.minv_out = minv_out;
-  a.widx = widx;
-  a.n_windows = n_windows;
-  a.k_steps = k_steps;
-  a.mdecay = mdecay;
-  a.prior_scale = prior_scale;
-  return launch<kSghmc, true, false>(a, stream);
-}
-
-// B3: one SGHMC sampling step on each chain's gathered rows; the noise is
-// injected (n_chains, n_params) or Philox at absolute step `step`.
-int fused_bnn_step_launch(
-    const float* theta, const float* v, const float* minv, const float* x_sel,
-    const float* y_sel, const float* tab, const float* noise,
-    float* theta_out, float* v_out, float* cost_out, int n_chains,
-    int n_inputs, int hidden, int depth, int batch, int n_params,
-    unsigned long long seed, unsigned step, float mdecay, float prior_scale,
-    float inv_b, float inv_n, void* stream) {
-  Args a = common_args(x_sel, y_sel, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step, inv_b, inv_n);
-  a.theta = theta;
-  a.v = v;
-  a.minv = minv;
-  a.v_out = v_out;
-  a.mdecay = mdecay;
-  a.prior_scale = prior_scale;
-  return launch<kSghmc, false, true>(a, stream);
-}
-
+FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_launch, kSghmc, true, false)
+// B3: one SGHMC sampling step on each chain's gathered rows.
+FUSED_STEP_ENTRY(fused_bnn_step_launch, kSghmc, false, true)
 // B4-sgld: one SGLD sampling step on each chain's gathered rows.
-int fused_bnn_step_sgld_launch(
-    const float* theta, const float* minv, const float* x_sel,
-    const float* y_sel, const float* tab, const float* noise,
-    float* theta_out, float* cost_out, int n_chains, int n_inputs,
-    int hidden, int depth, int batch, int n_params, unsigned long long seed,
-    unsigned step, float inv_b, float inv_n, void* stream) {
-  Args a = common_args(x_sel, y_sel, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step, inv_b, inv_n);
-  a.theta = theta;
-  a.minv = minv;
-  return launch<kSgld, false, true>(a, stream);
-}
-
+FUSED_STEP_ENTRY(fused_bnn_step_sgld_launch, kSgld, false, true)
 // B5-sgld: k SGLD sampling steps with a frozen minv.
-int fused_bnn_multistep_sgld_launch(
-    const float* theta, const float* minv, const float* x_win,
-    const float* y_win, const float* tab, const float* noise,
-    const int* widx, float* theta_out, float* cost_out, int n_chains,
-    int n_inputs, int hidden, int depth, int batch, int n_windows,
-    int k_steps, int n_params, unsigned long long seed, unsigned step0,
-    float inv_b, float inv_n, void* stream) {
-  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step0, inv_b, inv_n);
-  a.theta = theta;
-  a.minv = minv;
-  a.widx = widx;
-  a.n_windows = n_windows;
-  a.k_steps = k_steps;
-  return launch<kSgld, false, false>(a, stream);
-}
-
+FUSED_STEP_ENTRY(fused_bnn_multistep_sgld_launch, kSgld, false, false)
 // B6: k SGLD burn-in steps; minv_out gets the final step's minv.
-int fused_bnn_multistep_burnin_sgld_launch(
-    const float* theta, const float* tau, const float* g, const float* v_hat,
-    const float* x_win, const float* y_win, const float* tab,
-    const float* noise, const int* widx, float* theta_out, float* tau_out,
-    float* g_out, float* v_hat_out, float* minv_out, float* cost_out,
-    int n_chains, int n_inputs, int hidden, int depth, int batch,
-    int n_windows, int k_steps, int n_params, unsigned long long seed,
-    unsigned step0, float inv_b, float inv_n, void* stream) {
-  Args a = common_args(x_win, y_win, tab, noise, theta_out, cost_out,
-                       n_chains, n_inputs, hidden, depth, batch, n_params,
-                       seed, step0, inv_b, inv_n);
-  a.theta = theta;
-  a.tau = tau;
-  a.g = g;
-  a.v_hat = v_hat;
-  a.tau_out = tau_out;
-  a.g_out = g_out;
-  a.v_hat_out = v_hat_out;
-  a.minv_out = minv_out;
-  a.widx = widx;
-  a.n_windows = n_windows;
-  a.k_steps = k_steps;
-  return launch<kSgld, true, false>(a, stream);
-}
+FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_sgld_launch, kSgld, true, false)
 
 }  // extern "C"

@@ -333,6 +333,9 @@ class BayesianNeuralNetwork(BaseModel):
             self.n_nets // n_chains if self.n_chains > 1 else None)
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         positions = self._initial_positions(init_fn, generator, n_chains)
+        # the kernels' Philox keys come from a CPU generator, so that one
+        # seed draws the same streams on the card and on the CPU
+        keys = torch.Generator().manual_seed(self.seed)
         n_params = tree_size(positions) // n_chains
         prior_scale = 1.0 / (n_params * float(n_datapoints))
 
@@ -391,7 +394,7 @@ class BayesianNeuralNetwork(BaseModel):
         phase_start = time.perf_counter()
         for n_steps in seg_lengths:
             states = burnin_chain_fused(
-                sampler, states, generator, n_steps, x_dev, y_dev,
+                sampler, states, keys, n_steps, x_dev, y_dev,
                 batch_size=self.batch_size, noise_impl=self.noise_impl)
             iteration += n_steps
             log_point(iteration, states.position)
@@ -402,7 +405,7 @@ class BayesianNeuralNetwork(BaseModel):
 
         def sample_seg(states, n_keep):
             return sample_chain_fused(
-                sampler, states, generator, n_keep, x_dev, y_dev,
+                sampler, states, keys, n_keep, x_dev, y_dev,
                 batch_size=self.batch_size, keep_every=self.sample_steps,
                 multistep=True, noise_impl=self.noise_impl)
 

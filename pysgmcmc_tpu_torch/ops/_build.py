@@ -30,35 +30,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _U32 = ctypes.c_uint
+# every launch entry takes the same arguments (csrc/fused_step.cu,
+# FUSED_STEP_ENTRY): 6 state inputs, x, y, tab, noise, widx, 6 state outputs
+# and the cost; 8 ints, the seed, the step, 5 floats and the stream
+_LAUNCH = (_I, [_P] * 18 + [_I] * 8 + [_U64, _U32] + [_F] * 5 + [_P])
 _SIGNATURES = {
     "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
     "fused_step_error_string": (ctypes.c_char_p, [_I]),
-    # B1
-    "fused_bnn_multistep_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
-    # B2
-    "fused_bnn_multistep_burnin_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
-    # B3
-    "fused_bnn_step_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _F, _F, _P]),
-    # B4-sgld
-    "fused_bnn_step_sgld_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
-    # B5-sgld
-    "fused_bnn_multistep_sgld_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
-    # B6
-    "fused_bnn_multistep_burnin_sgld_launch": (_I, [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _U64, _U32, _F, _F, _P]),
+    **{name + "_launch": _LAUNCH for name in (
+        "fused_bnn_multistep",                # B1
+        "fused_bnn_multistep_burnin",         # B2
+        "fused_bnn_step",                     # B3
+        "fused_bnn_step_sgld",                # B4-sgld
+        "fused_bnn_multistep_sgld",           # B5-sgld
+        "fused_bnn_multistep_burnin_sgld",    # B6
+    )},
 }
 
 _lib = None

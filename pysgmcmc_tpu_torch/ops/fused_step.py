@@ -324,12 +324,11 @@ def _sghmc_velocity(v, minv, gg, eta, row, mdecay):
     return v - eps_t * eps_t * minv * gg - mdecay * v + sigma * eta
 
 
-def _sgld_delta(minv, gg, eta, row, burnin):
+def _sgld_delta(minv, gg, eta, eps, a_coef, c, burnin):
     """SGLD position increment (JAX ``_sgld_rule`` and
-    ``_sgld_burnin_step_math``); ``row`` is ``(eps, A, c, prior_scale)``
-    with ``c = A / scale_grad`` in sampling and the guarded ``sg_safe`` in
-    burn-in.  The noise scales with ``eps``, not ``eps**2``."""
-    eps, a_coef, c = row[0], row[1], row[2]
+    ``_sgld_burnin_step_math``); ``(a_coef, c)`` come from
+    :func:`_sgld_constants`.  The noise scales with ``eps``, not
+    ``eps**2``."""
     if burnin:
         sigma = torch.sqrt(torch.clamp(2.0 * eps * ((minv * a_coef) / c),
                                        min=0.0))
@@ -446,9 +445,10 @@ def fused_bnn_step_sgld_ref(theta, minv, x_sel, y_sel, eps, seed,
     eta = _one_step_noise(theta, layout, seed, step, noise)
     cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
                           1.0 / batch_size, 1.0 / n_data)
-    row = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)[0]
-    gg = grad + row[3] * theta
-    return theta + _masked(minv, _sgld_delta(minv, gg, eta, row, False)), cost
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
+    gg = grad + prior_scale * theta
+    return theta + _masked(minv, _sgld_delta(minv, gg, eta, eps_vec[0],
+                                             a_coef, c, False)), cost
 
 
 def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
@@ -461,7 +461,7 @@ def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
         "fused_bnn_multistep_sgld", theta, [minv], x_win, y_win, eps, seed,
         batch_size, torch.float32, k_steps, h, pair_dots, noise_impl, noise,
         widx)
-    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
@@ -470,9 +470,9 @@ def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
                               widx, theta.device)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
-        gg = grad + tab[t, 3] * theta
-        theta = theta + _masked(minv, _sgld_delta(minv, gg, eta, tab[t],
-                                                  False))
+        gg = grad + prior_scale * theta
+        theta = theta + _masked(minv, _sgld_delta(minv, gg, eta, eps_vec[t],
+                                                  a_coef, c, False))
     return theta, cost
 
 
@@ -488,7 +488,7 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
         "fused_bnn_multistep_burnin_sgld", theta, [tau, g, v_hat], x_win,
         y_win, eps, seed, batch_size, torch.float32, k_steps, h, pair_dots,
         noise_impl, noise, widx)
-    tab = _sgld_table(eps_vec, a_coef, _sg_safe(scale_grad), prior_scale)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
@@ -497,9 +497,10 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
                               widx, theta.device)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
-        gg = grad + tab[t, 3] * theta
+        gg = grad + prior_scale * theta
         minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
-        theta = theta + _sgld_delta(minv, gg, eta, tab[t], True)
+        theta = theta + _sgld_delta(minv, gg, eta, eps_vec[t], a_coef, c,
+                                    True)
     return theta, tau, g, v_hat, minv, cost
 
 
@@ -622,19 +623,18 @@ def _sghmc_table(eps_vec, scale_grad):
     return torch.stack([eps_vec, eps_scaled], dim=1).contiguous()
 
 
-def _sgld_table(eps_vec, a_coef, c, prior_scale):
-    """SGLD per-step table ``(k, 4)``: eps, A, c, prior_scale, with ``c`` the
-    host-computed ``A / scale_grad`` (sampling) or ``sg_safe`` (burn-in)."""
-    cols = [eps_vec] + [torch.full_like(eps_vec, float(value))
-                        for value in (a_coef, c, prior_scale)]
-    return torch.stack(cols, dim=1).contiguous()
-
-
-def _sg_safe(scale_grad):
-    """``scale_grad`` nudged from zero in float32, as JAX's B6 driver does
-    (``sg + 2 sign(sg) 1e-16 + 1e-16``)."""
-    sg = torch.tensor(scale_grad, dtype=torch.float32)
-    return float(sg + 2.0 * torch.sign(sg) * 1e-16 + 1e-16)
+def _sgld_constants(a_coef, scale_grad, burnin):
+    """SGLD's ``(A, c)`` rounded to float32: ``c`` is the host-computed ``A
+    / scale_grad`` in sampling, as JAX's ``fused_bnn_multistep_sgld``
+    computes it, and ``sg_safe = sg + 2 sign(sg) 1e-16 + 1e-16`` in float32
+    in burn-in, as JAX's B6 driver does."""
+    if burnin:
+        sg = torch.tensor(scale_grad, dtype=torch.float32)
+        c = sg + 2.0 * torch.sign(sg) * 1e-16 + 1e-16
+    else:
+        c = a_coef / scale_grad
+    return (float(torch.tensor(a_coef, dtype=torch.float32)),
+            float(torch.as_tensor(c, dtype=torch.float32)))
 
 
 def gather_batch(x_win, y_win, widx):
@@ -659,26 +659,56 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _kernel_operands(name, layout, kernel_id, tensors):
-    """Contiguity and shared-memory checks for a CUDA launch; the last of
-    ``tensors`` is the ``(rows, batch)`` y table."""
+# the state operands of every launch entry, in its argument order; a kernel
+# passes NULL for those its rule and phase do not have
+_STATE_IN = ("theta", "v", "minv", "tau", "g", "v_hat")
+_STATE_OUT = ("theta", "v", "tau", "g", "v_hat", "minv")
+
+
+def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
+            k_steps, seed, step0, coef, cdiv, prior_scale, batch_size,
+            n_data):
+    """Launch kernel ``kernel_id`` through the C entry ``name + "_launch"``
+    of ``csrc/fused_step.cu``.
+
+    ``ins`` maps state names (``_STATE_IN``) to ``(n_chains, P)`` tensors,
+    ``outs`` names the state outputs to allocate; ``tab`` is the per-step
+    table (SGHMC ``(k, 2)``: eps, eps / sqrt(scale_grad); SGLD ``(k,)``:
+    eps), ``coef`` is ``mdecay`` (SGHMC) or ``A`` (SGLD) and ``cdiv`` SGLD's
+    ``c`` (:func:`_sgld_constants`).  Checks contiguity and shared memory,
+    raises on a failed launch, and returns the outputs in ``outs`` order,
+    then the ``(n_chains, 1)`` cost.
+    """
     from pysgmcmc_tpu_torch.ops import _build
 
-    for arr in tensors:
+    theta = ins["theta"]
+    for arr in (*ins.values(), x, y, tab, noise, widx):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
     lib = _build.load()
-    batch = tensors[-1].shape[1]
     need = lib.fused_step_smem_bytes(
         kernel_id, layout.n_params, layout.n_inputs, layout.hidden,
-        layout.depth, batch)
+        layout.depth, batch_size)
     if need > _build.MAX_SMEM_BYTES:
         raise NotImplementedError(
             "{}: one chain's state and scratch need {} bytes of shared "
             "memory, more than the {} a block may use; this network is too "
             "large for the resident-state kernel".format(
                 name, need, _build.MAX_SMEM_BYTES))
-    return lib, _build
+    n = theta.shape[0]
+    out = {key: torch.empty_like(theta) for key in outs}
+    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):  # the launch uses the current device
+        _build.check(getattr(lib, name + "_launch")(
+            *[_ptr(ins.get(key)) for key in _STATE_IN], _ptr(x), _ptr(y),
+            _ptr(tab), _ptr(noise), _ptr(widx),
+            *[_ptr(out.get(key)) for key in _STATE_OUT], _ptr(cost),
+            n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
+            x.shape[0], int(k_steps), layout.n_params, int(seed),
+            int(step0) & _MASK32, float(coef), float(cdiv),
+            float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
+            torch.cuda.current_stream().cuda_stream))
+    return (*[out[key] for key in outs], cost)
 
 
 def _require_device(name, theta):
@@ -686,10 +716,6 @@ def _require_device(name, theta):
         raise ValueError("{}: tensors must be on the CPU or a CUDA device; "
                          "got {}".format(name, theta.device))
     return theta.device.type == "cuda"
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
@@ -718,24 +744,12 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
     layout, eps_vec = _validate(
         name, theta, [v, minv], x_win, y_win, eps, seed, batch_size,
         state_dtype, k_steps, h, pair_dots, noise_impl, noise, widx)
-    tab = _sghmc_table(eps_vec, scale_grad)
-    lib, build = _kernel_operands(
-        name, layout, B1, [theta, v, minv, noise, widx, x_win, y_win])
-    n = theta.shape[0]
-    theta_out = torch.empty_like(theta)
-    v_out = torch.empty_like(v)
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):  # the launch uses the current device
-        build.check(lib.fused_bnn_multistep_launch(
-            _ptr(theta), _ptr(v), _ptr(minv), _ptr(x_win), _ptr(y_win),
-            _ptr(tab), _ptr(noise), _ptr(widx), _ptr(theta_out),
-            _ptr(v_out), _ptr(cost), n, layout.n_inputs, layout.hidden,
-            layout.depth, batch_size, x_win.shape[0], int(k_steps),
-            layout.n_params, int(seed), (int(step0) & _MASK32),
-            float(mdecay), float(prior_scale), 1.0 / batch_size,
-            1.0 / n_data, _stream()))
+    out = _launch(name, B1, layout, dict(theta=theta, v=v, minv=minv),
+                  ("theta", "v"), x_win, y_win,
+                  _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
+                  seed, step0, mdecay, 0.0, prior_scale, batch_size, n_data)
     fused_bnn_multistep.launches += 1
-    return theta_out, v_out, cost
+    return out
 
 
 fused_bnn_multistep.launches = 0
@@ -763,23 +777,13 @@ def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
         name, theta, [v, tau, g, v_hat], x_win, y_win, eps, seed,
         batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
         widx)
-    tab = _sghmc_table(eps_vec, scale_grad)
-    lib, build = _kernel_operands(
-        name, layout, B2, [theta, v, tau, g, v_hat, noise, widx, x_win, y_win])
-    n = theta.shape[0]
-    outs = [torch.empty_like(theta) for _ in range(6)]
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):
-        build.check(lib.fused_bnn_multistep_burnin_launch(
-            _ptr(theta), _ptr(v), _ptr(tau), _ptr(g), _ptr(v_hat),
-            _ptr(x_win), _ptr(y_win), _ptr(tab), _ptr(noise), _ptr(widx),
-            *[_ptr(o) for o in outs], _ptr(cost),
-            n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
-            x_win.shape[0], int(k_steps), layout.n_params, int(seed),
-            (int(step0) & _MASK32), float(mdecay), float(prior_scale),
-            1.0 / batch_size, 1.0 / n_data, _stream()))
+    out = _launch(name, B2, layout,
+                  dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat),
+                  ("theta", "v", "tau", "g", "v_hat", "minv"), x_win, y_win,
+                  _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
+                  seed, step0, mdecay, 0.0, prior_scale, batch_size, n_data)
     fused_bnn_multistep_burnin.launches += 1
-    return (*outs, cost)
+    return out
 
 
 fused_bnn_multistep_burnin.launches = 0
@@ -817,23 +821,12 @@ def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
     layout, eps_vec = _validate(
         name, theta, [v, minv], x_sel, y_sel, eps, seed, batch_size,
         state_dtype, 1, h, pair_dots, noise_impl, noise, None, n_inputs)
-    tab = _sghmc_table(eps_vec, scale_grad)
-    lib, build = _kernel_operands(
-        name, layout, B3, [theta, v, minv, noise, x_sel, y_sel])
-    n = theta.shape[0]
-    theta_out = torch.empty_like(theta)
-    v_out = torch.empty_like(v)
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):
-        build.check(lib.fused_bnn_step_launch(
-            _ptr(theta), _ptr(v), _ptr(minv), _ptr(x_sel), _ptr(y_sel),
-            _ptr(tab), _ptr(noise), _ptr(theta_out), _ptr(v_out), _ptr(cost),
-            n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
-            layout.n_params, int(seed), (int(step) & _MASK32),
-            float(mdecay), float(prior_scale), 1.0 / batch_size,
-            1.0 / n_data, _stream()))
+    out = _launch(name, B3, layout, dict(theta=theta, v=v, minv=minv),
+                  ("theta", "v"), x_sel, y_sel,
+                  _sghmc_table(eps_vec, scale_grad), noise, None, 1, seed,
+                  step, mdecay, 0.0, prior_scale, batch_size, n_data)
     fused_bnn_step.launches += 1
-    return theta_out, v_out, cost
+    return out
 
 
 fused_bnn_step.launches = 0
@@ -858,21 +851,12 @@ def fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps, seed, a_coef=1.0,
     layout, eps_vec = _validate(
         name, theta, [minv], x_sel, y_sel, eps, seed, batch_size,
         torch.float32, 1, h, False, noise_impl, noise, None, n_inputs)
-    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
-    lib, build = _kernel_operands(
-        name, layout, B4_SGLD, [theta, minv, noise, x_sel, y_sel])
-    n = theta.shape[0]
-    theta_out = torch.empty_like(theta)
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):
-        build.check(lib.fused_bnn_step_sgld_launch(
-            _ptr(theta), _ptr(minv), _ptr(x_sel), _ptr(y_sel), _ptr(tab),
-            _ptr(noise), _ptr(theta_out), _ptr(cost), n, layout.n_inputs,
-            layout.hidden, layout.depth, batch_size, layout.n_params,
-            int(seed), (int(step) & _MASK32), 1.0 / batch_size,
-            1.0 / n_data, _stream()))
+    out = _launch(name, B4_SGLD, layout, dict(theta=theta, minv=minv),
+                  ("theta",), x_sel, y_sel, eps_vec.contiguous(), noise, None,
+                  1, seed, step, *_sgld_constants(a_coef, scale_grad, False),
+                  prior_scale, batch_size, n_data)
     fused_bnn_step_sgld.launches += 1
-    return theta_out, cost
+    return out
 
 
 fused_bnn_step_sgld.launches = 0
@@ -896,22 +880,13 @@ def fused_bnn_multistep_sgld(theta, minv, x_win, y_win, eps, seed,
     layout, eps_vec = _validate(
         name, theta, [minv], x_win, y_win, eps, seed, batch_size,
         torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
-    tab = _sgld_table(eps_vec, a_coef, a_coef / scale_grad, prior_scale)
-    lib, build = _kernel_operands(
-        name, layout, B5_SGLD, [theta, minv, noise, widx, x_win, y_win])
-    n = theta.shape[0]
-    theta_out = torch.empty_like(theta)
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):
-        build.check(lib.fused_bnn_multistep_sgld_launch(
-            _ptr(theta), _ptr(minv), _ptr(x_win), _ptr(y_win), _ptr(tab),
-            _ptr(noise), _ptr(widx), _ptr(theta_out), _ptr(cost), n,
-            layout.n_inputs, layout.hidden, layout.depth, batch_size,
-            x_win.shape[0], int(k_steps), layout.n_params, int(seed),
-            (int(step0) & _MASK32), 1.0 / batch_size, 1.0 / n_data,
-            _stream()))
+    out = _launch(name, B5_SGLD, layout, dict(theta=theta, minv=minv),
+                  ("theta",), x_win, y_win, eps_vec.contiguous(), noise, widx,
+                  k_steps, seed, step0,
+                  *_sgld_constants(a_coef, scale_grad, False), prior_scale,
+                  batch_size, n_data)
     fused_bnn_multistep_sgld.launches += 1
-    return theta_out, cost
+    return out
 
 
 fused_bnn_multistep_sgld.launches = 0
@@ -938,23 +913,14 @@ def fused_bnn_multistep_burnin_sgld(theta, tau, g, v_hat, x_win, y_win, eps,
     layout, eps_vec = _validate(
         name, theta, [tau, g, v_hat], x_win, y_win, eps, seed, batch_size,
         torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
-    tab = _sgld_table(eps_vec, a_coef, _sg_safe(scale_grad), prior_scale)
-    lib, build = _kernel_operands(
-        name, layout, B6, [theta, tau, g, v_hat, noise, widx, x_win, y_win])
-    n = theta.shape[0]
-    outs = [torch.empty_like(theta) for _ in range(5)]
-    cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
-    with torch.cuda.device(theta.device):
-        build.check(lib.fused_bnn_multistep_burnin_sgld_launch(
-            _ptr(theta), _ptr(tau), _ptr(g), _ptr(v_hat), _ptr(x_win),
-            _ptr(y_win), _ptr(tab), _ptr(noise), _ptr(widx),
-            *[_ptr(o) for o in outs], _ptr(cost), n, layout.n_inputs,
-            layout.hidden, layout.depth, batch_size, x_win.shape[0],
-            int(k_steps), layout.n_params, int(seed),
-            (int(step0) & _MASK32), 1.0 / batch_size, 1.0 / n_data,
-            _stream()))
+    out = _launch(name, B6, layout,
+                  dict(theta=theta, tau=tau, g=g, v_hat=v_hat),
+                  ("theta", "tau", "g", "v_hat", "minv"), x_win, y_win,
+                  eps_vec.contiguous(), noise, widx, k_steps, seed, step0,
+                  *_sgld_constants(a_coef, scale_grad, True), prior_scale,
+                  batch_size, n_data)
     fused_bnn_multistep_burnin_sgld.launches += 1
-    return (*outs, cost)
+    return out
 
 
 fused_bnn_multistep_burnin_sgld.launches = 0
