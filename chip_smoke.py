@@ -3,21 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` and prints
-their ``ptxas`` registers and spills, holds each of the six kernels (B1, B2,
-B3, B4-sgld, B5-sgld, B6) against its plain PyTorch version on the card
-(flagship shapes, from burned-in states, injected noise and the Philox
-stream, each check beside the plain version's own floor), times both at the
-main path's shape, checks the one-step driver against the multi-step driver
-and the small main paths on the card against the CPU, then trains and
-predicts the two flagship BNNs (3x50 tanh, 8192 chains, sinc data, SGHMC and
-SGLD) through ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork`` and checks
-the results.  Each kernel's launches are counted over the path that runs it
-(the flagships for B1/B2 and B5-sgld/B6, the one-step driver for B3 and
-B4-sgld).  The second-to-last line is the kernels' JSON record, the last
-line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; without a CUDA device, or without the package beside this script,
-it exits non-zero before printing any result.
+Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
+``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
+spills, holds each of the ten kernels against its plain PyTorch version on
+the card (flagship shapes, from burned-in states, injected noise and the
+Philox stream, each check beside the plain version's own floor): the fused
+kernels B1, B2, B3, B4-sgld, B5-sgld, B6 and the slim kernels B7, B8-sgld,
+B9-sghmc, B9-sgld (also with a per-chain eps row).  It times every kernel
+at the main path's shape, checks the one-step driver against the multi-step
+driver, the chains-on-lanes drivers against the fused drivers on the dense
+network, and the small main paths on the card against the CPU, then trains
+and predicts the flagship BNNs (3x50 tanh, 8192 chains, sinc data, SGHMC
+and SGLD) through ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork``: the
+fused path (``network="dense"``) and the lanes path (``network=
+"reference"``), and takes one profiler trace of lanes steps.  Each kernel's
+launches are counted over the path that runs it (the fused flagships for
+B1/B2 and B5-sgld/B6, the one-step driver for B3 and B4-sgld, the lanes
+flagships for B7/B9-sghmc and B8-sgld/B9-sgld).  The second-to-last line is
+the kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; without a CUDA device, or without
+the package beside this script, it exits non-zero before printing any
+result.
 """
 
 import json
@@ -58,17 +64,25 @@ EPS, EPS_SGLD = 0.01, 1e-3
 # window at the edge of stability and amplifies a 1e-7 nudge to order one,
 # so it runs on the Philox stream, which the plain versions reproduce, at
 # EPS_SGLD (the script prints the floor at EPS).
+# The lanes path (reference network) the same way; on the degenerate stream
+# its SGLD floor is 0.19 (CPU), so SGLD runs on the Philox stream there too.
 SMALL = {"SGHMC": dict(network="dense", step_impl="fused", n_chains=4,
                        n_nets=8, burn_in_steps=64, sample_steps=16,
                        n_iters=96, log_every=None, noise_impl="zero")}
 SMALL["SGLD"] = dict(SMALL["SGHMC"], noise_impl="auto",
                      stepsize_schedule=EPS_SGLD)
+SMALL_LANES = {method: dict(config, network="reference", step_impl="lanes")
+               for method, config in SMALL.items()}
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# ptxas names the instantiations fused_kernel<rule, burn-in, gathered>
+# ptxas names the instantiations fused_kernel<rule, burn-in, gathered> and
+# slim_kernel<rule, burn-in>
 INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
              (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6"}
+SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (0, 1): "B9-sghmc",
+                  (1, 1): "B9-sgld"}
+PROFILED_STEPS = 20  # lanes burn-in steps in the profiler trace
 
 
 def _import_port():
@@ -161,20 +175,23 @@ def _compare(torch, name, got, want, floor=None, what="kernel-plain"):
     return worst
 
 
-def _ptxas_report(log_text):
+def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES):
     """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v."""
     out = {}
+    flags = r"ILi(\d)E" + r"Lb(\d)E" * (len(next(iter(instances))) - 1)
     pattern = re.compile(
-        r"fused_kernelILi(\d)ELb(\d)ELb(\d)E.*?\n\s*(\d+) bytes stack frame, "
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) "
-        r"registers", re.S)
+        kernel + flags + r".*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
+        r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+        re.S)
     for m in pattern.finditer(log_text):
-        name = INSTANCES[tuple(int(m.group(i)) for i in (1, 2, 3))]
+        k = len(next(iter(instances)))
+        name = instances[tuple(int(m.group(i)) for i in range(1, k + 1))]
         out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
-                    "loads".format(m.group(7), m.group(5), m.group(6))
-    if set(out) != set(INSTANCES.values()):
+                    "loads".format(m.group(k + 4), m.group(k + 2),
+                                   m.group(k + 3))
+    if set(out) != set(instances.values()):
         raise AssertionError("ptxas report lacks kernels: {}".format(
-            sorted(set(INSTANCES.values()) - set(out))))
+            sorted(set(instances.values()) - set(out))))
     return out
 
 
@@ -195,6 +212,15 @@ def _flops_per_chain_step(lay, batch, rule_flops):
 # (sampling) and the position add 1; burn-in adds the EMAs and minv, 30.
 RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
               "B6": 45}
+# The slim kernels apply the same rules without the mask, and draw every
+# normal in the kernel: one Philox4x32-10 (10 rounds of 2 mulhi, 2 mul, 4
+# xor, and 2 key adds in 9 of them: 98), two bits-to-uniform maps (8) and
+# Box-Muller's log, sqrt, cos and 3 multiplies (6), 112 operations.  All are
+# counted against the f32 peak, an optimistic rate for the integer and
+# special-function units, so the bound stays a lower bound.
+NOISE_OPS = 112
+SLIM_OPS = {"B7": NOISE_OPS + 18, "B8-sgld": NOISE_OPS + 14,
+            "B9-sghmc": NOISE_OPS + 48, "B9-sgld": NOISE_OPS + 45}
 
 
 def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
@@ -207,8 +233,8 @@ def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
     return memory_ms, "bytes"
 
 
-def _train_small(torch, x_np, y_np, method, start, device, **overrides):
-    """Train and predict the small BNN of ``SMALL`` from the weights
+def _train_small(torch, x_np, y_np, method, config, start, device):
+    """Train and predict the small BNN of ``config`` from the weights
     ``start`` through the port's entry points; returns the samples, one row
     of all parameters per sample, and the predictive mean."""
     import numpy as np
@@ -216,7 +242,7 @@ def _train_small(torch, x_np, y_np, method, start, device, **overrides):
     from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
 
     bnn = BayesianNeuralNetwork(sampling_method=method, device=device,
-                                **dict(SMALL[method.value], **overrides))
+                                **config)
     bnn._initial_positions = (
         lambda init_fn, generator, n: {k: v.to(device)
                                        for k, v in start.items()})
@@ -227,27 +253,29 @@ def _train_small(torch, x_np, y_np, method, start, device, **overrides):
     return samples, torch.as_tensor(mean)
 
 
-def _small_main_path(torch, x_np, y_np, method, check=True, **overrides):
-    """The small main path on the card (kernels) against the CPU (plain
-    versions) from the same initial weights; returns the largest |card -
-    CPU|.  With ``check=False`` only the CPU floor is measured and
+def _small_main_path(torch, x_np, y_np, method, config, check=True):
+    """The small main path of ``config`` on the card (kernels) against the
+    CPU (plain versions) from the same initial weights; returns the largest
+    |card - CPU|.  With ``check=False`` only the CPU floor is measured and
     printed."""
-    from pysgmcmc_tpu_torch.models import dense_network
+    from pysgmcmc_tpu_torch.models import default_network, dense_network
 
-    init_fn, _ = dense_network(1, units=(H, H, H), device="cpu")
-    start = init_fn(torch.Generator().manual_seed(7),
-                    (SMALL[method.value]["n_chains"],))
-    cpu = _train_small(torch, x_np, y_np, method, start, "cpu", **overrides)
-    nudged = _train_small(torch, x_np, y_np, method,
+    network = dense_network if config["network"] == "dense" \
+        else default_network
+    init_fn, _ = network(1, units=(H, H, H), device="cpu")
+    start = init_fn(torch.Generator().manual_seed(7), (config["n_chains"],))
+    cpu = _train_small(torch, x_np, y_np, method, config, start, "cpu")
+    nudged = _train_small(torch, x_np, y_np, method, config,
                           {k: _nudge(torch, v) for k, v in start.items()},
-                          "cpu", **overrides)
+                          "cpu")
     floor = max(_rel_err(a, b) for a, b in zip(nudged, cpu))
-    label = "small {} main path{}".format(method.value, "".join(
-        " {}={}".format(k, v) for k, v in overrides.items()))
+    label = "small {} {} main path ({} network, noise {}, eps {})".format(
+        method.value, config["step_impl"], config["network"],
+        config["noise_impl"], config.get("stepsize_schedule", EPS))
     if not check:
         print("  {}: not checked, floor {:.3e}".format(label, floor))
         return None
-    card = _train_small(torch, x_np, y_np, method, start, "cuda", **overrides)
+    card = _train_small(torch, x_np, y_np, method, config, start, "cuda")
     return _compare(torch, (label, ("samples", "predictive mean")), card,
                     cpu, floor, what="card-CPU")
 
@@ -358,9 +386,12 @@ def _driver_check(torch, x, y, sampler_cls, device):
     return worst, launches
 
 
-def _flagship(torch, x_np, y_np, sampling_method, kernels, card):
+def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
+              step_impl="fused", network="dense", expected=None):
     """Train + predict the 8192-chain flagship through the port's BNN with
-    every kernel count set to 0 just before; returns the launches."""
+    every kernel count set to 0 just before; returns the launches (which
+    must equal ``expected`` where given) and adds the phase rates to
+    ``rates``."""
     import numpy as np
 
     from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
@@ -368,9 +399,10 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card):
     for fn in kernels.values():
         fn.launches = 0
     bnn = BayesianNeuralNetwork(
-        sampling_method=sampling_method, network="dense", step_impl="fused",
-        n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS, burn_in_steps=BURN_IN,
-        sample_steps=SAMPLE_STEPS, n_iters=BURN_IN + SAMPLE_STEPS)
+        sampling_method=sampling_method, network=network,
+        step_impl=step_impl, n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS,
+        burn_in_steps=BURN_IN, sample_steps=SAMPLE_STEPS,
+        n_iters=BURN_IN + SAMPLE_STEPS)
     t0 = time.perf_counter()
     bnn.train(x_np, y_np)
     train_s = time.perf_counter() - t0
@@ -379,7 +411,8 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card):
     mean, var = bnn.predict(x_grid)
     predict_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    label = "{} main path".format(sampling_method.value)
+    label = "{} {} main path ({} network)".format(sampling_method.value,
+                                                  step_impl, network)
     mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
     print("{}: {} chains, {} burn-in + {} sampling steps, {} samples; train "
           "{:.2f} s, predict {:.3f} s; launches {}".format(
@@ -395,13 +428,256 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card):
     if min(launches.values()) < 1:
         raise AssertionError("{}: a kernel was not launched: {}".format(
             label, launches))
+    if expected is not None and launches != expected:
+        raise AssertionError("{}: launches {}, want {}".format(
+            label, launches, expected))
     print("{}: predictive MSE on sinc: {:.3e} (gate 0.1)".format(label, mse))
     for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
         seconds = bnn.phase_seconds[phase]
+        rates[(step_impl, sampling_method.value, phase)] = \
+            MAIN_CHAINS * steps / seconds
         print("{}: {} update-steps/s: {:.4e} ({} chains x {} steps in {:.3f} "
               "s; {})".format(label, phase, MAIN_CHAINS * steps / seconds,
                               MAIN_CHAINS, steps, seconds, card))
     return launches
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+# slim kernel -> (C++ rule, state operands, output labels, stepsize)
+SLIM = {
+    "B7": ("SGHMC", ("theta", "v", "grad", "minv"), ("theta", "v"), EPS),
+    "B8-sgld": ("SGLD", ("theta", "grad", "minv"), ("theta",), EPS_SGLD),
+    "B9-sghmc": ("SGHMC", ("theta", "v", "tau", "g", "v_hat", "grad"),
+                 ("theta", "v", "tau", "g", "v_hat", "minv"), EPS),
+    "B9-sgld": ("SGLD", ("theta", "tau", "g", "v_hat", "grad"),
+                ("theta", "tau", "g", "v_hat", "minv"), EPS_SGLD),
+}
+
+
+def _slim_functions(su):
+    """slim kernel -> (wrapper, plain version)."""
+    return {"B7": (su.slim_sghmc_update, su.slim_sghmc_update_ref),
+            "B8-sgld": (su.slim_sgld_update, su.slim_sgld_update_ref),
+            "B9-sghmc": (su.slim_sghmc_burnin_update,
+                         su.slim_sghmc_burnin_update_ref),
+            "B9-sgld": (su.slim_sgld_burnin_update,
+                        su.slim_sgld_burnin_update_ref)}
+
+
+def _slim_states(torch, fs, state, lay, x_win, y_win):
+    """The burned-in check states tiled to the flagship's MAIN_CHAINS
+    chains, each rule's with the gradient of its theta on the Philox
+    windows of one step (the plain backward pass of the fused kernels)."""
+    reps = MAIN_CHAINS // CHECK_CHAINS
+    out = {}
+    for rule, st in state.items():
+        st = {k: v.repeat(reps, 1) for k, v in st.items()}
+        widx = fs.philox_windows(77, 0, MAIN_CHAINS, x_win.shape[0],
+                                 st["theta"].device)
+        xw = x_win[widx][:, :, None]
+        st["grad"] = fs._fwd_bwd(st["theta"], lay, xw, y_win[widx],
+                                 1.0 / BATCH, 1.0 / N_DATA)[1]
+        out[rule] = st
+    return out
+
+
+def _slim_checks(torch, su, states, kws):
+    """B7, B8-sgld, B9-sghmc and B9-sgld against their plain versions at the
+    flagship shape, one step each, on injected noise, on the Philox stream
+    and on the Philox stream with a per-chain eps row, each beside its
+    floor; returns ``{kernel: max abs error}``."""
+    gen = torch.Generator(device=states["SGHMC"]["theta"].device)
+    gen.manual_seed(4321)
+    err = {}
+    for name, (fn, ref) in _slim_functions(su).items():
+        rule, inputs, labels, eps = SLIM[name]
+        args = [states[rule][k] for k in inputs]
+        n = args[0].shape[0]
+        streams = [
+            ("injected", eps, dict(noise=torch.randn(
+                args[0].shape, generator=gen, device=args[0].device))),
+            ("philox", eps, dict(step=12345)),
+            ("philox, per-chain eps", eps * (0.5 + torch.rand(
+                n, generator=gen, device=args[0].device)), dict(step=12345)),
+        ]
+        err[name] = 0.0
+        for stream, e, extra in streams:
+            kw = dict(kws[rule], **extra)
+            want = _tuple(ref(*args, None, e, SEED, **kw))
+            floor = max(_rel_err(a, b) for a, b in zip(_tuple(ref(
+                _nudge(torch, args[0]), *args[1:], None, e, SEED, **kw)),
+                want))
+            got = _tuple(fn(*args, None, e, SEED, **kw))
+            torch.cuda.synchronize()
+            err[name] = max(err[name], _compare(
+                torch, ("{}/{} x 1".format(name, stream), labels), got, want,
+                floor))
+    return err
+
+
+def _fused_cost(torch, apply):
+    """The fused path's cost of one chain (likelihood and log-variance
+    prior; the weight prior is folded into the update), for autograd."""
+    from pysgmcmc_tpu_torch.models import log_variance_prior_log_like
+
+    def cost(params, batch):
+        xb, yb = batch
+        out = apply(params, xb)
+        f_mean, f_log_var = out[:, 0:1], out[:, 1:2]
+        mse = (yb - f_mean) ** 2
+        ll = torch.sum(-mse * (0.5 / (torch.exp(f_log_var) + 1e-16))
+                       - 0.5 * f_log_var) / BATCH
+        return -(ll + log_variance_prior_log_like(f_log_var) / N_DATA)
+    return cost
+
+
+def _lanes_vs_fused(torch, x, y, sampler_cls, eps, device):
+    """The lanes drivers (autograd gradient, then B9 / B7 or B8-sgld) against
+    the fused drivers (B2 / B6, then B1 / B5-sgld) on the dense network, from
+    one burned-in state and one generator seed, on the Philox stream: 8
+    burn-in and 8 sampling steps.  Returns the worst error."""
+    from pysgmcmc_tpu_torch.data_batches import batch_fn
+    from pysgmcmc_tpu_torch.models import dense_network
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+    from pysgmcmc_tpu_torch.parallel import (
+        burnin_chain_fused,
+        burnin_chain_lanes,
+        sample_chain_fused,
+        sample_chain_lanes,
+    )
+
+    _, states = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, device)
+    _, apply = dense_network(1, units=(H, H, H), device=device)
+    lay = fs.FusedLayout(1, H, 3)
+    sampler = sampler_cls(_fused_cost(torch, apply), stepsize_schedule=eps,
+                          scale_grad=float(N_DATA),
+                          gaussian_prior_scale=1.0 / (lay.n_params * N_DATA))
+    select = batch_fn(x, y, BATCH)
+    drivers = {
+        "fused": (lambda s, g: burnin_chain_fused(sampler, s, g, 8, x, y),
+                  lambda s, g: sample_chain_fused(
+                      sampler, s, g, 1, x, y, keep_every=8, multistep=True)),
+        "lanes": (lambda s, g: burnin_chain_lanes(sampler, s, g, 8,
+                                                  batch_fn=select),
+                  lambda s, g: sample_chain_lanes(
+                      sampler, s, g, 1, batch_fn=select, keep_every=8)),
+    }
+
+    def run(path, start):
+        gen = torch.Generator(device=device).manual_seed(5)
+        burned = drivers[path][0](start, gen)
+        _, pos, _ = drivers[path][1](burned, gen)
+        return (fs.pack(burned.position, lay),
+                fs.pack({k: v[:, 0] for k, v in pos.items()}, lay))
+
+    want = run("fused", states)
+    nudged = run("fused", states._replace(position={
+        k: _nudge(torch, v) for k, v in states.position.items()}))
+    floor = max(_rel_err(a, b) for a, b in zip(nudged, want))
+    got = run("lanes", states)
+    torch.cuda.synchronize()
+    return _compare(
+        torch, ("lanes vs fused drivers ({}, dense, eps {:g})".format(
+            sampler_cls.__name__, eps),
+            ("positions after 8 burn-in steps",
+             "positions after 8 sampling steps")),
+        got, want, floor, what="lanes - fused")
+
+
+def _lanes_profile(torch, x, y, card):
+    """One torch.profiler trace of PROFILED_STEPS lanes burn-in steps of the
+    SGHMC flagship (8192 chains, reference network): how the step splits
+    between the slim kernel and the rest (the autograd gradient, the packing
+    and the minibatch gather), and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, default_network
+
+    device = x.device
+    bnn = BayesianNeuralNetwork(network="reference", step_impl="lanes",
+                                n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS)
+    init, apply = default_network(1, units=(H, H, H), device=device)
+    positions = init(torch.Generator(device=device).manual_seed(3),
+                     (MAIN_CHAINS,))
+    sampler, burn, _ = bnn._lanes_path(apply, positions, x, y, N_DATA,
+                                       torch.Generator().manual_seed(3))
+    states = burn(sampler.init(positions), 5)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        burn(states, PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    slim_us = other_us = 0.0
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        if "slim_kernel" in evt.name:
+            slim_us += evt.time_range.elapsed_us()
+        else:
+            other_us += evt.time_range.elapsed_us()
+    label = "lanes profile (SGHMC burn-in, {} chains, {} steps)".format(
+        MAIN_CHAINS, PROFILED_STEPS)
+    if not n_kernels:
+        print("{}: the trace holds no device events; split and idle share "
+              "not measured".format(label))
+        return
+    per = 1e-3 / PROFILED_STEPS
+    busy = slim_us + other_us
+    print("{}: wall {:.3f} ms/step (with the profiler on), device busy "
+          "{:.3f} ms/step: slim kernel {:.3f} ms, gradient, packing and "
+          "gather {:.3f} ms in {:.1f} device events/step; device idle "
+          "{:.1%} ({})".format(
+              label, wall_us * per, busy * per, slim_us * per,
+              other_us * per, n_kernels / PROFILED_STEPS,
+              max(0.0, 1.0 - busy / wall_us), card))
+    _lanes_host_split(torch, x, y, sampler, burn, states, busy * per, label,
+                      card)
+
+
+def _lanes_host_split(torch, x, y, sampler, burn, states, busy_ms, label,
+                      card):
+    """The same steps on the host's clock, without the profiler: the whole
+    step, the gradient pass (window draw included) and the window draw
+    alone, each over PROFILED_STEPS steps ending in a synchronize; the idle
+    share is the trace's device busy time over this wall time."""
+    from pysgmcmc_tpu_torch.data_batches import batch_fn
+    from pysgmcmc_tpu_torch.parallel import packed
+
+    select = batch_fn(x, y, BATCH)
+    spec = packed.make_lanes_spec({k: v[0] for k, v in states.position.items()})
+    theta = packed.pack_lanes(spec, states.position)
+
+    def ms_per_step(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for step in range(PROFILED_STEPS):
+            fn(step)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / PROFILED_STEPS
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    burn(states, PROFILED_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / PROFILED_STEPS
+    grad_ms = ms_per_step(lambda s: packed._lanes_gradient(
+        sampler, spec, theta, select, SEED, s))
+    window_ms = ms_per_step(lambda s: select(SEED, s, theta.shape[0]))
+    print("{}, host clock without the profiler: {:.3f} ms/step, of which "
+          "the gradient pass {:.3f} ms (its window draw and gather {:.3f} "
+          "ms) and the slim launch, packing and the rest {:.3f} ms; device "
+          "idle {:.1%} ({})".format(
+              label, step_ms, grad_ms, window_ms, step_ms - grad_ms,
+              max(0.0, 1.0 - busy_ms / step_ms), card))
 
 
 def main():
@@ -414,6 +690,7 @@ def main():
     _import_port()
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import _build, fused_step as fs
+    from pysgmcmc_tpu_torch.ops import slim_update as su
     from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
     from pysgmcmc_tpu_torch.sampling import Sampler
 
@@ -429,13 +706,21 @@ def main():
     print("tf32: off for matmul and cuDNN (plain versions run full f32)")
     device = torch.device("cuda")
 
-    _, seconds = _build.build()
-    _build.load()
-    print("build: {} in {:.1f} s (0.0 = already built)".format(
-        os.path.relpath(_build.library_path(), HERE), seconds))
-    with open(_build.log_path()) as f:
-        for name, line in sorted(_ptxas_report(f.read()).items()):
-            print("ptxas {}: {}".format(name, line))
+    paths, seconds = _build.build()
+    for source in _build.SOURCES:
+        _build.load(source)
+    print("build: {} in {:.1f} s, one nvcc per source in parallel (0.0 = "
+          "already built)".format(", ".join(
+              os.path.relpath(path, HERE) for path in paths.values()),
+              seconds))
+    reports = {}
+    for source, kernel, instances in (
+            ("fused_step", "fused_kernel", INSTANCES),
+            ("slim_update", "slim_kernel", SLIM_INSTANCES)):
+        with open(_build.log_path(source)) as f:
+            reports.update(_ptxas_report(f.read(), kernel, instances))
+    for name, line in sorted(reports.items()):
+        print("ptxas {}: {}".format(name, line))
 
     x_np, y_np, x, y = _data(torch, device)
     x_win, y_win = fs.data_windows(x, y, BATCH)
@@ -497,6 +782,13 @@ def main():
          sghmc if rule == "SGHMC" else sgld, labels, one_step, plan)
         for name, fn, ref, rule, inputs, labels, one_step, plan in checks],
         x_win, y_win, streams)
+    # the slim kernels at the flagship shape, from the same burned-in states
+    slim_kw = {"SGHMC": dict(mdecay=0.05, scale_grad=float(N_DATA),
+                             prior_scale=1.0 / (P * N_DATA)),
+               "SGLD": dict(a_coef=1.0, scale_grad=float(N_DATA),
+                            prior_scale=1.0 / (P * N_DATA))}
+    slim_states = _slim_states(torch, fs, state, lay, x_win, y_win)
+    err.update(_slim_checks(torch, su, slim_states, slim_kw))
     del noise, widx, state
 
     # ---- times at the main path's shape: 8192 chains, k = 200 ----
@@ -568,7 +860,32 @@ def main():
               "ms ({}) ({})".format(name, n, timed[name], ONE_STEP_TIMED,
                                     timed[name + " plain"], bounds[name][0],
                                     bounds[name][1], card))
-    del theta, zeros, ones, out, minv_big, sel
+    # slim kernels: one launch (one step) at the flagship shape, Philox
+    for name, (fn, ref) in _slim_functions(su).items():
+        rule, inputs, labels, eps = SLIM[name]
+        args = [slim_states[rule][k] for k in inputs]
+
+        def launch(f=fn, a=args, e=eps, w=slim_kw[rule]):
+            return f(*a, None, e, 47, step=0, **w)
+
+        def plain(f=ref, a=args, e=eps, w=slim_kw[rule]):
+            return f(*a, None, e, 47, step=0, **w)
+
+        launch()
+        timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
+        plain()
+        timed[name + " plain"] = _median_ms(torch, plain, 5)
+        n_bytes = (len(inputs) + len(labels)) * f4
+        compute_ms = n * P * SLIM_OPS[name] / F32_FLOPS * 1e3
+        bounds[name] = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                           (compute_ms, "operations"))
+        print("time {} per launch (one step) at {} chains x {} parameters: "
+              "kernel {:.3f} ms (median of {}), plain {:.3f} ms (median of "
+              "5), bound {:.3f} ms ({}; {:.3f} ms for its operations) "
+              "({})".format(name, n, P, timed[name], ONE_STEP_TIMED,
+                            timed[name + " plain"], bounds[name][0],
+                            bounds[name][1], compute_ms, card))
+    del theta, zeros, ones, out, minv_big, sel, slim_states
     torch.cuda.empty_cache()
 
     # ---- the one-step driver vs the multi-step driver on the card ----
@@ -584,41 +901,76 @@ def main():
             raise AssertionError("{}: {} launches, want {}".format(
                 name, launches[name], DRIVER_SAMPLES * DRIVER_KEEP))
 
+    # ---- the lanes drivers vs the fused drivers on the dense network ----
+    for sampler_cls, eps in ((SGHMCSampler, EPS), (SGLDSampler, EPS_SGLD)):
+        print("lanes vs fused drivers ({}): {} chains x 16 steps, "
+              "max|lanes - fused| = {:.3e}".format(
+                  sampler_cls.__name__, CHECK_CHAINS,
+                  _lanes_vs_fused(torch, x, y, sampler_cls, eps, device)))
+
     # ---- the main paths on a small input: card vs plain versions ----
-    for method in (Sampler.SGHMC, Sampler.SGLD):
-        print("small {} main path ({} chains, {} steps) on the card vs the "
-              "CPU: max|diff| = {:.3e}".format(
-                  method.value, SMALL[method.value]["n_chains"],
-                  SMALL[method.value]["n_iters"],
-                  _small_main_path(torch, x_np, y_np, method)))
-    _small_main_path(torch, x_np, y_np, Sampler.SGLD, check=False,
-                     stepsize_schedule=EPS)
+    for configs in (SMALL, SMALL_LANES):
+        for method in (Sampler.SGHMC, Sampler.SGLD):
+            config = configs[method.value]
+            print("small {} {} main path ({} chains, {} steps) on the card "
+                  "vs the CPU: max|diff| = {:.3e}".format(
+                      method.value, config["step_impl"], config["n_chains"],
+                      config["n_iters"],
+                      _small_main_path(torch, x_np, y_np, method, config)))
+    _small_main_path(torch, x_np, y_np, Sampler.SGLD,
+                     dict(SMALL["SGLD"], stepsize_schedule=EPS), check=False)
 
     # ---- the main paths: train + predict through the port's BNN ----
+    rates = {}
     launches.update(_flagship(
         torch, x_np, y_np, Sampler.SGHMC,
         {"B1": fs.fused_bnn_multistep, "B2": fs.fused_bnn_multistep_burnin},
-        card))
+        card, rates))
     launches.update(_flagship(
         torch, x_np, y_np, Sampler.SGLD,
         {"B5-sgld": fs.fused_bnn_multistep_sgld,
-         "B6": fs.fused_bnn_multistep_burnin_sgld}, card))
+         "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates))
+    # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
+    # in sampling
+    slim = _slim_functions(su)
+    for method, burn, sample in ((Sampler.SGHMC, "B9-sghmc", "B7"),
+                                 (Sampler.SGLD, "B9-sgld", "B8-sgld")):
+        launches.update(_flagship(
+            torch, x_np, y_np, method,
+            {burn: slim[burn][0], sample: slim[sample][0]}, card, rates,
+            step_impl="lanes", network="reference",
+            expected={burn: BURN_IN, sample: SAMPLE_STEPS}))
+    for method in ("SGHMC", "SGLD"):
+        print("{} flagship update-steps/s, fused vs lanes: burn-in {:.4e} vs "
+              "{:.4e}, sampling {:.4e} vs {:.4e} ({})".format(
+                  method, *(rates[(impl, method, phase)]
+                            for phase in ("burn_in", "sampling")
+                            for impl in ("fused", "lanes")), card))
+    try:
+        _lanes_profile(torch, x, y, card)
+    except Exception as exc:  # the trace informs PERF.md; it gates nothing
+        print("lanes profile: not measured ({}: {})".format(
+            type(exc).__name__, exc))
 
-    source = "pysgmcmc_tpu_torch/csrc/fused_step.cu"
-    replaces = {"B2": ("fused_bnn_multistep_burnin", 2823),
-                "B1": ("fused_bnn_multistep", 1007),
-                "B6": ("fused_bnn_multistep_burnin_sgld", 2929),
-                "B5-sgld": ("fused_bnn_multistep_sgld", 2223),
-                "B3": ("fused_bnn_step", 616),
-                "B4-sgld": ("fused_bnn_step_sgld", 2002)}
+    replaces = {"B2": ("fused_bnn_multistep_burnin", "fused_step", 2823),
+                "B1": ("fused_bnn_multistep", "fused_step", 1007),
+                "B6": ("fused_bnn_multistep_burnin_sgld", "fused_step", 2929),
+                "B5-sgld": ("fused_bnn_multistep_sgld", "fused_step", 2223),
+                "B3": ("fused_bnn_step", "fused_step", 616),
+                "B4-sgld": ("fused_bnn_step_sgld", "fused_step", 2002),
+                "B9-sghmc": ("slim_sghmc_burnin_update", "slim_update", 995),
+                "B7": ("slim_sghmc_update", "slim_update", 331),
+                "B9-sgld": ("slim_sgld_burnin_update", "slim_update", 1135),
+                "B8-sgld": ("slim_sgld_update", "slim_update", 469)}
     records = [
-        {"name": fn_name, "route": "cuda", "source": source,
-         "replaces": "pysgmcmc_tpu/ops/fused_step.py:{}".format(line),
+        {"name": fn_name, "route": "cuda",
+         "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),
+         "replaces": "pysgmcmc_tpu/ops/{}.py:{}".format(module, line),
          "launches": launches[name], "max_abs_err": err[name],
          "ms": timed[name], "plain_ms": timed[name + " plain"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
-        for name, (fn_name, line) in replaces.items()]
+        for name, (fn_name, module, line) in replaces.items()]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

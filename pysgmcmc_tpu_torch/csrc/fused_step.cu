@@ -37,11 +37,10 @@
 //   | w_head (H) | b_head (1) | log_variance_bias (1)
 // Weight matrices are row-major (in, out).
 //
-// Randomness is Philox4x32-10 keyed by the 64-bit seed, with the counter
-// (chain, absolute step, element, purpose), so neither the block shape nor
-// the chunking of launches changes a trajectory.  The bits-to-uniform map
-// u = ((bits >> 8) + 1) * 2^-24 in (0, 1] is exact in f32 and shared with
-// the plain PyTorch version, which implements the same stream.
+// Randomness is the Philox4x32-10 stream of philox.cuh, keyed by the 64-bit
+// seed with the counter (chain, absolute step, element, purpose), so neither
+// the block shape nor the chunking of launches changes a trajectory; the
+// plain PyTorch version implements the same stream.
 //
 // Built with nvcc into a shared library with a plain C interface, one entry
 // per TPU kernel; each returns cudaGetLastError() after its launch.
@@ -49,16 +48,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kPurposeWindow = 0u;
-constexpr unsigned kPurposeNoise = 1u;
 constexpr float kLogMeanPrior = -13.815510557964274f;  // log(1e-6)
 constexpr float kVarPrior = 0.01f;
 constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
-constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kSmall = 1e-16f;
 
 // The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
@@ -98,35 +96,6 @@ struct Args {
   float coef, cdiv, prior_scale, inv_b, inv_n;
 };
 
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
-                                               unsigned k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const unsigned lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float bits_to_uniform(unsigned bits) {
-  return static_cast<float>((bits >> 8) + 1u) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ uint4 draw(const Args& a, unsigned chain,
-                                      unsigned step, unsigned element,
-                                      unsigned purpose) {
-  return philox4x32_10(make_uint4(chain, step, element, purpose),
-                       static_cast<unsigned>(a.seed),
-                       static_cast<unsigned>(a.seed >> 32));
-}
 
 __device__ __forceinline__ float sign_of(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
@@ -314,7 +283,8 @@ __device__ void load_batch(const Args& a, int t, unsigned step,
       if (a.widx != nullptr) {
         w = a.widx[static_cast<size_t>(t) * a.n_chains + c];
       } else {
-        const float u = bits_to_uniform(draw(a, c, step, 0u, kPurposeWindow).x);
+        const float u = bits_to_uniform(
+            philox_draw(a.seed, c, step, 0u, kPurposeWindow).x);
         w = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
                 a.n_windows - 1);
       }
@@ -336,9 +306,7 @@ __device__ __forceinline__ float noise_at(const Args& a, int t, unsigned step,
   const int c = blockIdx.x;
   if (a.noise != nullptr)
     return a.noise[(static_cast<size_t>(t) * a.n_chains + c) * a.n_params + p];
-  const uint4 r = draw(a, c, step, static_cast<unsigned>(p), kPurposeNoise);
-  const float u1 = bits_to_uniform(r.x), u2 = bits_to_uniform(r.y);
-  return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+  return philox_normal(a.seed, c, step, static_cast<unsigned>(p));
 }
 
 // The burn-in EMAs at element p, all reading OLD values (JAX

@@ -1,0 +1,182 @@
+// Slim elementwise sampler updates for Hopper: one pass over the packed
+// (n_chains, P) state per step of the chains-on-lanes drivers.
+//
+// Replaces the TPU Pallas kernels of pysgmcmc_tpu/ops/slim_update.py
+//   B7        slim_sghmc_update          SGHMC sampling update, frozen minv
+//   B8-sgld   slim_sgld_update           SGLD sampling update, frozen minv
+//   B9-sghmc  slim_sghmc_burnin_update   tau/g/v_hat EMAs + SGHMC update
+//   B9-sgld   slim_sgld_burnin_update    tau/g/v_hat EMAs + SGLD update
+// with the same semantics (_update_math, _sgld_math, _sghmc_burnin_math,
+// _sgld_burnin_math): the gradient arrives from the driver's autograd pass,
+// the kernel folds the Gaussian weight prior (g + prior_scale * theta), draws
+// the noise and applies the rule.  Burn-in reads OLD tau, g and v_hat for
+// every EMA and uses minv = 1/sqrt(old v_hat) with the reference's guards,
+// and returns that minv (the value the sampling phase freezes).
+//
+// Bound.  Every element is read and written once, so these kernels are bound
+// by device memory: per element B7 moves 6 f32 words (theta, v, grad, minv in;
+// theta, v out), B8-sgld 4, B9-sghmc 12 and B9-sgld 10; at the flagship (8192
+// chains x 5,252 parameters) that is 0.21-0.62 ms per launch at 3.35 TB/s.
+// Each element also pays one Philox4x32-10 draw and a log, a cos and a sqrt.
+//
+// Design.  The layout is the port's own: chain rows of P floats, leaves in
+// the network dict's order, no padding (the TPU's (rows, n_chains) layout
+// with 8-aligned slots and its mask is a Mosaic choice).  A 2-D grid: blockIdx.y
+// walks the chains, blockIdx.x and the threads the chain's parameters, so
+// neighbouring threads touch neighbouring words and no thread divides an
+// index.  The noise is the stream of philox.cuh at (chain, absolute step,
+// element, purpose), which is what the fused kernels B1-B6 draw: on the
+// dense network the lanes drivers and the fused drivers see the same normals.
+// A per-chain eps vector may replace the scalar stepsize (the
+// TracedStepsizeSchedule sweep pattern), and injected noise may replace the
+// draw (the tests).  All arithmetic is f32; outputs are new buffers, not
+// aliases of the inputs.
+//
+// Built with nvcc into a shared library with a plain C interface, one entry
+// per TPU kernel; each returns cudaGetLastError() after its launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocksX = 1024;
+constexpr int kMaxBlocksY = 65535;
+constexpr float kSmall = 1e-16f;
+
+enum Rule { kSghmc = 0, kSgld = 1 };
+
+struct Args {
+  const float* theta;
+  const float* v;        // SGHMC only
+  const float* minv;     // sampling only
+  const float* tau;      // burn-in only
+  const float* g;        // burn-in only
+  const float* v_hat;    // burn-in only
+  const float* grad;
+  const float* eps_vec;  // optional (n_chains,): replaces eps
+  const float* noise;    // optional (n_chains, n_params): replaces the draw
+  float* theta_out;
+  float* v_out;          // SGHMC only
+  float* tau_out;        // burn-in only
+  float* g_out;          // burn-in only
+  float* v_hat_out;      // burn-in only
+  float* minv_out;       // burn-in only: the minv this step used
+  int n_chains, n_params;
+  unsigned long long seed;
+  unsigned step;
+  // eps: the scalar stepsize; sqrt_sg: sqrt(scale_grad) (SGHMC's eps_s =
+  // eps / sqrt_sg); coef: mdecay (SGHMC) or A (SGLD); cdiv (SGLD): A /
+  // scale_grad in sampling, sg_safe = scale_grad + 2 sign(scale_grad) 1e-16 +
+  // 1e-16 in burn-in, both computed on the host
+  float eps, sqrt_sg, coef, cdiv, prior_scale;
+};
+
+__device__ __forceinline__ float sign_of(float x) {
+  return static_cast<float>((x > 0.0f) - (x < 0.0f));
+}
+
+template <int kRule, bool kBurnin>
+__global__ void __launch_bounds__(kThreads) slim_kernel(Args a) {
+  const int P = a.n_params;
+  for (int c = blockIdx.y; c < a.n_chains; c += gridDim.y) {
+    const size_t base = static_cast<size_t>(c) * P;
+    const float eps = a.eps_vec != nullptr ? a.eps_vec[c] : a.eps;
+    for (int p = blockIdx.x * kThreads + threadIdx.x; p < P;
+         p += gridDim.x * kThreads) {
+      const size_t i = base + p;
+      const float eta = a.noise != nullptr
+                            ? a.noise[i]
+                            : philox_normal(a.seed, static_cast<unsigned>(c),
+                                            a.step, static_cast<unsigned>(p));
+      const float th = a.theta[i];
+      const float gg = a.grad[i] + a.prior_scale * th;
+      float minv;
+      if constexpr (kBurnin) {
+        // every EMA reads the OLD tau, g and v_hat
+        const float tau = a.tau[i], gm = a.g[i], vh = a.v_hat[i];
+        const float sq = sqrtf(fmaxf(vh, 0.0f));
+        minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
+        const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
+        const float r = 1.0f / (tau + 1.0f);
+        a.tau_out[i] = tau + (-gm * gm * tau) / denom + 1.0f;
+        a.g_out[i] = gm - r * gm + r * gg;
+        a.v_hat_out[i] = vh - r * vh + r * gg * gg;
+        a.minv_out[i] = minv;
+      } else {
+        minv = a.minv[i];
+      }
+      if constexpr (kRule == kSghmc) {
+        const float es = eps / a.sqrt_sg;
+        const float es2 = es * es;
+        const float mdecay = a.coef;
+        const float vv = a.v[i];
+        const float sigma =
+            sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
+        const float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
+        a.v_out[i] = vn;
+        a.theta_out[i] = th + vn;
+      } else {
+        const float A = a.coef;
+        const float sigma =
+            kBurnin ? sqrtf(fmaxf(2.0f * eps * ((minv * A) / a.cdiv), 0.0f))
+                    : sqrtf(fmaxf(2.0f * eps * minv * a.cdiv, 0.0f));
+        a.theta_out[i] = th + (-eps * minv * A * gg + sigma * eta);
+      }
+    }
+  }
+}
+
+template <int kRule, bool kBurnin>
+int launch(const Args& a, void* stream) {
+  if (a.n_chains <= 0 || a.n_params <= 0) return 0;
+  const int bx = std::min((a.n_params + kThreads - 1) / kThreads, kMaxBlocksX);
+  const int by = std::min(a.n_chains, kMaxBlocksY);
+  slim_kernel<kRule, kBurnin>
+      <<<dim3(bx, by), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* slim_update_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// One entry per TPU kernel, all with the same arguments (the Args fields in
+// order, then the stream); a kernel reads only the operands of its rule and
+// phase, and the others may be NULL.
+#define SLIM_ENTRY(entry, rule, burnin)                                       \
+  int entry(const float* theta, const float* v, const float* minv,          \
+            const float* tau, const float* g, const float* v_hat,           \
+            const float* grad, const float* eps_vec, const float* noise,    \
+            float* theta_out, float* v_out, float* tau_out, float* g_out,   \
+            float* v_hat_out, float* minv_out, int n_chains, int n_params,  \
+            unsigned long long seed, unsigned step, float eps,              \
+            float sqrt_sg, float coef, float cdiv, float prior_scale,       \
+            void* stream) {                                                 \
+    const Args a = {theta,    v,         minv,     tau,       g,            \
+                    v_hat,    grad,      eps_vec,  noise,     theta_out,    \
+                    v_out,    tau_out,   g_out,    v_hat_out, minv_out,     \
+                    n_chains, n_params,  seed,     step,      eps,          \
+                    sqrt_sg,  coef,      cdiv,     prior_scale};            \
+    return launch<rule, burnin>(a, stream);                                 \
+  }
+
+// B7: SGHMC sampling update with a frozen minv.
+SLIM_ENTRY(slim_sghmc_update_launch, kSghmc, false)
+// B8-sgld: SGLD sampling update with a frozen minv.
+SLIM_ENTRY(slim_sgld_update_launch, kSgld, false)
+// B9-sghmc: SGHMC burn-in step; minv_out gets the minv it used.
+SLIM_ENTRY(slim_sghmc_burnin_update_launch, kSghmc, true)
+// B9-sgld: SGLD burn-in step; minv_out gets the minv it used.
+SLIM_ENTRY(slim_sgld_burnin_update_launch, kSgld, true)
+
+}  // extern "C"

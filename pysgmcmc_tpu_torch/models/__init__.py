@@ -1,4 +1,7 @@
-from pysgmcmc_tpu_torch.models.architectures import dense_network
+from pysgmcmc_tpu_torch.models.architectures import (
+    default_network,
+    dense_network,
+)
 from pysgmcmc_tpu_torch.models.base_model import (
     BaseModel,
     zero_mean_unit_var_normalization,
@@ -15,6 +18,7 @@ from pysgmcmc_tpu_torch.models.bayesian_neural_network import (
 __all__ = [
     "BaseModel",
     "BayesianNeuralNetwork",
+    "default_network",
     "dense_network",
     "log_variance_prior_log_like",
     "weight_prior_log_like",

@@ -1,14 +1,16 @@
 """Network architectures for Bayesian neural networks (PyTorch port of
-:func:`pysgmcmc_tpu.models.architectures.dense_network`).
+:mod:`pysgmcmc_tpu.models.architectures`).
 
 The reference's ``len(units)``-layer tanh heteroscedastic regression net:
 tanh hidden layers, a linear mean head, and a learned log-variance output
 bias (initialised to ``log(1e-3)``) as the second output column.  Weights
 are He-normal (fan-in, normal truncated at two standard deviations), biases
 zero.  Parameters are a dict of tensors with the JAX package's key names and
-shapes (``w1`` is ``(H,)`` for one input, the head weight is ``(H,)``,
-``log_variance_bias`` is ``(1, 1)``); any leading axes (chains, ensemble
-members) broadcast through ``apply``.
+shapes, in the order ``w1, b1, ..., w{L}, b{L}, log_variance_bias``:
+:func:`default_network` has the reference's shapes, :func:`dense_network`
+the fused kernels' (``w1`` is ``(H,)`` for one input, the head weight is
+``(H,)``); ``log_variance_bias`` is ``(1, 1)``.  Any leading axes (chains,
+ensemble members) broadcast through ``apply``.
 
 Examples
 --------
@@ -19,6 +21,12 @@ Examples
 (torch.Size([50]), torch.Size([50]), torch.Size([1, 1]))
 >>> apply(params, torch.zeros(5, 1)).shape
 torch.Size([5, 2])
+>>> ref_init, ref_apply = default_network(n_inputs=1, device="cpu")
+>>> ref = ref_init(torch.Generator().manual_seed(0))
+>>> ref["w1"].shape, ref["w4"].shape
+(torch.Size([1, 50]), torch.Size([50, 1]))
+>>> torch.equal(ref["w4"][:, 0], params["w4"])  # the same draws
+True
 """
 
 import math
@@ -30,21 +38,22 @@ import torch
 _TRUNC_STD = 0.87962566103423978
 
 
-def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
-                  device="cuda"):
-    """The reference BNN architecture as an ``(init, apply)`` pair.
+def default_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
+                    device="cuda"):
+    """The reference BNN architecture as an ``(init, apply)`` pair, with the
+    reference's parameter shapes (``w1`` ``(n_inputs, H)``, the head weight
+    ``(H, 1)``).
 
     ``init(generator, batch_shape=())`` draws one network per element of
     ``batch_shape`` (e.g. ``(n_chains,)``) on ``device`` (the card unless
-    ``"cpu"`` is asked for) from the
-    ``torch.Generator``; ``apply(params, x)`` maps ``(..., N, n_inputs)``
-    inputs to ``(..., N, 2)``: column 0 the predicted mean, column 1 the
-    (input-independent, learned) log predictive variance.
+    ``"cpu"`` is asked for) from the ``torch.Generator``, one layer after
+    the other; ``apply(params, x)`` maps ``(..., N, n_inputs)`` inputs to
+    ``(..., N, 2)``: column 0 the predicted mean, column 1 the
+    (input-independent, learned) log predictive variance.  Leading axes of
+    the parameters broadcast.
     """
     layer_sizes = [n_inputs, *units, 1]
     n_layers = len(layer_sizes) - 1
-    head = "w{}".format(n_layers)
-    squeeze_first = n_inputs == 1
 
     def init(generator, batch_shape=()):
         batch_shape = tuple(batch_shape)
@@ -61,6 +70,38 @@ def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
                 batch_shape + (fan_out,), dtype=dtype, device=device)
         params["log_variance_bias"] = torch.full(
             batch_shape + (1, 1), math.log(1e-3), dtype=dtype, device=device)
+        return params
+
+    def apply(params, x):
+        h = torch.as_tensor(x, dtype=dtype)
+        for i in range(1, n_layers):
+            h = torch.tanh(torch.matmul(h, params["w{}".format(i)])
+                           + params["b{}".format(i)][..., None, :])
+        mean = (torch.matmul(h, params["w{}".format(n_layers)])
+                + params["b{}".format(n_layers)][..., None, :])
+        log_var = params["log_variance_bias"].expand(mean.shape)
+        return torch.cat([mean, log_var], dim=-1)
+
+    return init, apply
+
+
+def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
+                  device="cuda"):
+    """The same architecture with the fused kernels' parameter shapes:
+    ``w1`` is ``(H,)`` for one input and the head weight is ``(H,)``.
+
+    ``init`` draws at the reference shapes through :func:`default_network`
+    and squeezes, so one generator gives both networks the same weights,
+    and packed in dict order the two have the same flat vector.
+    ``apply`` as :func:`default_network`'s.
+    """
+    ref_init, _ = default_network(n_inputs, units, dtype, device=device)
+    n_layers = len(units) + 1
+    head = "w{}".format(n_layers)
+    squeeze_first = n_inputs == 1
+
+    def init(generator, batch_shape=()):
+        params = ref_init(generator, batch_shape)
         if squeeze_first:
             params["w1"] = params["w1"][..., 0, :]
         params[head] = params[head][..., 0]

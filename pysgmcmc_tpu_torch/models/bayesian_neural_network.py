@@ -2,13 +2,21 @@
 :mod:`pysgmcmc_tpu.models.bayesian_neural_network`).
 
 After Springenberg et al., NIPS 2016: ``train`` samples network weights with
-SGHMC or SGLD, ``predict`` averages over the collected weight snapshots.
-The port runs the fused path, ``network="dense", step_impl="fused"``:
-burn-in on kernel B2 (SGHMC) or B6 (SGLD) and sampling on kernel B1 or
-B5-sgld (:mod:`pysgmcmc_tpu_torch.parallel.packed`), across ``n_chains``
-independent chains, on the card unless ``device="cpu"`` is asked for.
-Other networks, step implementations and samplers raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+SGHMC or SGLD, ``predict`` averages over the collected weight snapshots,
+across ``n_chains`` independent chains, on the card unless ``device="cpu"``
+is asked for (:mod:`pysgmcmc_tpu_torch.parallel.packed` holds the drivers).
+Two step implementations are ported:
+
+- ``step_impl="fused"`` (``network="dense"``): burn-in on kernel B2
+  (SGHMC) or B6 (SGLD), sampling on B1 or B5-sgld, the whole BNN step in
+  the kernel and the weight prior folded into the update.
+- ``step_impl="lanes"`` (``network="reference"`` or ``"dense"``, or any
+  ``get_net``): the gradient of the full cost, weight prior included, by
+  autograd over every chain, then one slim elementwise kernel per step:
+  B9-sghmc / B9-sgld in burn-in, B7 / B8-sgld in sampling.
+
+Other step implementations and samplers raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 
 Priors and likelihood match the reference: heteroscedastic Gaussian log
 likelihood scaled by 1/batch_size, a Gaussian prior on the log predictive
@@ -30,7 +38,11 @@ import time
 import numpy as np
 import torch
 
-from pysgmcmc_tpu_torch.models.architectures import dense_network
+from pysgmcmc_tpu_torch.data_batches import batch_fn
+from pysgmcmc_tpu_torch.models.architectures import (
+    default_network,
+    dense_network,
+)
 from pysgmcmc_tpu_torch.models.base_model import (
     BaseModel,
     zero_mean_unit_var_normalization,
@@ -39,8 +51,10 @@ from pysgmcmc_tpu_torch.models.base_model import (
 from pysgmcmc_tpu_torch.ops.fused_step import MAX_INPUTS
 from pysgmcmc_tpu_torch.parallel.packed import (
     burnin_chain_fused,
+    burnin_chain_lanes,
     resolve_noise_impl,
     sample_chain_fused,
+    sample_chain_lanes,
 )
 from pysgmcmc_tpu_torch.sampling import Sampler
 from pysgmcmc_tpu_torch.stepsize_schedules import (
@@ -86,11 +100,14 @@ class BayesianNeuralNetwork(BaseModel):
     every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``:
     ``"cuda"`` (the default) runs the kernels and raises in ``train`` when
     no CUDA device is present, ``"cpu"`` runs their plain PyTorch versions.
-    The ported path is ``network="dense", step_impl="fused"`` with SGHMC
-    or SGLD (which takes ``A`` where SGHMC takes ``mdecay``, through
-    ``**sampler_kwargs``); ``noise_impl`` is ``"auto"`` /
-    ``"box_muller"`` (the kernels' Philox stream) or ``"zero"`` (the
-    degenerate stream of the parity tests).
+    The ported paths are ``step_impl="fused"`` (``network="dense"``) and
+    ``step_impl="lanes"`` (either network, or ``get_net=(init, apply)``
+    with the contract of :func:`~pysgmcmc_tpu_torch.models.architectures.
+    default_network`), with SGHMC or SGLD (which takes ``A`` where SGHMC
+    takes ``mdecay``, through ``**sampler_kwargs``); ``noise_impl`` is
+    ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
+    ``"zero"`` (the degenerate stream of the parity tests: zero noise,
+    window 0).
     """
 
     def __init__(
@@ -158,6 +175,12 @@ class BayesianNeuralNetwork(BaseModel):
         if step_impl not in ("pytree", "fused", "lanes"):
             raise ValueError(
                 "step_impl must be 'pytree', 'fused' or 'lanes'")
+        if step_impl == "lanes" and sampling_method not in (
+                Sampler.SGHMC, Sampler.SGLD, Sampler.PSGLD,
+                Sampler.RelativisticSGHMC, Sampler.SGNHT):
+            raise ValueError(
+                "step_impl='lanes' supports SGHMC, SGLD, PSGLD, "
+                "RelativisticSGHMC and SGNHT")
         units = tuple(int(u) for u in units)
         if not units or any(u <= 0 for u in units):
             raise ValueError("units must be positive layer widths")
@@ -190,11 +213,8 @@ class BayesianNeuralNetwork(BaseModel):
                 + repr(noise_impl))
 
         # the paths the port has not reached yet
-        if network != "dense":
-            raise _not_ported("network={!r}".format(network), "queue A item 6")
-        if step_impl != "fused":
-            raise _not_ported("step_impl={!r}".format(step_impl),
-                              "queue A items 6 and 10")
+        if step_impl == "pytree":
+            raise _not_ported("step_impl='pytree'", "queue A item 6")
         if sampling_method not in (Sampler.SGHMC, Sampler.SGLD):
             raise _not_ported("sampling_method={}".format(sampling_method),
                               "queue A item 9")
@@ -292,9 +312,10 @@ class BayesianNeuralNetwork(BaseModel):
     @BaseModel._check_shapes_train
     def train(self, X, y, *args, **kwargs):
         """Sample ``n_nets`` network-weight snapshots from the posterior:
-        burn-in on kernel B2 (SGHMC) or B6 (SGLD), then one B1 / B5-sgld
-        launch of ``sample_steps`` steps per collected snapshot.
-        ``phase_seconds`` records the wall time of each phase."""
+        ``n_chains`` chains burn in, then each collects its share, one
+        snapshot every ``sample_steps`` steps, on the kernels of
+        ``step_impl``.  ``phase_seconds`` records the wall time of each
+        phase."""
         self._check_device()
         start_time = time.time()
         self.X, self.y = X, y
@@ -309,7 +330,7 @@ class BayesianNeuralNetwork(BaseModel):
                 y_train)
 
         n_datapoints, n_inputs = x_train.shape
-        if n_inputs > MAX_INPUTS:
+        if self.step_impl == "fused" and n_inputs > MAX_INPUTS:
             raise ValueError(
                 "step_impl='fused' supports up to {} input features (the "
                 "flagship architecture family); got n_inputs={}".format(
@@ -319,15 +340,16 @@ class BayesianNeuralNetwork(BaseModel):
 
         # the architecture is fixed here, at train time: predict() serves
         # what was trained even if self.units is changed afterwards
-        init_fn, apply_fn = dense_network(
-            n_inputs, units=self.units, dtype=self.dtype, device=self.device)
+        if self.get_net is not None:
+            init_fn, apply_fn = self.get_net
+        else:
+            network = dense_network if self.network == "dense" \
+                else default_network
+            init_fn, apply_fn = network(n_inputs, units=self.units,
+                                        dtype=self.dtype, device=self.device)
         self._apply_fn = apply_fn
         self._n_inputs = n_inputs
-        self._train_fused(init_fn, apply_fn, x_dev, y_dev, n_datapoints,
-                          start_time)
 
-    def _train_fused(self, init_fn, apply_fn, x_dev, y_dev, n_datapoints,
-                     start_time):
         n_chains = max(1, self.n_chains)
         per_chain = self._n_collect(
             self.n_nets // n_chains if self.n_chains > 1 else None)
@@ -336,6 +358,32 @@ class BayesianNeuralNetwork(BaseModel):
         # the kernels' Philox keys come from a CPU generator, so that one
         # seed draws the same streams on the card and on the CPU
         keys = torch.Generator().manual_seed(self.seed)
+        path = self._fused_path if self.step_impl == "fused" \
+            else self._lanes_path
+        sampler, burn, sample = path(apply_fn, positions, x_dev, y_dev,
+                                     n_datapoints, keys)
+        self._run_chains(sampler.init(positions), burn, sample, apply_fn,
+                         x_dev, y_dev, n_datapoints, n_chains, per_chain,
+                         start_time)
+
+    def _build_sampler(self, cost_fn, n_datapoints, **defaults):
+        """The sampler, with ``scale_grad`` = N and the BNN's burn-in length
+        unless ``**sampler_kwargs`` set them."""
+        kwargs = dict(self.sampler_kwargs)
+        kwargs.setdefault("scale_grad", float(n_datapoints))
+        kwargs.setdefault("burn_in_steps", self.burn_in_steps)
+        for key, value in defaults.items():
+            kwargs.setdefault(key, value)
+        return Sampler.get_sampler(
+            self.sampling_method, cost_fn=cost_fn,
+            stepsize_schedule=self.stepsize_schedule, dtype=self.dtype,
+            **kwargs)
+
+    def _fused_path(self, apply_fn, positions, x_dev, y_dev, n_datapoints,
+                    keys):
+        """``(sampler, burn, sample)`` of the fused kernels: burn-in on B2 /
+        B6, one B1 / B5-sgld launch of ``sample_steps`` steps per sample."""
+        n_chains = next(iter(positions.values())).shape[0]
         n_params = tree_size(positions) // n_chains
         prior_scale = 1.0 / (n_params * float(n_datapoints))
 
@@ -354,16 +402,55 @@ class BayesianNeuralNetwork(BaseModel):
             return -(ll + log_variance_prior_log_like(f_log_var)
                      / n_datapoints)
 
-        kwargs = dict(self.sampler_kwargs)
-        kwargs.setdefault("scale_grad", float(n_datapoints))
-        kwargs.setdefault("burn_in_steps", self.burn_in_steps)
-        kwargs.setdefault("gaussian_prior_scale", prior_scale)
-        sampler = Sampler.get_sampler(
-            self.sampling_method, cost_fn=cost_fn,
-            stepsize_schedule=self.stepsize_schedule, dtype=self.dtype,
-            **kwargs)
-        states = sampler.init(positions)
+        sampler = self._build_sampler(cost_fn, n_datapoints,
+                                      gaussian_prior_scale=prior_scale)
 
+        def burn(states, n_steps):
+            return burnin_chain_fused(
+                sampler, states, keys, n_steps, x_dev, y_dev,
+                batch_size=self.batch_size, noise_impl=self.noise_impl)
+
+        def sample(states, n_keep):
+            return sample_chain_fused(
+                sampler, states, keys, n_keep, x_dev, y_dev,
+                batch_size=self.batch_size, keep_every=self.sample_steps,
+                multistep=True, noise_impl=self.noise_impl)
+
+        return sampler, burn, sample
+
+    def _lanes_path(self, apply_fn, positions, x_dev, y_dev, n_datapoints,
+                    keys):
+        """``(sampler, burn, sample)`` of the chains-on-lanes kernels: the
+        full cost, weight prior included, differentiated per chain; burn-in
+        on B9-sghmc / B9-sgld, sampling on B7 / B8-sgld, one launch per
+        step, each chain on its own minibatch window."""
+        def cost_fn(params, batch):
+            x_batch, y_batch = batch
+            nll, _ = self.negative_log_likelihood(
+                apply_fn, params, x_batch, y_batch, n_datapoints)
+            return nll
+
+        sampler = self._build_sampler(cost_fn, n_datapoints)
+        select_batch = batch_fn(x_dev, y_dev, self.batch_size)
+
+        def burn(states, n_steps):
+            return burnin_chain_lanes(sampler, states, keys, n_steps,
+                                      batch_fn=select_batch,
+                                      noise_impl=self.noise_impl)
+
+        def sample(states, n_keep):
+            return sample_chain_lanes(
+                sampler, states, keys, n_keep, batch_fn=select_batch,
+                keep_every=self.sample_steps, noise_impl=self.noise_impl)
+
+        return sampler, burn, sample
+
+    def _run_chains(self, states, burn, sample, apply_fn, x_dev, y_dev,
+                    n_datapoints, n_chains, per_chain, start_time):
+        """Burn-in then sampling through ``burn(states, n_steps)`` and
+        ``sample(states, n_keep)``, chunked at ``log_every`` burn-in steps
+        and at every collected sample for the reference's progress lines;
+        ``phase_seconds`` records the wall time of each phase."""
         y_col = y_dev.reshape(-1, 1)
         metrics_fn = torch.func.vmap(
             lambda pos: self.negative_log_likelihood(
@@ -393,28 +480,19 @@ class BayesianNeuralNetwork(BaseModel):
         self._sync()
         phase_start = time.perf_counter()
         for n_steps in seg_lengths:
-            states = burnin_chain_fused(
-                sampler, states, keys, n_steps, x_dev, y_dev,
-                batch_size=self.batch_size, noise_impl=self.noise_impl)
+            states = burn(states, n_steps)
             iteration += n_steps
             log_point(iteration, states.position)
         self._sync()
         self.phase_seconds["burn_in"] = time.perf_counter() - phase_start
 
         phase_start = time.perf_counter()
-
-        def sample_seg(states, n_keep):
-            return sample_chain_fused(
-                sampler, states, keys, n_keep, x_dev, y_dev,
-                batch_size=self.batch_size, keep_every=self.sample_steps,
-                multistep=True, noise_impl=self.noise_impl)
-
         if self.log_every is not None:
-            # one launch per collected sample, logged like the reference's
-            # per-sample progress line
+            # one driver call per collected sample, logged like the
+            # reference's per-sample progress line
             chunks = []
             for j in range(per_chain):
-                states, pos, _ = sample_seg(states, 1)
+                states, pos, _ = sample(states, 1)
                 chunks.append(pos)
                 iteration += self.sample_steps
                 log_point(iteration, states.position,
@@ -422,7 +500,7 @@ class BayesianNeuralNetwork(BaseModel):
             samples = {name: torch.cat([c[name] for c in chunks], dim=1)
                        for name in chunks[0]}
         else:
-            states, samples, _ = sample_seg(states, per_chain)
+            states, samples, _ = sample(states, per_chain)
         self._sync()
         self.phase_seconds["sampling"] = time.perf_counter() - phase_start
 
@@ -432,22 +510,23 @@ class BayesianNeuralNetwork(BaseModel):
         self._n_collected = n_chains * per_chain
         self.is_trained = True
         logging.info(
-            "BayesianNeuralNetwork(fused %s): %d chains x %d samples "
-            "in %.2fs", self.sampling_method.value, n_chains, per_chain,
+            "BayesianNeuralNetwork(%s %s): %d chains x %d samples in %.2fs",
+            self.step_impl, self.sampling_method.value, n_chains, per_chain,
             time.time() - start_time)
 
     #  Prediction ----------------------------------------------------------
 
     def compute_network_output(self, params, input_data):
-        """Forward pass of one weight sample."""
+        """Forward pass of one weight sample (or of stacked ones, where the
+        network broadcasts)."""
         return self._apply_fn(params, torch.as_tensor(
             input_data, dtype=self.dtype, device=self.device))
 
     @BaseModel._check_shapes_predict
     def predict(self, X_test, return_individual_predictions=False,
                 compute_dtype=None, *args, **kwargs):
-        """Ensemble predictive mean and variance at ``X_test``: one batched
-        forward over the stacked posterior samples."""
+        """Ensemble predictive mean and variance at ``X_test``: one forward
+        pass of every posterior sample, vectorized over the samples."""
         if not self.is_trained:
             raise ValueError(
                 "Calling `bnn.predict()` on an untrained Bayesian Neural "
@@ -463,7 +542,8 @@ class BayesianNeuralNetwork(BaseModel):
                 x_test, self.x_mean, self.x_std)
         x_dev = torch.as_tensor(x_test, dtype=self.dtype, device=self.device)
         with torch.no_grad():
-            outputs = self._apply_fn(self.samples, x_dev)
+            outputs = torch.func.vmap(self._apply_fn, in_dims=(0, None))(
+                self.samples, x_dev)
         f_out = outputs[:, :, 0].cpu().numpy()
         theta_noise = np.exp(outputs[:, :, 1].cpu().numpy())
 

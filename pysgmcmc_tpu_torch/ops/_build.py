@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/fused_step.cu`` is compiled with ``nvcc`` at first use into a shared
-library with a plain C interface, under ``pysgmcmc_tpu_torch/_build/``,
-named by a hash of the source and the flags (so an edited source rebuilds),
-and loaded with ``ctypes``.  The compiler's report (``ptxas -v``: registers,
-shared memory and spills of every kernel) is kept beside the library as a
-``.log`` file.  Nothing here runs at import time: the CPU test suite imports
-every module on a machine without ``nvcc``.
+Each source of ``csrc/`` (``fused_step.cu``, ``slim_update.cu``) is compiled
+with ``nvcc`` at first use into a shared library with a plain C interface,
+under ``pysgmcmc_tpu_torch/_build/``, and loaded with ``ctypes``.  A
+library's name carries a hash of every source and header of ``csrc/`` and
+of the flags, so an edited header rebuilds both.  The sources compile in
+parallel, one ``nvcc`` each.  The compiler's report (``ptxas -v``:
+registers, shared memory and spills of every kernel) is kept beside each
+library as a ``.log`` file.  Nothing here runs at import time: the CPU test
+suite imports every module on a machine without ``nvcc``.
 """
 
 import ctypes
@@ -18,7 +20,8 @@ import tempfile
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_step.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCES = ("fused_step", "slim_update")  # csrc/<name>.cu -> one library each
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,24 +33,38 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _U32 = ctypes.c_uint
-# every launch entry takes the same arguments (csrc/fused_step.cu,
-# FUSED_STEP_ENTRY): 6 state inputs, x, y, tab, noise, widx, 6 state outputs
-# and the cost; 8 ints, the seed, the step, 5 floats and the stream
-_LAUNCH = (_I, [_P] * 18 + [_I] * 8 + [_U64, _U32] + [_F] * 5 + [_P])
+# every launch entry of csrc/fused_step.cu takes the same arguments
+# (FUSED_STEP_ENTRY): 6 state inputs, x, y, tab, noise, widx, 6 state
+# outputs and the cost; 8 ints, the seed, the step, 5 floats and the stream
+_FUSED_LAUNCH = (_I, [_P] * 18 + [_I] * 8 + [_U64, _U32] + [_F] * 5 + [_P])
+# and every one of csrc/slim_update.cu (SLIM_ENTRY): 9 inputs, 6 outputs,
+# 2 ints, the seed, the step, 5 floats and the stream
+_SLIM_LAUNCH = (_I, [_P] * 15 + [_I] * 2 + [_U64, _U32] + [_F] * 5 + [_P])
 _SIGNATURES = {
-    "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
-    "fused_step_error_string": (ctypes.c_char_p, [_I]),
-    **{name + "_launch": _LAUNCH for name in (
-        "fused_bnn_multistep",                # B1
-        "fused_bnn_multistep_burnin",         # B2
-        "fused_bnn_step",                     # B3
-        "fused_bnn_step_sgld",                # B4-sgld
-        "fused_bnn_multistep_sgld",           # B5-sgld
-        "fused_bnn_multistep_burnin_sgld",    # B6
-    )},
+    "fused_step": {
+        "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
+        "fused_step_error_string": (ctypes.c_char_p, [_I]),
+        **{name + "_launch": _FUSED_LAUNCH for name in (
+            "fused_bnn_multistep",                # B1
+            "fused_bnn_multistep_burnin",         # B2
+            "fused_bnn_step",                     # B3
+            "fused_bnn_step_sgld",                # B4-sgld
+            "fused_bnn_multistep_sgld",           # B5-sgld
+            "fused_bnn_multistep_burnin_sgld",    # B6
+        )},
+    },
+    "slim_update": {
+        "slim_update_error_string": (ctypes.c_char_p, [_I]),
+        **{name + "_launch": _SLIM_LAUNCH for name in (
+            "slim_sghmc_update",                  # B7
+            "slim_sgld_update",                   # B8-sgld
+            "slim_sghmc_burnin_update",           # B9-sghmc
+            "slim_sgld_burnin_update",            # B9-sgld
+        )},
+    },
 }
 
-_lib = None
+_libs = {}
 
 
 def _nvcc():
@@ -63,63 +80,89 @@ def _nvcc():
         "/usr/local/cuda): the port's CUDA kernels cannot be built")
 
 
-def library_path():
+def _source(name):
+    return os.path.join(CSRC, name + ".cu")
+
+
+def _digest():
+    """Hash of every source and header of ``csrc/`` and of the flags."""
     digest = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
+    for fname in sorted(os.listdir(CSRC)):
+        if fname.endswith((".cu", ".cuh")):
+            digest.update(fname.encode())
+            with open(os.path.join(CSRC, fname), "rb") as f:
+                digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(
-        BUILD_DIR, "fused_step_{}.so".format(digest.hexdigest()[:16]))
+    return digest.hexdigest()[:16]
 
 
-def log_path():
+def library_path(name):
+    """The shared library of source ``name`` (``csrc/<name>.cu``)."""
+    return os.path.join(BUILD_DIR, "{}_{}.so".format(name, _digest()))
+
+
+def log_path(name):
     """The ``ptxas -v`` report of :func:`library_path`'s build."""
-    return os.path.splitext(library_path())[0] + ".log"
+    return os.path.splitext(library_path(name))[0] + ".log"
 
 
 def build():
-    """Compile the kernels if this source has no library yet; returns
-    ``(path, seconds_spent_compiling)``."""
-    path = library_path()
-    if os.path.exists(path):
-        return path, 0.0
+    """Compile every source that has no library yet, all at once; returns
+    ``(paths by source name, seconds spent compiling)``."""
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = [name for name, path in paths.items() if not os.path.exists(path)]
+    if not todo:
+        return paths, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     start = time.perf_counter()
+    jobs = {}
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed on {}:\n{}{}".format(
-                    SOURCE, proc.stdout, proc.stderr))
-        with open(log_path(), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, _source(name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append("nvcc failed on {}:\n{}{}".format(
+                    _source(name), out, err))
+                continue
+            with open(log_path(name), "w") as f:
+                f.write(out + err)
+            # atomic: a concurrent build never loads half a file
+            os.replace(tmp, paths[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, time.perf_counter() - start
+        for tmp, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths, time.perf_counter() - start
 
 
-def load():
-    """The bound kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(path)
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def load(name):
+    """The bound kernel library of source ``name`` (built on first use)."""
+    if name not in _libs:
+        paths, _ = build()
+        lib = ctypes.CDLL(paths[name])
+        for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.restype = restype
             fn.argtypes = argtypes
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check(code):
-    """Raise on a non-zero ``cudaError_t`` returned by a launch entry."""
+def check(code, name):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch entry of
+    source ``name``."""
     if code != 0:
+        lib = load(name)
         raise RuntimeError("CUDA kernel launch failed: {} ({})".format(
-            load().fused_step_error_string(code).decode(), code))
+            getattr(lib, name + "_error_string")(code).decode(), code))

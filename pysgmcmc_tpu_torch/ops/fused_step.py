@@ -685,7 +685,7 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     for arr in (*ins.values(), x, y, tab, noise, widx):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
-    lib = _build.load()
+    lib = _build.load("fused_step")
     need = lib.fused_step_smem_bytes(
         kernel_id, layout.n_params, layout.n_inputs, layout.hidden,
         layout.depth, batch_size)
@@ -707,7 +707,7 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             x.shape[0], int(k_steps), layout.n_params, int(seed),
             int(step0) & _MASK32, float(coef), float(cdiv),
             float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
-            torch.cuda.current_stream().cuda_stream))
+            torch.cuda.current_stream().cuda_stream), "fused_step")
     return (*[out[key] for key in outs], cost)
 
 

@@ -1,0 +1,336 @@
+"""Slim elementwise sampler updates on Hopper: one pass over the packed
+state per step of the chains-on-lanes drivers.
+
+PyTorch port of the packed-state kernels of
+:mod:`pysgmcmc_tpu.ops.slim_update`.  Each wrapper launches a hand-written
+CUDA kernel of ``csrc/slim_update.cu`` on CUDA tensors and runs its plain
+PyTorch version (``*_ref``) on CPU tensors; any other device raises, and
+nothing falls back from a kernel to its plain version.
+
+- B7 :func:`slim_sghmc_update`: SGHMC sampling update with a frozen
+  ``minv``::
+
+      sigma  = sqrt(max(2 eps_s^2 mdecay minv - eps_s^4, 1e-16))
+      v'     = v - eps^2 minv (grad + prior_scale theta) - mdecay v + sigma eta
+      theta' = theta + v'
+
+  with ``eps_s = eps / sqrt(scale_grad)``.
+- B8-sgld :func:`slim_sgld_update`: ``theta' = theta - eps minv A g +
+  sqrt(2 eps minv A / scale_grad) eta``, ``g = grad + prior_scale theta``.
+- B9-sghmc :func:`slim_sghmc_burnin_update` / B9-sgld
+  :func:`slim_sgld_burnin_update`: the Springenberg et al. tau/g/v_hat EMAs,
+  all reading old values, with ``minv = 1/sqrt(old v_hat)`` (guarded), then
+  the SGHMC or SGLD update with that ``minv``; they also return it.
+
+The gradient comes from the driver (autograd); the kernels add the prior
+fold, draw the noise and apply the rule.  The math is shared with the fused
+kernels' plain versions (:mod:`pysgmcmc_tpu_torch.ops.fused_step`).
+
+Layout: every operand is ``(n_chains, P)`` float32, one chain per row, the
+leaves of the parameter dict in its order (``parallel.packed.pack_lanes``).
+The TPU's ``(rows, n_chains)`` layout and its padding mask do not carry
+over; ``mask`` must be ``None``.  ``eps`` is a scalar or an ``(n_chains,)``
+per-chain vector (the ``TracedStepsizeSchedule`` sweep pattern).  The noise
+is the Philox stream of the fused kernels at ``(chain, step, element)`` with
+the 64-bit ``seed``, or the injected ``noise`` ``(n_chains, P)``.  Outputs
+are new tensors; the inputs are not modified.
+
+Examples
+--------
+>>> import torch
+>>> theta, v = torch.zeros(2, 3), torch.zeros(2, 3)
+>>> grad, minv = torch.ones(2, 3), torch.ones(2, 3)
+>>> theta2, v2 = slim_sghmc_update(theta, v, grad, minv, None, 0.1, 0,
+...                                noise=torch.zeros(2, 3))
+>>> torch.allclose(v2, torch.full((2, 3), -0.01))  # -eps^2 minv grad
+True
+"""
+
+import torch
+
+from pysgmcmc_tpu_torch.ops.fused_step import (
+    _MASK32,
+    _adapt,
+    _require_device,
+    _seed_key,
+    _sghmc_table,
+    _sgld_constants,
+    _sgld_delta,
+    _sghmc_velocity,
+    philox_normals,
+)
+
+
+#  Validation, shared by the kernels and their plain versions -----------------
+
+def _validate(name, theta, state, grad, mask, eps, seed, noise):
+    """Check every operand; returns the stepsize as a float32 ``(1,)`` or
+    ``(n_chains,)`` vector, where ``eps`` was (a float stays on the host,
+    so a scalar launch reads no device memory)."""
+    _seed_key(seed)
+    if mask is not None:
+        raise NotImplementedError(
+            "{}: the padding mask of the TPU's packed layout is not ported "
+            "(ROADMAP.md queue B, B7 mask); the port's (n_chains, P) layout "
+            "has no padding, pass mask=None".format(name))
+    if theta.ndim != 2 or theta.dtype != torch.float32:
+        raise ValueError(
+            "{}: theta must be a float32 (n_chains, P) tensor; got {} "
+            "{}".format(name, theta.dtype, tuple(theta.shape)))
+    device = theta.device
+    for arr in (*state, grad):
+        if arr.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "{}: bfloat16 state and gradients are not ported yet "
+                "(ROADMAP.md queue A items 6 and 14)".format(name))
+        if (arr.shape != theta.shape or arr.dtype != torch.float32
+                or arr.device != device):
+            raise ValueError(
+                "{}: every state tensor and the gradient must match theta "
+                "({} float32 on {}); got {} {} on {}".format(
+                    name, tuple(theta.shape), device, tuple(arr.shape),
+                    arr.dtype, arr.device))
+    if noise is not None and (noise.shape != theta.shape
+                              or noise.dtype != torch.float32
+                              or noise.device != device):
+        raise ValueError("{}: noise must be float32 {} on {}".format(
+            name, tuple(theta.shape), device))
+    eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
+    if eps_vec.numel() not in (1, theta.shape[0]):
+        raise ValueError(
+            "{}: per-chain eps must have one entry per chain; got {} "
+            "entries for {} chains".format(name, eps_vec.numel(),
+                                           theta.shape[0]))
+    return eps_vec
+
+
+def _eta(theta, seed, step, noise):
+    if noise is not None:
+        return noise
+    return philox_normals(seed, step, theta.shape[0], theta.shape[1],
+                          theta.device)
+
+
+def _sghmc_row(eps_vec, scale_grad, device):
+    """``(eps, eps / sqrt(scale_grad))`` as columns, one row per chain (or
+    one row for a scalar)."""
+    tab = _sghmc_table(eps_vec.to(device), scale_grad)
+    return tab[:, 0:1], tab[:, 1:2]
+
+
+#  Plain versions ---------------------------------------------------------------
+
+def slim_sghmc_update_ref(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
+                          scale_grad=1.0, prior_scale=0.0, noise=None,
+                          step=0):
+    """Plain PyTorch version of :func:`slim_sghmc_update`."""
+    eps_vec = _validate("slim_sghmc_update", theta, [v, minv], grad, mask,
+                        eps, seed, noise)
+    gg = grad + prior_scale * theta
+    v = _sghmc_velocity(v, minv, gg, _eta(theta, seed, step, noise),
+                        _sghmc_row(eps_vec, scale_grad, theta.device),
+                        mdecay)
+    return theta + v, v
+
+
+def slim_sgld_update_ref(theta, grad, minv, mask, eps, seed, a_coef=1.0,
+                         scale_grad=1.0, prior_scale=0.0, noise=None, step=0):
+    """Plain PyTorch version of :func:`slim_sgld_update`."""
+    eps_vec = _validate("slim_sgld_update", theta, [minv], grad, mask, eps,
+                        seed, noise)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
+    gg = grad + prior_scale * theta
+    return theta + _sgld_delta(minv, gg, _eta(theta, seed, step, noise),
+                               eps_vec.to(theta.device)[:, None], a_coef, c,
+                               False)
+
+
+def slim_sghmc_burnin_update_ref(theta, v, tau, g, v_hat, grad, mask, eps,
+                                 seed, mdecay=0.05, scale_grad=1.0,
+                                 prior_scale=0.0, noise=None, step=0):
+    """Plain PyTorch version of :func:`slim_sghmc_burnin_update`."""
+    eps_vec = _validate("slim_sghmc_burnin_update", theta, [v, tau, g, v_hat],
+                        grad, mask, eps, seed, noise)
+    gg = grad + prior_scale * theta
+    minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
+    v = _sghmc_velocity(v, minv, gg, _eta(theta, seed, step, noise),
+                        _sghmc_row(eps_vec, scale_grad, theta.device),
+                        mdecay)
+    return theta + v, v, tau, g, v_hat, minv
+
+
+def slim_sgld_burnin_update_ref(theta, tau, g, v_hat, grad, mask, eps, seed,
+                                a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
+                                noise=None, step=0):
+    """Plain PyTorch version of :func:`slim_sgld_burnin_update`."""
+    eps_vec = _validate("slim_sgld_burnin_update", theta, [tau, g, v_hat],
+                        grad, mask, eps, seed, noise)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, True)
+    gg = grad + prior_scale * theta
+    minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
+    theta = theta + _sgld_delta(minv, gg, _eta(theta, seed, step, noise),
+                                eps_vec.to(theta.device)[:, None], a_coef, c,
+                                True)
+    return theta, tau, g, v_hat, minv
+
+
+#  Kernel wrappers ----------------------------------------------------------------
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# the operands of every launch entry of csrc/slim_update.cu, in its argument
+# order; a kernel passes NULL for those its rule and phase do not have
+_IN = ("theta", "v", "minv", "tau", "g", "v_hat", "grad")
+_OUT = ("theta", "v", "tau", "g", "v_hat", "minv")
+
+
+def _launch(name, ins, outs, eps_vec, noise, seed, step, scale_grad, coef,
+            cdiv, prior_scale):
+    """Launch the C entry ``name + "_launch"`` of ``csrc/slim_update.cu``.
+
+    ``ins`` maps operand names (``_IN``) to ``(n_chains, P)`` tensors,
+    ``outs`` names the outputs to allocate.  A one-entry ``eps_vec`` goes as
+    the scalar argument, a per-chain one as the kernel's eps vector.
+    ``coef`` is ``mdecay`` (SGHMC) or ``A`` (SGLD), ``cdiv`` SGLD's ``c``
+    (:func:`~pysgmcmc_tpu_torch.ops.fused_step._sgld_constants`).  Raises
+    on a failed launch; returns the outputs in ``outs`` order.
+    """
+    from pysgmcmc_tpu_torch.ops import _build
+
+    theta = ins["theta"]
+    for arr in (*ins.values(), noise):
+        if arr is not None and not arr.is_contiguous():
+            raise ValueError("{}: CUDA operands must be contiguous".format(name))
+    per_chain = eps_vec.numel() > 1
+    eps_dev = eps_vec.to(theta.device).contiguous() if per_chain else None
+    sqrt_sg = float(torch.sqrt(torch.tensor(scale_grad, dtype=torch.float32)))
+    lib = _build.load("slim_update")
+    n, p = theta.shape
+    out = {key: torch.empty_like(theta) for key in outs}
+    with torch.cuda.device(theta.device):  # the launch uses the current device
+        _build.check(getattr(lib, name + "_launch")(
+            *[_ptr(ins.get(key)) for key in _IN], _ptr(eps_dev), _ptr(noise),
+            *[_ptr(out.get(key)) for key in _OUT], n, p, int(seed),
+            int(step) & _MASK32, 0.0 if per_chain else float(eps_vec[0]),
+            sqrt_sg, float(coef), float(cdiv), float(prior_scale),
+            torch.cuda.current_stream().cuda_stream), "slim_update")
+    return tuple(out[key] for key in outs)
+
+
+def slim_sghmc_update(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
+                      scale_grad=1.0, prior_scale=0.0, noise=None, step=0):
+    """One SGHMC sampling step over packed state with a frozen ``minv``
+    (B7).
+
+    ``theta``, ``v``, ``grad``, ``minv`` are ``(n_chains, P)`` float32;
+    ``mask`` must be ``None``; ``eps`` a scalar or ``(n_chains,)``; ``seed``
+    the 64-bit Philox key and ``step`` the absolute step of the noise
+    counter, or ``noise`` ``(n_chains, P)`` injected normals.  Returns
+    ``(theta', v')``.  CUDA tensors launch the kernel; CPU tensors run
+    :func:`slim_sghmc_update_ref`.
+    """
+    name = "slim_sghmc_update"
+    if not _require_device(name, theta):
+        return slim_sghmc_update_ref(theta, v, grad, minv, mask, eps, seed,
+                                     mdecay, scale_grad, prior_scale, noise,
+                                     step)
+    eps_vec = _validate(name, theta, [v, minv], grad, mask, eps, seed, noise)
+    out = _launch(name, dict(theta=theta, v=v, minv=minv, grad=grad),
+                  ("theta", "v"), eps_vec, noise, seed, step, scale_grad,
+                  mdecay, 0.0, prior_scale)
+    slim_sghmc_update.launches += 1
+    return out
+
+
+slim_sghmc_update.launches = 0
+
+
+def slim_sgld_update(theta, grad, minv, mask, eps, seed, a_coef=1.0,
+                     scale_grad=1.0, prior_scale=0.0, noise=None, step=0):
+    """One SGLD sampling step over packed state with a frozen ``minv``
+    (B8-sgld).  Arguments as :func:`slim_sghmc_update`, with ``a_coef``
+    (the sampler's ``A``) for ``mdecay`` and no momentum; returns
+    ``theta'``.  CPU tensors run :func:`slim_sgld_update_ref`."""
+    name = "slim_sgld_update"
+    if not _require_device(name, theta):
+        return slim_sgld_update_ref(theta, grad, minv, mask, eps, seed,
+                                    a_coef, scale_grad, prior_scale, noise,
+                                    step)
+    eps_vec = _validate(name, theta, [minv], grad, mask, eps, seed, noise)
+    (out,) = _launch(name, dict(theta=theta, minv=minv, grad=grad),
+                     ("theta",), eps_vec, noise, seed, step, scale_grad,
+                     *_sgld_constants(a_coef, scale_grad, False), prior_scale)
+    slim_sgld_update.launches += 1
+    return out
+
+
+slim_sgld_update.launches = 0
+
+
+def slim_sghmc_burnin_update(theta, v, tau, g, v_hat, grad, mask, eps, seed,
+                             mdecay=0.05, scale_grad=1.0, prior_scale=0.0,
+                             noise=None, step=0):
+    """One SGHMC burn-in step over packed state (B9-sghmc): the EMAs and
+    ``minv = 1/sqrt(old v_hat)``, then the update of
+    :func:`slim_sghmc_update` with that ``minv``.  Returns ``(theta', v',
+    tau', g', v_hat', minv_used)``; after the last burn-in step
+    ``minv_used`` is what the sampling phase freezes.  CPU tensors run
+    :func:`slim_sghmc_burnin_update_ref`."""
+    name = "slim_sghmc_burnin_update"
+    if not _require_device(name, theta):
+        return slim_sghmc_burnin_update_ref(
+            theta, v, tau, g, v_hat, grad, mask, eps, seed, mdecay,
+            scale_grad, prior_scale, noise, step)
+    eps_vec = _validate(name, theta, [v, tau, g, v_hat], grad, mask, eps,
+                        seed, noise)
+    out = _launch(name, dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat,
+                             grad=grad),
+                  ("theta", "v", "tau", "g", "v_hat", "minv"), eps_vec, noise,
+                  seed, step, scale_grad, mdecay, 0.0, prior_scale)
+    slim_sghmc_burnin_update.launches += 1
+    return out
+
+
+slim_sghmc_burnin_update.launches = 0
+
+
+def slim_sgld_burnin_update(theta, tau, g, v_hat, grad, mask, eps, seed,
+                            a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
+                            noise=None, step=0):
+    """One SGLD burn-in step over packed state (B9-sgld): the EMAs of
+    :func:`slim_sghmc_burnin_update`, then ``theta += -eps minv A g +
+    sqrt(max(2 eps (minv A) / sg_safe, 0)) eta`` with ``sg_safe =
+    scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16``.  Returns ``(theta',
+    tau', g', v_hat', minv_used)``.  CPU tensors run
+    :func:`slim_sgld_burnin_update_ref`."""
+    name = "slim_sgld_burnin_update"
+    if not _require_device(name, theta):
+        return slim_sgld_burnin_update_ref(
+            theta, tau, g, v_hat, grad, mask, eps, seed, a_coef, scale_grad,
+            prior_scale, noise, step)
+    eps_vec = _validate(name, theta, [tau, g, v_hat], grad, mask, eps, seed,
+                        noise)
+    out = _launch(name, dict(theta=theta, tau=tau, g=g, v_hat=v_hat,
+                             grad=grad),
+                  ("theta", "tau", "g", "v_hat", "minv"), eps_vec, noise,
+                  seed, step, scale_grad,
+                  *_sgld_constants(a_coef, scale_grad, True), prior_scale)
+    slim_sgld_burnin_update.launches += 1
+    return out
+
+
+slim_sgld_burnin_update.launches = 0
+
+
+__all__ = [
+    "slim_sghmc_burnin_update",
+    "slim_sghmc_burnin_update_ref",
+    "slim_sghmc_update",
+    "slim_sghmc_update_ref",
+    "slim_sgld_burnin_update",
+    "slim_sgld_burnin_update_ref",
+    "slim_sgld_update",
+    "slim_sgld_update_ref",
+]

@@ -1,8 +1,9 @@
-"""Chain drivers over the fused BNN kernels (PyTorch port of the fused
-drivers of :mod:`pysgmcmc_tpu.parallel.packed`), for SGHMC and SGLD.
+"""Chain drivers over the port's kernels (PyTorch port of the fused and the
+chains-on-lanes drivers of :mod:`pysgmcmc_tpu.parallel.packed`), for SGHMC
+and SGLD.
 
-:func:`burnin_chain_fused` runs the whole self-tuning burn-in of every chain
-as one launch of kernel B2 (SGHMC, :func:`~pysgmcmc_tpu_torch.ops.
+Fused: :func:`burnin_chain_fused` runs the whole self-tuning burn-in of
+every chain as one launch of kernel B2 (SGHMC, :func:`~pysgmcmc_tpu_torch.ops.
 fused_step.fused_bnn_multistep_burnin`) or B6 (SGLD, ``fused_bnn_multistep_
 burnin_sgld``).  :func:`sample_chain_fused` runs the sampling phase as one
 launch of B1 / B5-sgld per collected sample (``multistep=True``) or as one
@@ -15,11 +16,26 @@ table, and draw one 64-bit Philox seed per call from the caller's
 step), so no launch-length bound or re-seeding is needed, and the two
 sampling granularities give the same chains from the same seed.
 
+Chains on lanes: :func:`burnin_chain_lanes` and :func:`sample_chain_lanes`
+take any network and cost function.  Each step unpacks the ``(n_chains,
+P)`` position (:func:`pack_lanes` / :func:`unpack_lanes`), takes every
+chain's gradient with ``torch.func.vmap(torch.func.grad_and_value(
+sampler.cost_fn))``, packs it, and makes one launch of a slim elementwise
+kernel (:mod:`pysgmcmc_tpu_torch.ops.slim_update`): B9-sghmc / B9-sgld in
+burn-in, B7 / B8-sgld in sampling.  Each chain's minibatch is
+``batch_fn(seed, step, n_chains)`` (:func:`pysgmcmc_tpu_torch.data_batches.
+batch_fn`), ``batch_fn=None`` a full-data cost.  With the same seed, on the
+dense network, windows and noise are those of the fused drivers.  A stacked
+per-chain schedule state gives every chain its own stepsize.
+
 ``noise_impl``: ``'auto'`` and ``'box_muller'`` are the Philox Box-Muller
 stream; ``'zero'`` is the degenerate stream (zero noise, window 0 every
 step) that reproduces the JAX kernels' interpret-mode stream for parity
 tests; ``'hadamard_clt'`` is not ported yet.
 """
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +52,12 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
     pack,
     philox_windows,
     unpack,
+)
+from pysgmcmc_tpu_torch.ops.slim_update import (
+    slim_sghmc_burnin_update,
+    slim_sghmc_update,
+    slim_sgld_burnin_update,
+    slim_sgld_update,
 )
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
@@ -241,14 +263,25 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
         if collect_positions:
             positions.append(unpack(theta, layout))
         costs.append(cost[:, 0])
+    return _sampling_result(
+        states, unpack(theta, layout), unpack(v, layout) if sghmc else None,
+        int(n_samples) * keep_every, positions, costs, collect_positions)
+
+
+def _sampling_result(states, position, momentum, n_steps, positions, costs,
+                     collect_positions):
+    """``(states, positions, costs)`` of a sampling driver: the advanced
+    states (``momentum`` is ``None`` for SGLD), the collected positions as
+    leaves ``(n_chains, n_samples, ...)`` and the costs ``(n_chains,
+    n_samples)``."""
     fields = dict(
-        position=unpack(theta, layout),
+        position=position,
         stats=states.stats,
-        step=states.step + int(n_samples) * keep_every,
+        step=states.step + n_steps,
         schedule_state=states.schedule_state,
     )
-    if sghmc:
-        new_states = SGHMCState(momentum=unpack(v, layout), **fields)
+    if momentum is not None:
+        new_states = SGHMCState(momentum=momentum, **fields)
     else:
         new_states = SGLDState(**fields)
     if collect_positions:
@@ -257,3 +290,211 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     else:
         positions = None
     return new_states, positions, torch.stack(costs, dim=1)
+
+
+#  Chains on lanes --------------------------------------------------------------
+
+class LanesSpec(NamedTuple):
+    """Column layout of a parameter dict packed chains-on-lanes."""
+
+    names: tuple     # leaf names in storage order
+    shapes: tuple    # per-leaf shapes (without the chain axis)
+    sizes: tuple     # per-leaf element counts
+    offsets: tuple   # first column of each leaf
+    width: int       # P, the length of a chain's row
+
+
+def make_lanes_spec(template):
+    """Layout for :func:`pack_lanes` from a single-chain dict: the leaves
+    in the dict's order, each a run of columns, no padding.  (The TPU
+    layout, ``(rows, n_chains)`` with 8-aligned slots rounded up to 256
+    rows, is the Mosaic compiler's choice and does not carry over.)"""
+    names = tuple(template)
+    shapes = tuple(tuple(template[name].shape) for name in names)
+    sizes = tuple(math.prod(shape) for shape in shapes)
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    return LanesSpec(names, shapes, sizes, offsets, sum(sizes))
+
+
+def pack_lanes(spec, stacked, dtype=torch.float32):
+    """Stacked dict (leaves ``(n_chains, *shape)``) -> ``(n_chains, P)``.
+    The leaves go in the spec's order, whatever the order of ``stacked``."""
+    n = stacked[spec.names[0]].shape[0]
+    for name, shape in zip(spec.names, spec.shapes):
+        if tuple(stacked[name].shape) != (n,) + shape:
+            raise ValueError(
+                "pack_lanes: leaf {!r} is {}, the spec wants {}".format(
+                    name, tuple(stacked[name].shape), (n,) + shape))
+    return torch.cat([stacked[name].reshape(n, size).to(dtype)
+                      for name, size in zip(spec.names, spec.sizes)],
+                     dim=1).contiguous()
+
+
+def unpack_lanes(spec, flat, dtype=None):
+    """``(n_chains, P)`` -> stacked dict in the spec's order, of views into
+    ``flat`` (copies when ``dtype`` casts)."""
+    n = flat.shape[0]
+    out = {}
+    for name, off, size, shape in zip(spec.names, spec.offsets, spec.sizes,
+                                      spec.shapes):
+        leaf = flat[:, off:off + size].reshape((n,) + shape)
+        out[name] = leaf if dtype is None else leaf.to(dtype)
+    return out
+
+
+def _lanes_eps_fn(sampler, states, n_chains):
+    """Per-step stepsize of the chains-on-lanes drivers: ``eps_of(step)``.
+
+    With a schedule state stacked per chain (a tensor with a leading
+    ``n_chains`` axis: the :class:`~pysgmcmc_tpu_torch.stepsize_schedules.
+    TracedStepsizeSchedule` sweep pattern) it is an ``(n_chains,)`` float32
+    vector, and the slim kernels advance every chain at its own stepsize;
+    otherwise the float the schedule gives.
+    """
+    value = sampler.stepsize_schedule.value
+    state = states.schedule_state
+    if (torch.is_tensor(state) and state.ndim >= 1
+            and state.shape[0] == n_chains):
+        def eps_of(step):
+            return torch.func.vmap(lambda s: torch.as_tensor(
+                value(s, step), dtype=torch.float32))(state)
+        return eps_of
+
+    def eps_of(step):
+        return float(value(state, step))
+    return eps_of
+
+
+def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
+    """Raises on what the lanes drivers do not take; returns True for SGHMC
+    and False for SGLD."""
+    sghmc = _check_driver(name, sampler, mesh, False)
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "{}: compute_dtype (bfloat16 network passes) is not ported yet "
+            "(ROADMAP.md queue A items 6 and 14); pass None".format(name))
+    if state_dtype != torch.float32:
+        raise NotImplementedError(
+            "{}: only float32 momentum/mass state is ported; bfloat16 state "
+            "is ROADMAP.md queue A item 6".format(name))
+    return sghmc
+
+
+def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step):
+    """Every chain's cost ``(n_chains,)`` and packed gradient at ``theta``,
+    on the minibatch ``batch_fn(window_seed, step, n_chains)`` (the full
+    data without a ``batch_fn``)."""
+    position = unpack_lanes(spec, theta)
+    if batch_fn is None:
+        grads, cost = torch.func.vmap(torch.func.grad_and_value(
+            lambda pos: sampler.cost_fn(pos)))(position)
+    else:
+        grads, cost = torch.func.vmap(torch.func.grad_and_value(
+            sampler.cost_fn))(position, batch_fn(window_seed, step,
+                                                 theta.shape[0]))
+    return cost, pack_lanes(spec, grads)
+
+
+def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
+                 mesh, noise_impl):
+    """What both lanes drivers set up: ``(sghmc?, spec, theta, v,
+    step0, eps_of, seed, window_seed, rule keywords)``."""
+    sghmc = _check_lanes(name, sampler, mesh, compute_dtype, state_dtype)
+    zero = resolve_noise_impl(noise_impl) == "zero"
+    spec = make_lanes_spec({k: leaf[0] for k, leaf in states.position.items()})
+    theta = pack_lanes(spec, states.position)
+    v = pack_lanes(spec, states.momentum) if sghmc else None
+    seed = _draw_seed(key)
+    rule = dict(scale_grad=sampler.scale_grad,
+                prior_scale=sampler.gaussian_prior_scale,
+                noise=torch.zeros_like(theta) if zero else None)
+    if sghmc:
+        rule["mdecay"] = sampler.mdecay
+    else:
+        rule["a_coef"] = sampler.A
+    return (sghmc, spec, theta, v, int(torch.max(states.step)),
+            _lanes_eps_fn(sampler, states, theta.shape[0]), seed,
+            None if zero else seed, rule)
+
+
+def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
+                       compute_dtype=None, state_dtype=torch.float32,
+                       mesh=None, noise_impl="auto"):
+    """Run ``n_steps`` self-tuning burn-in steps of every chain, one launch
+    of B9-sghmc (SGHMC) or B9-sgld (SGLD) per step.
+
+    ``states`` is a stacked :class:`SGHMCState` or :class:`SGLDState`
+    (leaves ``(n_chains, ...)``) of any network, ``key`` a
+    ``torch.Generator``, ``batch_fn`` a selector of
+    :func:`pysgmcmc_tpu_torch.data_batches.batch_fn` (``None``: the cost
+    takes no batch).  Returns the advanced states, with ``stats.minv``
+    holding the mass-matrix inverse the final step used (the value the
+    sampling phase freezes).
+    """
+    if int(n_steps) < 1:
+        return states
+    sghmc, spec, theta, v, step0, eps_of, seed, window_seed, rule = \
+        _lanes_start("burnin_chain_lanes", sampler, states, key,
+                     compute_dtype, state_dtype, mesh, noise_impl)
+    tau, g, v_hat = (pack_lanes(spec, leaf) for leaf in states.stats[:3])
+    n_steps = int(n_steps)
+    for step in range(step0, step0 + n_steps):
+        _, grad = _lanes_gradient(sampler, spec, theta, batch_fn, window_seed,
+                                  step)
+        if sghmc:
+            theta, v, tau, g, v_hat, minv = slim_sghmc_burnin_update(
+                theta, v, tau, g, v_hat, grad, None, eps_of(step), seed,
+                step=step, **rule)
+        else:
+            theta, tau, g, v_hat, minv = slim_sgld_burnin_update(
+                theta, tau, g, v_hat, grad, None, eps_of(step), seed,
+                step=step, **rule)
+    fields = dict(
+        position=unpack_lanes(spec, theta),
+        stats=AdaptiveStats(
+            tau=unpack_lanes(spec, tau), g=unpack_lanes(spec, g),
+            v_hat=unpack_lanes(spec, v_hat), minv=unpack_lanes(spec, minv)),
+        step=states.step + n_steps,
+        schedule_state=states.schedule_state,
+    )
+    if sghmc:
+        return SGHMCState(momentum=unpack_lanes(spec, v), **fields)
+    return SGLDState(**fields)
+
+
+def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
+                       keep_every=1, compute_dtype=None,
+                       state_dtype=torch.float32, collect_positions=True,
+                       mesh=None, noise_impl="auto"):
+    """Sampling-phase driver on the chains-on-lanes kernels: ``n_samples``
+    collected samples, each after ``keep_every`` steps of every chain with
+    the frozen ``stats.minv``, one launch of B7 (SGHMC) or B8-sgld (SGLD)
+    per step.  Arguments as :func:`burnin_chain_lanes`.  Returns ``(states,
+    positions, costs)`` shaped as :func:`sample_chain_fused`'s; a sample's
+    cost is that of its final step's gradient pass.
+    """
+    sghmc, spec, theta, v, step, eps_of, seed, window_seed, rule = \
+        _lanes_start("sample_chain_lanes", sampler, states, key,
+                     compute_dtype, state_dtype, mesh, noise_impl)
+    minv = pack_lanes(spec, states.stats.minv)
+    positions, costs = [], []
+    for _ in range(int(n_samples)):
+        for _ in range(keep_every):
+            cost, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
+                                         window_seed, step)
+            if sghmc:
+                theta, v = slim_sghmc_update(theta, v, grad, minv, None,
+                                             eps_of(step), seed, step=step,
+                                             **rule)
+            else:
+                theta = slim_sgld_update(theta, grad, minv, None,
+                                         eps_of(step), seed, step=step,
+                                         **rule)
+            step += 1
+        if collect_positions:
+            positions.append(unpack_lanes(spec, theta))
+        costs.append(cost)
+    return _sampling_result(
+        states, unpack_lanes(spec, theta),
+        unpack_lanes(spec, v) if sghmc else None,
+        int(n_samples) * keep_every, positions, costs, collect_positions)

@@ -2,8 +2,8 @@
 
 A schedule is ``(init, value, update)``: ``value(state, step)`` gives the
 stepsize at an absolute step, so the fused drivers can build a per-step
-table for a whole kernel launch.  Only the constant schedule is ported so
-far; the traced, polynomial-decay and cyclical schedules are listed in
+table for a whole kernel launch.  The constant and traced schedules are
+ported; the polynomial-decay and cyclical schedules are listed in
 ``ROADMAP.md`` (queue A).
 
 Examples
@@ -14,7 +14,12 @@ Examples
 >>> from itertools import islice
 >>> list(islice(schedule, 3))
 [0.01, 0.01, 0.01]
+>>> traced = TracedStepsizeSchedule(0.5)
+>>> float(traced.value(traced.init(), 7))
+0.5
 """
+
+import torch
 
 
 class StepsizeSchedule:
@@ -54,3 +59,23 @@ class ConstantStepsizeSchedule(StepsizeSchedule):
 
     def __str__(self):
         return "ConstantStepsizeSchedule(stepsize={})".format(self.initial_value)
+
+
+class TracedStepsizeSchedule(StepsizeSchedule):
+    """Constant stepsize carried in the schedule state.
+
+    ``value`` reads the stepsize from ``schedule_state``, so replacing the
+    state changes the stepsize without rebuilding the sampler.  Stacked
+    per chain (a ``(n_chains,)`` state), it gives every chain its own
+    stepsize: the chains-on-lanes drivers turn it into a per-chain eps
+    vector (the stepsize-sweep pattern).
+    """
+
+    def init(self):
+        return torch.tensor(self.initial_value, dtype=torch.float32)
+
+    def value(self, state, step):
+        return state
+
+    def __str__(self):
+        return "TracedStepsizeSchedule(initial={})".format(self.initial_value)

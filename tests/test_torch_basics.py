@@ -19,6 +19,7 @@ from pysgmcmc_tpu.diagnostics import objective_functions as jax_objectives
 from pysgmcmc_tpu.models import base_model as jax_base_model
 from pysgmcmc_tpu.ops import fused_step as jfs
 from pysgmcmc_tpu.utils import numeric as jax_numeric
+import pysgmcmc_tpu_torch.data_batches
 import pysgmcmc_tpu_torch.interop
 import pysgmcmc_tpu_torch.models.architectures
 import pysgmcmc_tpu_torch.models.bayesian_neural_network
@@ -61,6 +62,15 @@ def test_constant_schedule_matches_jax():
     assert [next(got) for _ in range(4)] == [next(want) for _ in range(4)]
     assert got.value(got.init(), 123) == want.value(want.init(), 123)
     assert got.init() == want.init()
+    assert str(got) == str(want)
+
+
+def test_traced_schedule_matches_jax():
+    want = jax_schedules.TracedStepsizeSchedule(0.05)
+    got = stepsize_schedules.TracedStepsizeSchedule(0.05)
+    assert [next(got) for _ in range(3)] == [next(want) for _ in range(3)]
+    assert float(got.value(got.init(), 9)) == float(want.value(want.init(), 9))
+    assert float(got.value(torch.tensor(0.25), 0)) == 0.25
     assert str(got) == str(want)
 
 
@@ -183,7 +193,8 @@ PORT_MODULES = [
     pysgmcmc_tpu_torch.models.architectures,
     pysgmcmc_tpu_torch.models.bayesian_neural_network,
     pysgmcmc_tpu_torch.samplers._adaptive, pysgmcmc_tpu_torch.samplers.sghmc,
-    pysgmcmc_tpu_torch.samplers.sgld,
+    pysgmcmc_tpu_torch.samplers.sgld, pysgmcmc_tpu_torch.data_batches,
+    pysgmcmc_tpu_torch.ops.slim_update,
 ]
 
 

@@ -3,12 +3,12 @@ one).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Each kernel (B1, B2, B3, B4-sgld, B5-sgld, B6) is held against its plain
-PyTorch version on the same inputs, from the state a 200-step burn-in leaves,
-under injected noise and windows and under the Philox stream, with the
-tolerance ``chip_smoke.py`` uses: 2e-4 of the largest value in each chain's
-row of each output (summation order and libm ulps, carried through the
-steps).
+Each kernel (B1, B2, B3, B4-sgld, B5-sgld, B6; the slim kernels B7,
+B8-sgld, B9-sghmc and B9-sgld) is held against its plain PyTorch version on
+the same inputs, from the state a 200-step burn-in leaves, under injected
+noise and windows and under the Philox stream, with the tolerance
+``chip_smoke.py`` uses: 2e-4 of the largest value in each chain's row of
+each output (summation order and libm ulps, carried through the steps).
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ import torch
 
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
+from pysgmcmc_tpu_torch.ops import slim_update as su
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
@@ -146,6 +147,55 @@ def test_kernel_matches_plain_version(kernel, stream, cuda_device):
         assert _row_rel_err(a, b) <= REL_TOL
 
 
+# slim kernel -> (wrapper, plain version, sampler, operands, stepsize)
+SLIM = {
+    "B7": (su.slim_sghmc_update, su.slim_sghmc_update_ref, SGHMCSampler,
+           ("theta", "v", "grad", "minv"), 0.01),
+    "B8-sgld": (su.slim_sgld_update, su.slim_sgld_update_ref, SGLDSampler,
+                ("theta", "grad", "minv"), 1e-3),
+    "B9-sghmc": (su.slim_sghmc_burnin_update, su.slim_sghmc_burnin_update_ref,
+                 SGHMCSampler, ("theta", "v", "tau", "g", "v_hat", "grad"),
+                 0.01),
+    "B9-sgld": (su.slim_sgld_burnin_update, su.slim_sgld_burnin_update_ref,
+                SGLDSampler, ("theta", "tau", "g", "v_hat", "grad"), 1e-3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(SLIM))
+@pytest.mark.parametrize("stream", ["injected", "philox", "philox-per-chain"])
+def test_slim_kernel_matches_plain_version(kernel, stream, cuda_device):
+    n = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, y = _data(gen)
+    fn, ref, sampler_cls, names, eps = SLIM[kernel]
+    lay, st = _burned_in(sampler_cls, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    widx = fs.philox_windows(3, 0, n, x_win.shape[0], cuda_device)
+    st["grad"] = fs._fwd_bwd(st["theta"], lay, x_win[widx][:, :, None],
+                             y_win[widx], 1.0 / 20, 1.0 / 100)[1]
+    extra = {"step": 2**32 - 1}
+    if stream == "injected":
+        extra = {"noise": torch.randn(st["theta"].shape, generator=gen,
+                                      device=cuda_device)}
+    elif stream == "philox-per-chain":
+        eps = eps * (0.5 + torch.rand(n, generator=gen, device=cuda_device))
+    args = [st[name] for name in names] + [None, eps, 2**63 + 5]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  **extra)
+    before = fn.launches
+    got = fn(*args, **common)
+    assert fn.launches == before + 1
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    got, want = (out if isinstance(out, tuple) else (out,)
+                 for out in (got, want))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sampler_cls", [SGHMCSampler, SGLDSampler])
 def test_one_step_driver_matches_multistep_driver(sampler_cls, cuda_device):
@@ -209,6 +259,32 @@ def test_bnn_trains_on_the_card(method, cuda_device):
     assert burnin.launches == 3  # log_every = 512
     assert sampling.launches == 2
     assert bnn.samples["w2"].is_cuda and bnn.samples["w2"].shape[0] == 512
+    mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+    truth = np.sinc(np.linspace(0.0, 1.0, 50) * 10 - 5)
+    assert np.mean((mean - truth) ** 2) < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["SGHMC", "SGLD"])
+def test_lanes_bnn_trains_on_the_card(method, cuda_device):
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    if method == "SGHMC":
+        burnin, sampling = su.slim_sghmc_burnin_update, su.slim_sghmc_update
+    else:
+        burnin, sampling = su.slim_sgld_burnin_update, su.slim_sgld_update
+    burnin.launches = sampling.launches = 0
+    bnn = BayesianNeuralNetwork(
+        sampling_method=Sampler[method], network="reference",
+        step_impl="lanes", n_chains=256, n_nets=512, burn_in_steps=1500,
+        sample_steps=50, n_iters=1600)  # on the card by default
+    bnn.train(x, y)
+    assert burnin.launches == 1500  # one launch per step
+    assert sampling.launches == 100
+    assert bnn.samples["w1"].is_cuda and bnn.samples["w1"].shape == (512, 1,
+                                                                        50)
     mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
     assert np.isfinite(mean).all() and np.isfinite(var).all()
     truth = np.sinc(np.linspace(0.0, 1.0, 50) * 10 - 5)

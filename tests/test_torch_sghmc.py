@@ -11,6 +11,7 @@ import pytest
 import scipy.stats
 import torch
 
+from pysgmcmc_tpu.models.architectures import default_network as jax_default
 from pysgmcmc_tpu.models.architectures import dense_network as jax_dense
 from pysgmcmc_tpu.models.bayesian_neural_network import (
     BayesianNeuralNetwork as JaxBNN,
@@ -22,6 +23,7 @@ from pysgmcmc_tpu.samplers.sghmc import SGHMCSampler as JaxSGHMC
 from pysgmcmc_tpu_torch import interop
 from pysgmcmc_tpu_torch.models import (
     BayesianNeuralNetwork,
+    default_network,
     dense_network,
     log_variance_prior_log_like,
     weight_prior_log_like,
@@ -57,6 +59,46 @@ def test_dense_network_apply_matches_jax(n_inputs, units):
         port_params = dense_network(n_inputs, units=units, device="cpu")[0](
             torch.Generator().manual_seed(0))
         assert tuple(port_params[key].shape) == leaf.shape, key
+
+
+@pytest.mark.parametrize("n_inputs,units", [(1, (50, 50, 50)), (3, (8, 8))])
+def test_default_network_apply_matches_jax(n_inputs, units):
+    init, apply = jax_default(n_inputs, units=units)
+    params = init(jax.random.PRNGKey(0))
+    x, _ = _data(n_inputs)
+    port_init, port_apply = default_network(n_inputs, units=units,
+                                            device="cpu")
+    got = port_apply(interop.params_from_numpy(params, "cpu"),
+                     torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(apply(params, x)),
+                               **TOL)
+    port_params = port_init(torch.Generator().manual_seed(0))
+    assert list(port_params) == list(params)  # w1, b1, ..., log_variance_bias
+    for key, leaf in params.items():  # the JAX shapes are kept
+        assert tuple(port_params[key].shape) == leaf.shape, key
+
+
+@pytest.mark.parametrize("n_inputs", [1, 3])
+def test_default_and_dense_networks_share_init_draws(n_inputs):
+    """As in JAX, one generator gives both networks the same weights (the
+    dense network squeezes the reference shapes) and the same outputs."""
+    units = (6, 6, 6)
+    ref = default_network(n_inputs, units=units, device="cpu")
+    dense = dense_network(n_inputs, units=units, device="cpu")
+    p_ref = ref[0](torch.Generator().manual_seed(3), (2,))
+    p_dense = dense[0](torch.Generator().manual_seed(3), (2,))
+    assert list(p_ref) == list(p_dense)
+    for key, leaf in p_ref.items():
+        assert torch.equal(leaf.reshape(p_dense[key].shape), p_dense[key]), key
+    x = torch.tensor(_data(n_inputs)[0])
+    torch.testing.assert_close(ref[1](p_ref, x), dense[1](p_dense, x),
+                               rtol=1e-6, atol=1e-6)
+    jax_ref, jax_dense_pair = jax_default(n_inputs, units), jax_dense(
+        n_inputs, units)
+    key = jax.random.PRNGKey(5)
+    for k, leaf in jax_ref[0](key).items():
+        assert leaf.reshape(jax_dense_pair[0](key)[k].shape).shape == \
+            tuple(p_dense[k].shape[1:]), k
 
 
 def test_nll_and_gradients_match_jax():
