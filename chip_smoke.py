@@ -5,22 +5,25 @@
 
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
-spills, holds each of the ten kernels against its plain PyTorch version on
-the card (flagship shapes, from burned-in states, injected noise and the
-Philox stream, each check beside the plain version's own floor): the fused
-kernels B1, B2, B3, B4-sgld, B5-sgld, B6 and the slim kernels B7, B8-sgld,
-B9-sghmc, B9-sgld (also with a per-chain eps row).  It times every kernel
-at the main path's shape, checks the one-step driver against the multi-step
-driver, the chains-on-lanes drivers against the fused drivers on the dense
-network, and the small main paths on the card against the CPU, then trains
-and predicts the flagship BNNs (3x50 tanh, 8192 chains, sinc data, SGHMC
-and SGLD) through ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork``: the
-fused path (``network="dense"``) and the lanes path (``network=
-"reference"``), and takes one profiler trace of lanes steps.  Each kernel's
-launches are counted over the path that runs it (the fused flagships for
-B1/B2 and B5-sgld/B6, the one-step driver for B3 and B4-sgld, the lanes
-flagships for B7/B9-sghmc and B8-sgld/B9-sgld).  The second-to-last line is
-the kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
+spills, holds each of the thirteen kernels against its plain PyTorch
+version on the card (flagship shapes, from burned-in states, injected noise
+and the Philox stream, each check beside the plain version's own floor):
+the fused kernels B1, B2, B3, B4-sgld, B5-sgld, B6 and the slim kernels B7,
+B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc, B9-sgld (also with a
+per-chain eps row).  It times every kernel at the main path's shape, checks
+the one-step driver against the multi-step driver, the chains-on-lanes
+drivers against the fused drivers on the dense network, and the small main
+paths on the card against the CPU, then trains and predicts the flagship
+BNNs (3x50 tanh, 8192 chains, sinc data) through ``pysgmcmc_tpu_torch.
+models.BayesianNeuralNetwork``: SGHMC and SGLD on the fused path
+(``network="dense"``) and on the lanes path (``network="reference"``), and
+pSGLD, relativistic SGHMC and SGNHT on the lanes path, and takes one
+profiler trace of lanes steps.  Each kernel's launches are counted over the
+path that runs it (the fused flagships for B1/B2 and B5-sgld/B6, the
+one-step driver for B3 and B4-sgld, the lanes flagships for B7/B9-sghmc,
+B8-sgld/B9-sgld, B8-psgld, B8-rsghmc and B8-sgnht).  The second-to-last
+line is the kernels' JSON record, the last line ``{"ok": true, "device":
+{...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before printing any
 result.
@@ -73,6 +76,21 @@ SMALL["SGLD"] = dict(SMALL["SGHMC"], noise_impl="auto",
                      stepsize_schedule=EPS_SGLD)
 SMALL_LANES = {method: dict(config, network="reference", step_impl="lanes")
                for method, config in SMALL.items()}
+# pSGLD, relativistic SGHMC and SGNHT have no burn-in machinery and run on
+# the lanes path only.  Relativistic SGHMC and SGNHT run their small paths
+# on the Philox stream at their flagship stepsizes (B8_EPS).  pSGLD's
+# preconditioner 1 / (lambda + sqrt(v)) reaches 1 / lambda = 1e5 where a
+# gradient is near 0, and there a 1e-7 nudge moves the Philox-stream path
+# beyond the floor (CPU: 2.1e-4 at 1e-3, 6.3e-5 at 1e-4), so its small path
+# runs on the degenerate stream at 1e-4 (CPU floor 1.4e-7) and the script
+# prints the Philox floor at 1e-3.
+B8_EPS = {"PSGLD": 1e-3, "RelativisticSGHMC": 1e-3, "SGNHT": 3e-4}
+for _method, _eps in B8_EPS.items():
+    SMALL_LANES[_method] = dict(SMALL_LANES["SGLD"], stepsize_schedule=_eps)
+SMALL_LANES["PSGLD"].update(noise_impl="zero", stepsize_schedule=1e-4)
+# The flagship MSE gate is 0.1 (BASELINE.md), for SGNHT too.  In the JAX
+# package SGNHT sits near it on sinc (CPU, 64 chains, 3000 + 200 steps:
+# 0.097 at 3e-4, 0.078 at 512 chains), a bias that more chains barely move.
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -80,9 +98,15 @@ F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # slim_kernel<rule, burn-in>
 INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
              (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6"}
-SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (0, 1): "B9-sghmc",
+SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (2, 0): "B8-psgld",
+                  (3, 0): "B8-rsghmc", (4, 0): "B8-sgnht", (0, 1): "B9-sghmc",
                   (1, 1): "B9-sgld"}
 PROFILED_STEPS = 20  # lanes burn-in steps in the profiler trace
+HOST_ROUNDS = 3  # timings of those steps on the host's clock, least kept
+# device clock cycles the stream spins before a timed call (_time_ms),
+# about 10 ms at the H100's 1.98 GHz: longer than any timed wrapper's host
+# work
+SPIN_CYCLES = 20_000_000
 
 
 def _import_port():
@@ -109,8 +133,14 @@ def _data(torch, device):
 
 
 def _time_ms(torch, fn):
+    """Device ms of ``fn``'s work: the stream spins first, so that ``fn``'s
+    host work (validation, allocation, the launch itself) overlaps the spin
+    and the events bracket device time alone.  Without the spin a one-step
+    kernel's time takes in its wrapper's host time, which moves with the
+    load of a shared host."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     out = fn()
     end.record()
@@ -218,9 +248,16 @@ RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
 # Box-Muller's log, sqrt, cos and 3 multiplies (6), 112 operations.  All are
 # counted against the f32 peak, an optimistic rate for the integer and
 # special-function units, so the bound stays a lower bound.
+# The rules without a mass matrix, counted the same way (per-chain constants
+# not counted): pSGLD the prior fold 2, the accumulator 5, the preconditioner
+# 4, the noise scale 4 and the update 6; RSGHMC the fold and its sign 3, two
+# velocities of 7, the momentum 6 and the position add 1; SGNHT the fold 2,
+# the momentum 7 and the position 2.
 NOISE_OPS = 112
 SLIM_OPS = {"B7": NOISE_OPS + 18, "B8-sgld": NOISE_OPS + 14,
-            "B9-sghmc": NOISE_OPS + 48, "B9-sgld": NOISE_OPS + 45}
+            "B8-psgld": NOISE_OPS + 21, "B8-rsghmc": NOISE_OPS + 24,
+            "B8-sgnht": NOISE_OPS + 11, "B9-sghmc": NOISE_OPS + 48,
+            "B9-sgld": NOISE_OPS + 45}
 
 
 def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
@@ -387,10 +424,12 @@ def _driver_check(torch, x, y, sampler_cls, device):
 
 
 def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
-              step_impl="fused", network="dense", expected=None):
-    """Train + predict the 8192-chain flagship through the port's BNN with
-    every kernel count set to 0 just before; returns the launches (which
-    must equal ``expected`` where given) and adds the phase rates to
+              step_impl="fused", network="dense", expected=None,
+              stepsize=None):
+    """Train + predict the 8192-chain flagship through the port's BNN (at
+    the BNN's default stepsize unless ``stepsize`` is given) with every
+    kernel count set to 0 just before; returns the launches (which must
+    equal ``expected`` where given) and adds the phase rates to
     ``rates``."""
     import numpy as np
 
@@ -402,7 +441,8 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
         sampling_method=sampling_method, network=network,
         step_impl=step_impl, n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS,
         burn_in_steps=BURN_IN, sample_steps=SAMPLE_STEPS,
-        n_iters=BURN_IN + SAMPLE_STEPS)
+        n_iters=BURN_IN + SAMPLE_STEPS,
+        **({} if stepsize is None else dict(stepsize_schedule=stepsize)))
     t0 = time.perf_counter()
     bnn.train(x_np, y_np)
     train_s = time.perf_counter() - t0
@@ -411,8 +451,9 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
     mean, var = bnn.predict(x_grid)
     predict_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    label = "{} {} main path ({} network)".format(sampling_method.value,
-                                                  step_impl, network)
+    label = "{} {} main path ({} network{})".format(
+        sampling_method.value, step_impl, network,
+        "" if stepsize is None else ", eps {:g}".format(stepsize))
     mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
     print("{}: {} chains, {} burn-in + {} sampling steps, {} samples; train "
           "{:.2f} s, predict {:.3f} s; launches {}".format(
@@ -446,35 +487,94 @@ def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-# slim kernel -> (C++ rule, state operands, output labels, stepsize)
+# slim kernel -> (sampler of its check state, positional operands (None for
+# the mask), output labels, stepsize)
 SLIM = {
-    "B7": ("SGHMC", ("theta", "v", "grad", "minv"), ("theta", "v"), EPS),
-    "B8-sgld": ("SGLD", ("theta", "grad", "minv"), ("theta",), EPS_SGLD),
-    "B9-sghmc": ("SGHMC", ("theta", "v", "tau", "g", "v_hat", "grad"),
+    "B7": ("SGHMC", ("theta", "v", "grad", "minv", None), ("theta", "v"),
+           EPS),
+    "B8-sgld": ("SGLD", ("theta", "grad", "minv", None), ("theta",),
+                EPS_SGLD),
+    "B8-psgld": ("PSGLD", ("theta", "v", "grad", None), ("theta", "v"),
+                 B8_EPS["PSGLD"]),
+    "B8-rsghmc": ("RelativisticSGHMC", ("theta", "v", "grad", None),
+                  ("theta", "p"), B8_EPS["RelativisticSGHMC"]),
+    "B8-sgnht": ("SGNHT", ("theta", "v", "grad", None, "xi"), ("theta", "p"),
+                 B8_EPS["SGNHT"]),
+    "B9-sghmc": ("SGHMC", ("theta", "v", "tau", "g", "v_hat", "grad", None),
                  ("theta", "v", "tau", "g", "v_hat", "minv"), EPS),
-    "B9-sgld": ("SGLD", ("theta", "tau", "g", "v_hat", "grad"),
+    "B9-sgld": ("SGLD", ("theta", "tau", "g", "v_hat", "grad", None),
                 ("theta", "tau", "g", "v_hat", "minv"), EPS_SGLD),
 }
+# the sampler of each lanes flagship -> its burn-in and sampling kernels
+LANES_FLAGSHIPS = (("SGHMC", "B9-sghmc", "B7"), ("SGLD", "B9-sgld", "B8-sgld"),
+                   ("PSGLD", "B8-psgld", "B8-psgld"),
+                   ("RelativisticSGHMC", "B8-rsghmc", "B8-rsghmc"),
+                   ("SGNHT", "B8-sgnht", "B8-sgnht"))
 
 
 def _slim_functions(su):
     """slim kernel -> (wrapper, plain version)."""
     return {"B7": (su.slim_sghmc_update, su.slim_sghmc_update_ref),
             "B8-sgld": (su.slim_sgld_update, su.slim_sgld_update_ref),
+            "B8-psgld": (su.slim_psgld_update, su.slim_psgld_update_ref),
+            "B8-rsghmc": (su.slim_rsghmc_update, su.slim_rsghmc_update_ref),
+            "B8-sgnht": (su.slim_sgnht_update, su.slim_sgnht_update_ref),
             "B9-sghmc": (su.slim_sghmc_burnin_update,
                          su.slim_sghmc_burnin_update_ref),
             "B9-sgld": (su.slim_sgld_burnin_update,
                         su.slim_sgld_burnin_update_ref)}
 
 
+def _slim_args(name, st):
+    """The positional operands of slim kernel ``name`` from state ``st``."""
+    return [None if k is None else st[k] for k in SLIM[name][1]]
+
+
+def _lanes_check_states(torch, x, y):
+    """The states of pSGLD, relativistic SGHMC and SGNHT after BURNED_IN
+    steps of the lanes driver at CHECK_CHAINS chains on the CPU (plain
+    versions), at their flagship stepsizes from He-normal weights, packed
+    ``{"theta", "v" (accumulator or momentum), and for SGNHT "xi"}``."""
+    from pysgmcmc_tpu_torch.models import (
+        BayesianNeuralNetwork,
+        default_network,
+    )
+    from pysgmcmc_tpu_torch.parallel import packed
+    from pysgmcmc_tpu_torch.sampling import Sampler
+
+    x, y = x.cpu(), y.cpu()
+    init, apply = default_network(1, units=(H, H, H), device="cpu")
+    out = {}
+    for method, eps in B8_EPS.items():
+        bnn = BayesianNeuralNetwork(
+            sampling_method=Sampler[method], network="reference",
+            step_impl="lanes", stepsize_schedule=eps, device="cpu")
+        positions = init(torch.Generator().manual_seed(11), (CHECK_CHAINS,))
+        keys = torch.Generator().manual_seed(11)
+        sampler, burn, _ = bnn._lanes_path(apply, positions, x, y, N_DATA,
+                                           keys)
+        states = burn(sampler.init(positions, keys), BURNED_IN)
+        spec = packed.make_lanes_spec({k: v[0] for k, v in
+                                       states.position.items()})
+        out[method] = {
+            "theta": packed.pack_lanes(spec, states.position),
+            "v": packed.pack_lanes(spec, states.v if method == "PSGLD"
+                                   else states.momentum)}
+        if method == "SGNHT":
+            out[method]["xi"] = states.xi
+    return out
+
+
 def _slim_states(torch, fs, state, lay, x_win, y_win):
     """The burned-in check states tiled to the flagship's MAIN_CHAINS
     chains, each rule's with the gradient of its theta on the Philox
-    windows of one step (the plain backward pass of the fused kernels)."""
+    windows of one step (the plain backward pass of the fused kernels,
+    whose layout the reference network's lanes packing shares)."""
     reps = MAIN_CHAINS // CHECK_CHAINS
     out = {}
     for rule, st in state.items():
-        st = {k: v.repeat(reps, 1) for k, v in st.items()}
+        st = {k: v.repeat(reps, *(1,) * (v.ndim - 1))
+              for k, v in st.items()}
         widx = fs.philox_windows(77, 0, MAIN_CHAINS, x_win.shape[0],
                                  st["theta"].device)
         xw = x_win[widx][:, :, None]
@@ -485,16 +585,16 @@ def _slim_states(torch, fs, state, lay, x_win, y_win):
 
 
 def _slim_checks(torch, su, states, kws):
-    """B7, B8-sgld, B9-sghmc and B9-sgld against their plain versions at the
-    flagship shape, one step each, on injected noise, on the Philox stream
-    and on the Philox stream with a per-chain eps row, each beside its
-    floor; returns ``{kernel: max abs error}``."""
+    """The seven slim kernels against their plain versions at the flagship
+    shape, one step each, on injected noise, on the Philox stream and on the
+    Philox stream with a per-chain eps row, each beside its floor; returns
+    ``{kernel: max abs error}``."""
     gen = torch.Generator(device=states["SGHMC"]["theta"].device)
     gen.manual_seed(4321)
     err = {}
     for name, (fn, ref) in _slim_functions(su).items():
-        rule, inputs, labels, eps = SLIM[name]
-        args = [states[rule][k] for k in inputs]
+        rule, _, labels, eps = SLIM[name]
+        args = _slim_args(name, states[rule])
         n = args[0].shape[0]
         streams = [
             ("injected", eps, dict(noise=torch.randn(
@@ -506,11 +606,10 @@ def _slim_checks(torch, su, states, kws):
         err[name] = 0.0
         for stream, e, extra in streams:
             kw = dict(kws[rule], **extra)
-            want = _tuple(ref(*args, None, e, SEED, **kw))
+            want = _tuple(ref(*args, e, SEED, **kw))
             floor = max(_rel_err(a, b) for a, b in zip(_tuple(ref(
-                _nudge(torch, args[0]), *args[1:], None, e, SEED, **kw)),
-                want))
-            got = _tuple(fn(*args, None, e, SEED, **kw))
+                _nudge(torch, args[0]), *args[1:], e, SEED, **kw)), want))
+            got = _tuple(fn(*args, e, SEED, **kw))
             torch.cuda.synchronize()
             err[name] = max(err[name], _compare(
                 torch, ("{}/{} x 1".format(name, stream), labels), got, want,
@@ -646,7 +745,9 @@ def _lanes_host_split(torch, x, y, sampler, burn, states, busy_ms, label,
                       card):
     """The same steps on the host's clock, without the profiler: the whole
     step, the gradient pass (window draw included) and the window draw
-    alone, each over PROFILED_STEPS steps ending in a synchronize; the idle
+    alone, each the least of HOST_ROUNDS timings of PROFILED_STEPS steps
+    ending in a synchronize (one timing of each moves by tens of per cent
+    on a shared host, enough to make the rest come out negative); the idle
     share is the trace's device busy time over this wall time."""
     from pysgmcmc_tpu_torch.data_batches import batch_fn
     from pysgmcmc_tpu_torch.parallel import packed
@@ -655,29 +756,34 @@ def _lanes_host_split(torch, x, y, sampler, burn, states, busy_ms, label,
     spec = packed.make_lanes_spec({k: v[0] for k, v in states.position.items()})
     theta = packed.pack_lanes(spec, states.position)
 
-    def ms_per_step(fn):
-        fn(0)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for step in range(PROFILED_STEPS):
-            fn(step)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - start) * 1e3 / PROFILED_STEPS
+    def per_step(fn):
+        def run():
+            for step in range(PROFILED_STEPS):
+                fn(step)
+        return run
 
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    burn(states, PROFILED_STEPS)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - start) * 1e3 / PROFILED_STEPS
-    grad_ms = ms_per_step(lambda s: packed._lanes_gradient(
-        sampler, spec, theta, select, SEED, s))
-    window_ms = ms_per_step(lambda s: select(SEED, s, theta.shape[0]))
-    print("{}, host clock without the profiler: {:.3f} ms/step, of which "
-          "the gradient pass {:.3f} ms (its window draw and gather {:.3f} "
-          "ms) and the slim launch, packing and the rest {:.3f} ms; device "
-          "idle {:.1%} ({})".format(
-              label, step_ms, grad_ms, window_ms, step_ms - grad_ms,
-              max(0.0, 1.0 - busy_ms / step_ms), card))
+    runs = {"step": lambda: burn(states, PROFILED_STEPS),
+            "grad": per_step(lambda s: packed._lanes_gradient(
+                sampler, spec, theta, select, SEED, s)),
+            "window": per_step(lambda s: select(SEED, s, theta.shape[0]))}
+    ms = dict.fromkeys(runs, float("inf"))
+    for _ in range(HOST_ROUNDS):  # interleaved, so drift hits all three
+        for key, run in runs.items():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms[key] = min(ms[key], (time.perf_counter() - start) * 1e3
+                          / PROFILED_STEPS)
+    rest = ms["step"] - ms["grad"]
+    print("{}, host clock without the profiler (least of {}): {:.3f} "
+          "ms/step, of which the gradient pass {:.3f} ms (its window draw and "
+          "gather {:.3f} ms) and the slim launch, packing and the rest {}; "
+          "device idle {:.1%} ({})".format(
+              label, HOST_ROUNDS, ms["step"], ms["grad"], ms["window"],
+              "{:.3f} ms".format(rest) if rest >= 0 else
+              "not resolved (below the host clock's spread)",
+              max(0.0, 1.0 - busy_ms / ms["step"]), card))
 
 
 def main():
@@ -755,6 +861,13 @@ def main():
                 "{} in [{:.3e}, {:.3e}]".format(k, float(t.min()),
                                                 float(t.max()))
                 for k, t in sorted(state[rule].items())))
+    for method, st in _lanes_check_states(torch, x, y).items():
+        state[method] = {k: v.to(device) for k, v in st.items()}
+        print("{} check state after {} lanes steps at eps {:g} (CPU): ".format(
+            method, BURNED_IN, B8_EPS[method]) + ", ".join(
+                "{} in [{:.3e}, {:.3e}]".format(k, float(t.min()),
+                                                float(t.max()))
+                for k, t in sorted(state[method].items())))
     sghmc_plan = [(EPS, CHECK_STEPS, True)]
     sgld_plan = [(EPS_SGLD, CHECK_STEPS, True), (EPS, 1, True),
                  (EPS, CHECK_STEPS, False)]
@@ -783,10 +896,14 @@ def main():
         for name, fn, ref, rule, inputs, labels, one_step, plan in checks],
         x_win, y_win, streams)
     # the slim kernels at the flagship shape, from the same burned-in states
-    slim_kw = {"SGHMC": dict(mdecay=0.05, scale_grad=float(N_DATA),
-                             prior_scale=1.0 / (P * N_DATA)),
-               "SGLD": dict(a_coef=1.0, scale_grad=float(N_DATA),
-                            prior_scale=1.0 / (P * N_DATA))}
+    prior = dict(prior_scale=1.0 / (P * N_DATA))
+    slim_kw = {"SGHMC": dict(prior, mdecay=0.05, scale_grad=float(N_DATA)),
+               "SGLD": dict(prior, a_coef=1.0, scale_grad=float(N_DATA)),
+               "PSGLD": dict(prior, alpha=0.99, lambda_reg=1e-5,
+                             scale_grad=float(N_DATA)),
+               "RelativisticSGHMC": dict(prior, d_coef=1.0, bhat=0.0,
+                                         mass=1.0, speed_of_light=1.0),
+               "SGNHT": dict(prior, a_diff=1.0, scale_grad=float(N_DATA))}
     slim_states = _slim_states(torch, fs, state, lay, x_win, y_win)
     err.update(_slim_checks(torch, su, slim_states, slim_kw))
     del noise, widx, state
@@ -862,20 +979,21 @@ def main():
                                     bounds[name][1], card))
     # slim kernels: one launch (one step) at the flagship shape, Philox
     for name, (fn, ref) in _slim_functions(su).items():
-        rule, inputs, labels, eps = SLIM[name]
-        args = [slim_states[rule][k] for k in inputs]
+        rule, _, labels, eps = SLIM[name]
+        args = _slim_args(name, slim_states[rule])
 
         def launch(f=fn, a=args, e=eps, w=slim_kw[rule]):
-            return f(*a, None, e, 47, step=0, **w)
+            return f(*a, e, 47, step=0, **w)
 
         def plain(f=ref, a=args, e=eps, w=slim_kw[rule]):
-            return f(*a, None, e, 47, step=0, **w)
+            return f(*a, e, 47, step=0, **w)
 
         launch()
         timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
         plain()
         timed[name + " plain"] = _median_ms(torch, plain, 5)
-        n_bytes = (len(inputs) + len(labels)) * f4
+        n_bytes = sum(4 * a.numel() for a in args if a is not None) \
+            + len(labels) * f4
         compute_ms = n * P * SLIM_OPS[name] / F32_FLOPS * 1e3
         bounds[name] = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                            (compute_ms, "operations"))
@@ -910,8 +1028,8 @@ def main():
 
     # ---- the main paths on a small input: card vs plain versions ----
     for configs in (SMALL, SMALL_LANES):
-        for method in (Sampler.SGHMC, Sampler.SGLD):
-            config = configs[method.value]
+        for method_name, config in configs.items():
+            method = Sampler[method_name]
             print("small {} {} main path ({} chains, {} steps) on the card "
                   "vs the CPU: max|diff| = {:.3e}".format(
                       method.value, config["step_impl"], config["n_chains"],
@@ -919,6 +1037,9 @@ def main():
                       _small_main_path(torch, x_np, y_np, method, config)))
     _small_main_path(torch, x_np, y_np, Sampler.SGLD,
                      dict(SMALL["SGLD"], stepsize_schedule=EPS), check=False)
+    _small_main_path(torch, x_np, y_np, Sampler.PSGLD,
+                     dict(SMALL_LANES["SGLD"],
+                          stepsize_schedule=B8_EPS["PSGLD"]), check=False)
 
     # ---- the main paths: train + predict through the port's BNN ----
     rates = {}
@@ -931,15 +1052,18 @@ def main():
         {"B5-sgld": fs.fused_bnn_multistep_sgld,
          "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates))
     # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
-    # in sampling
+    # in sampling; pSGLD, relativistic SGHMC and SGNHT burn in on discarded
+    # steps of their sampling kernel, at their stepsizes
     slim = _slim_functions(su)
-    for method, burn, sample in ((Sampler.SGHMC, "B9-sghmc", "B7"),
-                                 (Sampler.SGLD, "B9-sgld", "B8-sgld")):
+    for method, burn, sample in LANES_FLAGSHIPS:
+        expected = {burn: BURN_IN, sample: SAMPLE_STEPS}
+        if burn == sample:
+            expected = {burn: BURN_IN + SAMPLE_STEPS}
         launches.update(_flagship(
-            torch, x_np, y_np, method,
+            torch, x_np, y_np, Sampler[method],
             {burn: slim[burn][0], sample: slim[sample][0]}, card, rates,
-            step_impl="lanes", network="reference",
-            expected={burn: BURN_IN, sample: SAMPLE_STEPS}))
+            step_impl="lanes", network="reference", expected=expected,
+            stepsize=B8_EPS.get(method)))
     for method in ("SGHMC", "SGLD"):
         print("{} flagship update-steps/s, fused vs lanes: burn-in {:.4e} vs "
               "{:.4e}, sampling {:.4e} vs {:.4e} ({})".format(
@@ -961,7 +1085,10 @@ def main():
                 "B9-sghmc": ("slim_sghmc_burnin_update", "slim_update", 995),
                 "B7": ("slim_sghmc_update", "slim_update", 331),
                 "B9-sgld": ("slim_sgld_burnin_update", "slim_update", 1135),
-                "B8-sgld": ("slim_sgld_update", "slim_update", 469)}
+                "B8-sgld": ("slim_sgld_update", "slim_update", 469),
+                "B8-psgld": ("slim_psgld_update", "slim_update", 585),
+                "B8-rsghmc": ("slim_rsghmc_update", "slim_update", 713),
+                "B8-sgnht": ("slim_sgnht_update", "slim_update", 836)}
     records = [
         {"name": fn_name, "route": "cuda",
          "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),

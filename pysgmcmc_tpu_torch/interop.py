@@ -17,8 +17,13 @@ import numpy as np
 import torch
 
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
+from pysgmcmc_tpu_torch.samplers.psgld import PSGLDState
+from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
+    RelativisticSGHMCState,
+)
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDState
+from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTState
 
 
 def params_from_numpy(params, device):
@@ -70,18 +75,58 @@ def sgld_state_from_numpy(state, device, schedule_state=()):
     )
 
 
+def psgld_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``PSGLDState`` (``position``, ``v``, ``step``) -> the port's
+    :class:`PSGLDState` on ``device``."""
+    return PSGLDState(
+        position=params_from_numpy(state.position, device),
+        v=params_from_numpy(state.v, device),
+        step=_step_from_numpy(state.step, device),
+        schedule_state=schedule_state,
+    )
+
+
+def sgnht_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``SGNHTState`` (``position``, ``momentum``, ``xi``, ``step``)
+    -> the port's :class:`SGNHTState` on ``device``; ``xi`` keeps its shape
+    (a scalar, or ``(n_chains,)`` from a vmapped ``init``)."""
+    return SGNHTState(
+        position=params_from_numpy(state.position, device),
+        momentum=params_from_numpy(state.momentum, device),
+        xi=torch.tensor(np.asarray(state.xi), dtype=torch.float32,
+                        device=device),
+        step=_step_from_numpy(state.step, device),
+        schedule_state=schedule_state,
+    )
+
+
+def rsghmc_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``RelativisticSGHMCState`` (``position``, ``momentum``,
+    ``step``) -> the port's :class:`RelativisticSGHMCState` on ``device``
+    (JAX's threefry draws of the initial momenta cross here: the port
+    cannot redraw them)."""
+    return RelativisticSGHMCState(
+        position=params_from_numpy(state.position, device),
+        momentum=params_from_numpy(state.momentum, device),
+        step=_step_from_numpy(state.step, device),
+        schedule_state=schedule_state,
+    )
+
+
 def state_to_numpy(state):
-    """The port's :class:`SGHMCState` or :class:`SGLDState` ->
-    ``{"position", "momentum" (SGHMC only), "tau", "g", "v_hat", "minv":
-    dicts of arrays, "step": array}``."""
-    out = {
-        "position": params_to_numpy(state.position),
-        "tau": params_to_numpy(state.stats.tau),
-        "g": params_to_numpy(state.stats.g),
-        "v_hat": params_to_numpy(state.stats.v_hat),
-        "minv": params_to_numpy(state.stats.minv),
-        "step": np.asarray(state.step.cpu()),
-    }
-    if hasattr(state, "momentum"):
-        out["momentum"] = params_to_numpy(state.momentum)
+    """Any of the port's sampler states -> a dict of its fields as numpy:
+    ``"position"`` and, where the state has them, ``"momentum"``, ``"v"``
+    (pSGLD's accumulator) and ``"tau"``, ``"g"``, ``"v_hat"``, ``"minv"``
+    (SGHMC's and SGLD's stats) as dicts of arrays, ``"xi"`` (SGNHT) and
+    ``"step"`` as arrays."""
+    out = {"position": params_to_numpy(state.position),
+           "step": np.asarray(state.step.cpu())}
+    for field in ("momentum", "v"):
+        if hasattr(state, field):
+            out[field] = params_to_numpy(getattr(state, field))
+    if hasattr(state, "stats"):
+        for field in AdaptiveStats._fields:
+            out[field] = params_to_numpy(getattr(state.stats, field))
+    if hasattr(state, "xi"):
+        out["xi"] = state.xi.detach().cpu().numpy()
     return out

@@ -2,7 +2,7 @@
 :mod:`pysgmcmc_tpu.models.bayesian_neural_network`).
 
 After Springenberg et al., NIPS 2016: ``train`` samples network weights with
-SGHMC or SGLD, ``predict`` averages over the collected weight snapshots,
+an SG-MCMC sampler, ``predict`` averages over the collected weight snapshots,
 across ``n_chains`` independent chains, on the card unless ``device="cpu"``
 is asked for (:mod:`pysgmcmc_tpu_torch.parallel.packed` holds the drivers).
 Two step implementations are ported:
@@ -13,7 +13,10 @@ Two step implementations are ported:
 - ``step_impl="lanes"`` (``network="reference"`` or ``"dense"``, or any
   ``get_net``): the gradient of the full cost, weight prior included, by
   autograd over every chain, then one slim elementwise kernel per step:
-  B9-sghmc / B9-sgld in burn-in, B7 / B8-sgld in sampling.
+  B9-sghmc / B9-sgld in burn-in, B7 / B8-sgld in sampling.  pSGLD,
+  relativistic SGHMC and SGNHT have no burn-in machinery: their burn-in
+  is discarded sampling steps, every step on B8-psgld, B8-rsghmc or
+  B8-sgnht.
 
 Other step implementations and samplers raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item.
@@ -100,11 +103,13 @@ class BayesianNeuralNetwork(BaseModel):
     every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``:
     ``"cuda"`` (the default) runs the kernels and raises in ``train`` when
     no CUDA device is present, ``"cpu"`` runs their plain PyTorch versions.
-    The ported paths are ``step_impl="fused"`` (``network="dense"``) and
-    ``step_impl="lanes"`` (either network, or ``get_net=(init, apply)``
-    with the contract of :func:`~pysgmcmc_tpu_torch.models.architectures.
-    default_network`), with SGHMC or SGLD (which takes ``A`` where SGHMC
-    takes ``mdecay``, through ``**sampler_kwargs``); ``noise_impl`` is
+    The ported paths are ``step_impl="fused"`` (``network="dense"``) with
+    SGHMC or SGLD, and ``step_impl="lanes"`` (either network, or
+    ``get_net=(init, apply)`` with the contract of :func:`~pysgmcmc_tpu_
+    torch.models.architectures.default_network`) with any of the five
+    gradient samplers; ``**sampler_kwargs`` go to the sampler (SGLD's
+    ``A``, pSGLD's ``alpha``, relativistic SGHMC's ``D``, ...), which
+    gets ``scale_grad`` = N by default where it has one; ``noise_impl`` is
     ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
     ``"zero"`` (the degenerate stream of the parity tests: zero noise,
     window 0).
@@ -215,9 +220,14 @@ class BayesianNeuralNetwork(BaseModel):
         # the paths the port has not reached yet
         if step_impl == "pytree":
             raise _not_ported("step_impl='pytree'", "queue A item 6")
-        if sampling_method not in (Sampler.SGHMC, Sampler.SGLD):
+        if sampling_method == Sampler.SVGD:
             raise _not_ported("sampling_method={}".format(sampling_method),
-                              "queue A item 9")
+                              "queue A item 12")
+        if step_impl == "fused" and sampling_method not in (Sampler.SGHMC,
+                                                            Sampler.SGLD):
+            raise _not_ported(
+                "step_impl='fused' with sampling_method={} (kernels B4 and "
+                "B5 others)".format(sampling_method), "queue A item 9")
         if mesh is not None:
             raise _not_ported("mesh", "queue A item 15")
         if pair_dots:
@@ -362,16 +372,23 @@ class BayesianNeuralNetwork(BaseModel):
             else self._lanes_path
         sampler, burn, sample = path(apply_fn, positions, x_dev, y_dev,
                                      n_datapoints, keys)
-        self._run_chains(sampler.init(positions), burn, sample, apply_fn,
-                         x_dev, y_dev, n_datapoints, n_chains, per_chain,
-                         start_time)
+        # initial momenta (SGNHT, relativistic SGHMC) from the CPU
+        # generator too
+        self._run_chains(sampler.init(positions, keys), burn, sample,
+                         apply_fn, x_dev, y_dev, n_datapoints, n_chains,
+                         per_chain, start_time)
 
     def _build_sampler(self, cost_fn, n_datapoints, **defaults):
         """The sampler, with ``scale_grad`` = N and the BNN's burn-in length
-        unless ``**sampler_kwargs`` set them."""
+        unless ``**sampler_kwargs`` set them, each where the sampler has
+        it: both for SGHMC and SGLD, ``scale_grad`` for pSGLD and SGNHT,
+        neither for relativistic SGHMC."""
         kwargs = dict(self.sampler_kwargs)
-        kwargs.setdefault("scale_grad", float(n_datapoints))
-        kwargs.setdefault("burn_in_steps", self.burn_in_steps)
+        if Sampler.is_burn_in_mcmc(self.sampling_method):
+            kwargs.setdefault("scale_grad", float(n_datapoints))
+            kwargs.setdefault("burn_in_steps", self.burn_in_steps)
+        elif self.sampling_method in (Sampler.PSGLD, Sampler.SGNHT):
+            kwargs.setdefault("scale_grad", float(n_datapoints))
         for key, value in defaults.items():
             kwargs.setdefault(key, value)
         return Sampler.get_sampler(
@@ -423,7 +440,9 @@ class BayesianNeuralNetwork(BaseModel):
         """``(sampler, burn, sample)`` of the chains-on-lanes kernels: the
         full cost, weight prior included, differentiated per chain; burn-in
         on B9-sghmc / B9-sgld, sampling on B7 / B8-sgld, one launch per
-        step, each chain on its own minibatch window."""
+        step, each chain on its own minibatch window.  The samplers without
+        burn-in machinery burn in on discarded steps of
+        :func:`sample_chain_lanes`, as they sample."""
         def cost_fn(params, batch):
             x_batch, y_batch = batch
             nll, _ = self.negative_log_likelihood(
@@ -434,9 +453,14 @@ class BayesianNeuralNetwork(BaseModel):
         select_batch = batch_fn(x_dev, y_dev, self.batch_size)
 
         def burn(states, n_steps):
-            return burnin_chain_lanes(sampler, states, keys, n_steps,
-                                      batch_fn=select_batch,
-                                      noise_impl=self.noise_impl)
+            if Sampler.is_burn_in_mcmc(self.sampling_method):
+                return burnin_chain_lanes(sampler, states, keys, n_steps,
+                                          batch_fn=select_batch,
+                                          noise_impl=self.noise_impl)
+            return sample_chain_lanes(
+                sampler, states, keys, 1, batch_fn=select_batch,
+                keep_every=n_steps, collect_positions=False,
+                noise_impl=self.noise_impl)[0]
 
         def sample(states, n_keep):
             return sample_chain_lanes(

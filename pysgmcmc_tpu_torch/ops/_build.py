@@ -37,9 +37,9 @@ _U32 = ctypes.c_uint
 # (FUSED_STEP_ENTRY): 6 state inputs, x, y, tab, noise, widx, 6 state
 # outputs and the cost; 8 ints, the seed, the step, 5 floats and the stream
 _FUSED_LAUNCH = (_I, [_P] * 18 + [_I] * 8 + [_U64, _U32] + [_F] * 5 + [_P])
-# and every one of csrc/slim_update.cu (SLIM_ENTRY): 9 inputs, 6 outputs,
-# 2 ints, the seed, the step, 5 floats and the stream
-_SLIM_LAUNCH = (_I, [_P] * 15 + [_I] * 2 + [_U64, _U32] + [_F] * 5 + [_P])
+# and every one of csrc/slim_update.cu (SLIM_ENTRY): 10 inputs, 6 outputs,
+# 2 ints, the seed, the step, 7 floats and the stream
+_SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7 + [_P])
 _SIGNATURES = {
     "fused_step": {
         "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
@@ -58,6 +58,9 @@ _SIGNATURES = {
         **{name + "_launch": _SLIM_LAUNCH for name in (
             "slim_sghmc_update",                  # B7
             "slim_sgld_update",                   # B8-sgld
+            "slim_psgld_update",                  # B8-psgld
+            "slim_rsghmc_update",                 # B8-rsghmc
+            "slim_sgnht_update",                  # B8-sgnht
             "slim_sghmc_burnin_update",           # B9-sghmc
             "slim_sgld_burnin_update",            # B9-sgld
         )},

@@ -613,13 +613,17 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
     if eps_vec.numel() not in (1, k_steps):
         raise ValueError(
             "{}: eps must be a scalar or a (k_steps,) vector".format(name))
-    return layout, eps_vec.to(device).expand(k_steps)
+    # non_blocking: a pageable source is staged before the call returns, and
+    # the launch does not wait for the stream to drain
+    return layout, eps_vec.to(device, non_blocking=True).expand(k_steps)
 
 
 def _sghmc_table(eps_vec, scale_grad):
     """SGHMC per-step table ``(k, 2)``: eps, eps / sqrt(scale_grad)."""
-    eps_scaled = eps_vec / torch.sqrt(torch.tensor(
-        scale_grad, dtype=torch.float32, device=eps_vec.device))
+    # filled on the device: torch.tensor(..., device=) would copy from the
+    # host and wait for the stream
+    eps_scaled = eps_vec / torch.sqrt(torch.full(
+        (), scale_grad, dtype=torch.float32, device=eps_vec.device))
     return torch.stack([eps_vec, eps_scaled], dim=1).contiguous()
 
 

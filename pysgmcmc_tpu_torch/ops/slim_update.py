@@ -17,6 +17,16 @@ nothing falls back from a kernel to its plain version.
   with ``eps_s = eps / sqrt(scale_grad)``.
 - B8-sgld :func:`slim_sgld_update`: ``theta' = theta - eps minv A g +
   sqrt(2 eps minv A / scale_grad) eta``, ``g = grad + prior_scale theta``.
+- B8-psgld :func:`slim_psgld_update`: ``v' = alpha v + (1 - alpha) g^2``,
+  ``G = 1 / (lambda + sqrt(max(v', 0)))``, ``theta' = theta - eps/2 G g +
+  sqrt(max(eps G / scale_grad, 0)) eta``.
+- B8-rsghmc :func:`slim_rsghmc_update`: with ``vel(p) = eps p / m /
+  sqrt(p^2 / (m^2 c^2) + 1)``, ``p' = p - eps g + sqrt(max(eps (2D - eps
+  Bhat), 0)) eta - D vel(p)`` and ``theta' = theta + vel(p')``.
+- B8-sgnht :func:`slim_sgnht_update`: ``p' = p - xi eps p - eps g +
+  sqrt(max(2 A eps / scale_grad, 0)) eta``, ``theta' = theta + eps p'``,
+  with one ``xi`` per chain; the thermostat's own update is a reduction
+  over the chain's row and stays in the driver.
 - B9-sghmc :func:`slim_sghmc_burnin_update` / B9-sgld
   :func:`slim_sgld_burnin_update`: the Springenberg et al. tau/g/v_hat EMAs,
   all reading old values, with ``minv = 1/sqrt(old v_hat)`` (guarded), then
@@ -29,7 +39,8 @@ kernels' plain versions (:mod:`pysgmcmc_tpu_torch.ops.fused_step`).
 Layout: every operand is ``(n_chains, P)`` float32, one chain per row, the
 leaves of the parameter dict in its order (``parallel.packed.pack_lanes``).
 The TPU's ``(rows, n_chains)`` layout and its padding mask do not carry
-over; ``mask`` must be ``None``.  ``eps`` is a scalar or an ``(n_chains,)``
+over; ``mask`` must be ``None``, and SGNHT's ``xi`` is ``(n_chains,)``
+where JAX's is a ``(1, n_chains)`` row.  ``eps`` is a scalar or an ``(n_chains,)``
 per-chain vector (the ``TracedStepsizeSchedule`` sweep pattern).  The noise
 is the Philox stream of the fused kernels at ``(chain, step, element)`` with
 the 64-bit ``seed``, or the injected ``noise`` ``(n_chains, P)``.  Outputs
@@ -104,6 +115,19 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise):
     return eps_vec
 
 
+def _validate_xi(name, theta, xi):
+    if (not torch.is_tensor(xi) or xi.shape != theta.shape[:1]
+            or xi.dtype != torch.float32 or xi.device != theta.device):
+        raise ValueError(
+            "{}: xi must be a float32 ({},) per-chain tensor on {}".format(
+                name, theta.shape[0], theta.device))
+
+
+def _f32(x):
+    """``x`` rounded to float32, as a Python float (a kernel's scalar)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
 def _eta(theta, seed, step, noise):
     if noise is not None:
         return noise
@@ -145,6 +169,57 @@ def slim_sgld_update_ref(theta, grad, minv, mask, eps, seed, a_coef=1.0,
                                False)
 
 
+def slim_psgld_update_ref(theta, v, grad, mask, eps, seed, alpha=0.99,
+                          lambda_reg=1e-5, scale_grad=1.0, prior_scale=0.0,
+                          noise=None, step=0):
+    """Plain PyTorch version of :func:`slim_psgld_update`."""
+    eps_col = _validate("slim_psgld_update", theta, [v], grad, mask, eps,
+                        seed, noise).to(theta.device)[:, None]
+    alpha = _f32(alpha)
+    g = grad + prior_scale * theta
+    v_new = alpha * v + (1.0 - alpha) * g * g
+    precond = 1.0 / (lambda_reg + torch.sqrt(torch.clamp(v_new, min=0.0)))
+    sigma = torch.sqrt(torch.clamp(eps_col * precond * _f32(1.0 / scale_grad),
+                                   min=0.0))
+    eta = _eta(theta, seed, step, noise)
+    return theta + (-0.5 * eps_col * precond * g + sigma * eta), v_new
+
+
+def slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef=1.0,
+                           bhat=0.0, mass=1.0, speed_of_light=1.0,
+                           prior_scale=0.0, noise=None, step=0):
+    """Plain PyTorch version of :func:`slim_rsghmc_update`."""
+    eps_col = _validate("slim_rsghmc_update", theta, [p], grad, mask, eps,
+                        seed, noise).to(theta.device)[:, None]
+    inv_m = _f32(1.0 / mass)
+    inv_m2c2 = _f32(1.0 / (mass**2 * speed_of_light**2))
+    noise_scale = torch.sqrt(torch.clamp(
+        eps_col * (2.0 * d_coef - eps_col * bhat), min=0.0))
+    g = -(grad + prior_scale * theta)  # the log-likelihood gradient
+
+    def vel(pp):
+        return eps_col * pp * inv_m * torch.rsqrt(pp * pp * inv_m2c2 + 1.0)
+
+    eta = _eta(theta, seed, step, noise)
+    p_new = p + eps_col * g + noise_scale * eta - d_coef * vel(p)
+    return theta + vel(p_new), p_new
+
+
+def slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
+                          scale_grad=1.0, prior_scale=0.0, noise=None,
+                          step=0):
+    """Plain PyTorch version of :func:`slim_sgnht_update`."""
+    eps_col = _validate("slim_sgnht_update", theta, [p], grad, mask, eps,
+                        seed, noise).to(theta.device)[:, None]
+    _validate_xi("slim_sgnht_update", theta, xi)
+    sigma = torch.sqrt(torch.clamp(2.0 * a_diff * eps_col / scale_grad,
+                                   min=0.0))
+    g = grad + prior_scale * theta
+    eta = _eta(theta, seed, step, noise)
+    p_new = p - xi[:, None] * eps_col * p - eps_col * g + sigma * eta
+    return theta + eps_col * p_new, p_new
+
+
 def slim_sghmc_burnin_update_ref(theta, v, tau, g, v_hat, grad, mask, eps,
                                  seed, mdecay=0.05, scale_grad=1.0,
                                  prior_scale=0.0, noise=None, step=0):
@@ -182,30 +257,36 @@ def _ptr(t):
 
 # the operands of every launch entry of csrc/slim_update.cu, in its argument
 # order; a kernel passes NULL for those its rule and phase do not have
-_IN = ("theta", "v", "minv", "tau", "g", "v_hat", "grad")
+_IN = ("theta", "v", "minv", "tau", "g", "v_hat", "grad", "xi")
 _OUT = ("theta", "v", "tau", "g", "v_hat", "minv")
+# and its rule constants (the Args fields of the same names)
+_CONSTS = ("sqrt_sg", "coef", "cdiv", "c2", "c3")
 
 
-def _launch(name, ins, outs, eps_vec, noise, seed, step, scale_grad, coef,
-            cdiv, prior_scale):
+def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
+            **consts):
     """Launch the C entry ``name + "_launch"`` of ``csrc/slim_update.cu``.
 
-    ``ins`` maps operand names (``_IN``) to ``(n_chains, P)`` tensors,
-    ``outs`` names the outputs to allocate.  A one-entry ``eps_vec`` goes as
-    the scalar argument, a per-chain one as the kernel's eps vector.
-    ``coef`` is ``mdecay`` (SGHMC) or ``A`` (SGLD), ``cdiv`` SGLD's ``c``
-    (:func:`~pysgmcmc_tpu_torch.ops.fused_step._sgld_constants`).  Raises
-    on a failed launch; returns the outputs in ``outs`` order.
+    ``ins`` maps operand names (``_IN``) to tensors (``(n_chains, P)``;
+    ``xi`` ``(n_chains,)``), ``outs`` names the outputs to allocate.  A
+    one-entry ``eps_vec`` goes as the scalar argument, a per-chain one as
+    the kernel's eps vector.  ``consts`` are the rule's constants
+    (``_CONSTS``, each 0 where not given), as the source's ``Args`` lists
+    them per rule.  Raises on a failed launch; returns the outputs in
+    ``outs`` order.
     """
     from pysgmcmc_tpu_torch.ops import _build
 
+    unknown = set(consts) - set(_CONSTS)
+    if unknown:
+        raise TypeError("{}: unknown rule constants {}".format(
+            name, sorted(unknown)))
     theta = ins["theta"]
     for arr in (*ins.values(), noise):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
     per_chain = eps_vec.numel() > 1
     eps_dev = eps_vec.to(theta.device).contiguous() if per_chain else None
-    sqrt_sg = float(torch.sqrt(torch.tensor(scale_grad, dtype=torch.float32)))
     lib = _build.load("slim_update")
     n, p = theta.shape
     out = {key: torch.empty_like(theta) for key in outs}
@@ -214,9 +295,15 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, scale_grad, coef,
             *[_ptr(ins.get(key)) for key in _IN], _ptr(eps_dev), _ptr(noise),
             *[_ptr(out.get(key)) for key in _OUT], n, p, int(seed),
             int(step) & _MASK32, 0.0 if per_chain else float(eps_vec[0]),
-            sqrt_sg, float(coef), float(cdiv), float(prior_scale),
-            torch.cuda.current_stream().cuda_stream), "slim_update")
+            *[float(consts.get(key, 0.0)) for key in _CONSTS],
+            float(prior_scale), torch.cuda.current_stream().cuda_stream),
+            "slim_update")
     return tuple(out[key] for key in outs)
+
+
+def _sqrt_sg(scale_grad):
+    """``sqrt(scale_grad)`` in float32, SGHMC's noise-scale divisor."""
+    return float(torch.sqrt(torch.tensor(scale_grad, dtype=torch.float32)))
 
 
 def slim_sghmc_update(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
@@ -238,8 +325,8 @@ def slim_sghmc_update(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
                                      step)
     eps_vec = _validate(name, theta, [v, minv], grad, mask, eps, seed, noise)
     out = _launch(name, dict(theta=theta, v=v, minv=minv, grad=grad),
-                  ("theta", "v"), eps_vec, noise, seed, step, scale_grad,
-                  mdecay, 0.0, prior_scale)
+                  ("theta", "v"), eps_vec, noise, seed, step, prior_scale,
+                  sqrt_sg=_sqrt_sg(scale_grad), coef=mdecay)
     slim_sghmc_update.launches += 1
     return out
 
@@ -259,14 +346,88 @@ def slim_sgld_update(theta, grad, minv, mask, eps, seed, a_coef=1.0,
                                     a_coef, scale_grad, prior_scale, noise,
                                     step)
     eps_vec = _validate(name, theta, [minv], grad, mask, eps, seed, noise)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     (out,) = _launch(name, dict(theta=theta, minv=minv, grad=grad),
-                     ("theta",), eps_vec, noise, seed, step, scale_grad,
-                     *_sgld_constants(a_coef, scale_grad, False), prior_scale)
+                     ("theta",), eps_vec, noise, seed, step, prior_scale,
+                     coef=a_coef, cdiv=c)
     slim_sgld_update.launches += 1
     return out
 
 
 slim_sgld_update.launches = 0
+
+
+def slim_psgld_update(theta, v, grad, mask, eps, seed, alpha=0.99,
+                      lambda_reg=1e-5, scale_grad=1.0, prior_scale=0.0,
+                      noise=None, step=0):
+    """One pSGLD step over packed state (B8-psgld): the RMSprop accumulator
+    ``v`` adapts, then the preconditioned Langevin update.  Arguments as
+    :func:`slim_sghmc_update` with the sampler's ``alpha`` and
+    ``lambda_reg``; returns ``(theta', v')``.  CPU tensors run
+    :func:`slim_psgld_update_ref`."""
+    name = "slim_psgld_update"
+    if not _require_device(name, theta):
+        return slim_psgld_update_ref(theta, v, grad, mask, eps, seed, alpha,
+                                     lambda_reg, scale_grad, prior_scale,
+                                     noise, step)
+    eps_vec = _validate(name, theta, [v], grad, mask, eps, seed, noise)
+    out = _launch(name, dict(theta=theta, v=v, grad=grad), ("theta", "v"),
+                  eps_vec, noise, seed, step, prior_scale, coef=alpha,
+                  cdiv=lambda_reg, c2=1.0 / scale_grad)
+    slim_psgld_update.launches += 1
+    return out
+
+
+slim_psgld_update.launches = 0
+
+
+def slim_rsghmc_update(theta, p, grad, mask, eps, seed, d_coef=1.0, bhat=0.0,
+                       mass=1.0, speed_of_light=1.0, prior_scale=0.0,
+                       noise=None, step=0):
+    """One relativistic SGHMC step over packed state (B8-rsghmc) with the
+    relativistic momentum ``p``; ``d_coef``/``bhat``/``mass``/
+    ``speed_of_light`` are the sampler's ``D``/``Bhat``/``m``/``c``, other
+    arguments as :func:`slim_sghmc_update`.  Returns ``(theta', p')``.  CPU
+    tensors run :func:`slim_rsghmc_update_ref`."""
+    name = "slim_rsghmc_update"
+    if not _require_device(name, theta):
+        return slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef,
+                                      bhat, mass, speed_of_light,
+                                      prior_scale, noise, step)
+    eps_vec = _validate(name, theta, [p], grad, mask, eps, seed, noise)
+    out = _launch(name, dict(theta=theta, v=p, grad=grad), ("theta", "v"),
+                  eps_vec, noise, seed, step, prior_scale, coef=d_coef,
+                  cdiv=bhat, c2=1.0 / mass,
+                  c3=1.0 / (mass**2 * speed_of_light**2))
+    slim_rsghmc_update.launches += 1
+    return out
+
+
+slim_rsghmc_update.launches = 0
+
+
+def slim_sgnht_update(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
+                      scale_grad=1.0, prior_scale=0.0, noise=None, step=0):
+    """One SGNHT step over packed state (B8-sgnht) with momentum ``p`` and
+    the per-chain thermostat ``xi`` (float32 ``(n_chains,)``); ``a_diff`` is
+    the sampler's ``A``, other arguments as :func:`slim_sghmc_update`.
+    Returns ``(theta', p')``; the driver updates ``xi`` from ``p'``.  CPU
+    tensors run :func:`slim_sgnht_update_ref`."""
+    name = "slim_sgnht_update"
+    if not _require_device(name, theta):
+        return slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed,
+                                     a_diff, scale_grad, prior_scale, noise,
+                                     step)
+    eps_vec = _validate(name, theta, [p], grad, mask, eps, seed, noise)
+    _validate_xi(name, theta, xi)
+    out = _launch(name, dict(theta=theta, v=p, grad=grad, xi=xi),
+                  ("theta", "v"), eps_vec, noise, seed, step, prior_scale,
+                  coef=2.0 * a_diff, cdiv=scale_grad)
+    slim_sgnht_update.launches += 1
+    return out
+
+
+slim_sgnht_update.launches = 0
 
 
 def slim_sghmc_burnin_update(theta, v, tau, g, v_hat, grad, mask, eps, seed,
@@ -288,7 +449,8 @@ def slim_sghmc_burnin_update(theta, v, tau, g, v_hat, grad, mask, eps, seed,
     out = _launch(name, dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat,
                              grad=grad),
                   ("theta", "v", "tau", "g", "v_hat", "minv"), eps_vec, noise,
-                  seed, step, scale_grad, mdecay, 0.0, prior_scale)
+                  seed, step, prior_scale, sqrt_sg=_sqrt_sg(scale_grad),
+                  coef=mdecay)
     slim_sghmc_burnin_update.launches += 1
     return out
 
@@ -312,11 +474,11 @@ def slim_sgld_burnin_update(theta, tau, g, v_hat, grad, mask, eps, seed,
             prior_scale, noise, step)
     eps_vec = _validate(name, theta, [tau, g, v_hat], grad, mask, eps, seed,
                         noise)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     out = _launch(name, dict(theta=theta, tau=tau, g=g, v_hat=v_hat,
                              grad=grad),
                   ("theta", "tau", "g", "v_hat", "minv"), eps_vec, noise,
-                  seed, step, scale_grad,
-                  *_sgld_constants(a_coef, scale_grad, True), prior_scale)
+                  seed, step, prior_scale, coef=a_coef, cdiv=c)
     slim_sgld_burnin_update.launches += 1
     return out
 
@@ -325,6 +487,10 @@ slim_sgld_burnin_update.launches = 0
 
 
 __all__ = [
+    "slim_psgld_update",
+    "slim_psgld_update_ref",
+    "slim_rsghmc_update",
+    "slim_rsghmc_update_ref",
     "slim_sghmc_burnin_update",
     "slim_sghmc_burnin_update_ref",
     "slim_sghmc_update",
@@ -333,4 +499,6 @@ __all__ = [
     "slim_sgld_burnin_update_ref",
     "slim_sgld_update",
     "slim_sgld_update_ref",
+    "slim_sgnht_update",
+    "slim_sgnht_update_ref",
 ]

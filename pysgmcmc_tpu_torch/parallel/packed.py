@@ -1,6 +1,7 @@
 """Chain drivers over the port's kernels (PyTorch port of the fused and the
-chains-on-lanes drivers of :mod:`pysgmcmc_tpu.parallel.packed`), for SGHMC
-and SGLD.
+chains-on-lanes drivers of :mod:`pysgmcmc_tpu.parallel.packed`): the fused
+drivers for SGHMC and SGLD, the lanes drivers for the five gradient
+samplers.
 
 Fused: :func:`burnin_chain_fused` runs the whole self-tuning burn-in of
 every chain as one launch of kernel B2 (SGHMC, :func:`~pysgmcmc_tpu_torch.ops.
@@ -22,7 +23,10 @@ P)`` position (:func:`pack_lanes` / :func:`unpack_lanes`), takes every
 chain's gradient with ``torch.func.vmap(torch.func.grad_and_value(
 sampler.cost_fn))``, packs it, and makes one launch of a slim elementwise
 kernel (:mod:`pysgmcmc_tpu_torch.ops.slim_update`): B9-sghmc / B9-sgld in
-burn-in, B7 / B8-sgld in sampling.  Each chain's minibatch is
+burn-in, B7 / B8-sgld in sampling, and for pSGLD, relativistic SGHMC and
+SGNHT, which have no burn-in machinery, B8-psgld / B8-rsghmc / B8-sgnht in
+:func:`sample_chain_lanes` (SGNHT's thermostat follows each launch as one
+reduction over every chain's row).  Each chain's minibatch is
 ``batch_fn(seed, step, n_chains)`` (:func:`pysgmcmc_tpu_torch.data_batches.
 batch_fn`), ``batch_fn=None`` a full-data cost.  With the same seed, on the
 dense network, windows and noise are those of the fused drivers.  A stacked
@@ -54,14 +58,22 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
     unpack,
 )
 from pysgmcmc_tpu_torch.ops.slim_update import (
+    slim_psgld_update,
+    slim_rsghmc_update,
     slim_sghmc_burnin_update,
     slim_sghmc_update,
     slim_sgld_burnin_update,
     slim_sgld_update,
+    slim_sgnht_update,
 )
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
+from pysgmcmc_tpu_torch.samplers.psgld import PSGLDSampler
+from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
+    RelativisticSGHMCSampler,
+)
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
+from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler
 
 
 def resolve_noise_impl(noise_impl):
@@ -80,13 +92,27 @@ def resolve_noise_impl(noise_impl):
         "got {!r}".format(noise_impl))
 
 
+_KINDS = ((SGHMCSampler, "sghmc"), (SGLDSampler, "sgld"),
+          (PSGLDSampler, "psgld"), (RelativisticSGHMCSampler, "rsghmc"),
+          (SGNHTSampler, "sgnht"))
+
+
+def _sampler_kind(name, sampler):
+    """``"sghmc"``, ``"sgld"``, ``"psgld"``, ``"rsghmc"`` or ``"sgnht"``;
+    raises on any other sampler."""
+    for cls, kind in _KINDS:
+        if isinstance(sampler, cls):
+            return kind
+    raise NotImplementedError(
+        "{}: the port's drivers take the gradient samplers SGHMC, SGLD, "
+        "PSGLD, RelativisticSGHMC and SGNHT; got {} (SVGD is ROADMAP.md "
+        "queue A item 12)".format(name, type(sampler).__name__))
+
+
 def _check_driver(name, sampler, mesh, pair_dots):
-    """Raises on what the port's drivers do not take; returns True for
-    SGHMC and False for SGLD."""
-    if not isinstance(sampler, (SGHMCSampler, SGLDSampler)):
-        raise NotImplementedError(
-            "{}: only SGHMC and SGLD are ported; {} is ROADMAP.md queue A "
-            "item 9".format(name, type(sampler).__name__))
+    """Raises on what the port's drivers do not take; returns the sampler's
+    kind (:func:`_sampler_kind`)."""
+    kind = _sampler_kind(name, sampler)
     if mesh is not None:
         raise NotImplementedError(
             "{}: mesh sharding is not ported yet (ROADMAP.md queue A item "
@@ -95,7 +121,19 @@ def _check_driver(name, sampler, mesh, pair_dots):
         raise NotImplementedError(
             "{}: pair_dots is not ported yet (ROADMAP.md queue B, "
             "B-pair)".format(name))
-    return isinstance(sampler, SGHMCSampler)
+    return kind
+
+
+def _check_fused(name, sampler, mesh, pair_dots):
+    """:func:`_check_driver` for the fused drivers, which take SGHMC and
+    SGLD; returns True for SGHMC."""
+    kind = _check_driver(name, sampler, mesh, pair_dots)
+    if kind not in ("sghmc", "sgld"):
+        raise NotImplementedError(
+            "{}: the fused kernels of {} (B4 and B5 others) are not ported "
+            "yet (ROADMAP.md queue A item 9); sample_chain_lanes runs "
+            "it".format(name, type(sampler).__name__))
+    return kind == "sghmc"
 
 
 def _draw_seed(generator):
@@ -144,7 +182,7 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     if int(n_steps) < 1:
         return states
     name = "burnin_chain_fused"
-    sghmc = _check_driver(name, sampler, mesh, pair_dots)
+    sghmc = _check_fused(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
@@ -200,7 +238,7 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     ``(n_chains, n_samples)``, each sample's final-step cost.
     """
     name = "sample_chain_fused"
-    sghmc = _check_driver(name, sampler, mesh, pair_dots)
+    sghmc = _check_fused(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
@@ -263,27 +301,21 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
         if collect_positions:
             positions.append(unpack(theta, layout))
         costs.append(cost[:, 0])
-    return _sampling_result(
-        states, unpack(theta, layout), unpack(v, layout) if sghmc else None,
-        int(n_samples) * keep_every, positions, costs, collect_positions)
+    moved = dict(position=unpack(theta, layout))
+    if sghmc:
+        moved["momentum"] = unpack(v, layout)
+    return _sampling_result(states, int(n_samples) * keep_every, positions,
+                            costs, collect_positions, moved)
 
 
-def _sampling_result(states, position, momentum, n_steps, positions, costs,
-                     collect_positions):
-    """``(states, positions, costs)`` of a sampling driver: the advanced
-    states (``momentum`` is ``None`` for SGLD), the collected positions as
-    leaves ``(n_chains, n_samples, ...)`` and the costs ``(n_chains,
-    n_samples)``."""
-    fields = dict(
-        position=position,
-        stats=states.stats,
-        step=states.step + n_steps,
-        schedule_state=states.schedule_state,
-    )
-    if momentum is not None:
-        new_states = SGHMCState(momentum=momentum, **fields)
-    else:
-        new_states = SGLDState(**fields)
+def _sampling_result(states, n_steps, positions, costs, collect_positions,
+                     moved):
+    """``(states, positions, costs)`` of a sampling driver: ``states`` with
+    the fields in ``moved`` (position, and momentum, accumulator or
+    thermostat where the sampler has them) replaced and the step counter
+    advanced by ``n_steps``, the collected positions as leaves ``(n_chains,
+    n_samples, ...)`` and the costs ``(n_chains, n_samples)``."""
+    new_states = states._replace(step=states.step + n_steps, **moved)
     if collect_positions:
         positions = {name: torch.stack([p[name] for p in positions], dim=1)
                      for name in positions[0]}
@@ -366,9 +398,9 @@ def _lanes_eps_fn(sampler, states, n_chains):
 
 
 def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
-    """Raises on what the lanes drivers do not take; returns True for SGHMC
-    and False for SGLD."""
-    sghmc = _check_driver(name, sampler, mesh, False)
+    """Raises on what the lanes drivers do not take; returns the sampler's
+    kind (:func:`_sampler_kind`)."""
+    kind = _check_driver(name, sampler, mesh, False)
     if compute_dtype is not None:
         raise NotImplementedError(
             "{}: compute_dtype (bfloat16 network passes) is not ported yet "
@@ -377,7 +409,7 @@ def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
         raise NotImplementedError(
             "{}: only float32 momentum/mass state is ported; bfloat16 state "
             "is ROADMAP.md queue A item 6".format(name))
-    return sghmc
+    return kind
 
 
 def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step):
@@ -395,24 +427,57 @@ def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step):
     return cost, pack_lanes(spec, grads)
 
 
+def _lanes_rule(kind, sampler):
+    """The keywords of the sampler's slim kernel, as the sampler sets them."""
+    if kind == "rsghmc":
+        return dict(d_coef=sampler.D, bhat=sampler.Bhat, mass=sampler.mass,
+                    speed_of_light=sampler.speed_of_light,
+                    prior_scale=sampler.gaussian_prior_scale)
+    rule = dict(scale_grad=sampler.scale_grad,
+                prior_scale=sampler.gaussian_prior_scale)
+    if kind == "sghmc":
+        rule["mdecay"] = sampler.mdecay
+    elif kind == "sgld":
+        rule["a_coef"] = sampler.A
+    elif kind == "psgld":
+        rule.update(alpha=sampler.alpha, lambda_reg=sampler.lambda_reg)
+    else:
+        rule["a_diff"] = sampler.a_diff
+    return rule
+
+
+def _lanes_xi(states, n_chains, device):
+    """SGNHT's thermostat as ``(n_chains,)`` float32: a shared scalar (the
+    ``init`` of stacked positions) is given to every chain."""
+    xi = torch.as_tensor(states.xi, dtype=torch.float32, device=device)
+    if xi.ndim == 0:
+        return xi.expand(n_chains).contiguous()
+    if tuple(xi.shape) != (n_chains,):
+        raise ValueError(
+            "sample_chain_lanes: xi must be a scalar or one per chain "
+            "({},); got {}".format(n_chains, tuple(xi.shape)))
+    return xi.contiguous()
+
+
 def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
                  mesh, noise_impl):
-    """What both lanes drivers set up: ``(sghmc?, spec, theta, v,
-    step0, eps_of, seed, window_seed, rule keywords)``."""
-    sghmc = _check_lanes(name, sampler, mesh, compute_dtype, state_dtype)
+    """What both lanes drivers set up: ``(kind, spec, theta, v, step0,
+    eps_of, seed, window_seed, rule keywords)``; ``v`` is the packed
+    momentum (SGHMC, RSGHMC, SGNHT) or accumulator (pSGLD), ``None`` for
+    SGLD."""
+    kind = _check_lanes(name, sampler, mesh, compute_dtype, state_dtype)
     zero = resolve_noise_impl(noise_impl) == "zero"
     spec = make_lanes_spec({k: leaf[0] for k, leaf in states.position.items()})
     theta = pack_lanes(spec, states.position)
-    v = pack_lanes(spec, states.momentum) if sghmc else None
-    seed = _draw_seed(key)
-    rule = dict(scale_grad=sampler.scale_grad,
-                prior_scale=sampler.gaussian_prior_scale,
-                noise=torch.zeros_like(theta) if zero else None)
-    if sghmc:
-        rule["mdecay"] = sampler.mdecay
+    if kind == "sgld":
+        v = None
     else:
-        rule["a_coef"] = sampler.A
-    return (sghmc, spec, theta, v, int(torch.max(states.step)),
+        v = pack_lanes(spec, states.v if kind == "psgld"
+                       else states.momentum)
+    seed = _draw_seed(key)
+    rule = dict(_lanes_rule(kind, sampler),
+                noise=torch.zeros_like(theta) if zero else None)
+    return (kind, spec, theta, v, int(torch.max(states.step)),
             _lanes_eps_fn(sampler, states, theta.shape[0]), seed,
             None if zero else seed, rule)
 
@@ -431,11 +496,19 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     holding the mass-matrix inverse the final step used (the value the
     sampling phase freezes).
     """
+    name = "burnin_chain_lanes"
+    if _sampler_kind(name, sampler) not in ("sghmc", "sgld"):
+        raise NotImplementedError(
+            "{} supports the adaptive (burn-in) samplers SGHMC and SGLD; got "
+            "{}, which has no burn-in machinery: run its burn-in as "
+            "discarded steps of sample_chain_lanes".format(
+                name, type(sampler).__name__))
     if int(n_steps) < 1:
         return states
-    sghmc, spec, theta, v, step0, eps_of, seed, window_seed, rule = \
-        _lanes_start("burnin_chain_lanes", sampler, states, key,
-                     compute_dtype, state_dtype, mesh, noise_impl)
+    kind, spec, theta, v, step0, eps_of, seed, window_seed, rule = \
+        _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
+                     mesh, noise_impl)
+    sghmc = kind == "sghmc"
     tau, g, v_hat = (pack_lanes(spec, leaf) for leaf in states.stats[:3])
     n_steps = int(n_steps)
     for step in range(step0, step0 + n_steps):
@@ -467,34 +540,60 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
                        state_dtype=torch.float32, collect_positions=True,
                        mesh=None, noise_impl="auto"):
     """Sampling-phase driver on the chains-on-lanes kernels: ``n_samples``
-    collected samples, each after ``keep_every`` steps of every chain with
-    the frozen ``stats.minv``, one launch of B7 (SGHMC) or B8-sgld (SGLD)
-    per step.  Arguments as :func:`burnin_chain_lanes`.  Returns ``(states,
-    positions, costs)`` shaped as :func:`sample_chain_fused`'s; a sample's
-    cost is that of its final step's gradient pass.
+    collected samples, each after ``keep_every`` steps of every chain, one
+    slim launch per step: B7 (SGHMC) or B8-sgld (SGLD) with the frozen
+    ``stats.minv``, B8-psgld (pSGLD), B8-rsghmc (relativistic SGHMC) or
+    B8-sgnht (SGNHT, whose per-chain thermostat then moves by ``eps (p'^T
+    p' / P - 1)``).  ``states`` is a stacked state of any of the five
+    samplers; an SGNHT ``xi`` may be a shared scalar or ``(n_chains,)``
+    and comes back ``(n_chains,)``.  Other arguments as
+    :func:`burnin_chain_lanes`.  Returns ``(states, positions, costs)``
+    shaped as :func:`sample_chain_fused`'s; a sample's cost is that of its
+    final step's gradient pass.
     """
-    sghmc, spec, theta, v, step, eps_of, seed, window_seed, rule = \
+    kind, spec, theta, v, step, eps_of, seed, window_seed, rule = \
         _lanes_start("sample_chain_lanes", sampler, states, key,
                      compute_dtype, state_dtype, mesh, noise_impl)
-    minv = pack_lanes(spec, states.stats.minv)
+    minv = (pack_lanes(spec, states.stats.minv)
+            if kind in ("sghmc", "sgld") else None)
+    xi = _lanes_xi(states, theta.shape[0], theta.device) \
+        if kind == "sgnht" else None
     positions, costs = [], []
     for _ in range(int(n_samples)):
         for _ in range(keep_every):
             cost, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
                                          window_seed, step)
-            if sghmc:
-                theta, v = slim_sghmc_update(theta, v, grad, minv, None,
-                                             eps_of(step), seed, step=step,
-                                             **rule)
+            eps = eps_of(step)
+            if kind == "sghmc":
+                theta, v = slim_sghmc_update(theta, v, grad, minv, None, eps,
+                                             seed, step=step, **rule)
+            elif kind == "sgld":
+                theta = slim_sgld_update(theta, grad, minv, None, eps, seed,
+                                         step=step, **rule)
+            elif kind == "psgld":
+                theta, v = slim_psgld_update(theta, v, grad, None, eps, seed,
+                                             step=step, **rule)
+            elif kind == "rsghmc":
+                theta, v = slim_rsghmc_update(theta, v, grad, None, eps,
+                                              seed, step=step, **rule)
             else:
-                theta = slim_sgld_update(theta, grad, minv, None,
-                                         eps_of(step), seed, step=step,
-                                         **rule)
+                theta, v = slim_sgnht_update(theta, v, grad, None, xi, eps,
+                                             seed, step=step, **rule)
+                # the thermostat: one reduction over every chain's row (a
+                # float eps stays a host scalar: no copy, no stream wait)
+                if torch.is_tensor(eps):
+                    eps = eps.to(xi.device)
+                xi = xi + eps * (torch.sum(v * v, dim=1) / spec.width - 1.0)
             step += 1
         if collect_positions:
             positions.append(unpack_lanes(spec, theta))
         costs.append(cost)
-    return _sampling_result(
-        states, unpack_lanes(spec, theta),
-        unpack_lanes(spec, v) if sghmc else None,
-        int(n_samples) * keep_every, positions, costs, collect_positions)
+    moved = dict(position=unpack_lanes(spec, theta))
+    if kind in ("sghmc", "rsghmc", "sgnht"):
+        moved["momentum"] = unpack_lanes(spec, v)
+    elif kind == "psgld":
+        moved["v"] = unpack_lanes(spec, v)
+    if kind == "sgnht":
+        moved["xi"] = xi
+    return _sampling_result(states, int(n_samples) * keep_every, positions,
+                            costs, collect_positions, moved)

@@ -1,14 +1,26 @@
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
 from pysgmcmc_tpu_torch.samplers.base import MCMCSampler, SamplerInfo
+from pysgmcmc_tpu_torch.samplers.psgld import PSGLDSampler, PSGLDState
+from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
+    RelativisticSGHMCSampler,
+    RelativisticSGHMCState,
+)
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
+from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler, SGNHTState
 
 __all__ = [
     "AdaptiveStats",
     "MCMCSampler",
+    "PSGLDSampler",
+    "PSGLDState",
+    "RelativisticSGHMCSampler",
+    "RelativisticSGHMCState",
     "SamplerInfo",
     "SGHMCSampler",
     "SGHMCState",
     "SGLDSampler",
     "SGLDState",
+    "SGNHTSampler",
+    "SGNHTState",
 ]

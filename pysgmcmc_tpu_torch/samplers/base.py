@@ -33,10 +33,13 @@ class MCMCSampler:
 
     ``cost_fn(params)`` or ``cost_fn(params, batch)`` returns a scalar
     tensor; ``stepsize_schedule`` is a :class:`StepsizeSchedule` or a float;
-    ``dtype`` is the element type of the sampler state.
+    ``dtype`` is the element type of the sampler state;
+    ``gaussian_prior_scale`` ``s > 0`` adds the analytic gradient ``s *
+    theta`` of an isotropic Gaussian prior to every gradient.
     """
 
-    def __init__(self, cost_fn, stepsize_schedule=0.01, dtype=torch.float32):
+    def __init__(self, cost_fn, stepsize_schedule=0.01, dtype=torch.float32,
+                 gaussian_prior_scale=0.0):
         if not callable(cost_fn):
             raise ValueError(
                 "MCMCSampler: `cost_fn` must be callable, got {!r}".format(cost_fn)
@@ -46,6 +49,7 @@ class MCMCSampler:
         self.cost_fn = cost_fn
         self.stepsize_schedule = stepsize_schedule
         self.dtype = dtype
+        self.gaussian_prior_scale = float(gaussian_prior_scale)
 
     def init(self, params, key=None):
         raise NotImplementedError
@@ -59,7 +63,8 @@ class MCMCSampler:
         return state.position
 
     def _cost_and_grad(self, params, batch):
-        """Cost and its gradient with respect to every leaf of ``params``."""
+        """Cost and its gradient with respect to every leaf of ``params``,
+        the Gaussian prior's ``gaussian_prior_scale * theta`` included."""
         names = list(params)
         with torch.enable_grad():
             leaves = [params[n].detach().requires_grad_(True) for n in names]
@@ -67,6 +72,9 @@ class MCMCSampler:
             cost = (self.cost_fn(tracked) if batch is None
                     else self.cost_fn(tracked, batch))
             grads = torch.autograd.grad(cost, leaves)
+        scale = self.gaussian_prior_scale
+        if scale:
+            grads = [g + scale * params[n] for n, g in zip(names, grads)]
         return cost.detach(), dict(zip(names, grads))
 
     def _stepsize(self, state):

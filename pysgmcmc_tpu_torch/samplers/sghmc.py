@@ -34,7 +34,12 @@ from pysgmcmc_tpu_torch.samplers._adaptive import (
     update_stats,
 )
 from pysgmcmc_tpu_torch.samplers.base import MCMCSampler, SamplerInfo
-from pysgmcmc_tpu_torch.utils.pytree import tree_cast, tree_map, tree_zeros_like
+from pysgmcmc_tpu_torch.utils.pytree import (
+    normal_like_tree,
+    tree_cast,
+    tree_map,
+    tree_zeros_like,
+)
 
 
 class SGHMCState(NamedTuple):
@@ -66,7 +71,8 @@ class SGHMCSampler(MCMCSampler):
         gaussian_prior_scale=0.0,
         noise_bits=None,
     ):
-        super().__init__(cost_fn, stepsize_schedule, dtype)
+        super().__init__(cost_fn, stepsize_schedule, dtype,
+                         gaussian_prior_scale)
         if burn_in_steps < 0:
             raise ValueError("SGHMCSampler: burn_in_steps must be >= 0")
         if noise_bits is not None:
@@ -77,7 +83,6 @@ class SGHMCSampler(MCMCSampler):
         self.mdecay = float(mdecay)
         self.scale_grad = float(scale_grad)
         self.noise_bits = noise_bits
-        self.gaussian_prior_scale = float(gaussian_prior_scale)
 
     def init(self, params, key=None):
         """Initial state for ``params`` (a dict of tensors, optionally with a
@@ -105,20 +110,12 @@ class SGHMCSampler(MCMCSampler):
         eps_scaled = eps / torch.sqrt(
             torch.as_tensor(self.scale_grad, dtype=self.dtype))
         cost, grads = self._cost_and_grad(state.position, batch)
-        if self.gaussian_prior_scale:
-            scale = self.gaussian_prior_scale
-            grads = tree_map(lambda g, theta: g + scale * theta,
-                             grads, state.position)
 
         burning_in = state.step < self.burn_in_steps
         stats, minv = update_stats(state.stats, grads, burning_in, phase)
 
         if noise is None:
-            noise = tree_map(
-                lambda leaf: torch.randn(
-                    leaf.shape, generator=key, dtype=leaf.dtype,
-                    device=leaf.device),
-                state.position)
+            noise = normal_like_tree(key, state.position)
 
         def momentum_leaf(v, grad, minv_leaf, eta):
             noise_var = (

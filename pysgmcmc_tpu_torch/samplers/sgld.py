@@ -34,7 +34,7 @@ from pysgmcmc_tpu_torch.samplers._adaptive import (
 )
 from pysgmcmc_tpu_torch.samplers.base import MCMCSampler, SamplerInfo
 from pysgmcmc_tpu_torch.utils.numeric import safe_divide, safe_sqrt
-from pysgmcmc_tpu_torch.utils.pytree import tree_cast, tree_map
+from pysgmcmc_tpu_torch.utils.pytree import normal_like_tree, tree_cast, tree_map
 
 
 class SGLDState(NamedTuple):
@@ -65,7 +65,8 @@ class SGLDSampler(MCMCSampler):
         gaussian_prior_scale=0.0,
         noise_bits=None,
     ):
-        super().__init__(cost_fn, stepsize_schedule, dtype)
+        super().__init__(cost_fn, stepsize_schedule, dtype,
+                         gaussian_prior_scale)
         if burn_in_steps < 0:
             raise ValueError("SGLDSampler: burn_in_steps must be >= 0")
         if noise_bits is not None:
@@ -75,7 +76,6 @@ class SGLDSampler(MCMCSampler):
         self.burn_in_steps = int(burn_in_steps)
         self.A = float(A)
         self.scale_grad = float(scale_grad)
-        self.gaussian_prior_scale = float(gaussian_prior_scale)
         self.noise_bits = noise_bits
 
     def init(self, params, key=None):
@@ -108,20 +108,12 @@ class SGLDSampler(MCMCSampler):
         :meth:`pysgmcmc_tpu_torch.samplers.sghmc.SGHMCSampler.step`."""
         eps = self._stepsize(state)
         cost, grads = self._cost_and_grad(state.position, batch)
-        if self.gaussian_prior_scale:
-            scale = self.gaussian_prior_scale
-            grads = tree_map(lambda g, theta: g + scale * theta,
-                             grads, state.position)
 
         burning_in = state.step < self.burn_in_steps
         stats, minv = update_stats(state.stats, grads, burning_in, phase)
 
         if noise is None:
-            noise = tree_map(
-                lambda leaf: torch.randn(
-                    leaf.shape, generator=key, dtype=leaf.dtype,
-                    device=leaf.device),
-                state.position)
+            noise = normal_like_tree(key, state.position)
 
         def update_leaf(theta, grad, minv_leaf, eta):
             sigma = safe_sqrt(

@@ -2,8 +2,8 @@
 :mod:`pysgmcmc_tpu.sampling`).
 
 ``Sampler`` lists every method the JAX package supports, with the same
-predicates and error texts.  SGHMC and SGLD are ported so far: the others
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+predicates and error texts.  The five gradient samplers are ported; SVGD
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 
 Examples
 --------
@@ -35,7 +35,8 @@ class Sampler(Enum):
     @staticmethod
     def is_supported(sampling_method):
         """True iff ``sampling_method`` can drive model training (in the
-        JAX package; the port trains with SGHMC and SGLD so far)."""
+        JAX package; the port trains with the five gradient samplers so
+        far, not with SVGD)."""
         return sampling_method in (
             Sampler.SGHMC,
             Sampler.SGLD,
@@ -58,12 +59,22 @@ class Sampler(Enum):
             from pysgmcmc_tpu_torch.samplers.sgld import (
                 SGLDSampler as sampler_cls,
             )
-        elif sampling_method in (cls.RelativisticSGHMC, cls.SVGD, cls.PSGLD,
-                                 cls.SGNHT):
+        elif sampling_method == cls.PSGLD:
+            from pysgmcmc_tpu_torch.samplers.psgld import (
+                PSGLDSampler as sampler_cls,
+            )
+        elif sampling_method == cls.SGNHT:
+            from pysgmcmc_tpu_torch.samplers.sgnht import (
+                SGNHTSampler as sampler_cls,
+            )
+        elif sampling_method == cls.RelativisticSGHMC:
+            from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
+                RelativisticSGHMCSampler as sampler_cls,
+            )
+        elif sampling_method == cls.SVGD:
             raise NotImplementedError(
                 "sampling.Sampler.get_sampler: {!r} is not ported to PyTorch "
-                "yet (ROADMAP.md queue A, items 9 and 12)".format(
-                    sampling_method))
+                "yet (ROADMAP.md queue A, item 12)".format(sampling_method))
         else:
             raise ValueError(
                 "sampling.Sampler.get_sampler: unknown sampling method "

@@ -1,5 +1,6 @@
 from pysgmcmc_tpu_torch.utils.numeric import safe_divide, safe_sqrt
 from pysgmcmc_tpu_torch.utils.pytree import (
+    normal_like_tree,
     tree_cast,
     tree_map,
     tree_size,
@@ -7,6 +8,7 @@ from pysgmcmc_tpu_torch.utils.pytree import (
 )
 
 __all__ = [
+    "normal_like_tree",
     "safe_divide",
     "safe_sqrt",
     "tree_cast",

@@ -1,5 +1,5 @@
 """Helpers over parameter dicts of tensors (PyTorch port of the parts of
-:mod:`pysgmcmc_tpu.utils.pytree` the fused BNN path uses).
+:mod:`pysgmcmc_tpu.utils.pytree` the BNN paths and the samplers use).
 
 A "tree" here is a flat ``dict`` mapping names to tensors, the port's
 counterpart of the JAX package's dict pytrees.
@@ -34,3 +34,16 @@ def tree_zeros_like(tree, dtype=None):
 
 def tree_cast(tree, dtype):
     return tree_map(lambda leaf: leaf.to(dtype), tree)
+
+
+def normal_like_tree(generator, tree):
+    """A standard-normal draw shaped like every leaf of ``tree``, in the
+    dict's order, from ``generator``.  The draw runs on the generator's
+    device and lands on each leaf's, so a CPU generator gives the same
+    numbers to leaves on the CPU and on the card.  (JAX folds one key per
+    leaf; the streams differ, the distribution does not.)"""
+    return tree_map(
+        lambda leaf: torch.randn(leaf.shape, generator=generator,
+                                 dtype=leaf.dtype,
+                                 device=generator.device).to(leaf.device),
+        tree)

@@ -173,7 +173,7 @@ def test_sampler_factory_matches_jax():
     assert type(sampling.Sampler.get_sampler(
         sampling.Sampler.SGLD, cost_fn=abs)).__name__ == "SGLDSampler"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.Sampler.get_sampler(sampling.Sampler.PSGLD, cost_fn=abs)
+        sampling.Sampler.get_sampler(sampling.Sampler.SVGD, cost_fn=abs)
 
 
 def test_port_imports_no_jax():
@@ -194,7 +194,9 @@ PORT_MODULES = [
     pysgmcmc_tpu_torch.models.bayesian_neural_network,
     pysgmcmc_tpu_torch.samplers._adaptive, pysgmcmc_tpu_torch.samplers.sghmc,
     pysgmcmc_tpu_torch.samplers.sgld, pysgmcmc_tpu_torch.data_batches,
-    pysgmcmc_tpu_torch.ops.slim_update,
+    pysgmcmc_tpu_torch.ops.slim_update, pysgmcmc_tpu_torch.ops.relativistic,
+    pysgmcmc_tpu_torch.samplers.psgld, pysgmcmc_tpu_torch.samplers.sgnht,
+    pysgmcmc_tpu_torch.samplers.relativistic_sghmc,
 ]
 
 

@@ -234,7 +234,7 @@ def test_constructor_errors_match_jax(kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(network="dense"),
-    dict(step_impl="lanes", sampling_method="PSGLD"),
+    dict(network="dense", step_impl="fused", sampling_method="SGNHT"),
     dict(network="dense", step_impl="pytree"),
     dict(network="dense", step_impl="fused", sampling_method="PSGLD"),
     dict(network="dense", step_impl="fused", mesh=object()),
@@ -245,10 +245,11 @@ def test_constructor_errors_match_jax(kwargs):
 ])
 def test_unported_paths_raise(kwargs):
     """What the port has not reached raises, naming its ROADMAP.md item
-    (``step_impl="lanes"`` trains since the lanes slice; its pSGLD does
-    not yet)."""
-    if kwargs.get("sampling_method") == "PSGLD":
-        kwargs = dict(kwargs, sampling_method=Sampler.PSGLD)
+    (``step_impl="lanes"`` trains with all five gradient samplers; the
+    fused path with SGHMC and SGLD only)."""
+    if "sampling_method" in kwargs:
+        kwargs = dict(kwargs, sampling_method=Sampler[
+            kwargs["sampling_method"]])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BayesianNeuralNetwork(device="cpu", **kwargs)
 

@@ -4,9 +4,10 @@ one).  This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Each kernel (B1, B2, B3, B4-sgld, B5-sgld, B6; the slim kernels B7,
-B8-sgld, B9-sghmc and B9-sgld) is held against its plain PyTorch version on
-the same inputs, from the state a 200-step burn-in leaves, under injected
-noise and windows and under the Philox stream, with the tolerance
+B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld) is held
+against its plain PyTorch version on the same inputs, from the state a
+200-step burn-in leaves, under injected noise and windows and under the
+Philox stream, with the tolerance
 ``chip_smoke.py`` uses: 2e-4 of the largest value in each chain's row of
 each output (summation order and libm ulps, carried through the steps).
 """
@@ -18,6 +19,7 @@ import torch
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops import slim_update as su
+from pysgmcmc_tpu_torch.ops.relativistic import sample_relativistic_momentum
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
@@ -196,6 +198,63 @@ def test_slim_kernel_matches_plain_version(kernel, stream, cuda_device):
         assert _row_rel_err(a, b) <= REL_TOL
 
 
+# the slim kernels of the samplers without a mass matrix -> (wrapper, plain
+# version, rule keywords)
+SLIM_B8 = {
+    "B8-psgld": (su.slim_psgld_update, su.slim_psgld_update_ref,
+                 dict(alpha=0.99, lambda_reg=1e-5, scale_grad=100.0)),
+    "B8-rsghmc": (su.slim_rsghmc_update, su.slim_rsghmc_update_ref,
+                  dict(d_coef=1.0, bhat=0.0, mass=1.0, speed_of_light=1.0)),
+    "B8-sgnht": (su.slim_sgnht_update, su.slim_sgnht_update_ref,
+                 dict(a_diff=1.0, scale_grad=100.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(SLIM_B8))
+@pytest.mark.parametrize("stream", ["injected", "philox", "philox-per-chain"])
+def test_slim_b8_kernel_matches_plain_version(kernel, stream, cuda_device):
+    """From the burned-in theta and its gradient, with pSGLD's accumulator
+    at g^2, RSGHMC's momentum from the relativistic marginal and SGNHT's
+    momentum from N(0, 1) with one xi per chain around 1."""
+    n = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, y = _data(gen)
+    fn, ref, rule = SLIM_B8[kernel]
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    widx = fs.philox_windows(3, 0, n, x_win.shape[0], cuda_device)
+    theta = st["theta"]
+    grad = fs._fwd_bwd(theta, lay, x_win[widx][:, :, None], y_win[widx],
+                       1.0 / 20, 1.0 / 100)[1]
+    if kernel == "B8-psgld":
+        args = [theta, grad * grad, grad, None]
+    elif kernel == "B8-rsghmc":
+        args = [theta, sample_relativistic_momentum(gen, theta.shape),
+                grad, None]
+    else:
+        args = [theta, torch.randn(theta.shape, generator=gen,
+                                   device=cuda_device), grad, None,
+                1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda_device)]
+    eps = 1e-3
+    extra = {"step": 2**32 - 1}
+    if stream == "injected":
+        extra = {"noise": torch.randn(theta.shape, generator=gen,
+                                      device=cuda_device)}
+    elif stream == "philox-per-chain":
+        eps = eps * (0.5 + torch.rand(n, generator=gen, device=cuda_device))
+    common = dict(prior_scale=1.0 / (lay.n_params * 100), **rule, **extra)
+    before = fn.launches
+    got = fn(*args, eps, 2**63 + 5, **common)
+    assert fn.launches == before + 1
+    want = ref(*args, eps, 2**63 + 5, **common)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sampler_cls", [SGHMCSampler, SGLDSampler])
 def test_one_step_driver_matches_multistep_driver(sampler_cls, cuda_device):
@@ -289,3 +348,27 @@ def test_lanes_bnn_trains_on_the_card(method, cuda_device):
     assert np.isfinite(mean).all() and np.isfinite(var).all()
     truth = np.sinc(np.linspace(0.0, 1.0, 50) * 10 - 5)
     assert np.mean((mean - truth) ** 2) < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kernel,eps", [
+    ("PSGLD", su.slim_psgld_update, 1e-3),
+    ("RelativisticSGHMC", su.slim_rsghmc_update, 1e-3),
+    ("SGNHT", su.slim_sgnht_update, 3e-4)])
+def test_lanes_bnn_without_burn_in_trains_on_the_card(method, kernel, eps,
+                                                      cuda_device):
+    """Burn-in is discarded steps of the same kernel: one launch a step."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    kernel.launches = 0
+    bnn = BayesianNeuralNetwork(
+        sampling_method=Sampler[method], network="reference",
+        step_impl="lanes", n_chains=256, n_nets=512, burn_in_steps=1500,
+        sample_steps=50, n_iters=1600, stepsize_schedule=eps)
+    bnn.train(x, y)
+    assert kernel.launches == 1600
+    assert bnn.samples["w1"].is_cuda and bnn.samples["w1"].shape == (512, 1,
+                                                                        50)
+    mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
+    assert np.isfinite(mean).all() and np.isfinite(var).all()

@@ -350,8 +350,8 @@ def test_lanes_drivers_shapes_and_bookkeeping():
     _, none, _ = sample_chain_lanes(sampler, burned, gen, 1,
                                     collect_positions=False)
     assert none is None
-    unported = type("PSGLDSampler", (), {})()
-    for kwargs, match in ((dict(), "item 9"),):
+    unported = type("SVGDSampler", (), {})()
+    for kwargs, match in ((dict(), "item 12"),):
         with pytest.raises(NotImplementedError, match=match):
             sample_chain_lanes(unported, burned, gen, 1, **kwargs)
     for kwargs in (dict(compute_dtype=torch.bfloat16),

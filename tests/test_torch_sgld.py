@@ -141,7 +141,7 @@ def test_sgld_factory_matches_jax():
                                              **kwargs)
         assert str(got.value) == str(ref.value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.Sampler.get_sampler(sampling.Sampler.PSGLD, cost_fn=abs)
+        sampling.Sampler.get_sampler(sampling.Sampler.SVGD, cost_fn=abs)
 
 
 def test_sgld_state_from_numpy():
