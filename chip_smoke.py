@@ -5,25 +5,27 @@
 
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
-spills, holds each of the thirteen kernels against its plain PyTorch
+spills, holds each of the nineteen kernels against its plain PyTorch
 version on the card (flagship shapes, from burned-in states, injected noise
 and the Philox stream, each check beside the plain version's own floor):
-the fused kernels B1, B2, B3, B4-sgld, B5-sgld, B6 and the slim kernels B7,
+the fused kernels B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc,
+B5-sgld, B5-psgld, B5-sgnht, B5-rsghmc, B6 and the slim kernels B7,
 B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc, B9-sgld (also with a
 per-chain eps row).  It times every kernel at the main path's shape, checks
-the one-step driver against the multi-step driver, the chains-on-lanes
-drivers against the fused drivers on the dense network, and the small main
-paths on the card against the CPU, then trains and predicts the flagship
-BNNs (3x50 tanh, 8192 chains, sinc data) through ``pysgmcmc_tpu_torch.
-models.BayesianNeuralNetwork``: SGHMC and SGLD on the fused path
-(``network="dense"``) and on the lanes path (``network="reference"``), and
-pSGLD, relativistic SGHMC and SGNHT on the lanes path, and takes one
-profiler trace of lanes steps.  Each kernel's launches are counted over the
-path that runs it (the fused flagships for B1/B2 and B5-sgld/B6, the
-one-step driver for B3 and B4-sgld, the lanes flagships for B7/B9-sghmc,
-B8-sgld/B9-sgld, B8-psgld, B8-rsghmc and B8-sgnht).  The second-to-last
-line is the kernels' JSON record, the last line ``{"ok": true, "device":
-{...}}``.
+the one-step driver against the multi-step driver and the chains-on-lanes
+drivers against the fused drivers on the dense network for all five
+samplers, and the small main paths on the card against the CPU, then trains
+and predicts the flagship BNNs (3x50 tanh, 8192 chains, sinc data) through
+``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork``: all five samplers on
+the fused path (``network="dense"``; pSGLD, relativistic SGHMC and SGNHT
+burn in on the lanes driver) and all five on the lanes path
+(``network="reference"``), and takes one profiler trace of lanes steps.
+Each kernel's launches are counted over the paths that run it (the fused
+flagships for B1/B2, B5-sgld/B6 and B5-psgld, B5-rsghmc, B5-sgnht, the
+one-step driver for B3 and B4-*, the lanes flagships for B7/B9-sghmc and
+B8-sgld/B9-sgld, both flagships of each sampler for B8-psgld, B8-rsghmc
+and B8-sgnht).  The second-to-last line is the
+kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before printing any
 result.
@@ -88,6 +90,10 @@ B8_EPS = {"PSGLD": 1e-3, "RelativisticSGHMC": 1e-3, "SGNHT": 3e-4}
 for _method, _eps in B8_EPS.items():
     SMALL_LANES[_method] = dict(SMALL_LANES["SGLD"], stepsize_schedule=_eps)
 SMALL_LANES["PSGLD"].update(noise_impl="zero", stepsize_schedule=1e-4)
+# their fused paths (burn-in on the lanes driver, sampling on B5-*) the same
+for _method in B8_EPS:
+    SMALL[_method] = dict(SMALL_LANES[_method], network="dense",
+                          step_impl="fused")
 # The flagship MSE gate is 0.1 (BASELINE.md), for SGNHT too.  In the JAX
 # package SGNHT sits near it on sinc (CPU, 64 chains, 3000 + 200 steps:
 # 0.097 at 3e-4, 0.078 at 512 chains), a bias that more chains barely move.
@@ -97,7 +103,10 @@ F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # ptxas names the instantiations fused_kernel<rule, burn-in, gathered> and
 # slim_kernel<rule, burn-in>
 INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
-             (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6"}
+             (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6",
+             (2, 0, 1): "B4-psgld", (2, 0, 0): "B5-psgld",
+             (3, 0, 1): "B4-rsghmc", (3, 0, 0): "B5-rsghmc",
+             (4, 0, 1): "B4-sgnht", (4, 0, 0): "B5-sgnht"}
 SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (2, 0): "B8-psgld",
                   (3, 0): "B8-rsghmc", (4, 0): "B8-sgnht", (0, 1): "B9-sghmc",
                   (1, 1): "B9-sgld"}
@@ -109,15 +118,24 @@ HOST_ROUNDS = 3  # timings of those steps on the host's clock, least kept
 SPIN_CYCLES = 20_000_000
 
 
-def _import_port():
-    """Import the package of this checkout, and only that one."""
-    sys.path.insert(0, HERE)
+def _import_port(root=HERE):
+    """Import the package of the checkout at ``root``, and only that one."""
+    sys.path.insert(0, root)
     import pysgmcmc_tpu_torch
 
     pkg_dir = os.path.dirname(os.path.abspath(pysgmcmc_tpu_torch.__file__))
-    if os.path.dirname(pkg_dir) != HERE:
+    if os.path.dirname(pkg_dir) != root:
         raise SystemExit("pysgmcmc_tpu_torch was imported from {}, not from "
-                         "this checkout".format(pkg_dir))
+                         "the checkout at {}".format(pkg_dir, root))
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(
+        ).splitlines()[0]
 
 
 def _data(torch, device):
@@ -205,8 +223,11 @@ def _compare(torch, name, got, want, floor=None, what="kernel-plain"):
     return worst
 
 
-def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES):
-    """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v."""
+def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
+                  complete=True):
+    """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v;
+    raises where ``complete`` and the log lacks a kernel of ``instances``
+    (an older tree's log lacks the newer kernels)."""
     out = {}
     flags = r"ILi(\d)E" + r"Lb(\d)E" * (len(next(iter(instances))) - 1)
     pattern = re.compile(
@@ -219,7 +240,7 @@ def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES):
         out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
                     "loads".format(m.group(k + 4), m.group(k + 2),
                                    m.group(k + 3))
-    if set(out) != set(instances.values()):
+    if complete and set(out) != set(instances.values()):
         raise AssertionError("ptxas report lacks kernels: {}".format(
             sorted(set(instances.values()) - set(out))))
     return out
@@ -240,8 +261,11 @@ def _flops_per_chain_step(lay, batch, rule_flops):
 # the kernel source: prior fold 2; SGHMC noise scale 7 and momentum update 8,
 # SGLD noise scale 5 (sampling) or 6 (burn-in) and increment 6; the mask 1
 # (sampling) and the position add 1; burn-in adds the EMAs and minv, 30.
+# pSGLD, relativistic SGHMC and SGNHT as the slim kernels' rules below
+# (21, 24, 11), SGNHT plus 2 for its p'^T p'.
 RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
-              "B6": 45}
+              "B6": 45, "B4-psgld": 21, "B5-psgld": 21, "B4-rsghmc": 24,
+              "B5-rsghmc": 24, "B4-sgnht": 13, "B5-sgnht": 13}
 # The slim kernels apply the same rules without the mask, and draw every
 # normal in the kernel: one Philox4x32-10 (10 rounds of 2 mulhi, 2 mul, 4
 # xor, and 2 key adds in 9 of them: 98), two bits-to-uniform maps (8) and
@@ -322,7 +346,7 @@ def _run(fs, wrapper, one_step, state, x_win, y_win, eps, kw, k, stream,
     """k steps of a kernel (or its plain version) from ``state``: one launch
     of a multi-step kernel, or k launches of a one-step kernel, each on the
     previous one's output with minv frozen.  Returns the last outputs."""
-    injected = stream == "injected"
+    injected = stream in ("injected", "zero")
     if not one_step:
         if injected:
             extra = dict(noise=extra["noise"][:k], widx=extra["widx"][:k])
@@ -340,7 +364,8 @@ def _run(fs, wrapper, one_step, state, x_win, y_win, eps, kw, k, stream,
             step_kw = dict(step=step)
         out = wrapper(*cur, *fs.gather_batch(x_win, y_win, widx), eps, SEED,
                       **kw, **step_kw)
-        cur = list(out[:-1]) + [state[-1]]
+        # the next step takes the new state and the frozen inputs (minv)
+        cur = list(out[:-1]) + list(state[len(out) - 1:])
     return out
 
 
@@ -348,13 +373,17 @@ def _kernel_checks(torch, fs, checks, x_win, y_win, streams):
     """Every kernel against its plain version on the same inputs; returns
     ``{kernel: max abs error}``.  ``checks`` holds ``(name, kernel, plain
     version, state, keywords, output labels, one-step?, plan)`` with
-    ``plan`` a list of ``(eps, steps, checked)``; an unchecked entry only
-    measures and prints the floor."""
+    ``plan`` a list of ``(eps, steps, checked)`` over the injected and the
+    Philox stream, or ``(eps, steps, checked, stream names)``; an unchecked
+    entry only measures and prints the floor."""
     err = {}
     for name, fn, ref, state, kw, labels, one_step, plan in checks:
         err[name] = 0.0
-        for eps, k, checked in plan:
+        for eps, k, checked, *names in plan:
+            names = names[0] if names else ("injected", "philox")
             for stream, extra in streams:
+                if stream not in names:
+                    continue
                 def run(wrapper, start=state):
                     return _run(fs, wrapper, one_step, start, x_win, y_win,
                                 eps, kw, k, stream, extra)
@@ -392,17 +421,50 @@ def _burned_in(torch, x, y, sampler_cls, n_chains, device):
     return sampler, states
 
 
-def _driver_check(torch, x, y, sampler_cls, device):
-    """The one-step driver (B3 / B4-sgld per step) against the multi-step
-    driver (B1 / B5-sgld) from the same adapted state and generator seed;
-    returns (worst error, one-step launches of the multistep=False run)."""
+def _sampler(method, eps, cost_fn=None):
+    """A sampler of the flagship's settings: ``scale_grad`` = N where the
+    sampler has one, the folded weight prior's scale 1 / (P N)."""
     from pysgmcmc_tpu_torch.ops import fused_step as fs
+    from pysgmcmc_tpu_torch.sampling import Sampler
+
+    kw = dict(stepsize_schedule=eps,
+              gaussian_prior_scale=1.0 / (fs.FusedLayout(1, H, 3).n_params
+                                          * N_DATA))
+    if method != "RelativisticSGHMC":
+        kw["scale_grad"] = float(N_DATA)
+    return Sampler.get_sampler(Sampler[method],
+                               cost_fn=cost_fn or (lambda p, b: None), **kw)
+
+
+def _packed_states(torch, sampler, st, n_chains):
+    """The sampler's stacked state from a packed lanes check state (``theta``,
+    ``v``, SGNHT's ``xi``) tiled to ``n_chains`` chains, BURNED_IN steps
+    in."""
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+
+    lay = fs.FusedLayout(1, H, 3)
+    reps = n_chains // st["theta"].shape[0]
+    tiled = {k: v.repeat(reps, *(1,) * (v.ndim - 1)) for k, v in st.items()}
+    states = sampler.init(fs.unpack(tiled["theta"], lay))
+    fields = dict(step=torch.full((), BURNED_IN, dtype=torch.int64,
+                                  device=tiled["theta"].device))
+    if hasattr(states, "v"):
+        fields["v"] = fs.unpack(tiled["v"], lay)
+    else:
+        fields["momentum"] = fs.unpack(tiled["v"], lay)
+    if "xi" in tiled:
+        fields["xi"] = tiled["xi"]
+    return states._replace(**fields)
+
+
+def _driver_check(torch, x, y, sampler, states, kernel):
+    """The one-step driver (B3 / B4-* per step) against the multi-step
+    driver (B1 / B5-*) from the same state and generator seed; returns
+    (worst error, launches of the one-step ``kernel`` in the
+    multistep=False run)."""
     from pysgmcmc_tpu_torch.parallel import sample_chain_fused
 
-    sampler, states = _burned_in(torch, x, y, sampler_cls, DRIVER_CHAINS,
-                                 device)
-    kernel = fs.fused_bnn_step if sampler_cls.__name__ == "SGHMCSampler" \
-        else fs.fused_bnn_step_sgld
+    device = states.step.device
     runs = []
     for multistep in (True, False):
         kernel.launches = 0
@@ -412,7 +474,7 @@ def _driver_check(torch, x, y, sampler_cls, device):
             multistep=multistep))
         launches = kernel.launches
     torch.cuda.synchronize()
-    label = "one-step driver ({})".format(sampler_cls.__name__)
+    label = "one-step driver ({})".format(type(sampler).__name__)
     keys = sorted(runs[0][1])
     worst = _compare(torch, (label, ["positions " + k for k in keys]),
                      [runs[1][1][k] for k in keys],
@@ -510,6 +572,45 @@ LANES_FLAGSHIPS = (("SGHMC", "B9-sghmc", "B7"), ("SGLD", "B9-sgld", "B8-sgld"),
                    ("PSGLD", "B8-psgld", "B8-psgld"),
                    ("RelativisticSGHMC", "B8-rsghmc", "B8-rsghmc"),
                    ("SGNHT", "B8-sgnht", "B8-sgnht"))
+# the fused kernels of the samplers without a mass matrix -> (sampler, state
+# operands, output labels); the fused flagship of each burns in on the slim
+# kernel of the same sampler
+FUSED_NEW = {
+    "B5-psgld": ("PSGLD", ("theta", "v"), ("theta", "v", "cost")),
+    "B4-psgld": ("PSGLD", ("theta", "v"), ("theta", "v", "cost")),
+    "B5-rsghmc": ("RelativisticSGHMC", ("theta", "v"), ("theta", "p", "cost")),
+    "B4-rsghmc": ("RelativisticSGHMC", ("theta", "v"), ("theta", "p", "cost")),
+    "B5-sgnht": ("SGNHT", ("theta", "v", "xi"), ("theta", "p", "xi", "cost")),
+    "B4-sgnht": ("SGNHT", ("theta", "v", "xi"), ("theta", "p", "xi", "cost")),
+}
+SLIM_OF = {"PSGLD": "B8-psgld", "RelativisticSGHMC": "B8-rsghmc",
+           "SGNHT": "B8-sgnht"}
+# Their kernel checks, as the slim kernels' at each sampler's stepsize
+# (B8_EPS), over CHECK_STEPS steps on injected noise and the Philox stream.
+# pSGLD's preconditioner reaches 1 / lambda = 1e5 where a gradient is near
+# 0; over CHECK_STEPS steps its floor stays near the others' (the script
+# prints each), and its kernels are also checked on the degenerate stream
+# (zero noise, window 0) at 1e-4, where its small main path runs.
+FUSED_NEW_PLAN = {
+    "PSGLD": [(B8_EPS["PSGLD"], CHECK_STEPS, True),
+              (1e-4, CHECK_STEPS, True, ("zero",))],
+    "RelativisticSGHMC": [(B8_EPS["RelativisticSGHMC"], CHECK_STEPS, True)],
+    "SGNHT": [(B8_EPS["SGNHT"], CHECK_STEPS, True)],
+}
+
+
+def _fused_new_functions(fs):
+    """fused kernel of FUSED_NEW -> (wrapper, plain version)."""
+    return {"B5-psgld": (fs.fused_bnn_multistep_psgld,
+                         fs.fused_bnn_multistep_psgld_ref),
+            "B4-psgld": (fs.fused_bnn_step_psgld, fs.fused_bnn_step_psgld_ref),
+            "B5-rsghmc": (fs.fused_bnn_multistep_rsghmc,
+                          fs.fused_bnn_multistep_rsghmc_ref),
+            "B4-rsghmc": (fs.fused_bnn_step_rsghmc,
+                          fs.fused_bnn_step_rsghmc_ref),
+            "B5-sgnht": (fs.fused_bnn_multistep_sgnht,
+                         fs.fused_bnn_multistep_sgnht_ref),
+            "B4-sgnht": (fs.fused_bnn_step_sgnht, fs.fused_bnn_step_sgnht_ref)}
 
 
 def _slim_functions(su):
@@ -633,13 +734,15 @@ def _fused_cost(torch, apply):
     return cost
 
 
-def _lanes_vs_fused(torch, x, y, sampler_cls, eps, device):
-    """The lanes drivers (autograd gradient, then B9 / B7 or B8-sgld) against
-    the fused drivers (B2 / B6, then B1 / B5-sgld) on the dense network, from
-    one burned-in state and one generator seed, on the Philox stream: 8
-    burn-in and 8 sampling steps.  Returns the worst error."""
+def _lanes_vs_fused(torch, x, y, sampler, states, eps):
+    """The lanes drivers (autograd gradient, then the slim kernels) against
+    the fused drivers on the dense network, from one state and one
+    generator seed, on the Philox stream, over 16 steps: for SGHMC and SGLD
+    8 burn-in (B9 against B2 / B6) and 8 sampling steps (B7 or B8-sgld
+    against B1 / B5-sgld), for the samplers without burn-in two samples of 8
+    steps (B8-* against B5-*).  ``sampler`` carries the fused path's cost.
+    Returns the worst error."""
     from pysgmcmc_tpu_torch.data_batches import batch_fn
-    from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import fused_step as fs
     from pysgmcmc_tpu_torch.parallel import (
         burnin_chain_fused,
@@ -648,29 +751,39 @@ def _lanes_vs_fused(torch, x, y, sampler_cls, eps, device):
         sample_chain_lanes,
     )
 
-    _, states = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, device)
-    _, apply = dense_network(1, units=(H, H, H), device=device)
+    device = states.step.device
     lay = fs.FusedLayout(1, H, 3)
-    sampler = sampler_cls(_fused_cost(torch, apply), stepsize_schedule=eps,
-                          scale_grad=float(N_DATA),
-                          gaussian_prior_scale=1.0 / (lay.n_params * N_DATA))
     select = batch_fn(x, y, BATCH)
-    drivers = {
-        "fused": (lambda s, g: burnin_chain_fused(sampler, s, g, 8, x, y),
-                  lambda s, g: sample_chain_fused(
-                      sampler, s, g, 1, x, y, keep_every=8, multistep=True)),
-        "lanes": (lambda s, g: burnin_chain_lanes(sampler, s, g, 8,
-                                                  batch_fn=select),
-                  lambda s, g: sample_chain_lanes(
-                      sampler, s, g, 1, batch_fn=select, keep_every=8)),
-    }
+    burn_in = hasattr(states, "stats")
+    if burn_in:
+        drivers = {
+            "fused": (lambda s, g: burnin_chain_fused(sampler, s, g, 8, x, y),
+                      lambda s, g: sample_chain_fused(
+                          sampler, s, g, 1, x, y, keep_every=8,
+                          multistep=True)),
+            "lanes": (lambda s, g: burnin_chain_lanes(sampler, s, g, 8,
+                                                      batch_fn=select),
+                      lambda s, g: sample_chain_lanes(
+                          sampler, s, g, 1, batch_fn=select, keep_every=8)),
+        }
+        labels = ("positions after 8 burn-in steps",
+                  "positions after 8 sampling steps")
+    else:
+        drivers = {
+            "fused": (lambda s, g: s, lambda s, g: sample_chain_fused(
+                sampler, s, g, 2, x, y, keep_every=8, multistep=True)),
+            "lanes": (lambda s, g: s, lambda s, g: sample_chain_lanes(
+                sampler, s, g, 2, batch_fn=select, keep_every=8)),
+        }
+        labels = ("positions after 8 steps", "positions after 16 steps")
 
     def run(path, start):
         gen = torch.Generator(device=device).manual_seed(5)
         burned = drivers[path][0](start, gen)
         _, pos, _ = drivers[path][1](burned, gen)
-        return (fs.pack(burned.position, lay),
-                fs.pack({k: v[:, 0] for k, v in pos.items()}, lay))
+        samples = [fs.pack({k: v[:, i] for k, v in pos.items()}, lay)
+                   for i in range(pos["w1"].shape[1])]
+        return ([fs.pack(burned.position, lay)] if burn_in else []) + samples
 
     want = run("fused", states)
     nudged = run("fused", states._replace(position={
@@ -680,9 +793,7 @@ def _lanes_vs_fused(torch, x, y, sampler_cls, eps, device):
     torch.cuda.synchronize()
     return _compare(
         torch, ("lanes vs fused drivers ({}, dense, eps {:g})".format(
-            sampler_cls.__name__, eps),
-            ("positions after 8 burn-in steps",
-             "positions after 8 sampling steps")),
+            type(sampler).__name__, eps), labels),
         got, want, floor, what="lanes - fused")
 
 
@@ -800,11 +911,7 @@ def main():
     from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
     from pysgmcmc_tpu_torch.sampling import Sampler
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = card.splitlines()[0]
+    card = _card()
     print(card)
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -831,7 +938,7 @@ def main():
     x_np, y_np, x, y = _data(torch, device)
     x_win, y_win = fs.data_windows(x, y, BATCH)
     n_windows = x_win.shape[0]
-    init_fn, _ = dense_network(1, units=(H, H, H), device=device)
+    init_fn, apply_fn = dense_network(1, units=(H, H, H), device=device)
     lay = fs.FusedLayout(1, H, 3)
     P = lay.n_params
     gen = torch.Generator(device=device).manual_seed(1234)
@@ -839,6 +946,12 @@ def main():
                 batch_size=BATCH, n_data=N_DATA, h=H)
     sghmc = dict(base, mdecay=0.05)
     sgld = dict(base, a_coef=1.0)
+    # the fused kernels' keywords of the samplers without a mass matrix
+    fused_kw = {"PSGLD": dict(base, alpha=0.99, lambda_reg=1e-5),
+                "SGNHT": dict(base, a_diff=1.0),
+                "RelativisticSGHMC": dict(
+                    {k: v for k, v in base.items() if k != "scale_grad"},
+                    mass=1.0, speed_of_light=1.0, d_coef=1.0, b_hat=0.0)}
 
     # ---- every kernel vs its plain version at the flagship shapes ----
     n = CHECK_CHAINS
@@ -906,7 +1019,28 @@ def main():
                "SGNHT": dict(prior, a_diff=1.0, scale_grad=float(N_DATA))}
     slim_states = _slim_states(torch, fs, state, lay, x_win, y_win)
     err.update(_slim_checks(torch, su, slim_states, slim_kw))
+    lanes_states = {method: state[method] for method in B8_EPS}
     del noise, widx, state
+    # the fused kernels without a mass matrix, from the lanes check states
+    # tiled to the flagship's chains
+    n = MAIN_CHAINS
+    big = {method: {k: v.repeat(n // CHECK_CHAINS, *(1,) * (v.ndim - 1))
+                    for k, v in st.items()}
+           for method, st in lanes_states.items()}
+    noise = torch.randn((CHECK_STEPS, n, P), generator=gen, device=device)
+    widx = torch.randint(0, n_windows, (CHECK_STEPS, n), generator=gen,
+                         device=device, dtype=torch.int32)
+    streams = [("injected", dict(noise=noise, widx=widx)),
+               ("zero", dict(noise=torch.zeros_like(noise),
+                             widx=torch.zeros_like(widx))),
+               ("philox", dict(step0=12345))]
+    err.update(_kernel_checks(torch, fs, [
+        (name, fn, ref, tuple(big[method][k] for k in FUSED_NEW[name][1]),
+         fused_kw[method], FUSED_NEW[name][2], name.startswith("B4"),
+         FUSED_NEW_PLAN[method])
+        for name, (fn, ref) in _fused_new_functions(fs).items()
+        for method in [FUSED_NEW[name][0]]], x_win, y_win, streams))
+    del noise, widx, streams
 
     # ---- times at the main path's shape: 8192 chains, k = 200 ----
     n, k = MAIN_CHAINS, SAMPLE_STEPS
@@ -916,7 +1050,13 @@ def main():
     f4 = 4 * n * P  # bytes of one (n, P) f32 tensor
     table = 4 * n_windows * BATCH * 2  # the x and y window tables
 
-    def time_multi(name, fn, ref, args, kw, n_in, n_out, step0=0):
+    def nbytes(tensors):
+        return sum(4 * t.numel() for t in tensors if torch.is_tensor(t))
+
+    def time_multi(name, fn, ref, args, kw, step0=0):
+        """Times one launch of k steps; the bound counts every tensor
+        argument read once (the state and the window tables) and every
+        output written once."""
         fn(*args, k_steps=2, step0=step0, **kw)  # warm-up
         timed[name], out = _time_ms(
             torch, lambda: fn(*args, k_steps=k, step0=step0, **kw))
@@ -924,27 +1064,32 @@ def main():
         timed[name + " plain"], _ = _time_ms(
             torch, lambda: ref(*args, k_steps=k, step0=step0, **kw))
         flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
-        bounds[name] = _bound(n, k, flops,
-                              (n_in + n_out) * f4 + table + 4 * n)
+        bounds[name] = _bound(n, k, flops, nbytes(args) + nbytes(out))
         return out
 
     out = time_multi("B2", fs.fused_bnn_multistep_burnin,
                      fs.fused_bnn_multistep_burnin_ref,
                      (theta, zeros, ones, ones, ones, x_win, y_win, EPS, 42),
-                     sghmc, 5, 6)
+                     sghmc)
     time_multi("B1", fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
-               (out[0], out[1], out[5], x_win, y_win, EPS, 43), sghmc, 3, 2,
+               (out[0], out[1], out[5], x_win, y_win, EPS, 43), sghmc,
                step0=k)
     out = time_multi("B6", fs.fused_bnn_multistep_burnin_sgld,
                      fs.fused_bnn_multistep_burnin_sgld_ref,
                      (theta, ones, ones, ones, x_win, y_win, EPS_SGLD, 44),
-                     sgld, 4, 5)
+                     sgld)
     time_multi("B5-sgld", fs.fused_bnn_multistep_sgld,
                fs.fused_bnn_multistep_sgld_ref,
-               (out[0], out[4], x_win, y_win, EPS_SGLD, 45), sgld, 2, 1,
-               step0=k)
+               (out[0], out[4], x_win, y_win, EPS_SGLD, 45), sgld, step0=k)
     minv_big = out[4]
-    for name in ("B2", "B1", "B6", "B5-sgld"):
+    new_fns = _fused_new_functions(fs)
+    for name in ("B5-psgld", "B5-rsghmc", "B5-sgnht"):
+        method, inputs, _ = FUSED_NEW[name]
+        time_multi(name, *new_fns[name],
+                   (*(big[method][key] for key in inputs), x_win, y_win,
+                    B8_EPS[method], 48), fused_kw[method], step0=BURNED_IN)
+    for name in ("B2", "B1", "B6", "B5-sgld", "B5-psgld", "B5-rsghmc",
+                 "B5-sgnht"):
         print("time {} at {} chains x {} steps: kernel {:.2f} ms, plain "
               "{:.2f} ms, bound {:.2f} ms ({}) ({})".format(
                   name, n, k, timed[name], timed[name + " plain"],
@@ -954,24 +1099,30 @@ def main():
                                                           device))
     one_step = {
         "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref,
-               (theta, zeros, minv_big), EPS, sghmc, 3, 2),
+               (theta, zeros, minv_big), EPS, sghmc),
         "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref,
-                    (theta, minv_big), EPS_SGLD, sgld, 2, 1),
+                    (theta, minv_big), EPS_SGLD, sgld),
     }
-    for name, (fn, ref, state, eps, kw, n_in, n_out) in one_step.items():
+    for name in ("B4-psgld", "B4-rsghmc", "B4-sgnht"):
+        method, inputs, _ = FUSED_NEW[name]
+        one_step[name] = (*new_fns[name],
+                          tuple(big[method][key] for key in inputs),
+                          B8_EPS[method], fused_kw[method])
+    for name, (fn, ref, state, eps, kw) in one_step.items():
         def launch(f=fn, s=state, e=eps, w=kw):
             return f(*s, *sel, e, 46, step=0, **w)
 
         def plain(f=ref, s=state, e=eps, w=kw):
             return f(*s, *sel, e, 46, step=0, **w)
 
-        launch()
+        out = launch()
         timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
         plain()
         timed[name + " plain"] = _median_ms(torch, plain, 5)
         flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
-        bounds[name] = _bound(n, 1, flops, (n_in + n_out) * f4
-                              + 4 * n * BATCH * 2 + 4 * n)
+        # the state and the gathered rows read once, the outputs written once
+        bounds[name] = _bound(n, 1, flops,
+                              nbytes(state) + nbytes(sel) + nbytes(out))
         print("time {} per launch (one step) at {} chains: kernel {:.3f} ms "
               "(median of {}), plain {:.3f} ms (median of 5), bound {:.3f} "
               "ms ({}) ({})".format(name, n, timed[name], ONE_STEP_TIMED,
@@ -1003,28 +1154,50 @@ def main():
               "({})".format(name, n, P, timed[name], ONE_STEP_TIMED,
                             timed[name + " plain"], bounds[name][0],
                             bounds[name][1], compute_ms, card))
-    del theta, zeros, ones, out, minv_big, sel, slim_states
+    del theta, zeros, ones, out, minv_big, sel, slim_states, big
     torch.cuda.empty_cache()
 
     # ---- the one-step driver vs the multi-step driver on the card ----
     launches = {}
-    for sampler_cls, name in ((SGHMCSampler, "B3"), (SGLDSampler, "B4-sgld")):
+    # one-step kernel -> (its wrapper, the sampler, its states)
+    drivers = {"B3": (fs.fused_bnn_step, *_burned_in(
+                   torch, x, y, SGHMCSampler, DRIVER_CHAINS, device)),
+               "B4-sgld": (fs.fused_bnn_step_sgld, *_burned_in(
+                   torch, x, y, SGLDSampler, DRIVER_CHAINS, device))}
+    for name in ("B4-psgld", "B4-rsghmc", "B4-sgnht"):
+        method = FUSED_NEW[name][0]
+        sampler = _sampler(method, B8_EPS[method])
+        drivers[name] = (new_fns[name][0], sampler, _packed_states(
+            torch, sampler, lanes_states[method], DRIVER_CHAINS))
+    for name, (kernel, sampler, states) in drivers.items():
         err_driver, launches[name] = _driver_check(
-            torch, x, y, sampler_cls, device)
+            torch, x, y, sampler, states, kernel)
         print("one-step driver ({}): {} chains x {} steps, max|one-step - "
-              "multi-step| = {:.3e}, {} launches".format(
-                  sampler_cls.__name__, DRIVER_CHAINS,
-                  DRIVER_SAMPLES * DRIVER_KEEP, err_driver, launches[name]))
+              "multi-step| = {:.3e}, {} launches of {}".format(
+                  type(sampler).__name__, DRIVER_CHAINS,
+                  DRIVER_SAMPLES * DRIVER_KEEP, err_driver, launches[name],
+                  name))
         if launches[name] != DRIVER_SAMPLES * DRIVER_KEEP:
             raise AssertionError("{}: {} launches, want {}".format(
                 name, launches[name], DRIVER_SAMPLES * DRIVER_KEEP))
+    del drivers
 
     # ---- the lanes drivers vs the fused drivers on the dense network ----
-    for sampler_cls, eps in ((SGHMCSampler, EPS), (SGLDSampler, EPS_SGLD)):
+    cost = _fused_cost(torch, apply_fn)
+    for method, eps in (("SGHMC", EPS), ("SGLD", EPS_SGLD),
+                        *B8_EPS.items()):
+        sampler = _sampler(method, eps, cost)
+        if method in B8_EPS:
+            states = _packed_states(torch, sampler, lanes_states[method],
+                                    CHECK_CHAINS)
+        else:
+            states = _burned_in(torch, x, y, type(sampler), CHECK_CHAINS,
+                                device)[1]
         print("lanes vs fused drivers ({}): {} chains x 16 steps, "
               "max|lanes - fused| = {:.3e}".format(
-                  sampler_cls.__name__, CHECK_CHAINS,
-                  _lanes_vs_fused(torch, x, y, sampler_cls, eps, device)))
+                  type(sampler).__name__, CHECK_CHAINS,
+                  _lanes_vs_fused(torch, x, y, sampler, states, eps)))
+    del lanes_states
 
     # ---- the main paths on a small input: card vs plain versions ----
     for configs in (SMALL, SMALL_LANES):
@@ -1042,34 +1215,50 @@ def main():
                           stepsize_schedule=B8_EPS["PSGLD"]), check=False)
 
     # ---- the main paths: train + predict through the port's BNN ----
+    # a kernel's launches are summed over the main paths that run it
+    def count(more):
+        for name, n_launches in more.items():
+            launches[name] = launches.get(name, 0) + n_launches
+
     rates = {}
-    launches.update(_flagship(
+    count(_flagship(
         torch, x_np, y_np, Sampler.SGHMC,
         {"B1": fs.fused_bnn_multistep, "B2": fs.fused_bnn_multistep_burnin},
         card, rates))
-    launches.update(_flagship(
+    count(_flagship(
         torch, x_np, y_np, Sampler.SGLD,
         {"B5-sgld": fs.fused_bnn_multistep_sgld,
          "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates))
-    # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
-    # in sampling; pSGLD, relativistic SGHMC and SGNHT burn in on discarded
-    # steps of their sampling kernel, at their stepsizes
+    # pSGLD, relativistic SGHMC and SGNHT: burn-in on discarded steps of
+    # the lanes driver (their slim kernel), sampling on B5-*, at their
+    # stepsizes
     slim = _slim_functions(su)
+    for method, b8 in SLIM_OF.items():
+        b5 = "B5-" + b8[3:]
+        count(_flagship(
+            torch, x_np, y_np, Sampler[method],
+            {b8: slim[b8][0], b5: new_fns[b5][0]}, card, rates,
+            expected={b8: BURN_IN, b5: 1}, stepsize=B8_EPS[method]))
+    # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
+    # in sampling, B8-psgld / B8-rsghmc / B8-sgnht in both
     for method, burn, sample in LANES_FLAGSHIPS:
         expected = {burn: BURN_IN, sample: SAMPLE_STEPS}
         if burn == sample:
             expected = {burn: BURN_IN + SAMPLE_STEPS}
-        launches.update(_flagship(
+        count(_flagship(
             torch, x_np, y_np, Sampler[method],
             {burn: slim[burn][0], sample: slim[sample][0]}, card, rates,
             step_impl="lanes", network="reference", expected=expected,
             stepsize=B8_EPS.get(method)))
-    for method in ("SGHMC", "SGLD"):
-        print("{} flagship update-steps/s, fused vs lanes: burn-in {:.4e} vs "
-              "{:.4e}, sampling {:.4e} vs {:.4e} ({})".format(
-                  method, *(rates[(impl, method, phase)]
-                            for phase in ("burn_in", "sampling")
-                            for impl in ("fused", "lanes")), card))
+    for method in ("SGHMC", "SGLD", *SLIM_OF):
+        print("{} flagship update-steps/s, fused{} vs lanes (reference "
+              "network): burn-in {:.4e} vs {:.4e}, sampling {:.4e} vs {:.4e} "
+              "({})".format(
+                  method, " (burn-in on the lanes driver, dense network)"
+                  if method in SLIM_OF else "",
+                  *(rates[(impl, method, phase)]
+                    for phase in ("burn_in", "sampling")
+                    for impl in ("fused", "lanes")), card))
     try:
         _lanes_profile(torch, x, y, card)
     except Exception as exc:  # the trace informs PERF.md; it gates nothing
@@ -1088,7 +1277,14 @@ def main():
                 "B8-sgld": ("slim_sgld_update", "slim_update", 469),
                 "B8-psgld": ("slim_psgld_update", "slim_update", 585),
                 "B8-rsghmc": ("slim_rsghmc_update", "slim_update", 713),
-                "B8-sgnht": ("slim_sgnht_update", "slim_update", 836)}
+                "B8-sgnht": ("slim_sgnht_update", "slim_update", 836),
+                "B5-psgld": ("fused_bnn_multistep_psgld", "fused_step", 2351),
+                "B5-rsghmc": ("fused_bnn_multistep_rsghmc", "fused_step",
+                              2411),
+                "B5-sgnht": ("fused_bnn_multistep_sgnht", "fused_step", 2283),
+                "B4-psgld": ("fused_bnn_step_psgld", "fused_step", 2054),
+                "B4-rsghmc": ("fused_bnn_step_rsghmc", "fused_step", 2168),
+                "B4-sgnht": ("fused_bnn_step_sgnht", "fused_step", 2106)}
     records = [
         {"name": fn_name, "route": "cuda",
          "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),

@@ -1,35 +1,55 @@
-// flash-SGHMC and flash-SGLD for Hopper: whole SG-MCMC steps of the dense
-// tanh BNN per launch.
+// flash-SGHMC, flash-SGLD, pSGLD, SGNHT and relativistic SGHMC for Hopper:
+// whole SG-MCMC steps of the dense tanh BNN per launch.
 //
 // Replaces the TPU Pallas kernels of pysgmcmc_tpu/ops/fused_step.py
-//   B1       fused_bnn_multistep              k SGHMC sampling steps
-//   B2       fused_bnn_multistep_burnin       k SGHMC self-tuning burn-in steps
-//   B3       fused_bnn_step                   one SGHMC step, gathered minibatch
-//   B4-sgld  fused_bnn_step_sgld              one SGLD step, gathered minibatch
-//   B5-sgld  fused_bnn_multistep_sgld         k SGLD sampling steps
-//   B6       fused_bnn_multistep_burnin_sgld  k SGLD burn-in steps
+//   B1        fused_bnn_multistep              k SGHMC sampling steps
+//   B2        fused_bnn_multistep_burnin       k SGHMC self-tuning burn-in steps
+//   B3        fused_bnn_step                   one SGHMC step, gathered minibatch
+//   B4-sgld   fused_bnn_step_sgld              one SGLD step, gathered minibatch
+//   B4-psgld  fused_bnn_step_psgld             one pSGLD step, gathered minibatch
+//   B4-sgnht  fused_bnn_step_sgnht             one SGNHT step, gathered minibatch
+//   B4-rsghmc fused_bnn_step_rsghmc            one relativistic SGHMC step, ditto
+//   B5-sgld   fused_bnn_multistep_sgld         k SGLD sampling steps
+//   B5-psgld  fused_bnn_multistep_psgld        k pSGLD steps
+//   B5-sgnht  fused_bnn_multistep_sgnht        k SGNHT steps
+//   B5-rsghmc fused_bnn_multistep_rsghmc       k relativistic SGHMC steps
+//   B6        fused_bnn_multistep_burnin_sgld  k SGLD burn-in steps
 // (generators _make_kernel_family, _make_multistep_kernel_family and
 // _make_multistep_kernel_burnin) with the same semantics at the
 // unpacked-parameter level: per step, take the chain's minibatch (a window
 // drawn from the shared window table, or the rows the caller gathered), run
 // the forward pass, the heteroscedastic Gaussian NLL plus the log-variance
 // prior, the hand-written backward pass, fold the Gaussian weight prior into
-// the gradient, draw the noise and apply the rule's update.  Sampling phase:
-// frozen minv.  Burn-in: the tau/g/v_hat EMAs and minv = 1/sqrt(old v_hat),
-// all reading OLD values.  SGHMC moves v then theta; SGLD moves theta alone,
-// with noise sqrt(2 eps minv A / scale_grad), i.e. scaling with eps.
+// the gradient, draw the noise and apply the rule's update (JAX's
+// _sghmc_rule, _sgld_rule, _psgld_rule, _sgnht_rule, _rsghmc_rule).
+// Sampling phase: frozen minv.  Burn-in: the tau/g/v_hat EMAs and minv =
+// 1/sqrt(old v_hat), all reading OLD values.  SGHMC moves v then theta; SGLD
+// moves theta alone, with noise sqrt(2 eps minv A / scale_grad), i.e.
+// scaling with eps.  pSGLD, SGNHT and relativistic SGHMC have no mass matrix
+// and no burn-in phase: pSGLD adapts its RMSprop accumulator every step,
+// SGNHT moves its per-chain thermostat xi by eps (p'^T p' / P - 1) after
+// every element has read the old xi, and relativistic SGHMC moves theta by
+// the relativistic velocity of the new momentum.  The TPU kernels' validity
+// masks mark the padding of its slab layout; the flat layout has none.
 //
-// Design.  One kernel body, templated on the rule (SGHMC / SGLD), the phase
-// (sampling / burn-in) and the minibatch source (window table / gathered
-// rows), as JAX's KernelRule.  One thread block owns one chain.  At launch it
-// loads the chain's whole state (theta, v for SGHMC, then minv or tau, g,
-// v_hat) plus a gradient buffer into dynamic shared memory, runs the k steps
-// there and writes the state back once: the counterpart of the TPU kernel's
-// VMEM residency.  Device memory then sees only the state's load and store
-// per launch and the small window reads per step, so once the state is
-// resident a multi-step kernel is bound by FP32 FMA issue and shared-memory
-// bandwidth in the six batch x H x H products of each step, not by HBM.  The
-// one-step kernels (B3, B4-sgld) load and store the whole state every step.
+// Design.  One kernel body, templated on the rule, the phase (sampling /
+// burn-in) and the minibatch source (window table / gathered rows), as JAX's
+// KernelRule.  One thread block owns one chain.  At launch it loads the
+// chain's whole state (theta, then v for SGHMC, the accumulator or momentum
+// for pSGLD, SGNHT and relativistic SGHMC, then minv or tau, g, v_hat) plus a
+// gradient buffer into dynamic shared memory, runs the k steps there and
+// writes the state back once: the counterpart of the TPU kernel's VMEM
+// residency.  SGNHT's thermostat lives in shared memory too; its p'^T p' is
+// a block reduction each step (warp shuffles, then one partial sum per warp),
+// summed in another order than torch.sum.  Device memory then sees only the
+// state's load and store per launch and the small window reads per step, so
+// once the state is resident a multi-step kernel is bound by FP32 FMA issue
+// and shared-memory bandwidth in the six batch x H x H products of each step,
+// not by HBM; the update rules, the reduction and relativistic SGHMC's two
+// rsqrtf per element are small beside them.  The one-step kernels (B3,
+// B4-*) load and store the whole state every step: at the flagship (8192
+// chains x 5,252 parameters) B4-psgld, B4-sgnht and B4-rsghmc read theta
+// and one state array and write both, 0.69 GB, 0.205 ms at 3.35 TB/s.
 // All arithmetic is f32 on the CUDA cores (no tensor cores yet) and the
 // layout is the port's flat per-chain vector (pysgmcmc_tpu_torch/ops/
 // fused_step.py, FusedLayout):
@@ -60,13 +80,18 @@ constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
 constexpr float kSmall = 1e-16f;
 
 // The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
-enum KernelId { kB1 = 1, kB2, kB3, kB4Sgld, kB5Sgld, kB6 };
-enum Rule { kSghmc = 0, kSgld = 1 };
+enum KernelId {
+  kB1 = 1, kB2, kB3, kB4Sgld, kB5Sgld, kB6,
+  kB4Psgld, kB4Sgnht, kB4Rsghmc, kB5Psgld, kB5Sgnht, kB5Rsghmc
+};
+// numbered as the rules of slim_update.cu
+enum Rule { kSghmc = 0, kSgld = 1, kPsgld = 2, kRsghmc = 3, kSgnht = 4 };
 
 struct Args {
   const float* theta;
-  const float* v;      // SGHMC only
-  const float* minv;   // sampling phase only
+  const float* v;      // SGHMC momentum, pSGLD accumulator, SGNHT and
+                       // relativistic SGHMC momentum
+  const float* minv;   // SGHMC / SGLD sampling phase only
   const float* tau;    // burn-in only
   const float* g;      // burn-in only
   const float* v_hat;  // burn-in only
@@ -76,12 +101,14 @@ struct Args {
   const float* x_win;
   const float* y_win;
   // per-step table: SGHMC (k_steps, 2) = eps, eps / sqrt(scale_grad);
-  // SGLD (k_steps,) = eps
+  // SGLD and pSGLD (k_steps,) = eps; SGNHT (k_steps, 2) = eps,
+  // sqrt(max(2 A eps / scale_grad, 0)); relativistic SGHMC (k_steps, 2) =
+  // eps, sqrt(max(eps (2 D - eps Bhat), 0))
   const float* tab;
   const float* noise;  // optional (k_steps, n_chains, n_params)
   const int* widx;     // optional (k_steps, n_chains)
   float* theta_out;
-  float* v_out;        // SGHMC only
+  float* v_out;        // the rules with a v
   float* tau_out;      // burn-in only
   float* g_out;        // burn-in only
   float* v_hat_out;    // burn-in only
@@ -90,10 +117,20 @@ struct Args {
   int n_chains, n_inputs, hidden, depth, batch, n_windows, k_steps, n_params;
   unsigned long long seed;
   unsigned step0;
-  // coef: mdecay (SGHMC) or A (SGLD); cdiv (SGLD): A / scale_grad in
-  // sampling, sg_safe = scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16 in
-  // burn-in, both computed on the host
+  // The rule's constants, computed on the host in f32:
+  //   SGHMC   coef = mdecay
+  //   SGLD    coef = A, cdiv = A / scale_grad in sampling, sg_safe =
+  //           scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16 in burn-in
+  //   pSGLD   coef = alpha, cdiv = lambda, c2 = 1 / scale_grad
+  //   SGNHT   c2 = 1 / P
+  //   RSGHMC  coef = D, c2 = 1 / m, c3 = 1 / (m^2 c^2)
   float coef, cdiv, prior_scale, inv_b, inv_n;
+  // The fields of pSGLD, SGNHT and relativistic SGHMC come last, so that
+  // the others keep their parameter offsets (and the compiler its register
+  // allocation of B1-B6).
+  float c2, c3;
+  const float* xi;     // SGNHT only: (n_chains,) thermostat
+  float* xi_out;       // SGNHT only
 };
 
 
@@ -137,7 +174,8 @@ struct Scratch {
   float* y;      // batch
   float* fmean;  // batch
   float* dmean;  // batch
-  float* scal;   // [0]: cost; [1]: window index (as int bits)
+  float* scal;   // [0]: cost; [1]: window index (as int bits); SGNHT: [2] xi
+                 // and [3 .. 3 + kWarps) the per-warp partial sums of p'^T p'
 };
 
 // Forward, likelihood and backward for the chain whose parameters are in
@@ -325,16 +363,24 @@ __device__ __forceinline__ float adapt(float* s_tau, float* s_g, float* s_vhat,
   return minv;
 }
 
-// Number of P-long arrays a block keeps in shared memory: theta, v (SGHMC),
-// the gradient, then minv (sampling) or tau, g, v_hat (burn-in).
+// Number of P-long arrays a block keeps in shared memory: theta, v (all
+// rules but SGLD), the gradient, then minv (SGHMC and SGLD sampling) or tau,
+// g, v_hat (burn-in).
 __host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
-  return 1 + (rule == kSghmc ? 1 : 0) + 1 + (burnin ? 3 : 1);
+  return 1 + (rule == kSgld ? 0 : 1) + 1 +
+         (burnin ? 3 : (rule == kSghmc || rule == kSgld ? 1 : 0));
+}
+
+// Floats of Scratch::scal.
+__host__ __device__ constexpr int scalar_slots(int rule) {
+  return rule == kSgnht ? 3 + kWarps : 2;
 }
 
 template <int kRule, bool kBurnin, bool kGathered>
 __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
-  constexpr bool kMomentum = kRule == kSghmc;
-  constexpr int kCols = kRule == kSghmc ? 2 : 1;
+  constexpr bool kAux = kRule != kSgld;
+  constexpr bool kMinv = !kBurnin && (kRule == kSghmc || kRule == kSgld);
+  constexpr int kCols = kRule == kSgld || kRule == kPsgld ? 1 : 2;
   extern __shared__ float smem[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -343,13 +389,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
   const Layout L = make_layout(a.n_inputs, a.hidden, a.depth);
 
   float* s_theta = smem;
-  float* s_v = s_theta + P;                       // SGHMC
-  float* s_grad = s_theta + (kMomentum ? 2 : 1) * P;
-  float* s_minv = s_grad + P;                     // sampling
+  float* s_v = s_theta + P;                       // kAux
+  float* s_grad = s_theta + (kAux ? 2 : 1) * P;
+  float* s_minv = s_grad + P;                     // kMinv
   float* s_tau = s_grad + P;                      // burn-in
   float* s_g = s_tau + P;                         // burn-in
   float* s_vhat = s_g + P;                        // burn-in
-  float* rest = s_grad + (kBurnin ? 4 : 2) * P;
+  float* rest = s_grad + (kBurnin ? 4 : kMinv ? 2 : 1) * P;
   Scratch s;
   s.act = rest;
   s.dz = s.act + a.depth * a.batch * a.hidden;
@@ -362,14 +408,16 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     s_theta[p] = a.theta[base + p];
-    if constexpr (kMomentum) s_v[p] = a.v[base + p];
+    if constexpr (kAux) s_v[p] = a.v[base + p];
     if constexpr (kBurnin) {
       s_tau[p] = a.tau[base + p];
       s_g[p] = a.g[base + p];
       s_vhat[p] = a.v_hat[base + p];
-    } else {
-      s_minv[p] = a.minv[base + p];
     }
+    if constexpr (kMinv) s_minv[p] = a.minv[base + p];
+  }
+  if constexpr (kRule == kSgnht) {
+    if (tid == 0) s.scal[2] = a.xi[c];
   }
   __syncthreads();
 
@@ -404,7 +452,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
         s_v[p] = vn;
         s_theta[p] = th + vn;
       }
-    } else {
+    } else if constexpr (kRule == kSgld) {
       // JAX _sgld_rule (sampling) and _sgld_burnin_step_math (burn-in)
       const float eps = row[0];
       const float A = a.coef;
@@ -427,6 +475,63 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
           s_theta[p] = th + delta;
         }
       }
+    } else if constexpr (kRule == kPsgld) {
+      // JAX _psgld_rule: the RMSprop accumulator adapts every step, then
+      // theta moves by the preconditioned Langevin step
+      const float eps = row[0];
+      const float alpha = a.coef, lambda = a.cdiv, inv_sg = a.c2;
+      for (int p = tid; p < P; p += kThreads) {
+        const float eta = noise_at(a, t, step, p);
+        const float th = s_theta[p];
+        const float gg = s_grad[p] + prior_scale * th;
+        const float vn = alpha * s_v[p] + (1.0f - alpha) * gg * gg;
+        const float precond = 1.0f / (lambda + sqrtf(fmaxf(vn, 0.0f)));
+        const float sigma = sqrtf(fmaxf(eps * precond * inv_sg, 0.0f));
+        s_v[p] = vn;
+        s_theta[p] = th + (-0.5f * eps * precond * gg + sigma * eta);
+      }
+    } else if constexpr (kRule == kRsghmc) {
+      // JAX _rsghmc_rule: the dynamics use the log-likelihood gradient, -gg;
+      // the velocity is eps p / m / sqrt(p^2 / (m^2 c^2) + 1)
+      const float eps = row[0];
+      const float noise_scale = row[1];
+      const float d = a.coef, inv_m = a.c2, inv_mc2 = a.c3;
+      for (int p = tid; p < P; p += kThreads) {
+        const float eta = noise_at(a, t, step, p);
+        const float th = s_theta[p];
+        const float gg = s_grad[p] + prior_scale * th;
+        const float pv = s_v[p];
+        const float vel = eps * pv * inv_m * rsqrtf(pv * pv * inv_mc2 + 1.0f);
+        const float pn = pv + eps * -gg + noise_scale * eta - d * vel;
+        s_v[p] = pn;
+        s_theta[p] = th + eps * pn * inv_m * rsqrtf(pn * pn * inv_mc2 + 1.0f);
+      }
+    } else {
+      // JAX _sgnht_rule, then the thermostat: every element reads the old
+      // xi, and xi moves once the block has summed p'^T p'
+      const float eps = row[0];
+      const float sigma = row[1];
+      const float xi = s.scal[2];
+      float kinetic = 0.0f;
+      for (int p = tid; p < P; p += kThreads) {
+        const float eta = noise_at(a, t, step, p);
+        const float th = s_theta[p];
+        const float gg = s_grad[p] + prior_scale * th;
+        const float pv = s_v[p];
+        const float pn = pv - xi * eps * pv - eps * gg + sigma * eta;
+        s_v[p] = pn;
+        s_theta[p] = th + eps * pn;
+        kinetic += pn * pn;
+      }
+      kinetic = warp_sum(kinetic);
+      if (tid % 32 == 0) s.scal[3 + tid / 32] = kinetic;
+      __syncthreads();
+      if (tid == 0) {
+        float total = 0.0f;
+        for (int w = 0; w < kWarps; ++w) total += s.scal[3 + w];
+        s.scal[2] = xi + eps * (total * a.c2 - 1.0f);
+        if (last) a.xi_out[c] = s.scal[2];
+      }
     }
     if (last && tid == 0) a.cost_out[c] = s.scal[0];
     __syncthreads();
@@ -434,7 +539,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     a.theta_out[base + p] = s_theta[p];
-    if constexpr (kMomentum) a.v_out[base + p] = s_v[p];
+    if constexpr (kAux) a.v_out[base + p] = s_v[p];
     if constexpr (kBurnin) {
       a.tau_out[base + p] = s_tau[p];
       a.g_out[base + p] = s_g[p];
@@ -448,7 +553,8 @@ size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
   const size_t state =
       static_cast<size_t>(state_arrays(rule, burnin)) * n_params;
   const size_t scratch = static_cast<size_t>(depth + 2) * batch * hidden +
-                         static_cast<size_t>(batch) * n_inputs + 3 * batch + 2;
+                         static_cast<size_t>(batch) * n_inputs + 3 * batch +
+                         scalar_slots(rule);
   return (state + scratch) * sizeof(float);
 }
 
@@ -473,8 +579,14 @@ extern "C" {
 unsigned long long fused_step_smem_bytes(int kernel, int n_params,
                                          int n_inputs, int hidden, int depth,
                                          int batch) {
-  const int rule = (kernel == kB1 || kernel == kB2 || kernel == kB3)
-                       ? kSghmc : kSgld;
+  int rule = kSgld;
+  switch (kernel) {
+    case kB1: case kB2: case kB3: rule = kSghmc; break;
+    case kB4Psgld: case kB5Psgld: rule = kPsgld; break;
+    case kB4Sgnht: case kB5Sgnht: rule = kSgnht; break;
+    case kB4Rsghmc: case kB5Rsghmc: rule = kRsghmc; break;
+    default: break;
+  }
   const bool burnin = kernel == kB2 || kernel == kB6;
   return smem_bytes(rule, burnin, n_params, n_inputs, hidden, depth, batch);
 }
@@ -485,27 +597,29 @@ const char* fused_step_error_string(int code) {
 
 // One entry per TPU kernel, all with the same arguments (the Args fields in
 // order, then the stream); a kernel reads only the operands of its rule and
-// phase, and the others may be NULL.  The one-step kernels (B3, B4-sgld) take
+// phase, and the others may be NULL.  The one-step kernels (B3, B4-*) take
 // each chain's gathered rows as x/y (n_windows = n_chains, k_steps = 1) and
 // the noise of absolute step `step0`.
 #define FUSED_STEP_ENTRY(entry, rule, burnin, gathered)                      \
   int entry(const float* theta, const float* v, const float* minv,          \
             const float* tau, const float* g, const float* v_hat,           \
-            const float* x, const float* y, const float* tab,               \
-            const float* noise, const int* widx, float* theta_out,          \
-            float* v_out, float* tau_out, float* g_out, float* v_hat_out,   \
-            float* minv_out, float* cost_out, int n_chains, int n_inputs,   \
-            int hidden, int depth, int batch, int n_windows, int k_steps,   \
+            const float* xi, const float* x, const float* y,                \
+            const float* tab, const float* noise, const int* widx,          \
+            float* theta_out, float* v_out, float* tau_out, float* g_out,   \
+            float* v_hat_out, float* minv_out, float* xi_out,               \
+            float* cost_out, int n_chains, int n_inputs, int hidden,        \
+            int depth, int batch, int n_windows, int k_steps,               \
             int n_params, unsigned long long seed, unsigned step0,          \
-            float coef, float cdiv, float prior_scale, float inv_b,         \
-            float inv_n, void* stream) {                                    \
-    const Args a = {theta,     v,         minv,     tau,      g,            \
-                    v_hat,     x,         y,        tab,      noise,        \
-                    widx,      theta_out, v_out,    tau_out,  g_out,        \
-                    v_hat_out, minv_out,  cost_out, n_chains, n_inputs,     \
-                    hidden,    depth,     batch,    n_windows, k_steps,     \
-                    n_params,  seed,      step0,    coef,     cdiv,         \
-                    prior_scale, inv_b,   inv_n};                           \
+            float coef, float cdiv, float c2, float c3, float prior_scale,  \
+            float inv_b, float inv_n, void* stream) {                       \
+    const Args a = {theta,     v,         minv,      tau,       g,          \
+                    v_hat,     x,         y,         tab,       noise,      \
+                    widx,      theta_out, v_out,     tau_out,   g_out,      \
+                    v_hat_out, minv_out,  cost_out,  n_chains,  n_inputs,   \
+                    hidden,    depth,     batch,     n_windows, k_steps,    \
+                    n_params,  seed,      step0,     coef,      cdiv,       \
+                    prior_scale, inv_b,   inv_n,     c2,        c3,         \
+                    xi,        xi_out};                                     \
     return launch<rule, burnin, gathered>(a, stream);                       \
   }
 
@@ -521,5 +635,19 @@ FUSED_STEP_ENTRY(fused_bnn_step_sgld_launch, kSgld, false, true)
 FUSED_STEP_ENTRY(fused_bnn_multistep_sgld_launch, kSgld, false, false)
 // B6: k SGLD burn-in steps; minv_out gets the final step's minv.
 FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_sgld_launch, kSgld, true, false)
+// B4-psgld: one pSGLD step on each chain's gathered rows; v_out gets the new
+// accumulator.
+FUSED_STEP_ENTRY(fused_bnn_step_psgld_launch, kPsgld, false, true)
+// B4-sgnht: one SGNHT step on each chain's gathered rows; v_out and xi_out
+// get the new momentum and thermostat.
+FUSED_STEP_ENTRY(fused_bnn_step_sgnht_launch, kSgnht, false, true)
+// B4-rsghmc: one relativistic SGHMC step on each chain's gathered rows.
+FUSED_STEP_ENTRY(fused_bnn_step_rsghmc_launch, kRsghmc, false, true)
+// B5-psgld: k pSGLD steps.
+FUSED_STEP_ENTRY(fused_bnn_multistep_psgld_launch, kPsgld, false, false)
+// B5-sgnht: k SGNHT steps, the thermostat moving after each.
+FUSED_STEP_ENTRY(fused_bnn_multistep_sgnht_launch, kSgnht, false, false)
+// B5-rsghmc: k relativistic SGHMC steps.
+FUSED_STEP_ENTRY(fused_bnn_multistep_rsghmc_launch, kRsghmc, false, false)
 
 }  // extern "C"

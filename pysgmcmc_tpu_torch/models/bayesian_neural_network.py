@@ -7,9 +7,12 @@ across ``n_chains`` independent chains, on the card unless ``device="cpu"``
 is asked for (:mod:`pysgmcmc_tpu_torch.parallel.packed` holds the drivers).
 Two step implementations are ported:
 
-- ``step_impl="fused"`` (``network="dense"``): burn-in on kernel B2
-  (SGHMC) or B6 (SGLD), sampling on B1 or B5-sgld, the whole BNN step in
-  the kernel and the weight prior folded into the update.
+- ``step_impl="fused"`` (``network="dense"``): sampling on kernel B1
+  (SGHMC), B5-sgld, B5-psgld, B5-sgnht or B5-rsghmc, the whole BNN step in
+  the kernel and the weight prior folded into the update.  SGHMC and SGLD
+  burn in on B2 or B6; pSGLD, SGNHT and relativistic SGHMC, which have no
+  burn-in machinery, on discarded steps of the lanes driver (B8-psgld,
+  B8-sgnht, B8-rsghmc), on the same likelihood with the prior folded.
 - ``step_impl="lanes"`` (``network="reference"`` or ``"dense"``, or any
   ``get_net``): the gradient of the full cost, weight prior included, by
   autograd over every chain, then one slim elementwise kernel per step:
@@ -103,11 +106,12 @@ class BayesianNeuralNetwork(BaseModel):
     every 100 steps, 50000 iterations, 1000 burn-in steps), plus ``device``:
     ``"cuda"`` (the default) runs the kernels and raises in ``train`` when
     no CUDA device is present, ``"cpu"`` runs their plain PyTorch versions.
-    The ported paths are ``step_impl="fused"`` (``network="dense"``) with
-    SGHMC or SGLD, and ``step_impl="lanes"`` (either network, or
-    ``get_net=(init, apply)`` with the contract of :func:`~pysgmcmc_tpu_
-    torch.models.architectures.default_network`) with any of the five
-    gradient samplers; ``**sampler_kwargs`` go to the sampler (SGLD's
+    The ported paths are ``step_impl="fused"`` (``network="dense"``) and
+    ``step_impl="lanes"`` (either network, or ``get_net=(init, apply)``
+    with the contract of :func:`~pysgmcmc_tpu_torch.models.architectures.
+    default_network`), each with any of the five gradient samplers (SGHMC,
+    SGLD, pSGLD, SGNHT, relativistic SGHMC); ``**sampler_kwargs`` go to the
+    sampler (SGLD's
     ``A``, pSGLD's ``alpha``, relativistic SGHMC's ``D``, ...), which
     gets ``scale_grad`` = N by default where it has one; ``noise_impl`` is
     ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
@@ -223,11 +227,6 @@ class BayesianNeuralNetwork(BaseModel):
         if sampling_method == Sampler.SVGD:
             raise _not_ported("sampling_method={}".format(sampling_method),
                               "queue A item 12")
-        if step_impl == "fused" and sampling_method not in (Sampler.SGHMC,
-                                                            Sampler.SGLD):
-            raise _not_ported(
-                "step_impl='fused' with sampling_method={} (kernels B4 and "
-                "B5 others)".format(sampling_method), "queue A item 9")
         if mesh is not None:
             raise _not_ported("mesh", "queue A item 15")
         if pair_dots:
@@ -399,7 +398,11 @@ class BayesianNeuralNetwork(BaseModel):
     def _fused_path(self, apply_fn, positions, x_dev, y_dev, n_datapoints,
                     keys):
         """``(sampler, burn, sample)`` of the fused kernels: burn-in on B2 /
-        B6, one B1 / B5-sgld launch of ``sample_steps`` steps per sample."""
+        B6 for SGHMC and SGLD, on discarded steps of
+        :func:`sample_chain_lanes` (B8-psgld, B8-sgnht, B8-rsghmc, one launch
+        a step) for the samplers without burn-in machinery, as the JAX
+        package's ``make_burn`` does; then one B1 / B5-* launch of
+        ``sample_steps`` steps per sample."""
         n_chains = next(iter(positions.values())).shape[0]
         n_params = tree_size(positions) // n_chains
         prior_scale = 1.0 / (n_params * float(n_datapoints))
@@ -421,11 +424,15 @@ class BayesianNeuralNetwork(BaseModel):
 
         sampler = self._build_sampler(cost_fn, n_datapoints,
                                       gaussian_prior_scale=prior_scale)
+        select_batch = batch_fn(x_dev, y_dev, self.batch_size)
 
         def burn(states, n_steps):
-            return burnin_chain_fused(
-                sampler, states, keys, n_steps, x_dev, y_dev,
-                batch_size=self.batch_size, noise_impl=self.noise_impl)
+            if Sampler.is_burn_in_mcmc(self.sampling_method):
+                return burnin_chain_fused(
+                    sampler, states, keys, n_steps, x_dev, y_dev,
+                    batch_size=self.batch_size, noise_impl=self.noise_impl)
+            return self._discarded_steps(sampler, states, keys, n_steps,
+                                         select_batch)
 
         def sample(states, n_keep):
             return sample_chain_fused(
@@ -457,10 +464,8 @@ class BayesianNeuralNetwork(BaseModel):
                 return burnin_chain_lanes(sampler, states, keys, n_steps,
                                           batch_fn=select_batch,
                                           noise_impl=self.noise_impl)
-            return sample_chain_lanes(
-                sampler, states, keys, 1, batch_fn=select_batch,
-                keep_every=n_steps, collect_positions=False,
-                noise_impl=self.noise_impl)[0]
+            return self._discarded_steps(sampler, states, keys, n_steps,
+                                         select_batch)
 
         def sample(states, n_keep):
             return sample_chain_lanes(
@@ -468,6 +473,15 @@ class BayesianNeuralNetwork(BaseModel):
                 keep_every=self.sample_steps, noise_impl=self.noise_impl)
 
         return sampler, burn, sample
+
+    def _discarded_steps(self, sampler, states, keys, n_steps, select_batch):
+        """The burn-in of pSGLD, SGNHT and relativistic SGHMC, which have no
+        burn-in machinery: ``n_steps`` discarded steps of
+        :func:`sample_chain_lanes` (JAX's ``make_burn``)."""
+        return sample_chain_lanes(
+            sampler, states, keys, 1, batch_fn=select_batch,
+            keep_every=n_steps, collect_positions=False,
+            noise_impl=self.noise_impl)[0]
 
     def _run_chains(self, states, burn, sample, apply_fn, x_dev, y_dev,
                     n_datapoints, n_chains, per_chain, start_time):

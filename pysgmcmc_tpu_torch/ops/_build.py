@@ -34,9 +34,9 @@ _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _U32 = ctypes.c_uint
 # every launch entry of csrc/fused_step.cu takes the same arguments
-# (FUSED_STEP_ENTRY): 6 state inputs, x, y, tab, noise, widx, 6 state
-# outputs and the cost; 8 ints, the seed, the step, 5 floats and the stream
-_FUSED_LAUNCH = (_I, [_P] * 18 + [_I] * 8 + [_U64, _U32] + [_F] * 5 + [_P])
+# (FUSED_STEP_ENTRY): 7 state inputs, x, y, tab, noise, widx, 7 state
+# outputs and the cost; 8 ints, the seed, the step, 7 floats and the stream
+_FUSED_LAUNCH = (_I, [_P] * 20 + [_I] * 8 + [_U64, _U32] + [_F] * 7 + [_P])
 # and every one of csrc/slim_update.cu (SLIM_ENTRY): 10 inputs, 6 outputs,
 # 2 ints, the seed, the step, 7 floats and the stream
 _SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7 + [_P])
@@ -51,6 +51,12 @@ _SIGNATURES = {
             "fused_bnn_step_sgld",                # B4-sgld
             "fused_bnn_multistep_sgld",           # B5-sgld
             "fused_bnn_multistep_burnin_sgld",    # B6
+            "fused_bnn_step_psgld",               # B4-psgld
+            "fused_bnn_step_sgnht",               # B4-sgnht
+            "fused_bnn_step_rsghmc",              # B4-rsghmc
+            "fused_bnn_multistep_psgld",          # B5-psgld
+            "fused_bnn_multistep_sgnht",          # B5-sgnht
+            "fused_bnn_multistep_rsghmc",         # B5-rsghmc
         )},
     },
     "slim_update": {

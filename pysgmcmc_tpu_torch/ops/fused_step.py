@@ -1,5 +1,5 @@
-"""flash-SGHMC and flash-SGLD on Hopper: whole BNN sampler steps per kernel
-launch.
+"""flash-SGHMC, flash-SGLD, pSGLD, SGNHT and relativistic SGHMC on Hopper:
+whole BNN sampler steps per kernel launch.
 
 PyTorch port of the fused kernels of :mod:`pysgmcmc_tpu.ops.fused_step`.
 Each wrapper launches a hand-written CUDA kernel of ``csrc/fused_step.cu``
@@ -11,9 +11,17 @@ its plain version.
   k SGHMC sampling / self-tuning burn-in steps per launch.
 - B5-sgld :func:`fused_bnn_multistep_sgld` / B6
   :func:`fused_bnn_multistep_burnin_sgld`: the same for SGLD.
-- B3 :func:`fused_bnn_step` / B4-sgld :func:`fused_bnn_step_sgld`: one
-  SGHMC / SGLD step on each chain's pre-gathered minibatch
-  (:func:`gather_batch`), with injected or Philox noise.
+- B5-psgld :func:`fused_bnn_multistep_psgld`, B5-sgnht
+  :func:`fused_bnn_multistep_sgnht`, B5-rsghmc
+  :func:`fused_bnn_multistep_rsghmc`: k steps of pSGLD (RMSprop
+  accumulator ``v``), SGNHT (momentum and a per-chain thermostat ``xi``,
+  ``(n_chains,)``) and relativistic SGHMC; these samplers have no burn-in
+  phase.
+- B3 :func:`fused_bnn_step` / B4-sgld :func:`fused_bnn_step_sgld` /
+  B4-psgld :func:`fused_bnn_step_psgld` / B4-sgnht
+  :func:`fused_bnn_step_sgnht` / B4-rsghmc :func:`fused_bnn_step_rsghmc`:
+  one step on each chain's pre-gathered minibatch (:func:`gather_batch`),
+  with injected or Philox noise.
 - Each step: take a minibatch window, forward through the dense tanh
   network, heteroscedastic Gaussian NLL plus the log-variance prior,
   hand-written backward pass, Gaussian weight-prior fold ``g + prior_scale *
@@ -349,6 +357,34 @@ def _adapt(tau, g, v_hat, gg):
             v_hat - r * v_hat + r * gg * gg)
 
 
+def _psgld_update(theta, v, gg, eta, eps, alpha, lambda_reg, inv_sg):
+    """pSGLD (JAX ``_psgld_rule``): the RMSprop accumulator adapts, then the
+    preconditioned Langevin step; returns ``(theta', v')``."""
+    v_new = alpha * v + (1.0 - alpha) * gg * gg
+    precond = 1.0 / (lambda_reg + torch.sqrt(torch.clamp(v_new, min=0.0)))
+    sigma = torch.sqrt(torch.clamp(eps * precond * inv_sg, min=0.0))
+    return theta + (-0.5 * eps * precond * gg + sigma * eta), v_new
+
+
+def _rsghmc_update(theta, p, gg, eta, eps, noise_scale, d_coef, inv_m,
+                   inv_m2c2):
+    """Relativistic SGHMC (JAX ``_rsghmc_rule``) on the log-likelihood
+    gradient ``-gg``, with the velocity ``eps p / m / sqrt(p^2 / (m^2 c^2) +
+    1)``; returns ``(theta', p')``."""
+    def vel(pp):
+        return eps * pp * inv_m * torch.rsqrt(pp * pp * inv_m2c2 + 1.0)
+
+    p_new = p + eps * -gg + noise_scale * eta - d_coef * vel(p)
+    return theta + vel(p_new), p_new
+
+
+def _sgnht_update(theta, p, gg, eta, xi, eps, sigma):
+    """SGNHT (JAX ``_sgnht_rule``) with one thermostat per chain row,
+    ``xi`` ``(n_chains,)``; returns ``(theta', p')``."""
+    p_new = p - xi[:, None] * eps * p - eps * gg + sigma * eta
+    return theta + eps * p_new, p_new
+
+
 def _masked(minv, x):
     return torch.where(minv > 0.0, x, torch.zeros_like(x))
 
@@ -504,6 +540,170 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
     return theta, tau, g, v_hat, minv, cost
 
 
+def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
+                consts, prior_scale, batch_size, n_data):
+    """``k_steps`` steps of pSGLD, SGNHT or relativistic SGHMC (``kind``
+    ``"psgld"``, ``"sgnht"`` or ``"rsghmc"``), the samplers without a mass
+    matrix.  Step ``t`` takes its minibatch rows and normals from
+    ``step_inputs(t)``, its stepsize (and SGNHT's or relativistic SGHMC's
+    noise scale) from row ``t`` of ``tab``, and the rule's constants from
+    ``consts``, the kernel's ``coef``/``cdiv``/``c2``/``c3``.  SGNHT's
+    thermostat then moves by ``eps (p'^T p' / P - 1)``.  Returns ``(theta',
+    v', xi', cost)``."""
+    inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    cost = None
+    for t in range(int(k_steps)):
+        xb, yb, eta = step_inputs(t)
+        cost, grad = _fwd_bwd(theta, layout, xb, yb, inv_b, inv_n)
+        gg = grad + prior_scale * theta
+        eps = tab[t, 0]
+        if kind == "psgld":
+            theta, v = _psgld_update(theta, v, gg, eta, eps, consts["coef"],
+                                     consts["cdiv"], consts["c2"])
+        elif kind == "rsghmc":
+            theta, v = _rsghmc_update(theta, v, gg, eta, eps, tab[t, 1],
+                                      consts["coef"], consts["c2"],
+                                      consts["c3"])
+        else:
+            theta, v = _sgnht_update(theta, v, gg, eta, xi, eps, tab[t, 1])
+            xi = xi + eps * (torch.sum(v * v, dim=1) * consts["c2"] - 1.0)
+    return theta, v, xi, cost
+
+
+def _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta):
+    """``step_inputs`` of :func:`_rule_steps` on the shared window tables:
+    the windows and normals of absolute step ``step0 + t``."""
+    xw = _windows_3d(x_win)
+
+    def step_inputs(t):
+        w, eta = _step_inputs(t, step0 + t, seed, theta.shape[0], layout,
+                              x_win, noise, widx, theta.device)
+        return xw[w], y_win[w], eta
+    return step_inputs
+
+
+def _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta):
+    """``step_inputs`` of :func:`_rule_steps` for one step on each chain's
+    gathered rows."""
+    eta = _one_step_noise(theta, layout, seed, step, noise)
+    return lambda t: (_windows_3d(x_sel), y_sel, eta)
+
+
+def fused_bnn_step_psgld_ref(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
+                             lambda_reg=1e-5, scale_grad=1.0,
+                             prior_scale=0.0, batch_size=20, n_data=100,
+                             state_dtype=torch.float32, n_inputs=1, h=50,
+                             noise_impl="box_muller", step=0, noise=None):
+    """Plain PyTorch version of :func:`fused_bnn_step_psgld`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_step_psgld", theta, [v], x_sel, y_sel, eps, seed,
+        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
+        n_inputs)
+    theta, v, _, cost = _rule_steps(
+        "psgld", theta, v, None, layout, 1,
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _psgld_table(eps_vec), _psgld_constants(alpha, lambda_reg,
+                                                scale_grad),
+        prior_scale, batch_size, n_data)
+    return theta, v, cost
+
+
+def fused_bnn_step_sgnht_ref(theta, v, xi, x_sel, y_sel, eps, seed,
+                             a_diff=1.0, scale_grad=1.0, prior_scale=0.0,
+                             batch_size=20, n_data=100,
+                             state_dtype=torch.float32, n_inputs=1, h=50,
+                             noise_impl="box_muller", step=0, noise=None):
+    """Plain PyTorch version of :func:`fused_bnn_step_sgnht`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_step_sgnht", theta, [v], x_sel, y_sel, eps, seed,
+        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
+        n_inputs, xi=xi)
+    return _rule_steps(
+        "sgnht", theta, v, xi, layout, 1,
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
+        prior_scale, batch_size, n_data)
+
+
+def fused_bnn_step_rsghmc_ref(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
+                              speed_of_light=1.0, d_coef=1.0, b_hat=0.0,
+                              prior_scale=0.0, batch_size=20, n_data=100,
+                              state_dtype=torch.float32, n_inputs=1, h=50,
+                              noise_impl="box_muller", step=0, noise=None):
+    """Plain PyTorch version of :func:`fused_bnn_step_rsghmc`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_step_rsghmc", theta, [v], x_sel, y_sel, eps, seed,
+        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
+        n_inputs)
+    theta, v, _, cost = _rule_steps(
+        "rsghmc", theta, v, None, layout, 1,
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _rsghmc_table(eps_vec, d_coef, b_hat),
+        _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
+        batch_size, n_data)
+    return theta, v, cost
+
+
+def fused_bnn_multistep_psgld_ref(theta, v, x_win, y_win, eps, seed,
+                                  alpha=0.99, lambda_reg=1e-5,
+                                  scale_grad=1.0, prior_scale=0.0,
+                                  batch_size=20, n_data=100, k_steps=1, h=50,
+                                  pair_dots=False, noise_impl="box_muller",
+                                  step0=0, noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_psgld`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_multistep_psgld", theta, [v], x_win, y_win, eps, seed,
+        batch_size, torch.float32, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    theta, v, _, cost = _rule_steps(
+        "psgld", theta, v, None, layout, k_steps,
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _psgld_table(eps_vec), _psgld_constants(alpha, lambda_reg,
+                                                scale_grad),
+        prior_scale, batch_size, n_data)
+    return theta, v, cost
+
+
+def fused_bnn_multistep_sgnht_ref(theta, v, xi, x_win, y_win, eps, seed,
+                                  a_diff=1.0, scale_grad=1.0,
+                                  prior_scale=0.0, batch_size=20,
+                                  n_data=100, state_dtype=torch.float32,
+                                  k_steps=1, h=50, pair_dots=False,
+                                  noise_impl="box_muller", step0=0,
+                                  noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_sgnht`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_multistep_sgnht", theta, [v], x_win, y_win, eps, seed,
+        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
+        widx, xi=xi)
+    return _rule_steps(
+        "sgnht", theta, v, xi, layout, k_steps,
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
+        prior_scale, batch_size, n_data)
+
+
+def fused_bnn_multistep_rsghmc_ref(theta, v, x_win, y_win, eps, seed,
+                                   mass=1.0, speed_of_light=1.0, d_coef=1.0,
+                                   b_hat=0.0, prior_scale=0.0, batch_size=20,
+                                   n_data=100, state_dtype=torch.float32,
+                                   k_steps=1, h=50, pair_dots=False,
+                                   noise_impl="box_muller", step0=0,
+                                   noise=None, widx=None):
+    """Plain PyTorch version of :func:`fused_bnn_multistep_rsghmc`."""
+    layout, eps_vec = _validate(
+        "fused_bnn_multistep_rsghmc", theta, [v], x_win, y_win, eps, seed,
+        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
+        widx)
+    theta, v, _, cost = _rule_steps(
+        "rsghmc", theta, v, None, layout, k_steps,
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _rsghmc_table(eps_vec, d_coef, b_hat),
+        _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
+        batch_size, n_data)
+    return theta, v, cost
+
+
 def _one_step_noise(theta, layout, seed, step, noise):
     if noise is not None:
         return noise
@@ -520,14 +720,26 @@ def _no_noise_with_selection(name, noise):
 
 #  Validation and per-step tables, shared by the kernels and their plain versions
 
+def _check_xi(name, theta, xi):
+    """SGNHT's thermostat must be float32 ``(n_chains,)`` on theta's
+    device."""
+    if (not torch.is_tensor(xi) or xi.shape != theta.shape[:1]
+            or xi.dtype != torch.float32 or xi.device != theta.device):
+        raise ValueError(
+            "{}: xi must be a float32 ({},) per-chain tensor on {}".format(
+                name, theta.shape[0], theta.device))
+
+
 def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
-              k_steps, h, pair_dots, noise_impl, noise, widx, n_inputs=None):
+              k_steps, h, pair_dots, noise_impl, noise, widx, n_inputs=None,
+              xi=None):
     """Check every operand; returns ``(layout, eps (k_steps,))``.
 
     ``x``/``y`` are the shared window tables of :func:`data_windows`; with
     ``n_inputs`` given (the one-step kernels) they are instead each chain's
     gathered minibatch (:func:`gather_batch`), ``(n_chains, batch)`` or
     ``(n_chains, batch, n_inputs)``, and ``noise`` is ``(n_chains, P)``.
+    ``xi`` is SGNHT's thermostat, where the rule has one.
     """
     _seed_key(seed)
     if pair_dots:
@@ -562,6 +774,8 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
                 "{}); got {} {} on {}".format(
                     name, tuple(theta.shape), device, tuple(arr.shape),
                     arr.dtype, arr.device))
+    if xi is not None:
+        _check_xi(name, theta, xi)
     n = theta.shape[0]
     gathered = n_inputs is not None
     if gathered:
@@ -637,8 +851,54 @@ def _sgld_constants(a_coef, scale_grad, burnin):
         c = sg + 2.0 * torch.sign(sg) * 1e-16 + 1e-16
     else:
         c = a_coef / scale_grad
-    return (float(torch.tensor(a_coef, dtype=torch.float32)),
-            float(torch.as_tensor(c, dtype=torch.float32)))
+    return _f32(a_coef), float(torch.as_tensor(c, dtype=torch.float32))
+
+
+def _f32(x):
+    """``x`` rounded to float32, as a Python float (a kernel's scalar)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _psgld_table(eps_vec):
+    """pSGLD per-step table ``(k, 1)``: eps."""
+    return eps_vec[:, None].contiguous()
+
+
+def _sgnht_table(eps_vec, a_diff, scale_grad):
+    """SGNHT per-step table ``(k, 2)``: eps, sqrt(max(2 A eps /
+    scale_grad, 0)) (JAX ``fused_bnn_multistep_sgnht``)."""
+    sigma = torch.sqrt(torch.clamp(2.0 * a_diff * eps_vec / scale_grad,
+                                   min=0.0))
+    return torch.stack([eps_vec, sigma], dim=1).contiguous()
+
+
+def _rsghmc_table(eps_vec, d_coef, b_hat):
+    """Relativistic SGHMC per-step table ``(k, 2)``: eps, sqrt(max(eps (2 D
+    - eps Bhat), 0)) (JAX ``fused_bnn_multistep_rsghmc``)."""
+    noise_scale = torch.sqrt(torch.clamp(
+        eps_vec * (2.0 * d_coef - eps_vec * b_hat), min=0.0))
+    return torch.stack([eps_vec, noise_scale], dim=1).contiguous()
+
+
+def _psgld_constants(alpha, lambda_reg, scale_grad):
+    """pSGLD's kernel constants in float32: ``coef`` alpha, ``cdiv``
+    lambda, ``c2`` 1 / scale_grad."""
+    return dict(coef=_f32(alpha), cdiv=_f32(lambda_reg),
+                c2=_f32(1.0 / scale_grad))
+
+
+def _sgnht_constants(layout):
+    """SGNHT's kernel constant in float32: ``c2`` 1 / P, P the real
+    parameter count (JAX's ``n_dim``)."""
+    return dict(c2=_f32(1.0 / layout.n_params))
+
+
+def _rsghmc_constants(mass, speed_of_light, d_coef):
+    """Relativistic SGHMC's kernel constants in float32: ``coef`` D, ``c2``
+    1 / m, ``c3`` 1 / (m^2 c^2)."""
+    return dict(coef=_f32(d_coef), c2=_f32(1.0 / mass),
+                c3=_f32(1.0 / (mass * mass * speed_of_light
+                               * speed_of_light)))
 
 
 def gather_batch(x_win, y_win, widx):
@@ -657,6 +917,7 @@ def gather_batch(x_win, y_win, widx):
 
 # kernel ids of csrc/fused_step.cu (its KernelId enum)
 B1, B2, B3, B4_SGLD, B5_SGLD, B6 = 1, 2, 3, 4, 5, 6
+B4_PSGLD, B4_SGNHT, B4_RSGHMC, B5_PSGLD, B5_SGNHT, B5_RSGHMC = range(7, 13)
 
 
 def _ptr(t):
@@ -665,21 +926,24 @@ def _ptr(t):
 
 # the state operands of every launch entry, in its argument order; a kernel
 # passes NULL for those its rule and phase do not have
-_STATE_IN = ("theta", "v", "minv", "tau", "g", "v_hat")
-_STATE_OUT = ("theta", "v", "tau", "g", "v_hat", "minv")
+_STATE_IN = ("theta", "v", "minv", "tau", "g", "v_hat", "xi")
+_STATE_OUT = ("theta", "v", "tau", "g", "v_hat", "minv", "xi")
 
 
 def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
-            k_steps, seed, step0, coef, cdiv, prior_scale, batch_size,
-            n_data):
+            k_steps, seed, step0, prior_scale, batch_size, n_data, coef=0.0,
+            cdiv=0.0, c2=0.0, c3=0.0):
     """Launch kernel ``kernel_id`` through the C entry ``name + "_launch"``
     of ``csrc/fused_step.cu``.
 
-    ``ins`` maps state names (``_STATE_IN``) to ``(n_chains, P)`` tensors,
-    ``outs`` names the state outputs to allocate; ``tab`` is the per-step
-    table (SGHMC ``(k, 2)``: eps, eps / sqrt(scale_grad); SGLD ``(k,)``:
-    eps), ``coef`` is ``mdecay`` (SGHMC) or ``A`` (SGLD) and ``cdiv`` SGLD's
-    ``c`` (:func:`_sgld_constants`).  Checks contiguity and shared memory,
+    ``ins`` maps state names (``_STATE_IN``) to ``(n_chains, P)`` tensors
+    (SGNHT's ``xi`` ``(n_chains,)``), ``outs`` names the state outputs to
+    allocate; ``tab`` is the per-step table (SGHMC ``(k, 2)``: eps, eps /
+    sqrt(scale_grad); SGLD ``(k,)`` and pSGLD ``(k, 1)``: eps; SGNHT and
+    relativistic SGHMC ``(k, 2)``: eps and the noise scale), ``coef``,
+    ``cdiv``, ``c2`` and ``c3`` the rule's constants as the source's
+    ``Args`` lists them (``mdecay`` for SGHMC, :func:`_sgld_constants`,
+    :func:`_psgld_constants`, ...).  Checks contiguity and shared memory,
     raises on a failed launch, and returns the outputs in ``outs`` order,
     then the ``(n_chains, 1)`` cost.
     """
@@ -700,7 +964,8 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             "large for the resident-state kernel".format(
                 name, need, _build.MAX_SMEM_BYTES))
     n = theta.shape[0]
-    out = {key: torch.empty_like(theta) for key in outs}
+    # each output shaped as its input (burn-in's minv as theta)
+    out = {key: torch.empty_like(ins.get(key, theta)) for key in outs}
     cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):  # the launch uses the current device
         _build.check(getattr(lib, name + "_launch")(
@@ -709,8 +974,8 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             *[_ptr(out.get(key)) for key in _STATE_OUT], _ptr(cost),
             n, layout.n_inputs, layout.hidden, layout.depth, batch_size,
             x.shape[0], int(k_steps), layout.n_params, int(seed),
-            int(step0) & _MASK32, float(coef), float(cdiv),
-            float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
+            int(step0) & _MASK32, float(coef), float(cdiv), float(c2),
+            float(c3), float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
             torch.cuda.current_stream().cuda_stream), "fused_step")
     return (*[out[key] for key in outs], cost)
 
@@ -751,7 +1016,7 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
     out = _launch(name, B1, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_win, y_win,
                   _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
-                  seed, step0, mdecay, 0.0, prior_scale, batch_size, n_data)
+                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay)
     fused_bnn_multistep.launches += 1
     return out
 
@@ -785,7 +1050,7 @@ def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
                   dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat),
                   ("theta", "v", "tau", "g", "v_hat", "minv"), x_win, y_win,
                   _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
-                  seed, step0, mdecay, 0.0, prior_scale, batch_size, n_data)
+                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay)
     fused_bnn_multistep_burnin.launches += 1
     return out
 
@@ -828,7 +1093,7 @@ def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
     out = _launch(name, B3, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_sel, y_sel,
                   _sghmc_table(eps_vec, scale_grad), noise, None, 1, seed,
-                  step, mdecay, 0.0, prior_scale, batch_size, n_data)
+                  step, prior_scale, batch_size, n_data, coef=mdecay)
     fused_bnn_step.launches += 1
     return out
 
@@ -855,10 +1120,11 @@ def fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps, seed, a_coef=1.0,
     layout, eps_vec = _validate(
         name, theta, [minv], x_sel, y_sel, eps, seed, batch_size,
         torch.float32, 1, h, False, noise_impl, noise, None, n_inputs)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     out = _launch(name, B4_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_sel, y_sel, eps_vec.contiguous(), noise, None,
-                  1, seed, step, *_sgld_constants(a_coef, scale_grad, False),
-                  prior_scale, batch_size, n_data)
+                  1, seed, step, prior_scale, batch_size, n_data,
+                  coef=a_coef, cdiv=c)
     fused_bnn_step_sgld.launches += 1
     return out
 
@@ -884,11 +1150,11 @@ def fused_bnn_multistep_sgld(theta, minv, x_win, y_win, eps, seed,
     layout, eps_vec = _validate(
         name, theta, [minv], x_win, y_win, eps, seed, batch_size,
         torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     out = _launch(name, B5_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_win, y_win, eps_vec.contiguous(), noise, widx,
-                  k_steps, seed, step0,
-                  *_sgld_constants(a_coef, scale_grad, False), prior_scale,
-                  batch_size, n_data)
+                  k_steps, seed, step0, prior_scale, batch_size, n_data,
+                  coef=a_coef, cdiv=c)
     fused_bnn_multistep_sgld.launches += 1
     return out
 
@@ -917,14 +1183,206 @@ def fused_bnn_multistep_burnin_sgld(theta, tau, g, v_hat, x_win, y_win, eps,
     layout, eps_vec = _validate(
         name, theta, [tau, g, v_hat], x_win, y_win, eps, seed, batch_size,
         torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+    a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     out = _launch(name, B6, layout,
                   dict(theta=theta, tau=tau, g=g, v_hat=v_hat),
                   ("theta", "tau", "g", "v_hat", "minv"), x_win, y_win,
                   eps_vec.contiguous(), noise, widx, k_steps, seed, step0,
-                  *_sgld_constants(a_coef, scale_grad, True), prior_scale,
-                  batch_size, n_data)
+                  prior_scale, batch_size, n_data, coef=a_coef, cdiv=c)
     fused_bnn_multistep_burnin_sgld.launches += 1
     return out
 
 
 fused_bnn_multistep_burnin_sgld.launches = 0
+
+
+def fused_bnn_step_psgld(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
+                         lambda_reg=1e-5, scale_grad=1.0, prior_scale=0.0,
+                         batch_size=20, n_data=100,
+                         state_dtype=torch.float32, n_inputs=1, h=50,
+                         noise_impl="box_muller", step=0, noise=None):
+    """One fused pSGLD step on each chain's gathered minibatch (B4-psgld):
+    with ``g`` the gradient plus ``prior_scale * theta``, ``v' = alpha v +
+    (1 - alpha) g^2``, ``G = 1 / (lambda_reg + sqrt(max(v', 0)))`` and
+    ``theta' = theta - eps/2 G g + sqrt(max(eps G / scale_grad, 0)) eta``.
+    ``v`` is the RMSprop accumulator, float32; other arguments as
+    :func:`fused_bnn_step`.  Returns ``(theta', v', cost)``.  CPU tensors
+    run :func:`fused_bnn_step_psgld_ref`."""
+    name = "fused_bnn_step_psgld"
+    if not _require_device(name, theta):
+        return fused_bnn_step_psgld_ref(
+            theta, v, x_sel, y_sel, eps, seed, alpha, lambda_reg, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
+            noise_impl, step, noise)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
+        1, h, False, noise_impl, noise, None, n_inputs)
+    out = _launch(name, B4_PSGLD, layout, dict(theta=theta, v=v),
+                  ("theta", "v"), x_sel, y_sel, _psgld_table(eps_vec), noise,
+                  None, 1, seed, step, prior_scale, batch_size, n_data,
+                  **_psgld_constants(alpha, lambda_reg, scale_grad))
+    fused_bnn_step_psgld.launches += 1
+    return out
+
+
+fused_bnn_step_psgld.launches = 0
+
+
+def fused_bnn_step_sgnht(theta, v, xi, x_sel, y_sel, eps, seed, a_diff=1.0,
+                         scale_grad=1.0, prior_scale=0.0, batch_size=20,
+                         n_data=100, state_dtype=torch.float32, n_inputs=1,
+                         h=50, noise_impl="box_muller", step=0, noise=None):
+    """One fused SGNHT step on each chain's gathered minibatch (B4-sgnht):
+    ``p' = p - xi eps p - eps g + sqrt(max(2 A eps / scale_grad, 0)) eta``,
+    ``theta' = theta + eps p'``, then each chain's thermostat ``xi' = xi +
+    eps (p'^T p' / P - 1)``.  ``xi`` is float32 ``(n_chains,)`` (JAX's is a
+    replicated ``(n_chains, 128)`` row), ``a_diff`` the sampler's ``A``;
+    other arguments as :func:`fused_bnn_step`.  Returns ``(theta', p', xi',
+    cost)``.  CPU tensors run :func:`fused_bnn_step_sgnht_ref`."""
+    name = "fused_bnn_step_sgnht"
+    if not _require_device(name, theta):
+        return fused_bnn_step_sgnht_ref(
+            theta, v, xi, x_sel, y_sel, eps, seed, a_diff, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
+            noise_impl, step, noise)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
+        1, h, False, noise_impl, noise, None, n_inputs, xi=xi)
+    out = _launch(name, B4_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
+                  ("theta", "v", "xi"), x_sel, y_sel,
+                  _sgnht_table(eps_vec, a_diff, scale_grad), noise, None, 1,
+                  seed, step, prior_scale, batch_size, n_data,
+                  **_sgnht_constants(layout))
+    fused_bnn_step_sgnht.launches += 1
+    return out
+
+
+fused_bnn_step_sgnht.launches = 0
+
+
+def fused_bnn_step_rsghmc(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
+                          speed_of_light=1.0, d_coef=1.0, b_hat=0.0,
+                          prior_scale=0.0, batch_size=20, n_data=100,
+                          state_dtype=torch.float32, n_inputs=1, h=50,
+                          noise_impl="box_muller", step=0, noise=None):
+    """One fused relativistic SGHMC step on each chain's gathered minibatch
+    (B4-rsghmc): with ``vel(p) = eps p / m / sqrt(p^2 / (m^2 c^2) + 1)``,
+    ``p' = p - eps g + sqrt(max(eps (2 D - eps Bhat), 0)) eta - D vel(p)``
+    and ``theta' = theta + vel(p')``; ``mass``, ``speed_of_light``,
+    ``d_coef`` and ``b_hat`` are the sampler's ``m``, ``c``, ``D`` and
+    ``Bhat``, other arguments as :func:`fused_bnn_step`.  Returns
+    ``(theta', p', cost)``.  CPU tensors run
+    :func:`fused_bnn_step_rsghmc_ref`."""
+    name = "fused_bnn_step_rsghmc"
+    if not _require_device(name, theta):
+        return fused_bnn_step_rsghmc_ref(
+            theta, v, x_sel, y_sel, eps, seed, mass, speed_of_light, d_coef,
+            b_hat, prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
+            noise_impl, step, noise)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
+        1, h, False, noise_impl, noise, None, n_inputs)
+    out = _launch(name, B4_RSGHMC, layout, dict(theta=theta, v=v),
+                  ("theta", "v"), x_sel, y_sel,
+                  _rsghmc_table(eps_vec, d_coef, b_hat), noise, None, 1, seed,
+                  step, prior_scale, batch_size, n_data,
+                  **_rsghmc_constants(mass, speed_of_light, d_coef))
+    fused_bnn_step_rsghmc.launches += 1
+    return out
+
+
+fused_bnn_step_rsghmc.launches = 0
+
+
+def fused_bnn_multistep_psgld(theta, v, x_win, y_win, eps, seed, alpha=0.99,
+                              lambda_reg=1e-5, scale_grad=1.0,
+                              prior_scale=0.0, batch_size=20, n_data=100,
+                              k_steps=1, h=50, pair_dots=False,
+                              noise_impl="box_muller", step0=0, noise=None,
+                              widx=None):
+    """``k_steps`` fused pSGLD steps in one launch (B5-psgld): the update
+    of :func:`fused_bnn_step_psgld`, the windows and noise of
+    :func:`fused_bnn_multistep`; the accumulator ``v`` stays float32.
+    Returns ``(theta', v', cost)``.  CPU tensors run
+    :func:`fused_bnn_multistep_psgld_ref`."""
+    name = "fused_bnn_multistep_psgld"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_psgld_ref(
+            theta, v, x_win, y_win, eps, seed, alpha, lambda_reg, scale_grad,
+            prior_scale, batch_size, n_data, k_steps, h, pair_dots,
+            noise_impl, step0, noise, widx)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_win, y_win, eps, seed, batch_size, torch.float32,
+        k_steps, h, pair_dots, noise_impl, noise, widx)
+    out = _launch(name, B5_PSGLD, layout, dict(theta=theta, v=v),
+                  ("theta", "v"), x_win, y_win, _psgld_table(eps_vec), noise,
+                  widx, k_steps, seed, step0, prior_scale, batch_size, n_data,
+                  **_psgld_constants(alpha, lambda_reg, scale_grad))
+    fused_bnn_multistep_psgld.launches += 1
+    return out
+
+
+fused_bnn_multistep_psgld.launches = 0
+
+
+def fused_bnn_multistep_sgnht(theta, v, xi, x_win, y_win, eps, seed,
+                              a_diff=1.0, scale_grad=1.0, prior_scale=0.0,
+                              batch_size=20, n_data=100,
+                              state_dtype=torch.float32, k_steps=1, h=50,
+                              pair_dots=False, noise_impl="box_muller",
+                              step0=0, noise=None, widx=None):
+    """``k_steps`` fused SGNHT steps in one launch (B5-sgnht): the update
+    and thermostat of :func:`fused_bnn_step_sgnht` after every step, the
+    windows and noise of :func:`fused_bnn_multistep`.  Returns ``(theta',
+    p', xi', cost)``.  CPU tensors run
+    :func:`fused_bnn_multistep_sgnht_ref`."""
+    name = "fused_bnn_multistep_sgnht"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_sgnht_ref(
+            theta, v, xi, x_win, y_win, eps, seed, a_diff, scale_grad,
+            prior_scale, batch_size, n_data, state_dtype, k_steps, h,
+            pair_dots, noise_impl, step0, noise, widx)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_win, y_win, eps, seed, batch_size, state_dtype,
+        k_steps, h, pair_dots, noise_impl, noise, widx, xi=xi)
+    out = _launch(name, B5_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
+                  ("theta", "v", "xi"), x_win, y_win,
+                  _sgnht_table(eps_vec, a_diff, scale_grad), noise, widx,
+                  k_steps, seed, step0, prior_scale, batch_size, n_data,
+                  **_sgnht_constants(layout))
+    fused_bnn_multistep_sgnht.launches += 1
+    return out
+
+
+fused_bnn_multistep_sgnht.launches = 0
+
+
+def fused_bnn_multistep_rsghmc(theta, v, x_win, y_win, eps, seed, mass=1.0,
+                               speed_of_light=1.0, d_coef=1.0, b_hat=0.0,
+                               prior_scale=0.0, batch_size=20, n_data=100,
+                               state_dtype=torch.float32, k_steps=1, h=50,
+                               pair_dots=False, noise_impl="box_muller",
+                               step0=0, noise=None, widx=None):
+    """``k_steps`` fused relativistic SGHMC steps in one launch
+    (B5-rsghmc): the update of :func:`fused_bnn_step_rsghmc`, the windows
+    and noise of :func:`fused_bnn_multistep`.  Returns ``(theta', p',
+    cost)``.  CPU tensors run :func:`fused_bnn_multistep_rsghmc_ref`."""
+    name = "fused_bnn_multistep_rsghmc"
+    if not _require_device(name, theta):
+        return fused_bnn_multistep_rsghmc_ref(
+            theta, v, x_win, y_win, eps, seed, mass, speed_of_light, d_coef,
+            b_hat, prior_scale, batch_size, n_data, state_dtype, k_steps, h,
+            pair_dots, noise_impl, step0, noise, widx)
+    layout, eps_vec = _validate(
+        name, theta, [v], x_win, y_win, eps, seed, batch_size, state_dtype,
+        k_steps, h, pair_dots, noise_impl, noise, widx)
+    out = _launch(name, B5_RSGHMC, layout, dict(theta=theta, v=v),
+                  ("theta", "v"), x_win, y_win,
+                  _rsghmc_table(eps_vec, d_coef, b_hat), noise, widx,
+                  k_steps, seed, step0, prior_scale, batch_size, n_data,
+                  **_rsghmc_constants(mass, speed_of_light, d_coef))
+    fused_bnn_multistep_rsghmc.launches += 1
+    return out
+
+
+fused_bnn_multistep_rsghmc.launches = 0

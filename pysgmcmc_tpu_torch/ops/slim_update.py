@@ -62,12 +62,17 @@ import torch
 from pysgmcmc_tpu_torch.ops.fused_step import (
     _MASK32,
     _adapt,
+    _check_xi,
+    _f32,
+    _psgld_update,
     _require_device,
+    _rsghmc_update,
     _seed_key,
     _sghmc_table,
     _sgld_constants,
     _sgld_delta,
     _sghmc_velocity,
+    _sgnht_update,
     philox_normals,
 )
 
@@ -113,19 +118,6 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise):
             "entries for {} chains".format(name, eps_vec.numel(),
                                            theta.shape[0]))
     return eps_vec
-
-
-def _validate_xi(name, theta, xi):
-    if (not torch.is_tensor(xi) or xi.shape != theta.shape[:1]
-            or xi.dtype != torch.float32 or xi.device != theta.device):
-        raise ValueError(
-            "{}: xi must be a float32 ({},) per-chain tensor on {}".format(
-                name, theta.shape[0], theta.device))
-
-
-def _f32(x):
-    """``x`` rounded to float32, as a Python float (a kernel's scalar)."""
-    return float(torch.tensor(x, dtype=torch.float32))
 
 
 def _eta(theta, seed, step, noise):
@@ -175,14 +167,9 @@ def slim_psgld_update_ref(theta, v, grad, mask, eps, seed, alpha=0.99,
     """Plain PyTorch version of :func:`slim_psgld_update`."""
     eps_col = _validate("slim_psgld_update", theta, [v], grad, mask, eps,
                         seed, noise).to(theta.device)[:, None]
-    alpha = _f32(alpha)
-    g = grad + prior_scale * theta
-    v_new = alpha * v + (1.0 - alpha) * g * g
-    precond = 1.0 / (lambda_reg + torch.sqrt(torch.clamp(v_new, min=0.0)))
-    sigma = torch.sqrt(torch.clamp(eps_col * precond * _f32(1.0 / scale_grad),
-                                   min=0.0))
-    eta = _eta(theta, seed, step, noise)
-    return theta + (-0.5 * eps_col * precond * g + sigma * eta), v_new
+    return _psgld_update(theta, v, grad + prior_scale * theta,
+                         _eta(theta, seed, step, noise), eps_col,
+                         _f32(alpha), lambda_reg, _f32(1.0 / scale_grad))
 
 
 def slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef=1.0,
@@ -191,18 +178,12 @@ def slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef=1.0,
     """Plain PyTorch version of :func:`slim_rsghmc_update`."""
     eps_col = _validate("slim_rsghmc_update", theta, [p], grad, mask, eps,
                         seed, noise).to(theta.device)[:, None]
-    inv_m = _f32(1.0 / mass)
-    inv_m2c2 = _f32(1.0 / (mass**2 * speed_of_light**2))
     noise_scale = torch.sqrt(torch.clamp(
         eps_col * (2.0 * d_coef - eps_col * bhat), min=0.0))
-    g = -(grad + prior_scale * theta)  # the log-likelihood gradient
-
-    def vel(pp):
-        return eps_col * pp * inv_m * torch.rsqrt(pp * pp * inv_m2c2 + 1.0)
-
-    eta = _eta(theta, seed, step, noise)
-    p_new = p + eps_col * g + noise_scale * eta - d_coef * vel(p)
-    return theta + vel(p_new), p_new
+    return _rsghmc_update(theta, p, grad + prior_scale * theta,
+                          _eta(theta, seed, step, noise), eps_col, noise_scale,
+                          d_coef, _f32(1.0 / mass),
+                          _f32(1.0 / (mass**2 * speed_of_light**2)))
 
 
 def slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
@@ -211,13 +192,11 @@ def slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
     """Plain PyTorch version of :func:`slim_sgnht_update`."""
     eps_col = _validate("slim_sgnht_update", theta, [p], grad, mask, eps,
                         seed, noise).to(theta.device)[:, None]
-    _validate_xi("slim_sgnht_update", theta, xi)
+    _check_xi("slim_sgnht_update", theta, xi)
     sigma = torch.sqrt(torch.clamp(2.0 * a_diff * eps_col / scale_grad,
                                    min=0.0))
-    g = grad + prior_scale * theta
-    eta = _eta(theta, seed, step, noise)
-    p_new = p - xi[:, None] * eps_col * p - eps_col * g + sigma * eta
-    return theta + eps_col * p_new, p_new
+    return _sgnht_update(theta, p, grad + prior_scale * theta,
+                         _eta(theta, seed, step, noise), xi, eps_col, sigma)
 
 
 def slim_sghmc_burnin_update_ref(theta, v, tau, g, v_hat, grad, mask, eps,
@@ -419,7 +398,7 @@ def slim_sgnht_update(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
                                      a_diff, scale_grad, prior_scale, noise,
                                      step)
     eps_vec = _validate(name, theta, [p], grad, mask, eps, seed, noise)
-    _validate_xi(name, theta, xi)
+    _check_xi(name, theta, xi)
     out = _launch(name, dict(theta=theta, v=p, grad=grad, xi=xi),
                   ("theta", "v"), eps_vec, noise, seed, step, prior_scale,
                   coef=2.0 * a_diff, cdiv=scale_grad)

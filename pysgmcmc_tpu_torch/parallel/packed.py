@@ -1,16 +1,18 @@
 """Chain drivers over the port's kernels (PyTorch port of the fused and the
-chains-on-lanes drivers of :mod:`pysgmcmc_tpu.parallel.packed`): the fused
-drivers for SGHMC and SGLD, the lanes drivers for the five gradient
-samplers.
+chains-on-lanes drivers of :mod:`pysgmcmc_tpu.parallel.packed`) for the five
+gradient samplers.
 
 Fused: :func:`burnin_chain_fused` runs the whole self-tuning burn-in of
 every chain as one launch of kernel B2 (SGHMC, :func:`~pysgmcmc_tpu_torch.ops.
 fused_step.fused_bnn_multistep_burnin`) or B6 (SGLD, ``fused_bnn_multistep_
-burnin_sgld``).  :func:`sample_chain_fused` runs the sampling phase as one
-launch of B1 / B5-sgld per collected sample (``multistep=True``) or as one
-launch of B3 / B4-sgld per step (``multistep=False``), each step's windows
-drawn on the device with :func:`~pysgmcmc_tpu_torch.ops.fused_step.
-philox_windows` and gathered with ``gather_batch``.  The drivers evaluate
+burnin_sgld``); pSGLD, SGNHT and relativistic SGHMC have no burn-in
+machinery and burn in on discarded steps of :func:`sample_chain_lanes`.
+:func:`sample_chain_fused` runs the sampling phase as one launch of B1 /
+B5-sgld / B5-psgld / B5-sgnht / B5-rsghmc per collected sample
+(``multistep=True``) or as one launch of B3 / B4-sgld / B4-psgld / B4-sgnht
+/ B4-rsghmc per step (``multistep=False``), each step's windows drawn on the
+device with :func:`~pysgmcmc_tpu_torch.ops.fused_step.philox_windows` and
+gathered with ``gather_batch``.  The drivers evaluate
 the stepsize schedule at the absolute steps ``step0 + t`` and ship a per-step
 table, and draw one 64-bit Philox seed per call from the caller's
 ``torch.Generator``; the kernels key their streams on (chain, absolute
@@ -48,9 +50,15 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
     fused_bnn_multistep,
     fused_bnn_multistep_burnin,
     fused_bnn_multistep_burnin_sgld,
+    fused_bnn_multistep_psgld,
+    fused_bnn_multistep_rsghmc,
     fused_bnn_multistep_sgld,
+    fused_bnn_multistep_sgnht,
     fused_bnn_step,
+    fused_bnn_step_psgld,
+    fused_bnn_step_rsghmc,
     fused_bnn_step_sgld,
+    fused_bnn_step_sgnht,
     fused_layout,
     gather_batch,
     pack,
@@ -124,16 +132,17 @@ def _check_driver(name, sampler, mesh, pair_dots):
     return kind
 
 
-def _check_fused(name, sampler, mesh, pair_dots):
-    """:func:`_check_driver` for the fused drivers, which take SGHMC and
-    SGLD; returns True for SGHMC."""
-    kind = _check_driver(name, sampler, mesh, pair_dots)
+def _check_burn_in(name, sampler):
+    """Raises unless the sampler has burn-in machinery (SGHMC, SGLD);
+    returns its kind."""
+    kind = _sampler_kind(name, sampler)
     if kind not in ("sghmc", "sgld"):
         raise NotImplementedError(
-            "{}: the fused kernels of {} (B4 and B5 others) are not ported "
-            "yet (ROADMAP.md queue A item 9); sample_chain_lanes runs "
-            "it".format(name, type(sampler).__name__))
-    return kind == "sghmc"
+            "{} supports the adaptive (burn-in) samplers SGHMC and SGLD; got "
+            "{}, which has no burn-in machinery: run its burn-in as "
+            "discarded steps of sample_chain_lanes".format(
+                name, type(sampler).__name__))
+    return kind
 
 
 def _draw_seed(generator):
@@ -179,10 +188,11 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     mass-matrix inverse the final step used (the value the sampling phase
     freezes).
     """
+    name = "burnin_chain_fused"
+    _check_burn_in(name, sampler)
+    sghmc = _check_driver(name, sampler, mesh, pair_dots) == "sghmc"
     if int(n_steps) < 1:
         return states
-    name = "burnin_chain_fused"
-    sghmc = _check_fused(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
@@ -221,57 +231,90 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     return SGLDState(**fields)
 
 
+# sampler kind -> (multi-step kernel, one-step kernel) of sample_chain_fused
+_FUSED_KERNELS = {
+    "sghmc": (fused_bnn_multistep, fused_bnn_step),                # B1, B3
+    "sgld": (fused_bnn_multistep_sgld, fused_bnn_step_sgld),
+    "psgld": (fused_bnn_multistep_psgld, fused_bnn_step_psgld),
+    "sgnht": (fused_bnn_multistep_sgnht, fused_bnn_step_sgnht),
+    "rsghmc": (fused_bnn_multistep_rsghmc, fused_bnn_step_rsghmc),
+}
+
+
+def _fused_rule(kind, sampler, state_dtype):
+    """The keywords of the sampler's fused kernels, as the sampler sets
+    them (the prior scale and, but for relativistic SGHMC, scale_grad
+    included)."""
+    rule = _lanes_rule(kind, sampler)
+    if kind == "rsghmc":
+        rule["b_hat"] = rule.pop("bhat")
+    if kind in ("sghmc", "sgnht", "rsghmc"):
+        rule["state_dtype"] = state_dtype
+    return rule
+
+
 def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
                        keep_every=1, state_dtype=torch.float32,
                        collect_positions=True, mesh=None, multistep=False,
                        pair_dots=False, noise_impl="auto"):
     """Sampling-phase driver: ``n_samples`` collected samples, each after
-    ``keep_every`` steps of every chain with the frozen ``stats.minv``.
+    ``keep_every`` steps of every chain (SGHMC and SGLD with the frozen
+    ``stats.minv``; pSGLD's accumulator, SGNHT's thermostat and the
+    momenta move with the chains).
 
     ``multistep=True`` advances the ``keep_every`` steps in one launch of B1
-    (SGHMC) or B5-sgld (SGLD); ``multistep=False`` launches B3 / B4-sgld
-    once per step on the windows :func:`philox_windows` draws for that step
-    (window 0 under ``noise_impl='zero'``), which gives the multi-step
-    kernels' chains.  Returns ``(states, positions, costs)``: ``positions``
+    (SGHMC), B5-sgld, B5-psgld, B5-sgnht or B5-rsghmc; ``multistep=False``
+    launches B3 / B4-sgld / B4-psgld / B4-sgnht / B4-rsghmc once per step on
+    the windows :func:`philox_windows` draws for that step (window 0 under
+    ``noise_impl='zero'``), which gives the multi-step kernels' chains.  An
+    SGNHT ``xi`` may be a shared scalar or ``(n_chains,)`` and comes back
+    ``(n_chains,)``.  Returns ``(states, positions, costs)``: ``positions``
     stacks the position after each sample as leaves ``(n_chains, n_samples,
     ...)`` (``None`` without ``collect_positions``), ``costs`` is
     ``(n_chains, n_samples)``, each sample's final-step cost.
     """
     name = "sample_chain_fused"
-    sghmc = _check_fused(name, sampler, mesh, pair_dots)
+    kind = _check_driver(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
-    v = pack(states.momentum, layout) if sghmc else None
-    minv = pack(states.stats.minv, layout)
     device = theta.device
     n = theta.shape[0]
+    v = minv = xi = None
+    if kind == "psgld":
+        v = pack(states.v, layout)
+    elif kind != "sgld":
+        v = pack(states.momentum, layout)
+    if kind in ("sghmc", "sgld"):
+        minv = pack(states.stats.minv, layout)
+    if kind == "sgnht":
+        xi = _lanes_xi(name, states, n, device)
     x_win, y_win, n_data = _data(x, y, batch_size, device)
     seed = _draw_seed(key)
     step = int(torch.max(states.step))
-    if sghmc:
-        rule = dict(mdecay=sampler.mdecay, state_dtype=state_dtype)
-    else:
-        rule = dict(a_coef=sampler.A)
-    common = dict(scale_grad=sampler.scale_grad,
-                  prior_scale=sampler.gaussian_prior_scale,
-                  batch_size=batch_size, n_data=n_data, h=layout.hidden,
-                  **rule)
+    multi_kernel, one_kernel = _FUSED_KERNELS[kind]
+    common = dict(batch_size=batch_size, n_data=n_data, h=layout.hidden,
+                  **_fused_rule(kind, sampler, state_dtype))
 
-    def multistep_launch(theta, v, step):
+    def launch(kernel, theta, v, xi, x, y, eps, **kw):
+        # the kernels take (theta, v?, xi?, minv?, x, y, ...) and return
+        # (theta', v'?, xi'?, cost), each state where the rule has it
+        out = list(kernel(*[t for t in (theta, v, xi, minv) if t is not None],
+                          x, y, eps, seed, **common, **kw))
+        theta = out.pop(0)
+        v = None if v is None else out.pop(0)
+        xi = None if xi is None else out.pop(0)
+        return theta, v, xi, out[0]
+
+    def multistep_launch(theta, v, xi, step):
         noise, widx = _stream_inputs(noise_impl, keep_every, n,
                                      layout.n_params, device)
-        eps = _eps_table(sampler, states.schedule_state, step, keep_every)
-        kw = dict(common, k_steps=keep_every, step0=step, noise=noise,
-                  widx=widx)
-        if sghmc:
-            return fused_bnn_multistep(theta, v, minv, x_win, y_win, eps,
-                                       seed, **kw)
-        theta, cost = fused_bnn_multistep_sgld(theta, minv, x_win, y_win,
-                                               eps, seed, **kw)
-        return theta, None, cost
+        return launch(multi_kernel, theta, v, xi, x_win, y_win,
+                      _eps_table(sampler, states.schedule_state, step,
+                                 keep_every),
+                      k_steps=keep_every, step0=step, noise=noise, widx=widx)
 
-    def one_step_launch(theta, v, step):
+    def one_step_launch(theta, v, xi, step):
         if noise_impl == "zero":
             widx = torch.zeros(n, dtype=torch.int64, device=device)
             noise = torch.zeros((n, layout.n_params), dtype=torch.float32,
@@ -279,31 +322,30 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
         else:
             widx = philox_windows(seed, step, n, x_win.shape[0], device)
             noise = None
-        x_sel, y_sel = gather_batch(x_win, y_win, widx)
-        eps = _eps_table(sampler, states.schedule_state, step, 1)
-        kw = dict(common, n_inputs=layout.n_inputs, step=step, noise=noise)
-        if sghmc:
-            return fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed,
-                                  **kw)
-        theta, cost = fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps,
-                                          seed, **kw)
-        return theta, None, cost
+        return launch(one_kernel, theta, v, xi,
+                      *gather_batch(x_win, y_win, widx),
+                      _eps_table(sampler, states.schedule_state, step, 1),
+                      n_inputs=layout.n_inputs, step=step, noise=noise)
 
     positions, costs = [], []
     for _ in range(int(n_samples)):
         if multistep:
-            theta, v, cost = multistep_launch(theta, v, step)
+            theta, v, xi, cost = multistep_launch(theta, v, xi, step)
             step += keep_every
         else:
             for _ in range(keep_every):
-                theta, v, cost = one_step_launch(theta, v, step)
+                theta, v, xi, cost = one_step_launch(theta, v, xi, step)
                 step += 1
         if collect_positions:
             positions.append(unpack(theta, layout))
         costs.append(cost[:, 0])
     moved = dict(position=unpack(theta, layout))
-    if sghmc:
+    if kind == "psgld":
+        moved["v"] = unpack(v, layout)
+    elif v is not None:
         moved["momentum"] = unpack(v, layout)
+    if xi is not None:
+        moved["xi"] = xi
     return _sampling_result(states, int(n_samples) * keep_every, positions,
                             costs, collect_positions, moved)
 
@@ -446,7 +488,7 @@ def _lanes_rule(kind, sampler):
     return rule
 
 
-def _lanes_xi(states, n_chains, device):
+def _lanes_xi(name, states, n_chains, device):
     """SGNHT's thermostat as ``(n_chains,)`` float32: a shared scalar (the
     ``init`` of stacked positions) is given to every chain."""
     xi = torch.as_tensor(states.xi, dtype=torch.float32, device=device)
@@ -454,8 +496,8 @@ def _lanes_xi(states, n_chains, device):
         return xi.expand(n_chains).contiguous()
     if tuple(xi.shape) != (n_chains,):
         raise ValueError(
-            "sample_chain_lanes: xi must be a scalar or one per chain "
-            "({},); got {}".format(n_chains, tuple(xi.shape)))
+            "{}: xi must be a scalar or one per chain ({},); got {}".format(
+                name, n_chains, tuple(xi.shape)))
     return xi.contiguous()
 
 
@@ -497,12 +539,7 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     sampling phase freezes).
     """
     name = "burnin_chain_lanes"
-    if _sampler_kind(name, sampler) not in ("sghmc", "sgld"):
-        raise NotImplementedError(
-            "{} supports the adaptive (burn-in) samplers SGHMC and SGLD; got "
-            "{}, which has no burn-in machinery: run its burn-in as "
-            "discarded steps of sample_chain_lanes".format(
-                name, type(sampler).__name__))
+    _check_burn_in(name, sampler)
     if int(n_steps) < 1:
         return states
     kind, spec, theta, v, step0, eps_of, seed, window_seed, rule = \
@@ -556,8 +593,8 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
                      compute_dtype, state_dtype, mesh, noise_impl)
     minv = (pack_lanes(spec, states.stats.minv)
             if kind in ("sghmc", "sgld") else None)
-    xi = _lanes_xi(states, theta.shape[0], theta.device) \
-        if kind == "sgnht" else None
+    xi = _lanes_xi("sample_chain_lanes", states, theta.shape[0],
+                   theta.device) if kind == "sgnht" else None
     positions, costs = [], []
     for _ in range(int(n_samples)):
         for _ in range(keep_every):

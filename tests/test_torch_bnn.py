@@ -234,9 +234,9 @@ def test_constructor_errors_match_jax(kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(network="dense"),
-    dict(network="dense", step_impl="fused", sampling_method="SGNHT"),
+    dict(network="dense", step_impl="lanes", compute_dtype=torch.bfloat16),
     dict(network="dense", step_impl="pytree"),
-    dict(network="dense", step_impl="fused", sampling_method="PSGLD"),
+    dict(step_impl="lanes", mesh=object()),
     dict(network="dense", step_impl="fused", mesh=object()),
     dict(network="dense", step_impl="fused", pair_dots=True),
     dict(network="dense", step_impl="fused", compute_dtype=torch.bfloat16),
@@ -245,8 +245,8 @@ def test_constructor_errors_match_jax(kwargs):
 ])
 def test_unported_paths_raise(kwargs):
     """What the port has not reached raises, naming its ROADMAP.md item
-    (``step_impl="lanes"`` trains with all five gradient samplers; the
-    fused path with SGHMC and SGLD only)."""
+    (``step_impl="lanes"`` and ``"fused"`` train with all five gradient
+    samplers)."""
     if "sampling_method" in kwargs:
         kwargs = dict(kwargs, sampling_method=Sampler[
             kwargs["sampling_method"]])

@@ -3,8 +3,9 @@ one).  This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Each kernel (B1, B2, B3, B4-sgld, B5-sgld, B6; the slim kernels B7,
-B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld) is held
+Each kernel (B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc, B5-sgld,
+B5-psgld, B5-sgnht, B5-rsghmc, B6; the slim kernels B7, B8-sgld, B8-psgld,
+B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld) is held
 against its plain PyTorch version on the same inputs, from the state a
 200-step burn-in leaves, under injected noise and windows and under the
 Philox stream, with the tolerance
@@ -21,7 +22,13 @@ from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops import slim_update as su
 from pysgmcmc_tpu_torch.ops.relativistic import sample_relativistic_momentum
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
-from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
+from pysgmcmc_tpu_torch.samplers import (
+    PSGLDSampler,
+    RelativisticSGHMCSampler,
+    SGHMCSampler,
+    SGLDSampler,
+    SGNHTSampler,
+)
 from pysgmcmc_tpu_torch.sampling import Sampler
 
 REL_TOL = 2e-4
@@ -253,6 +260,109 @@ def test_slim_b8_kernel_matches_plain_version(kernel, stream, cuda_device):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _row_rel_err(a, b) <= REL_TOL
+
+
+# the fused kernels of the samplers without a mass matrix -> (wrapper, plain
+# version, rule keywords, stepsize); they run from the burned-in theta with
+# pSGLD's accumulator at g^2, momenta from N(0, 1) and one xi per chain
+FUSED_NEW = {
+    "B4-psgld": (fs.fused_bnn_step_psgld, fs.fused_bnn_step_psgld_ref,
+                 dict(alpha=0.99, lambda_reg=1e-5, scale_grad=100.0), 1e-4),
+    "B4-sgnht": (fs.fused_bnn_step_sgnht, fs.fused_bnn_step_sgnht_ref,
+                 dict(a_diff=1.0, scale_grad=100.0), 3e-4),
+    "B4-rsghmc": (fs.fused_bnn_step_rsghmc, fs.fused_bnn_step_rsghmc_ref,
+                  dict(mass=1.0, speed_of_light=1.0, d_coef=1.0), 1e-3),
+    "B5-psgld": (fs.fused_bnn_multistep_psgld,
+                 fs.fused_bnn_multistep_psgld_ref,
+                 dict(alpha=0.99, lambda_reg=1e-5, scale_grad=100.0), 1e-4),
+    "B5-sgnht": (fs.fused_bnn_multistep_sgnht,
+                 fs.fused_bnn_multistep_sgnht_ref,
+                 dict(a_diff=1.0, scale_grad=100.0), 3e-4),
+    "B5-rsghmc": (fs.fused_bnn_multistep_rsghmc,
+                  fs.fused_bnn_multistep_rsghmc_ref,
+                  dict(mass=1.0, speed_of_light=1.0, d_coef=1.0), 1e-3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(FUSED_NEW))
+@pytest.mark.parametrize("stream", ["injected", "philox"])
+def test_fused_kernel_without_mass_matches_plain_version(kernel, stream,
+                                                         cuda_device):
+    n, k = 64, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, y = _data(gen)
+    fn, ref, rule, eps = FUSED_NEW[kernel]
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    theta = st["theta"]
+    widx = fs.philox_windows(3, 0, n, x_win.shape[0], cuda_device)
+    grad = fs._fwd_bwd(theta, lay, x_win[widx][:, :, None], y_win[widx],
+                       1.0 / 20, 1.0 / 100)[1]
+    if kernel.endswith("psgld"):
+        args = [theta, grad * grad]
+    else:
+        args = [theta, torch.randn(theta.shape, generator=gen,
+                                   device=cuda_device)]
+    if kernel.endswith("sgnht"):
+        args.append(1.0 + 0.1 * torch.randn(n, generator=gen,
+                                            device=cuda_device))
+    one_step = kernel.startswith("B4")
+    extra = {}
+    if one_step:
+        x_win, y_win = fs.gather_batch(x_win, y_win, widx)
+        shape = (n, lay.n_params)
+        extra["step"] = 2**32 - 1
+    else:
+        shape = (k, n, lay.n_params)
+        extra.update(k_steps=k, step0=2**32 - 3)  # the counter wraps
+    if stream == "injected":
+        extra = {key: val for key, val in extra.items() if key == "k_steps"}
+        extra["noise"] = torch.randn(shape, generator=gen, device=cuda_device)
+        if not one_step:
+            extra["widx"] = torch.randint(
+                0, x_win.shape[0], (k, n), generator=gen, device=cuda_device,
+                dtype=torch.int32)
+    args += [x_win, y_win, eps, 2**63 + 5]
+    common = dict(prior_scale=1.0 / (lay.n_params * 100), **rule, **extra)
+    before = fn.launches
+    got = fn(*args, **common)
+    assert fn.launches == before + 1
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a.reshape(len(a), -1), b.reshape(len(b), -1)) \
+            <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler_cls,kw", [
+    (PSGLDSampler, dict(scale_grad=100.0)),
+    (SGNHTSampler, dict(scale_grad=100.0)),
+    (RelativisticSGHMCSampler, {})])
+def test_one_step_driver_matches_multistep_driver_without_mass(
+        sampler_cls, kw, cuda_device):
+    """k launches of B4-psgld / B4-sgnht / B4-rsghmc follow one B5 launch of
+    k steps from the same state and seed."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    init, _ = dense_network(1, device=cuda_device)
+    sampler = sampler_cls(lambda p, b: None, stepsize_schedule=1e-4,
+                          gaussian_prior_scale=1e-4, **kw)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    states = sampler.init(init(gen, (32,)), gen)
+    runs = [sample_chain_fused(
+        sampler, states, torch.Generator(cuda_device).manual_seed(3), 2, x, y,
+        keep_every=5, multistep=multistep) for multistep in (True, False)]
+    for key, want in runs[0][1].items():
+        got = runs[1][1][key]
+        assert torch.isfinite(want).all(), key
+        assert float((got - want).abs().max()) <= \
+            REL_TOL * float(want.abs().max()), key
+    assert int(runs[0][0].step) == int(runs[1][0].step) == 10
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The one-step fused kernels of the PyTorch port, B3 (``fused_bnn_step``)
 and B4-sgld (``fused_bnn_step_sgld``), and the one-step chain driver
-(``sample_chain_fused(multistep=False)``), against the JAX package.
+(``sample_chain_fused(multistep=False)``, also for pSGLD, SGNHT and
+relativistic SGHMC), against the JAX package.
 
 These kernels take injected noise and a pre-gathered minibatch, so they are
 the exact oracle for the update rules against JAX:
@@ -27,7 +28,13 @@ from pysgmcmc_tpu.samplers.sgld import SGLDSampler as JaxSGLD
 from pysgmcmc_tpu_torch.models import dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
-from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
+from pysgmcmc_tpu_torch.samplers import (
+    PSGLDSampler,
+    RelativisticSGHMCSampler,
+    SGHMCSampler,
+    SGLDSampler,
+    SGNHTSampler,
+)
 from tests.test_torch_fused_step import (
     BATCH,
     H,
@@ -166,26 +173,37 @@ def test_one_step_matches_per_step_sampler(name):
 #  (c) the one-step driver against the multi-step driver ----------------------
 
 def _driver_setup(sampler_cls, eps, n=3, h=6):
+    """The sampler and its states 5 steps in: after a B2 / B6 burn-in for
+    SGHMC and SGLD; initial momenta (and the step counter moved on) for the
+    samplers without burn-in machinery."""
     rng = np.random.RandomState(0)
     x = rng.uniform(0.0, 1.0, (100, 1))
     y = np.sinc(x[:, 0] * 10 - 5)
     init, _ = dense_network(1, units=(h, h), device="cpu")
+    kw = {} if sampler_cls is RelativisticSGHMCSampler \
+        else dict(scale_grad=100.0)
     sampler = sampler_cls(lambda p, b: None, stepsize_schedule=eps,
-                          scale_grad=100.0, gaussian_prior_scale=1e-3)
+                          gaussian_prior_scale=1e-3, **kw)
     gen = torch.Generator().manual_seed(0)
-    states = burnin_chain_fused(sampler, sampler.init(init(gen, (n,))), gen,
-                                5, x, y)
+    positions = init(gen, (n,))
+    if sampler_cls in (SGHMCSampler, SGLDSampler):
+        states = burnin_chain_fused(sampler, sampler.init(positions), gen, 5,
+                                    x, y)
+    else:
+        states = sampler.init(positions, gen)
+        states = states._replace(step=states.step + 5)
     return sampler, states, x, y
 
 
 @pytest.mark.parametrize("noise_impl", ["box_muller", "zero"])
-@pytest.mark.parametrize("sampler_cls,eps", [(SGHMCSampler, 0.01),
-                                             (SGLDSampler, 1e-3)])
+@pytest.mark.parametrize("sampler_cls,eps", [
+    (SGHMCSampler, 0.01), (SGLDSampler, 1e-3), (PSGLDSampler, 1e-3),
+    (SGNHTSampler, 1e-3), (RelativisticSGHMCSampler, 1e-3)])
 def test_one_step_driver_equals_multistep_driver(sampler_cls, eps,
                                                  noise_impl):
-    """Same state, same generator seed: k launches of B3 / B4-sgld follow
-    one B1 / B5-sgld launch of k steps bit for bit (the plain versions run
-    the same arithmetic on the same Philox windows and noise)."""
+    """Same state, same generator seed: k launches of B3 / B4-* follow one
+    B1 / B5-* launch of k steps bit for bit (the plain versions run the
+    same arithmetic on the same Philox windows and noise)."""
     sampler, states, x, y = _driver_setup(sampler_cls, eps)
     runs = [sample_chain_fused(
         sampler, states, torch.Generator().manual_seed(4), 2, x, y,
@@ -197,9 +215,12 @@ def test_one_step_driver_equals_multistep_driver(sampler_cls, eps,
         assert torch.equal(a.position[key], b.position[key]), key
     assert torch.equal(cost_a, cost_b)
     assert type(a) is type(b) is type(states)
-    if sampler_cls is SGHMCSampler:
-        for key in a.momentum:
-            assert torch.equal(a.momentum[key], b.momentum[key]), key
+    for field in ("momentum", "v"):
+        if hasattr(a, field):
+            for key, leaf in getattr(a, field).items():
+                assert torch.equal(leaf, getattr(b, field)[key]), key
+    if sampler_cls is SGNHTSampler:
+        assert a.xi.shape == (3,) and torch.equal(a.xi, b.xi)
 
 
 @pytest.mark.parametrize("sampler_cls", [SGHMCSampler, SGLDSampler])

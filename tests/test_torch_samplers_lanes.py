@@ -36,7 +36,7 @@ from pysgmcmc_tpu.samplers.relativistic_sghmc import (
 )
 from pysgmcmc_tpu.samplers.sgnht import SGNHTSampler as JaxSGNHT
 from pysgmcmc_tpu_torch import interop, sampling
-from pysgmcmc_tpu_torch.models import default_network
+from pysgmcmc_tpu_torch.models import default_network, dense_network
 from pysgmcmc_tpu_torch.ops import relativistic as rel
 from pysgmcmc_tpu_torch.ops import slim_update as su
 from pysgmcmc_tpu_torch.parallel import (
@@ -383,23 +383,29 @@ def test_sgnht_driver_takes_a_shared_or_a_per_chain_xi():
 @pytest.mark.parametrize("cls", [PSGLDSampler, SGNHTSampler,
                                  RelativisticSGHMCSampler])
 def test_drivers_route_the_samplers_without_burn_in(cls):
-    """Only ``sample_chain_lanes`` takes them: the lanes burn-in driver
-    names it, the fused drivers name their unported kernels."""
+    """The burn-in drivers refuse them, naming ``sample_chain_lanes``; both
+    sampling drivers take them (the fused one on the dense network)."""
     sampler = _small(cls)
     init, _ = default_network(1, units=(8, 8), device="cpu")
     states = sampler.init(init(torch.Generator().manual_seed(0), (2,)))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="sample_chain_lanes"):
-        burnin_chain_lanes(sampler, states, gen, 2)
     x, y, _, _ = _driver_setup()
-    for driver in (burnin_chain_fused, sample_chain_fused):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            driver(sampler, states, gen, 1, x, y)
+    for driver, args in ((burnin_chain_lanes, ()),
+                         (burnin_chain_fused, (x, y))):
+        with pytest.raises(NotImplementedError, match="sample_chain_lanes"):
+            driver(sampler, states, gen, 2, *args)
     out, pos, costs = sample_chain_lanes(sampler, states, gen, 2,
                                          keep_every=2)
     assert costs.shape == (2, 2) and torch.isfinite(costs).all()
     assert pos["w1"].shape == (2, 2, 1, 8)
     assert torch.equal(pos["w2"][:, -1], out.position["w2"])
+    assert type(out) is type(states) and int(out.step) == 4
+    dense, _ = dense_network(1, units=(8, 8), device="cpu")
+    states = sampler.init(dense(torch.Generator().manual_seed(0), (2,)))
+    out, pos, costs = sample_chain_fused(sampler, states, gen, 2, x, y,
+                                         keep_every=2, multistep=True)
+    assert costs.shape == (2, 2) and torch.isfinite(costs).all()
+    assert pos["w1"].shape == (2, 2, 8)
     assert type(out) is type(states) and int(out.step) == 4
 
 
