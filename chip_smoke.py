@@ -5,13 +5,16 @@
 
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
-spills, holds each of the nineteen kernels against its plain PyTorch
+spills, holds each of the twenty kernels against its plain PyTorch
 version on the card (flagship shapes, from burned-in states, injected noise
 and the Philox stream, each check beside the plain version's own floor):
 the fused kernels B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc,
-B5-sgld, B5-psgld, B5-sgnht, B5-rsghmc, B6 and the slim kernels B7,
+B5-sgld, B5-psgld, B5-sgnht, B5-rsghmc, B6, the slim kernels B7,
 B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc, B9-sgld (also with a
-per-chain eps row).  It times every kernel at the main path's shape, checks
+per-chain eps row) and the SVGD transport B11 (on the flagship's ensemble
+after 50 SVGD steps and at the JAX package's test shapes).  It times every
+kernel at the main path's shape (a multi-step kernel as the median of 5
+launches; B11 beside the dense path's phi and the median bandwidth), checks
 the one-step driver against the multi-step driver and the chains-on-lanes
 drivers against the fused drivers on the dense network for all five
 samplers, and the small main paths on the card against the CPU, then trains
@@ -19,13 +22,18 @@ and predicts the flagship BNNs (3x50 tanh, 8192 chains, sinc data) through
 ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork``: all five samplers on
 the fused path (``network="dense"``; pSGLD, relativistic SGHMC and SGNHT
 burn in on the lanes driver) and all five on the lanes path
-(``network="reference"``), and takes one profiler trace of lanes steps.
+(``network="reference"``), and the SVGD flagship (4096 particle networks x
+500 steps on B11, after its first 10 steps on B11, on the plain phi and on
+the dense path, and a 64-particle SVGD path card vs CPU beside the same
+path on the plain phi and the dense path), and takes one profiler trace of
+lanes steps.
 Each kernel's launches are counted over the paths that run it (the fused
 flagships for B1/B2, B5-sgld/B6 and B5-psgld, B5-rsghmc, B5-sgnht, the
 one-step driver for B3 and B4-*, the lanes flagships for B7/B9-sghmc and
 B8-sgld/B9-sgld, both flagships of each sampler for B8-psgld, B8-rsghmc
-and B8-sgnht).  The second-to-last line is the
-kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
+and B8-sgnht, the SVGD flagship for B11).  It prints its own wall time;
+the second-to-last line is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before printing any
 result.
@@ -110,6 +118,21 @@ INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
 SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (2, 0): "B8-psgld",
                   (3, 0): "B8-rsghmc", (4, 0): "B8-sgnht", (0, 1): "B9-sghmc",
                   (1, 1): "B9-sgld"}
+# SVGD (kernel B11): the flagship's ensemble of 3x50 reference networks
+# (5,252 parameters each) at the BNN's default stepsize; 4096 particles is
+# the largest ensemble whose streaming bandwidth is exact (the sampler's
+# bandwidth_subsample).  Its kernel checks start from the ensemble after
+# SVGD_STATE_STEPS steps and also take the shapes of the JAX package's
+# streaming tests; the small main path runs SVGD_SMALL particles.
+SVGD_PARTICLES, SVGD_STEPS, SVGD_STATE_STEPS = 4096, 500, 50
+SVGD_SMALL, SVGD_SMALL_STEPS, SVGD_TWICE_STEPS = 64, 50, 10
+SVGD_SHAPES = ((256, 3), (128, 130), (100, 2), (97, 5), (130, 3))
+SVGD_TIMED = 20  # launches of B11 timed (median)
+# B11's SVGD paths against the plain phi: the samples' distance is held to
+# this many times that of a witness, the same path with another order of
+# summation (the plain phi on the card against the CPU, the dense path)
+SVGD_WITNESS = 4.0
+MULTI_TIMED = 5  # launches of each multi-step kernel timed (median)
 PROFILED_STEPS = 20  # lanes burn-in steps in the profiler trace
 HOST_ROUNDS = 3  # timings of those steps on the host's clock, least kept
 # device clock cycles the stream spins before a timed call (_time_ms),
@@ -243,6 +266,25 @@ def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
     if complete and set(out) != set(instances.values()):
         raise AssertionError("ptxas report lacks kernels: {}".format(
             sorted(set(instances.values()) - set(out))))
+    return out
+
+
+def _ptxas_svgd(log_text):
+    """``{"B11 ...": "N registers, ..."}`` of csrc/svgd_streaming.cu's three
+    kernels (the two pre-passes and the transport) from ptxas -v; raises
+    where one is missing."""
+    out = {}
+    for kernel, name in (("svgd_transport", "B11"),
+                         ("squared_norms", "B11 norms pre-pass"),
+                         ("fold_rhs", "B11 rhs pre-pass")):
+        m = re.search(
+            kernel + r".*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+            log_text, re.S)
+        if m is None:
+            raise AssertionError("ptxas report lacks {}".format(kernel))
+        out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
+                    "loads".format(m.group(4), m.group(2), m.group(3))
     return out
 
 
@@ -897,17 +939,292 @@ def _lanes_host_split(torch, x, y, sampler, burn, states, busy_ms, label,
               max(0.0, 1.0 - busy_ms / ms["step"]), card))
 
 
+def _svgd_bnn(n_iters, n_nets=SVGD_PARTICLES, kernel_impl="streaming"):
+    """The SVGD flagship's BNN (streaming kernel, reference network), with
+    ``n_iters`` steps of ``n_nets`` particles."""
+    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
+    from pysgmcmc_tpu_torch.sampling import Sampler
+
+    return BayesianNeuralNetwork(
+        sampling_method=Sampler.SVGD, kernel_impl=kernel_impl, n_nets=n_nets,
+        n_iters=n_iters, batch_size=BATCH, network="reference",
+        units=(H, H, H), device="cuda")
+
+
+def _svgd_state(torch, x_np, y_np, x, y):
+    """The flagship's ensemble after SVGD_STATE_STEPS steps on the card and
+    every particle's cost gradient on the first window, flat ``(n, d)``,
+    with the median bandwidth of the ensemble."""
+    from pysgmcmc_tpu_torch.ops import pairwise
+    from pysgmcmc_tpu_torch.samplers.svgd import _ravel_particles
+
+    bnn = _svgd_bnn(SVGD_STATE_STEPS)
+    bnn.train(x_np, y_np)
+
+    def cost(params, batch):
+        return bnn.negative_log_likelihood(bnn._apply_fn, params, batch[0],
+                                           batch[1], N_DATA)[0]
+
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(cost),
+                               in_dims=(0, None))(
+        bnn.samples, (x[:BATCH], y[:BATCH, None]))
+    flat_x = _ravel_particles(bnn.samples)[0]
+    n = flat_x.shape[0]
+    return (flat_x, _ravel_particles(grads)[0], pairwise.median_bandwidth(
+        pairwise.squared_distance_matrix(flat_x), n))
+
+
+def _svgd_bound(n, d):
+    """(bound_ms, bound_by) of one B11 call: the symmetric Gram matrix (n^2
+    d f32 operations) and one n x n x d product K (-G - X / h^2) (2 n^2 d;
+    the n^2 exponentials not counted), against x and g read and phi written
+    once."""
+    compute_ms = 3.0 * n * n * d / F32_FLOPS * 1e3
+    memory_ms = 3.0 * 4 * n * d / HBM_BYTES_PER_S * 1e3
+    if compute_ms >= memory_ms:
+        return compute_ms, "operations"
+    return memory_ms, "bytes"
+
+
+def _svgd_checks(torch, ss, cases):
+    """B11 against its plain version on each ``(label, x, g, h)``: per
+    particle row within REL_TOL, beside the plain version's floor (from a
+    1e-7 nudge of x); two launches must agree bit for bit.  Returns the
+    worst max abs error."""
+    worst = 0.0
+    for label, x, g, h in cases:
+        want = ss.svgd_phi_streaming_ref(x, g, h)
+        floor = _rel_err(ss.svgd_phi_streaming_ref(_nudge(torch, x), g, h),
+                         want)
+        got = ss.svgd_phi_streaming(x, g, h)
+        again = ss.svgd_phi_streaming(x, g, h)
+        torch.cuda.synchronize()
+        tag = "B11 {} ({} x {})".format(label, *x.shape)
+        if not torch.equal(got, again):
+            raise AssertionError("{}: two launches differ".format(tag))
+        worst = max(worst, _compare(torch, (tag, ("phi",)), (got,), (want,),
+                                    floor))
+    return worst
+
+
+def _svgd_times(torch, ss, x, g, h, card):
+    """Device ms at the flagship's shape: B11 (median of SVGD_TIMED), its
+    plain version, the dense path for the same phi (JAX's
+    ``kernel_impl="dense"``: ``svgd_kernel`` and a product, three cuBLAS
+    calls with its own bandwidth) and the median bandwidth alone (median
+    of 5 each).  Returns ``{name: ms}`` and B11's bound."""
+    from pysgmcmc_tpu_torch.ops import pairwise
+
+    n, d = x.shape
+
+    def dense():
+        kernel, grad_kernel = pairwise.svgd_kernel(x)
+        return (torch.matmul(kernel, -g) + grad_kernel) / n
+
+    runs = {"B11": (lambda: ss.svgd_phi_streaming(x, g, h), SVGD_TIMED),
+            "B11 plain": (lambda: ss.svgd_phi_streaming_ref(x, g, h), 5),
+            "B11 dense": (dense, 5),
+            "B11 bandwidth": (lambda: pairwise.median_bandwidth(
+                pairwise.squared_distance_matrix(x), n), 5)}
+    ms = {}
+    for name, (fn, repeats) in runs.items():
+        fn()  # warm-up
+        ms[name] = _median_ms(torch, fn, repeats)
+    bound = _svgd_bound(n, d)
+    print("time B11 at {} particles x {} parameters: kernel {:.3f} ms (median "
+          "of {}), plain {:.3f} ms, dense path (svgd_kernel + matmul, three "
+          "cuBLAS calls) {:.3f} ms, median bandwidth {:.3f} ms (medians of "
+          "5), bound {:.3f} ms ({}) ({})".format(
+              n, d, ms["B11"], SVGD_TIMED, ms["B11 plain"], ms["B11 dense"],
+              ms["B11 bandwidth"], bound[0], bound[1], card))
+    return ms, bound
+
+
+class _PlainTransport:
+    """Within the block the SVGD sampler's transport is B11's plain
+    version (on the card too); on leaving, B11 is back and its launch count
+    must not have moved, so the swap is known to have taken effect."""
+
+    def __init__(self, ss):
+        import pysgmcmc_tpu_torch.samplers.svgd as svgd_module
+
+        self.ss, self.module = ss, svgd_module
+
+    def __enter__(self):
+        ss = self.ss
+
+        def plain(x, g, h, tile=512, interpret=False):
+            return ss.svgd_phi_streaming_ref(x, g, h, tile)
+
+        self.launches = ss.svgd_phi_streaming.launches
+        self.module.svgd_phi_streaming = plain
+
+    def __exit__(self, *exc):
+        self.module.svgd_phi_streaming = self.ss.svgd_phi_streaming
+        if exc[0] is None and \
+                self.ss.svgd_phi_streaming.launches != self.launches:
+            raise AssertionError("the plain transport run launched B11")
+
+
+def _launched(ss, n_steps, fn):
+    """``fn()``, which must launch B11 ``n_steps`` times."""
+    before = ss.svgd_phi_streaming.launches
+    out = fn()
+    if ss.svgd_phi_streaming.launches - before != n_steps:
+        raise AssertionError("{} launches of B11, want {}".format(
+            ss.svgd_phi_streaming.launches - before, n_steps))
+    return out
+
+
+def _svgd_small(torch, x_np, y_np, ss):
+    """The small SVGD main path (SVGD_SMALL particles, SVGD_SMALL_STEPS
+    steps, streaming) on the card (B11) against the CPU (plain version) from
+    the same particles and Philox windows: the predictive mean and the
+    samples, each beside its floor.  The samples amplify rounding (Adagrad's
+    1 / sqrt(hist) turns a rounding-sized change of a phi near 0 into a
+    step of order eps), so the same path also runs on the card with the
+    plain phi (cuBLAS) and with the dense path: their distances from the
+    CPU are the witnesses of how far rounding alone carries the samples,
+    and B11's distance is also held to SVGD_WITNESS times the larger.
+    """
+    from pysgmcmc_tpu_torch.models import default_network
+    from pysgmcmc_tpu_torch.sampling import Sampler
+
+    init_fn, _ = default_network(1, units=(H, H, H), device="cpu")
+    start = init_fn(torch.Generator().manual_seed(7), (SVGD_SMALL,))
+    config = dict(kernel_impl="streaming", n_nets=SVGD_SMALL,
+                  n_iters=SVGD_SMALL_STEPS, batch_size=BATCH,
+                  network="reference")
+
+    def run(device, begin=start, **change):
+        return _train_small(torch, x_np, y_np, Sampler.SVGD,
+                            dict(config, **change), begin, device)
+
+    cpu = run("cpu")
+    nudged = run("cpu", {k: _nudge(torch, v) for k, v in start.items()})
+    card = _launched(ss, SVGD_SMALL_STEPS, lambda: run("cuda"))
+    with _PlainTransport(ss):
+        card_plain = run("cuda")
+    card_dense = run("cuda", kernel_impl="dense")
+    label = "small SVGD main path ({} particles, {} steps, streaming)".format(
+        SVGD_SMALL, SVGD_SMALL_STEPS)
+    for i, what in ((1, "predictive mean"), (0, "samples")):
+        _compare(torch, (label, (what,)), card[i:i + 1], cpu[i:i + 1],
+                 _rel_err(nudged[i], cpu[i]), what="card-CPU")
+    readings = {"B11": _rel_err(card[0], cpu[0]),
+                "plain phi": _rel_err(card_plain[0], cpu[0]),
+                "dense path": _rel_err(card_dense[0], cpu[0])}
+    limit = SVGD_WITNESS * max(readings["plain phi"], readings["dense path"])
+    print("{} samples, max|card-CPU| of a particle's scale: {} (B11 vs the "
+          "plain phi, both on the card, {:.3e}); limit {} x the larger "
+          "witness = {:.3e}".format(
+              label, ", ".join("{} {:.3e}".format(k, v)
+                               for k, v in readings.items()),
+              _rel_err(card[0], card_plain[0]), SVGD_WITNESS, limit))
+    if not readings["B11"] <= limit:
+        raise AssertionError(
+            "{}: B11's samples are {:.3e} of a particle's scale from the "
+            "CPU's, beyond {} x the rounding witnesses".format(
+                label, readings["B11"], SVGD_WITNESS))
+
+
+def _svgd_plain_vs_kernel(torch, x_np, y_np, ss):
+    """The flagship's first SVGD_TWICE_STEPS steps at full size on B11, on
+    its plain version on the card (the sampler's transport swapped for
+    that run) and on the dense path: per leaf, the distance of B11's and
+    of the dense path's samples from the plain phi's, as a share of the
+    leaf's scale; B11's is held to SVGD_WITNESS times the dense path's
+    (the witness of rounding) or REL_TOL, whichever is larger."""
+    def train(**kw):
+        bnn = _svgd_bnn(SVGD_TWICE_STEPS, **kw)
+        bnn.train(x_np, y_np)
+        return bnn.samples
+
+    kernel = _launched(ss, SVGD_TWICE_STEPS, train)
+    with _PlainTransport(ss):
+        plain = train()
+    dense = train(kernel_impl="dense")
+
+    def shares(samples):
+        return {k: float((samples[k] - plain[k]).abs().max()
+                         / plain[k].abs().max()) for k in plain}
+
+    got, witness = shares(kernel), shares(dense)
+    for what, values in (("B11", got), ("dense path", witness)):
+        print("SVGD flagship, first {} steps on the {} vs on the plain phi: "
+              "max|diff| / max|leaf| {}".format(
+                  SVGD_TWICE_STEPS, what, ", ".join(
+                      "{} {:.3e}".format(k, v)
+                      for k, v in sorted(values.items()))))
+    for k in got:
+        limit = max(REL_TOL, SVGD_WITNESS * witness[k])
+        if not got[k] <= limit:
+            raise AssertionError(
+                "SVGD flagship, first {} steps: B11's {} is {:.3e} of its "
+                "scale from the plain phi's, beyond {:.3e}".format(
+                    SVGD_TWICE_STEPS, k, got[k], limit))
+
+
+def _svgd_flagship(torch, x_np, y_np, ss, card):
+    """Train + predict the SVGD flagship through the port's BNN with B11's
+    count set to 0 just before; returns B11's launches (SVGD_STEPS, one a
+    step)."""
+    import numpy as np
+
+    ss.svgd_phi_streaming.launches = 0
+    bnn = _svgd_bnn(SVGD_STEPS)
+    t0 = time.perf_counter()
+    bnn.train(x_np, y_np)
+    train_s = time.perf_counter() - t0
+    launches = ss.svgd_phi_streaming.launches
+    x_grid = np.linspace(0.0, 1.0, 200)[:, None]
+    t0 = time.perf_counter()
+    mean, var = bnn.predict(x_grid)
+    predict_s = time.perf_counter() - t0
+    members = bnn.predict(x_grid, return_individual_predictions=True)[0]
+    label = "SVGD main path (reference network, streaming, B11)"
+    mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
+    spread = float(np.std(members, axis=0).mean())
+    seconds = bnn.phase_seconds["transport"]
+    print("{}: {} particles x {} steps; train {:.2f} s (transport {:.3f} s), "
+          "predict {:.3f} s; {} launches of B11".format(
+              label, SVGD_PARTICLES, SVGD_STEPS, train_s, seconds, predict_s,
+              launches))
+    if not (np.isfinite(mean).all() and np.isfinite(var).all()):
+        raise AssertionError("{}: predictions are not finite".format(label))
+    if mean.shape != (200,) or members.shape != (SVGD_PARTICLES, 200):
+        raise AssertionError("{}: prediction shapes {} {}".format(
+            label, mean.shape, members.shape))
+    if launches != SVGD_STEPS:
+        raise AssertionError("{}: {} launches of B11, want {}".format(
+            label, launches, SVGD_STEPS))
+    if not mse < 0.1:
+        raise AssertionError("{}: predictive MSE {} >= 0.1".format(label, mse))
+    if not spread > 1e-6:
+        raise AssertionError("{}: the members collapsed (spread {})".format(
+            label, spread))
+    print("{}: predictive MSE on sinc {:.3e} (gate 0.1), mean member spread "
+          "{:.3e} (gate 1e-6)".format(label, mse, spread))
+    print("{}: particle-steps/s {:.4e} ({} particles x {} steps in {:.3f} s; "
+          "{})".format(label, SVGD_PARTICLES * SVGD_STEPS / seconds,
+                       SVGD_PARTICLES, SVGD_STEPS, seconds, card))
+    return launches
+
+
 def main():
     import numpy as np
     import torch
 
+    wall_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     _import_port()
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import _build, fused_step as fs
+    from pysgmcmc_tpu_torch.ops import pairwise
     from pysgmcmc_tpu_torch.ops import slim_update as su
+    from pysgmcmc_tpu_torch.ops import svgd_streaming as ss
     from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
     from pysgmcmc_tpu_torch.sampling import Sampler
 
@@ -932,6 +1249,8 @@ def main():
             ("slim_update", "slim_kernel", SLIM_INSTANCES)):
         with open(_build.log_path(source)) as f:
             reports.update(_ptxas_report(f.read(), kernel, instances))
+    with open(_build.log_path("svgd_streaming")) as f:
+        reports.update(_ptxas_svgd(f.read()))
     for name, line in sorted(reports.items()):
         print("ptxas {}: {}".format(name, line))
 
@@ -1054,12 +1373,16 @@ def main():
         return sum(4 * t.numel() for t in tensors if torch.is_tensor(t))
 
     def time_multi(name, fn, ref, args, kw, step0=0):
-        """Times one launch of k steps; the bound counts every tensor
-        argument read once (the state and the window tables) and every
-        output written once."""
+        """Times launches of k steps, the median of MULTI_TIMED (the plain
+        version: one); the bound counts every tensor argument read once
+        (the state and the window tables) and every output written once."""
         fn(*args, k_steps=2, step0=step0, **kw)  # warm-up
-        timed[name], out = _time_ms(
-            torch, lambda: fn(*args, k_steps=k, step0=step0, **kw))
+        times = []
+        for _ in range(MULTI_TIMED):
+            ms, out = _time_ms(
+                torch, lambda: fn(*args, k_steps=k, step0=step0, **kw))
+            times.append(ms)
+        timed[name] = sorted(times)[MULTI_TIMED // 2]
         ref(*args, k_steps=2, step0=step0, **kw)
         timed[name + " plain"], _ = _time_ms(
             torch, lambda: ref(*args, k_steps=k, step0=step0, **kw))
@@ -1090,10 +1413,11 @@ def main():
                     B8_EPS[method], 48), fused_kw[method], step0=BURNED_IN)
     for name in ("B2", "B1", "B6", "B5-sgld", "B5-psgld", "B5-rsghmc",
                  "B5-sgnht"):
-        print("time {} at {} chains x {} steps: kernel {:.2f} ms, plain "
-              "{:.2f} ms, bound {:.2f} ms ({}) ({})".format(
-                  name, n, k, timed[name], timed[name + " plain"],
-                  bounds[name][0], bounds[name][1], card))
+        print("time {} at {} chains x {} steps: kernel {:.2f} ms (median of "
+              "{}), plain {:.2f} ms (one launch), bound {:.2f} ms ({}) "
+              "({})".format(name, n, k, timed[name], MULTI_TIMED,
+                            timed[name + " plain"], bounds[name][0],
+                            bounds[name][1], card))
     # one-step kernels: one launch (one step) at 8192 chains, Philox stream
     sel = fs.gather_batch(x_win, y_win, fs.philox_windows(46, 0, n, n_windows,
                                                           device))
@@ -1214,6 +1538,24 @@ def main():
                      dict(SMALL_LANES["SGLD"],
                           stepsize_schedule=B8_EPS["PSGLD"]), check=False)
 
+    # ---- B11 against its plain version: the flagship's ensemble after
+    # SVGD_STATE_STEPS steps and the shapes of the JAX package's tests ----
+    svgd_x, svgd_g, svgd_h = _svgd_state(torch, x_np, y_np, x, y)
+    rng = np.random.default_rng(1)
+    cases = [("after {} SVGD steps".format(SVGD_STATE_STEPS), svgd_x, svgd_g,
+              svgd_h)]
+    for n_p, d in SVGD_SHAPES:
+        xs, gs = (torch.as_tensor(rng.normal(size=(n_p, d)).astype(
+            np.float32), device=device) for _ in range(2))
+        cases.append(("random", xs, gs, pairwise.median_bandwidth(
+            pairwise.squared_distance_matrix(xs), n_p)))
+    err["B11"] = _svgd_checks(torch, ss, cases)
+    svgd_ms, bounds["B11"] = _svgd_times(torch, ss, svgd_x, svgd_g, svgd_h,
+                                         card)
+    timed.update(svgd_ms)
+    del svgd_x, svgd_g, svgd_h, cases
+    _svgd_small(torch, x_np, y_np, ss)
+
     # ---- the main paths: train + predict through the port's BNN ----
     # a kernel's launches are summed over the main paths that run it
     def count(more):
@@ -1259,6 +1601,10 @@ def main():
                   *(rates[(impl, method, phase)]
                     for phase in ("burn_in", "sampling")
                     for impl in ("fused", "lanes")), card))
+    # SVGD: the first steps at full size on B11 and on the plain phi, then
+    # the flagship (B11's count set to 0 just before)
+    _svgd_plain_vs_kernel(torch, x_np, y_np, ss)
+    count({"B11": _svgd_flagship(torch, x_np, y_np, ss, card)})
     try:
         _lanes_profile(torch, x, y, card)
     except Exception as exc:  # the trace informs PERF.md; it gates nothing
@@ -1284,7 +1630,8 @@ def main():
                 "B5-sgnht": ("fused_bnn_multistep_sgnht", "fused_step", 2283),
                 "B4-psgld": ("fused_bnn_step_psgld", "fused_step", 2054),
                 "B4-rsghmc": ("fused_bnn_step_rsghmc", "fused_step", 2168),
-                "B4-sgnht": ("fused_bnn_step_sgnht", "fused_step", 2106)}
+                "B4-sgnht": ("fused_bnn_step_sgnht", "fused_step", 2106),
+                "B11": ("svgd_phi_streaming", "svgd_streaming", 99)}
     records = [
         {"name": fn_name, "route": "cuda",
          "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),
@@ -1294,6 +1641,8 @@ def main():
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
         for name, (fn_name, module, line) in replaces.items()]
+    print("chip_smoke wall time: {:.1f} s ({})".format(
+        time.perf_counter() - wall_start, card))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

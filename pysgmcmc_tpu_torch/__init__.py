@@ -1,11 +1,15 @@
 """pysgmcmc_tpu_torch — the PyTorch and CUDA port of :mod:`pysgmcmc_tpu`.
 
-It runs the fused path of the JAX package on an NVIDIA H100: SGHMC or SGLD
-over the dense tanh heteroscedastic BNN (``BayesianNeuralNetwork(
-network="dense", step_impl="fused")``), with burn-in, sampling and the
-one-step driver in hand-written CUDA kernels (``csrc/fused_step.cu``) and a
-plain PyTorch version of each kernel for CPU tensors.  Module paths mirror the JAX package's.  It imports torch,
-never jax; the JAX package stays the reference the tests hold it against.
+It runs the JAX package's BNN on an NVIDIA H100: the fused path
+(``BayesianNeuralNetwork(network="dense", step_impl="fused")``, burn-in,
+sampling and the one-step driver in ``csrc/fused_step.cu``) and the
+chains-on-lanes path (``step_impl="lanes"``, ``csrc/slim_update.cu``) with
+the five gradient samplers, and SVGD's particle ensemble
+(``sampling_method=Sampler.SVGD``, the transport in
+``csrc/svgd_streaming.cu``), all in hand-written CUDA kernels with a plain
+PyTorch version of each for CPU tensors.  Module paths mirror the JAX
+package's.  It imports torch, never jax; the JAX package stays the
+reference the tests hold it against.
 """
 
 __version__ = "0.1.0"

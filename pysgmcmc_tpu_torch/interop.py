@@ -24,6 +24,7 @@ from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDState
 from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTState
+from pysgmcmc_tpu_torch.samplers.svgd import SVGDState
 
 
 def params_from_numpy(params, device):
@@ -113,15 +114,28 @@ def rsghmc_state_from_numpy(state, device, schedule_state=()):
     )
 
 
+def svgd_state_from_numpy(state, device, schedule_state=()):
+    """A JAX ``SVGDState`` (``position``, ``historical_grad``, ``step``; the
+    particle ensemble as a dict of leaves with a leading particle axis) ->
+    the port's :class:`SVGDState` on ``device``."""
+    return SVGDState(
+        position=params_from_numpy(state.position, device),
+        historical_grad=params_from_numpy(state.historical_grad, device),
+        step=_step_from_numpy(state.step, device),
+        schedule_state=schedule_state,
+    )
+
+
 def state_to_numpy(state):
     """Any of the port's sampler states -> a dict of its fields as numpy:
     ``"position"`` and, where the state has them, ``"momentum"``, ``"v"``
     (pSGLD's accumulator) and ``"tau"``, ``"g"``, ``"v_hat"``, ``"minv"``
-    (SGHMC's and SGLD's stats) as dicts of arrays, ``"xi"`` (SGNHT) and
-    ``"step"`` as arrays."""
+    (SGHMC's and SGLD's stats) and ``"historical_grad"`` (SVGD's Adagrad
+    accumulator) as dicts of arrays, ``"xi"`` (SGNHT) and ``"step"`` as
+    arrays."""
     out = {"position": params_to_numpy(state.position),
            "step": np.asarray(state.step.cpu())}
-    for field in ("momentum", "v"):
+    for field in ("momentum", "v", "historical_grad"):
         if hasattr(state, field):
             out[field] = params_to_numpy(getattr(state, field))
     if hasattr(state, "stats"):

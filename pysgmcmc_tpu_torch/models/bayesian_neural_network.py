@@ -21,8 +21,14 @@ Two step implementations are ported:
   is discarded sampling steps, every step on B8-psgld, B8-rsghmc or
   B8-sgnht.
 
-Other step implementations and samplers raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+SVGD (``sampling_method=Sampler.SVGD``) ignores ``step_impl``, as in the JAX
+package: ``n_nets`` particle networks are transported jointly, every step on
+one minibatch window shared by the ensemble, with the dense kernel matrix
+(``kernel_impl="dense"``, ``torch.matmul``) or kernel B11
+(``kernel_impl="streaming"``, :mod:`pysgmcmc_tpu_torch.ops.svgd_streaming`).
+
+Other step implementations raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 
 Priors and likelihood match the reference: heteroscedastic Gaussian log
 likelihood scaled by 1/batch_size, a Gaussian prior on the log predictive
@@ -54,10 +60,16 @@ from pysgmcmc_tpu_torch.models.base_model import (
     zero_mean_unit_var_normalization,
     zero_mean_unit_var_unnormalization,
 )
-from pysgmcmc_tpu_torch.ops.fused_step import MAX_INPUTS
+from pysgmcmc_tpu_torch.ops.fused_step import (
+    MAX_INPUTS,
+    FusedLayout,
+    check_fused_fits,
+)
 from pysgmcmc_tpu_torch.parallel.packed import (
+    _draw_seed,
     burnin_chain_fused,
     burnin_chain_lanes,
+    fused_kernel_ids,
     resolve_noise_impl,
     sample_chain_fused,
     sample_chain_lanes,
@@ -69,6 +81,11 @@ from pysgmcmc_tpu_torch.stepsize_schedules import (
 )
 from pysgmcmc_tpu_torch.utils.numeric import safe_divide
 from pysgmcmc_tpu_torch.utils.pytree import tree_size
+
+# the gradient samplers' kinds in the fused drivers (parallel.packed)
+_FUSED_KIND = {Sampler.SGHMC: "sghmc", Sampler.SGLD: "sgld",
+               Sampler.PSGLD: "psgld", Sampler.SGNHT: "sgnht",
+               Sampler.RelativisticSGHMC: "rsghmc"}
 
 
 def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
@@ -110,9 +127,12 @@ class BayesianNeuralNetwork(BaseModel):
     ``step_impl="lanes"`` (either network, or ``get_net=(init, apply)``
     with the contract of :func:`~pysgmcmc_tpu_torch.models.architectures.
     default_network`), each with any of the five gradient samplers (SGHMC,
-    SGLD, pSGLD, SGNHT, relativistic SGHMC); ``**sampler_kwargs`` go to the
+    SGLD, pSGLD, SGNHT, relativistic SGHMC), and SVGD on any ``step_impl``
+    but these two (``n_nets`` particles, ``n_iters`` steps; ``phase_seconds``
+    records its ``"transport"``); ``**sampler_kwargs`` go to the
     sampler (SGLD's
-    ``A``, pSGLD's ``alpha``, relativistic SGHMC's ``D``, ...), which
+    ``A``, pSGLD's ``alpha``, relativistic SGHMC's ``D``, SVGD's
+    ``kernel_impl``, ...), which
     gets ``scale_grad`` = N by default where it has one; ``noise_impl`` is
     ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
     ``"zero"`` (the degenerate stream of the parity tests: zero noise,
@@ -204,6 +224,13 @@ class BayesianNeuralNetwork(BaseModel):
             if len(set(units)) != 1:
                 raise ValueError(
                     "step_impl='fused' requires equal hidden widths")
+            if sampling_method not in (
+                Sampler.SGHMC, Sampler.SGLD, Sampler.PSGLD, Sampler.SGNHT,
+                Sampler.RelativisticSGHMC,
+            ):
+                raise ValueError(
+                    "step_impl='fused' supports SGHMC, SGLD, PSGLD, SGNHT "
+                    "and RelativisticSGHMC")
             if get_net is not None:
                 raise ValueError(
                     "step_impl='fused' supports the dense NxH architecture "
@@ -221,12 +248,9 @@ class BayesianNeuralNetwork(BaseModel):
                 "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
                 + repr(noise_impl))
 
-        # the paths the port has not reached yet
-        if step_impl == "pytree":
+        # the paths the port has not reached yet (SVGD ignores step_impl)
+        if step_impl == "pytree" and sampling_method != Sampler.SVGD:
             raise _not_ported("step_impl='pytree'", "queue A item 6")
-        if sampling_method == Sampler.SVGD:
-            raise _not_ported("sampling_method={}".format(sampling_method),
-                              "queue A item 12")
         if mesh is not None:
             raise _not_ported("mesh", "queue A item 15")
         if pair_dots:
@@ -323,9 +347,18 @@ class BayesianNeuralNetwork(BaseModel):
         """Sample ``n_nets`` network-weight snapshots from the posterior:
         ``n_chains`` chains burn in, then each collects its share, one
         snapshot every ``sample_steps`` steps, on the kernels of
-        ``step_impl``.  ``phase_seconds`` records the wall time of each
+        ``step_impl`` (SVGD: ``n_nets`` particles transported jointly for
+        ``n_iters`` steps).  ``phase_seconds`` records the wall time of each
         phase."""
         self._check_device()
+        if self.step_impl == "fused" and self.device.type == "cuda":
+            # fault C1: refuse a network too wide for the fused kernels
+            # before any work is done (the CPU's plain versions take any)
+            check_fused_fits(
+                "BayesianNeuralNetwork.train",
+                fused_kernel_ids(_FUSED_KIND[self.sampling_method]),
+                FusedLayout(X.shape[1], self.units[0], len(self.units)),
+                min(self.batch_size, X.shape[0]))
         start_time = time.time()
         self.X, self.y = X, y
 
@@ -358,15 +391,26 @@ class BayesianNeuralNetwork(BaseModel):
                                         dtype=self.dtype, device=self.device)
         self._apply_fn = apply_fn
         self._n_inputs = n_inputs
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        # the kernels' Philox keys (and SVGD's bandwidth subsample) come
+        # from a CPU generator, so that one seed draws the same streams on
+        # the card and on the CPU
+        keys = torch.Generator().manual_seed(self.seed)
+
+        if self.sampling_method == Sampler.SVGD:
+            self._train_svgd(
+                apply_fn,
+                self._initial_positions(init_fn, generator, self.n_nets),
+                x_dev, y_dev, n_datapoints, keys)
+            logging.info(
+                "BayesianNeuralNetwork(SVGD): transported %d particles in "
+                "%.2fs", self.n_nets, time.time() - start_time)
+            return
 
         n_chains = max(1, self.n_chains)
         per_chain = self._n_collect(
             self.n_nets // n_chains if self.n_chains > 1 else None)
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
         positions = self._initial_positions(init_fn, generator, n_chains)
-        # the kernels' Philox keys come from a CPU generator, so that one
-        # seed draws the same streams on the card and on the CPU
-        keys = torch.Generator().manual_seed(self.seed)
         path = self._fused_path if self.step_impl == "fused" \
             else self._lanes_path
         sampler, burn, sample = path(apply_fn, positions, x_dev, y_dev,
@@ -376,6 +420,38 @@ class BayesianNeuralNetwork(BaseModel):
         self._run_chains(sampler.init(positions, keys), burn, sample,
                          apply_fn, x_dev, y_dev, n_datapoints, n_chains,
                          per_chain, start_time)
+
+    def _train_svgd(self, apply_fn, particles, x_dev, y_dev, n_datapoints,
+                    keys):
+        """Train ``n_nets`` particle networks jointly with SVGD, ``n_iters``
+        steps from ``particles``: every step takes one minibatch window for
+        the whole ensemble (``batch_fn(seed, step, 1)``, the Philox stream
+        keyed from ``keys``) and the full cost, priors included, of every
+        particle.  ``phase_seconds["transport"]`` records the wall time."""
+        def cost_fn(params, batch):
+            x_batch, y_batch = batch
+            nll, _ = self.negative_log_likelihood(
+                apply_fn, params, x_batch, y_batch, n_datapoints)
+            return nll
+
+        kwargs = dict(self.sampler_kwargs)
+        kwargs.update(cost_fn=cost_fn,
+                      stepsize_schedule=self.stepsize_schedule,
+                      dtype=self.dtype)
+        sampler = Sampler.get_sampler(Sampler.SVGD, **kwargs)
+        select_batch = batch_fn(x_dev, y_dev, self.batch_size)
+        window_seed = _draw_seed(keys)
+        state = sampler.init(particles)
+        self._sync()
+        phase_start = time.perf_counter()
+        for step in range(self.n_iters):
+            x_batch, y_batch = select_batch(window_seed, step, 1)
+            state, _ = sampler.step(state, keys, (x_batch[0], y_batch[0]))
+        self._sync()
+        self.phase_seconds["transport"] = time.perf_counter() - phase_start
+        self.samples = state.position
+        self._n_collected = self.n_nets
+        self.is_trained = True
 
     def _build_sampler(self, cost_fn, n_datapoints, **defaults):
         """The sampler, with ``scale_grad`` = N and the BNN's burn-in length

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Each source of ``csrc/`` (``fused_step.cu``, ``slim_update.cu``) is compiled
-with ``nvcc`` at first use into a shared library with a plain C interface,
-under ``pysgmcmc_tpu_torch/_build/``, and loaded with ``ctypes``.  A
-library's name carries a hash of every source and header of ``csrc/`` and
-of the flags, so an edited header rebuilds both.  The sources compile in
+Each source of ``csrc/`` (``fused_step.cu``, ``slim_update.cu``,
+``svgd_streaming.cu``) is compiled with ``nvcc`` at first use into a shared
+library with a plain C interface, under ``pysgmcmc_tpu_torch/_build/``, and
+loaded with ``ctypes``.  A library's name carries a hash of every source and
+header of ``csrc/`` and of the flags, so an edited header rebuilds them
+all.  The sources compile in
 parallel, one ``nvcc`` each.  The compiler's report (``ptxas -v``:
 registers, shared memory and spills of every kernel) is kept beside each
 library as a ``.log`` file.  Nothing here runs at import time: the CPU test
@@ -21,7 +22,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("fused_step", "slim_update")  # csrc/<name>.cu -> one library each
+# csrc/<name>.cu -> one library each
+SOURCES = ("fused_step", "slim_update", "svgd_streaming")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,6 +72,12 @@ _SIGNATURES = {
             "slim_sghmc_burnin_update",           # B9-sghmc
             "slim_sgld_burnin_update",            # B9-sgld
         )},
+    },
+    "svgd_streaming": {
+        "svgd_streaming_error_string": (ctypes.c_char_p, [_I]),
+        "svgd_streaming_smem_bytes": (_U64, []),
+        # B11: x, g, h, phi, 2 scratch buffers; n, d; the stream
+        "svgd_phi_streaming_launch": (_I, [_P] * 6 + [_I, _I, _P]),
     },
 }
 

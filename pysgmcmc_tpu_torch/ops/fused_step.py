@@ -920,6 +920,28 @@ B1, B2, B3, B4_SGLD, B5_SGLD, B6 = 1, 2, 3, 4, 5, 6
 B4_PSGLD, B4_SGNHT, B4_RSGHMC, B5_PSGLD, B5_SGNHT, B5_RSGHMC = range(7, 13)
 
 
+def check_fused_fits(name, kernel_ids, layout, batch_size):
+    """Raise ``NotImplementedError`` (ROADMAP.md queue B row 6, fault C1)
+    where one chain of ``layout`` needs more shared memory in any of the
+    fused kernels ``kernel_ids`` than a block may use, by the library's own
+    count (``fused_step_smem_bytes`` of ``csrc/fused_step.cu``).  Called
+    on the card only, before any work: it builds the library if needed."""
+    from pysgmcmc_tpu_torch.ops._build import MAX_SMEM_BYTES, load
+
+    lib = load("fused_step")
+    need = max(lib.fused_step_smem_bytes(
+        k, layout.n_params, layout.n_inputs, layout.hidden, layout.depth,
+        batch_size) for k in kernel_ids)
+    if need > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            "{}: one chain's state and scratch need {} bytes of shared "
+            "memory in the fused kernels (hidden width {}, depth {}), more "
+            "than the {} a block may use; the kernels for wider networks "
+            "are not ported yet (ROADMAP.md queue B row 6 (fault C1)); "
+            "step_impl='lanes' trains any width".format(
+                name, need, layout.hidden, layout.depth, MAX_SMEM_BYTES))
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -943,7 +965,8 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     relativistic SGHMC ``(k, 2)``: eps and the noise scale), ``coef``,
     ``cdiv``, ``c2`` and ``c3`` the rule's constants as the source's
     ``Args`` lists them (``mdecay`` for SGHMC, :func:`_sgld_constants`,
-    :func:`_psgld_constants`, ...).  Checks contiguity and shared memory,
+    :func:`_psgld_constants`, ...).  Checks contiguity and shared memory
+    (:func:`check_fused_fits`),
     raises on a failed launch, and returns the outputs in ``outs`` order,
     then the ``(n_chains, 1)`` cost.
     """
@@ -953,16 +976,8 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     for arr in (*ins.values(), x, y, tab, noise, widx):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
+    check_fused_fits(name, (kernel_id,), layout, batch_size)
     lib = _build.load("fused_step")
-    need = lib.fused_step_smem_bytes(
-        kernel_id, layout.n_params, layout.n_inputs, layout.hidden,
-        layout.depth, batch_size)
-    if need > _build.MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            "{}: one chain's state and scratch need {} bytes of shared "
-            "memory, more than the {} a block may use; this network is too "
-            "large for the resident-state kernel".format(
-                name, need, _build.MAX_SMEM_BYTES))
     n = theta.shape[0]
     # each output shaped as its input (burn-in's minv as theta)
     out = {key: torch.empty_like(ins.get(key, theta)) for key in outs}

@@ -45,7 +45,9 @@ from typing import NamedTuple
 
 import torch
 
+from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops.fused_step import (
+    check_fused_fits,
     data_windows,
     fused_bnn_multistep,
     fused_bnn_multistep_burnin,
@@ -103,6 +105,23 @@ def resolve_noise_impl(noise_impl):
 _KINDS = ((SGHMCSampler, "sghmc"), (SGLDSampler, "sgld"),
           (PSGLDSampler, "psgld"), (RelativisticSGHMCSampler, "rsghmc"),
           (SGNHTSampler, "sgnht"))
+# sampler kind -> the fused kernels of its drivers: burn-in (None where the
+# sampler burns in on the lanes driver), multi-step, one-step
+_FUSED_IDS = {
+    "sghmc": (fs.B2, fs.B1, fs.B3),
+    "sgld": (fs.B6, fs.B5_SGLD, fs.B4_SGLD),
+    "psgld": (None, fs.B5_PSGLD, fs.B4_PSGLD),
+    "sgnht": (None, fs.B5_SGNHT, fs.B4_SGNHT),
+    "rsghmc": (None, fs.B5_RSGHMC, fs.B4_RSGHMC),
+}
+
+
+def fused_kernel_ids(kind):
+    """The ids of the fused kernels the drivers launch for the sampler
+    ``kind`` (``"sghmc"``, ``"sgld"``, ``"psgld"``, ``"rsghmc"`` or
+    ``"sgnht"``), for
+    :func:`~pysgmcmc_tpu_torch.ops.fused_step.check_fused_fits`."""
+    return tuple(k for k in _FUSED_IDS[kind] if k is not None)
 
 
 def _sampler_kind(name, sampler):
@@ -113,8 +132,10 @@ def _sampler_kind(name, sampler):
             return kind
     raise NotImplementedError(
         "{}: the port's drivers take the gradient samplers SGHMC, SGLD, "
-        "PSGLD, RelativisticSGHMC and SGNHT; got {} (SVGD is ROADMAP.md "
-        "queue A item 12)".format(name, type(sampler).__name__))
+        "PSGLD, RelativisticSGHMC and SGNHT; got {} (SVGD trains through "
+        "BayesianNeuralNetwork's SVGD path, sampling_method=Sampler.SVGD, "
+        "not through these drivers: ROADMAP.md queue A item 12)".format(
+            name, type(sampler).__name__))
 
 
 def _check_driver(name, sampler, mesh, pair_dots):
@@ -168,6 +189,10 @@ def _stream_inputs(noise_impl, k_steps, n_chains, n_params, device):
                         device=device))
 
 
+def _on_card(position):
+    return next(iter(position.values())).device.type == "cuda"
+
+
 def _data(x, y, batch_size, device):
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
@@ -186,7 +211,15 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     ``torch.Generator`` on the states' device, ``x``/``y`` the raw training
     data.  Returns the advanced states with ``stats.minv`` holding the
     mass-matrix inverse the final step used (the value the sampling phase
-    freezes).
+    freezes).  On the card, a network too wide for the kernel's shared
+    memory raises ``NotImplementedError`` before any work (ROADMAP.md queue
+    B row 6, fault C1).
+
+    ``state_dtype`` defaults to ``torch.float32``, where the JAX package's
+    driver defaults to ``jnp.bfloat16``: bf16 momentum and mass state is
+    not ported yet (ROADMAP.md queue B row 5), so a bare call runs in f32
+    on both sides only when JAX is given ``jnp.float32`` (as the BNN
+    does).
     """
     name = "burnin_chain_fused"
     _check_burn_in(name, sampler)
@@ -195,6 +228,9 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
         return states
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
+    if _on_card(states.position):
+        check_fused_fits(name, (_FUSED_IDS["sghmc" if sghmc else "sgld"][0],),
+                         layout, batch_size)
     theta = pack(states.position, layout)
     device = theta.device
     x_win, y_win, n_data = _data(x, y, batch_size, device)
@@ -271,12 +307,23 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     ``(n_chains,)``.  Returns ``(states, positions, costs)``: ``positions``
     stacks the position after each sample as leaves ``(n_chains, n_samples,
     ...)`` (``None`` without ``collect_positions``), ``costs`` is
-    ``(n_chains, n_samples)``, each sample's final-step cost.
+    ``(n_chains, n_samples)``, each sample's final-step cost.  On the card,
+    a network too wide for the kernel's shared memory raises
+    ``NotImplementedError`` before any work (ROADMAP.md queue B row 6,
+    fault C1).
+
+    ``state_dtype`` defaults to ``torch.float32``, where the JAX package's
+    driver defaults to ``jnp.bfloat16``: bf16 momentum state is not ported
+    yet (ROADMAP.md queue B row 5), so a bare call runs in f32 on both
+    sides only when JAX is given ``jnp.float32`` (as the BNN does).
     """
     name = "sample_chain_fused"
     kind = _check_driver(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
+    if _on_card(states.position):
+        check_fused_fits(name, (_FUSED_IDS[kind][1 if multistep else 2],),
+                         layout, batch_size)
     theta = pack(states.position, layout)
     device = theta.device
     n = theta.shape[0]

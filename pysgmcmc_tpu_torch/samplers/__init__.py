@@ -8,6 +8,7 @@ from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
 from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler, SGNHTState
+from pysgmcmc_tpu_torch.samplers.svgd import SVGDSampler, SVGDState
 
 __all__ = [
     "AdaptiveStats",
@@ -23,4 +24,6 @@ __all__ = [
     "SGLDState",
     "SGNHTSampler",
     "SGNHTState",
+    "SVGDSampler",
+    "SVGDState",
 ]

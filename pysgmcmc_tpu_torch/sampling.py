@@ -2,8 +2,7 @@
 :mod:`pysgmcmc_tpu.sampling`).
 
 ``Sampler`` lists every method the JAX package supports, with the same
-predicates and error texts.  The five gradient samplers are ported; SVGD
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+predicates and error texts; all six are ported.
 
 Examples
 --------
@@ -34,9 +33,7 @@ class Sampler(Enum):
 
     @staticmethod
     def is_supported(sampling_method):
-        """True iff ``sampling_method`` can drive model training (in the
-        JAX package; the port trains with the five gradient samplers so
-        far, not with SVGD)."""
+        """True iff ``sampling_method`` can drive model training."""
         return sampling_method in (
             Sampler.SGHMC,
             Sampler.SGLD,
@@ -72,9 +69,9 @@ class Sampler(Enum):
                 RelativisticSGHMCSampler as sampler_cls,
             )
         elif sampling_method == cls.SVGD:
-            raise NotImplementedError(
-                "sampling.Sampler.get_sampler: {!r} is not ported to PyTorch "
-                "yet (ROADMAP.md queue A, item 12)".format(sampling_method))
+            from pysgmcmc_tpu_torch.samplers.svgd import (
+                SVGDSampler as sampler_cls,
+            )
         else:
             raise ValueError(
                 "sampling.Sampler.get_sampler: unknown sampling method "

@@ -1,4 +1,4 @@
-from pysgmcmc_tpu_torch.utils.numeric import safe_divide, safe_sqrt
+from pysgmcmc_tpu_torch.utils.numeric import median, safe_divide, safe_sqrt
 from pysgmcmc_tpu_torch.utils.pytree import (
     normal_like_tree,
     tree_cast,
@@ -8,6 +8,7 @@ from pysgmcmc_tpu_torch.utils.pytree import (
 )
 
 __all__ = [
+    "median",
     "normal_like_tree",
     "safe_divide",
     "safe_sqrt",

@@ -24,3 +24,24 @@ def safe_sqrt(x, clip_value_min=0.0, clip_value_max=float("inf")):
     """``sqrt(clip(x, min, max))`` — no NaNs from tiny negative inputs."""
     return torch.sqrt(torch.clamp(torch.as_tensor(x), clip_value_min,
                                   clip_value_max))
+
+
+def median(x):
+    """Median over all elements of ``x``, as ``numpy.median``: the mean of
+    the two central values for an even count.  One sort, as the JAX package
+    does (``torch.median`` returns the lower central value, and
+    ``torch.quantile`` refuses inputs of more than 2**24 elements).
+
+    Examples
+    --------
+    >>> float(median(torch.tensor([3.0, 1.0, 2.0])))
+    2.0
+    >>> float(median(torch.tensor([4.0, 1.0, 2.0, 3.0])))
+    2.5
+    """
+    sorted_vals = torch.sort(torch.ravel(x)).values
+    n = sorted_vals.shape[0]
+    mid = n // 2
+    if n % 2 == 1:
+        return sorted_vals[mid]
+    return 0.5 * (sorted_vals[mid - 1] + sorted_vals[mid])

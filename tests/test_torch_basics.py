@@ -23,9 +23,12 @@ import pysgmcmc_tpu_torch.data_batches
 import pysgmcmc_tpu_torch.interop
 import pysgmcmc_tpu_torch.models.architectures
 import pysgmcmc_tpu_torch.models.bayesian_neural_network
+import pysgmcmc_tpu_torch.ops.pairwise
+import pysgmcmc_tpu_torch.ops.svgd_streaming
 import pysgmcmc_tpu_torch.samplers._adaptive
 import pysgmcmc_tpu_torch.samplers.sghmc
 import pysgmcmc_tpu_torch.samplers.sgld
+import pysgmcmc_tpu_torch.samplers.svgd
 import pysgmcmc_tpu_torch.utils.pytree
 from pysgmcmc_tpu_torch import sampling, stepsize_schedules
 from pysgmcmc_tpu_torch.diagnostics import objective_functions
@@ -172,12 +175,15 @@ def test_sampler_factory_matches_jax():
         str(want.value).split("supported parameters")[0]
     assert type(sampling.Sampler.get_sampler(
         sampling.Sampler.SGLD, cost_fn=abs)).__name__ == "SGLDSampler"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.Sampler.get_sampler(sampling.Sampler.SVGD, cost_fn=abs)
+    assert type(sampling.Sampler.get_sampler(
+        sampling.Sampler.SVGD, cost_fn=abs)).__name__ == "SVGDSampler"
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, pysgmcmc_tpu_torch, pysgmcmc_tpu_torch.interop; "
+    code = ("import sys, pysgmcmc_tpu_torch, pysgmcmc_tpu_torch.interop, "
+            "pysgmcmc_tpu_torch.samplers.svgd, "
+            "pysgmcmc_tpu_torch.ops.pairwise, "
+            "pysgmcmc_tpu_torch.ops.svgd_streaming; "
             "sys.exit(int('jax' in sys.modules))")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -197,6 +203,8 @@ PORT_MODULES = [
     pysgmcmc_tpu_torch.ops.slim_update, pysgmcmc_tpu_torch.ops.relativistic,
     pysgmcmc_tpu_torch.samplers.psgld, pysgmcmc_tpu_torch.samplers.sgnht,
     pysgmcmc_tpu_torch.samplers.relativistic_sghmc,
+    pysgmcmc_tpu_torch.samplers.svgd, pysgmcmc_tpu_torch.ops.pairwise,
+    pysgmcmc_tpu_torch.ops.svgd_streaming,
 ]
 
 

@@ -21,8 +21,11 @@ from pysgmcmc_tpu.models.architectures import dense_network as jax_dense
 from pysgmcmc_tpu.models.bayesian_neural_network import (
     BayesianNeuralNetwork as JaxBNN,
 )
+from pysgmcmc_tpu.parallel import packed as jax_packed
 from pysgmcmc_tpu_torch import interop
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
+from pysgmcmc_tpu_torch.ops import _build
+from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
@@ -222,10 +225,19 @@ def test_philox_training_is_reproducible_and_learns():
     dict(pair_dots=True), dict(network="dense", step_impl="fused",
                                units=(8, 8), pair_dots=True),
     dict(network="dense", step_impl="fused", noise_impl="clt"),
+    # SVGD ignores step_impl but for JAX's refusals of lanes and fused
+    dict(sampling_method="SVGD", step_impl="lanes"),
+    dict(sampling_method="SVGD", network="dense", step_impl="fused"),
+    dict(sampling_method="SVGD", step_impl="fused"),
 ])
 def test_constructor_errors_match_jax(kwargs):
+    jax_kwargs = kwargs
+    if kwargs.get("sampling_method") == "SVGD":
+        jax_kwargs = dict(kwargs,
+                          sampling_method=jax_sampling.Sampler.SVGD)
+        kwargs = dict(kwargs, sampling_method=Sampler.SVGD)
     with pytest.raises(ValueError) as want:
-        JaxBNN(**kwargs)
+        JaxBNN(**jax_kwargs)
     with pytest.raises(ValueError) as got:
         BayesianNeuralNetwork(device="cpu", **kwargs)
     # the port drops the TPU slot limit ("H <= 114") from one message
@@ -252,6 +264,55 @@ def test_unported_paths_raise(kwargs):
             kwargs["sampling_method"]])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BayesianNeuralNetwork(device="cpu", **kwargs)
+
+
+def test_fused_network_too_wide_is_refused_before_any_work(monkeypatch):
+    """Fault C1: on the card, a fused network whose chain does not fit a
+    block's shared memory raises before the data are prepared (the CPU's
+    plain versions train any width).  The count is the library's own
+    ``fused_step_smem_bytes``, stood in for here (the card tests hold the
+    real one): the check asks it for every fused kernel of the sampler at
+    the network's layout and the batch."""
+    asked = []
+
+    class Library:
+        @staticmethod
+        def fused_step_smem_bytes(kernel_id, n_params, n_inputs, hidden,
+                                  depth, batch):
+            asked.append((kernel_id, n_params, n_inputs, hidden, depth,
+                          batch))
+            return _build.MAX_SMEM_BYTES + (hidden > 100)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "load", lambda name: {
+        "fused_step": Library}[name])
+    bnn = BayesianNeuralNetwork(network="dense", step_impl="fused",
+                                units=(114,) * 4, n_chains=2, n_nets=2)
+    x, y = _data()
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md queue B row 6 \(fault C1\)"):
+        bnn.train(x, y)
+    assert not hasattr(bnn, "x_mean") and bnn.X is None
+    lay = fs.FusedLayout(1, 114, 4)
+    assert sorted(asked) == [(k, lay.n_params, 1, 114, 4, 20)
+                             for k in (fs.B1, fs.B2, fs.B3)]
+    # a count at the limit fits
+    fs.check_fused_fits("t", range(1, 13), fs.FusedLayout(1, 50, 3), 20)
+    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+        fs.check_fused_fits("t", [fs.B2], lay, 20)
+
+
+def test_fused_drivers_state_dtype_defaults_differ_from_jax():
+    """Fault C3, documented: the port's fused drivers default to f32 state
+    where JAX's default to bf16 (bf16 state is ROADMAP.md queue B row 5)."""
+    for port_fn, jax_fn in (
+            (burnin_chain_fused, jax_packed.burnin_chain_fused),
+            (sample_chain_fused, jax_packed.sample_chain_fused)):
+        assert inspect.signature(port_fn).parameters[
+            "state_dtype"].default is torch.float32
+        assert inspect.signature(jax_fn).parameters[
+            "state_dtype"].default is jax.numpy.bfloat16
+        assert "queue B row 5" in port_fn.__doc__
 
 
 def test_default_device_is_the_card(monkeypatch):

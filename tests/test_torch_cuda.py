@@ -5,7 +5,7 @@ one).  This file imports no JAX, so it also runs on a machine without it:
 
 Each kernel (B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc, B5-sgld,
 B5-psgld, B5-sgnht, B5-rsghmc, B6; the slim kernels B7, B8-sgld, B8-psgld,
-B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld) is held
+B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld; the SVGD transport B11) is held
 against its plain PyTorch version on the same inputs, from the state a
 200-step burn-in leaves, under injected noise and windows and under the
 Philox stream, with the tolerance
@@ -19,7 +19,9 @@ import torch
 
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
+from pysgmcmc_tpu_torch.ops import _build, pairwise
 from pysgmcmc_tpu_torch.ops import slim_update as su
+from pysgmcmc_tpu_torch.ops import svgd_streaming as ss
 from pysgmcmc_tpu_torch.ops.relativistic import sample_relativistic_momentum
 from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
 from pysgmcmc_tpu_torch.samplers import (
@@ -482,3 +484,99 @@ def test_lanes_bnn_without_burn_in_trains_on_the_card(method, kernel, eps,
                                                                         50)
     mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
     assert np.isfinite(mean).all() and np.isfinite(var).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("h", [8, 50, 64, 114])
+def test_fused_fit_check_refuses_exactly_the_too_wide(depth, h, cuda_device):
+    """Fault C1's early check refuses a layout exactly where the library's
+    fused_step_smem_bytes exceeds a block's shared memory, for every fused
+    kernel; the flagship's network fits them all."""
+    lib = _build.load("fused_step")
+    for n_inputs, batch in ((1, 20), (3, 7)):
+        lay = fs.FusedLayout(n_inputs, h, depth)
+        for kernel_id in range(1, 13):
+            need = lib.fused_step_smem_bytes(kernel_id, lay.n_params,
+                                             n_inputs, h, depth, batch)
+            if need > _build.MAX_SMEM_BYTES:
+                with pytest.raises(NotImplementedError, match="fault C1"):
+                    fs.check_fused_fits("t", [kernel_id], lay, batch)
+            else:
+                fs.check_fused_fits("t", [kernel_id], lay, batch)
+    if (h, depth) == (50, 3):
+        fs.check_fused_fits("t", range(1, 13), fs.FusedLayout(1, 50, 3), 20)
+    if (h, depth) == (114, 4):
+        with pytest.raises(NotImplementedError, match="fault C1"):
+            fs.check_fused_fits("t", [fs.B2], fs.FusedLayout(1, 114, 4), 20)
+
+
+@pytest.mark.cuda
+def test_fused_bnn_too_wide_raises_before_any_launch(cuda_device):
+    fs.fused_bnn_multistep_burnin.launches = 0
+    bnn = BayesianNeuralNetwork(network="dense", step_impl="fused",
+                                units=(114,) * 4, n_chains=2, n_nets=2)
+    x = np.random.RandomState(0).uniform(0.0, 1.0, (100, 1))
+    with pytest.raises(NotImplementedError, match="fault C1"):
+        bnn.train(x, np.sinc(x[:, 0] * 10 - 5))
+    assert fs.fused_bnn_multistep_burnin.launches == 0
+    assert not hasattr(bnn, "x_mean")
+
+
+def _svgd_inputs(device, n, d, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = 0.3 * torch.randn((n, d), generator=gen, device=device)
+    g = torch.randn((n, d), generator=gen, device=device)
+    return x, g, pairwise.median_bandwidth(
+        pairwise.squared_distance_matrix(x), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(256, 3), (128, 130), (100, 2), (97, 5),
+                                 (130, 3), (4096, 5252)])
+def test_svgd_kernel_matches_plain_version(n, d, cuda_device):
+    """B11 against its plain version, per particle row: within REL_TOL of
+    the row's largest |phi|; two launches agree bit for bit."""
+    x, g, h = _svgd_inputs(cuda_device, n, d)
+    ss.svgd_phi_streaming.launches = 0
+    got = ss.svgd_phi_streaming(x, g, h)
+    again = ss.svgd_phi_streaming(x, g, h)
+    want = ss.svgd_phi_streaming_ref(x, g, h)
+    torch.cuda.synchronize()
+    assert ss.svgd_phi_streaming.launches == 2
+    assert got.shape == (n, d) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = (got - want).abs().amax(1) / want.abs().amax(1)
+    assert float(err.max()) <= REL_TOL
+
+
+@pytest.mark.cuda
+def test_svgd_kernel_refuses_interpret_and_takes_a_float_h(cuda_device):
+    x, g, h = _svgd_inputs(cuda_device, 64, 7)
+    with pytest.raises(ValueError, match="interpret"):
+        ss.svgd_phi_streaming(x, g, h, interpret=True)
+    assert torch.equal(ss.svgd_phi_streaming(x, g, float(h)),
+                       ss.svgd_phi_streaming(x, g, h))
+
+
+@pytest.mark.cuda
+def test_svgd_bnn_trains_on_the_card(cuda_device):
+    """The SVGD slice on the card: B11 once a step, the samples and the
+    ensemble's predictions on the card, the sinc gate, spread members."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    ss.svgd_phi_streaming.launches = 0
+    bnn = BayesianNeuralNetwork(sampling_method=Sampler.SVGD,
+                                kernel_impl="streaming", n_nets=64,
+                                n_iters=300)  # on the card by default
+    bnn.train(x, y)
+    assert ss.svgd_phi_streaming.launches == 300
+    assert bnn.samples["w1"].is_cuda and bnn.samples["w1"].shape == (64, 1,
+                                                                       50)
+    grid = np.linspace(0.0, 1.0, 50)[:, None]
+    mean, var = bnn.predict(grid)
+    f_out, _ = bnn.predict(grid, return_individual_predictions=True)
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+    assert np.mean((mean - np.sinc(grid[:, 0] * 10 - 5)) ** 2) < 0.1
+    assert np.std(f_out, axis=0).mean() > 1e-6

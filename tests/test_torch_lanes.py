@@ -351,7 +351,7 @@ def test_lanes_drivers_shapes_and_bookkeeping():
                                     collect_positions=False)
     assert none is None
     unported = type("SVGDSampler", (), {})()
-    for kwargs, match in ((dict(), "item 12"),):
+    for kwargs, match in ((dict(), "BayesianNeuralNetwork's SVGD path"),):
         with pytest.raises(NotImplementedError, match=match):
             sample_chain_lanes(unported, burned, gen, 1, **kwargs)
     for kwargs in (dict(compute_dtype=torch.bfloat16),
