@@ -12,17 +12,29 @@ the fused kernels B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc,
 B5-sgld, B5-psgld, B5-sgnht, B5-rsghmc, B6, the slim kernels B7,
 B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc, B9-sgld (also with a
 per-chain eps row) and the SVGD transport B11 (on the flagship's ensemble
-after 50 SVGD steps and at the JAX package's test shapes).  It times every
-kernel at the main path's shape (a multi-step kernel as the median of 5
-launches; B11 beside the dense path's phi and the median bandwidth), checks
-the one-step driver against the multi-step driver and the chains-on-lanes
+after 50 SVGD steps and at the JAX package's test shapes).  Every bf16
+instantiation (bf16 momentum and minv in the fused kernels, bf16 v, minv
+and gradient in the slim kernels) is held against its plain version over
+at most 3 steps with one bf16 ulp per value and step on top, its share of
+differing bf16 values beside a witness (the plain version on the CPU);
+the slim ones at the flagship shape on the same three streams as at f32;
+and
+B1, B2, B5-sgld and B6 at hidden width 100, whose state lives in device
+memory.  It times every kernel and variant at the main path's shape (a
+multi-step kernel as the median of 5 launches; B11 beside the dense path's
+phi and the median bandwidth), checks the one-step driver against the
+multi-step driver at f32 and at bf16 state and the chains-on-lanes
 drivers against the fused drivers on the dense network for all five
 samplers, and the small main paths on the card against the CPU, then trains
 and predicts the flagship BNNs (3x50 tanh, 8192 chains, sinc data) through
 ``pysgmcmc_tpu_torch.models.BayesianNeuralNetwork``: all five samplers on
 the fused path (``network="dense"``; pSGLD, relativistic SGHMC and SGNHT
 burn in on the lanes driver) and all five on the lanes path
-(``network="reference"``), and the SVGD flagship (4096 particle networks x
+(``network="reference"``), SGHMC under ``compute_dtype=torch.bfloat16`` on
+both paths (with predict's serving rate in f32 and bf16 at 10,000 points),
+short bf16 lanes runs of the other four samplers, the 3x100 network on the
+fused path (SGHMC, and a short SGLD run) at 8192 chains, and the SVGD
+flagship (4096 particle networks x
 500 steps on B11, after its first 10 steps on B11, on the plain phi and on
 the dense path, and a 64-particle SVGD path card vs CPU beside the same
 path on the plain phi and the dense path), and takes one profiler trace of
@@ -31,7 +43,10 @@ Each kernel's launches are counted over the paths that run it (the fused
 flagships for B1/B2, B5-sgld/B6 and B5-psgld, B5-rsghmc, B5-sgnht, the
 one-step driver for B3 and B4-*, the lanes flagships for B7/B9-sghmc and
 B8-sgld/B9-sgld, both flagships of each sampler for B8-psgld, B8-rsghmc
-and B8-sgnht, the SVGD flagship for B11).  It prints its own wall time;
+and B8-sgnht, the SVGD flagship for B11; the bf16 flagships and the bf16
+drivers for the bf16 instantiations, the 3x100 runs for the wide records).
+It prints each fused launch's placement (shared or device memory) and its
+own wall time;
 the second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -108,8 +123,8 @@ for _method in B8_EPS:
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# ptxas names the instantiations fused_kernel<rule, burn-in, gathered> and
-# slim_kernel<rule, burn-in>
+# ptxas names the instantiations fused_kernel<rule, burn-in, gathered,
+# device, bf16 v> and slim_kernel<rule, burn-in, bf16 operands>
 INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
              (1, 0, 1): "B4-sgld", (1, 0, 0): "B5-sgld", (1, 1, 0): "B6",
              (2, 0, 1): "B4-psgld", (2, 0, 0): "B5-psgld",
@@ -133,6 +148,25 @@ SVGD_TIMED = 20  # launches of B11 timed (median)
 # summation (the plain phi on the card against the CPU, the dense path)
 SVGD_WITNESS = 4.0
 MULTI_TIMED = 5  # launches of each multi-step kernel timed (median)
+# bf16 state (JAX's state_dtype=bfloat16): each kernel is held against its
+# plain version over BF16_STEPS <= 3 steps (Philox stream) from the
+# burned-in states.  A value whose f32 result straddles a bf16 rounding
+# boundary rounds one ulp (2**-8 of itself) apart in the two, far above
+# REL_TOL, so each bf16 output may differ by one bf16 ulp per element per
+# step, theta by REL_TOL plus one ulp of its row's largest momentum (at
+# most of its own largest value) per step; the share of bf16 values that differ at all is held to BF16_WITNESS
+# times that of a witness, the plain version on the card against the plain
+# version on the CPU (the same arithmetic in another summation order), or
+# to BF16_WITNESS * BF16_FLOOR where the witness flips fewer.
+BF16_STEPS, BF16_WITNESS, BF16_FLOOR = 3, 4.0, 1e-4
+# the wide fused kernels (JAX's 128-slot layout takes H <= 114): hidden
+# width 100 at depth 3 (P = 20,502), whose state does not fit a block's
+# shared memory and lives in device memory; their flagship runs
+# WIDE_CHAINS chains, and they are timed there per launch of WIDE_STEPS
+# steps (the plain version at width 100 takes seconds per step)
+WIDE_H, WIDE_CHAINS, WIDE_STEPS = 100, 8192, 20
+# predict's serving rate: queries at 8192 members x PREDICT_POINTS points
+PREDICT_POINTS, PREDICT_TIMED = 10_000, 3
 PROFILED_STEPS = 20  # lanes burn-in steps in the profiler trace
 HOST_ROUNDS = 3  # timings of those steps on the host's clock, least kept
 # device clock cycles the stream spins before a timed call (_time_ms),
@@ -218,22 +252,81 @@ def _nudge(torch, theta):
         theta.shape, generator=gen, device=theta.device))
 
 
-def _compare(torch, name, got, want, floor=None, what="kernel-plain"):
+def _ulp_bf16(torch, t):
+    """One bf16 ulp of each |value| (2**-7 of its binade; 0 at 0)."""
+    t = t.abs()
+    return torch.where(t > 0, torch.exp2(torch.floor(torch.log2(
+        t.clamp_min(1e-38))) - 7), torch.zeros_like(t))
+
+
+def _bf16_flips(torch, got, want):
+    """(values of the bf16 outputs that differ, values of bf16 outputs)."""
+    pairs = [(k, p) for k, p in zip(got, want) if k.dtype == torch.bfloat16]
+    return (sum(int((k != p).sum()) for k, p in pairs),
+            sum(p.numel() for _, p in pairs))
+
+
+def _excess(torch, got, want, ulps=0, carried=None):
+    """The largest amount by which ``got`` lies beyond ``want``'s bound:
+    REL_TOL of the largest |value| in each row, plus ``ulps`` bf16 ulps of
+    each value where ``got`` is bf16, or where it is not ``ulps`` times the
+    smaller of ``carried`` (one ulp of each row's largest bf16 value) and
+    one ulp of the row's own largest value.  At most 0 where ``got`` is
+    within its bound."""
+    g, w = _rows(got.float()), _rows(want.float())
+    scale = w.abs().amax(1, keepdim=True)
+    slack = REL_TOL * scale
+    if ulps and got.dtype == torch.bfloat16:
+        slack = slack + ulps * _ulp_bf16(torch, w)
+    elif ulps and carried is not None and carried.shape[0] == w.shape[0]:
+        slack = slack + ulps * torch.minimum(carried,
+                                             _ulp_bf16(torch, scale))
+    return float(((g - w).abs() - slack).max())
+
+
+def _compare(torch, name, got, want, floor=None, what="kernel-plain",
+             ulps=0, witness=0.0):
     """Max abs error over the outputs; raises beyond REL_TOL of a row's
-    scale, or where a floor is given and is not below REL_TOL / 4."""
+    scale, or where a floor is given and is not below REL_TOL / 4.
+
+    A bf16-state kernel over ``ulps`` steps (BF16_STEPS comment) may differ
+    by ``ulps`` bf16 ulps of each bf16 value on top, and its other outputs
+    by ``ulps`` ulps of the row's largest bf16 value (at most of their own
+    row's largest value); the share of its bf16 values that differ is held
+    to BF16_WITNESS times ``witness`` (or BF16_FLOOR)."""
+    carried = None
+    for k, p in zip(got, want):
+        if ulps and k.dtype == torch.bfloat16:
+            carried = _ulp_bf16(torch, _rows(p.float()).abs().amax(
+                1, keepdim=True))
     worst = 0.0
     for label, k, p in zip(name[1], got, want):
-        if not torch.isfinite(k).all():
-            raise AssertionError("{}: kernel output {} is not finite".format(
-                name[0], label))
-        err, rel = float((k - p).abs().max()), _rel_err(k, p)
-        print("  {} {}: max|{}| = {:.3e}, {:.3e} of its row's scale".format(
-            name[0], label, what, err, rel))
-        if not rel <= REL_TOL:
-            raise AssertionError("{}: {} disagrees ({}): {:.3e} > {:.1e} of "
-                                 "its row's scale".format(name[0], label,
-                                                          what, rel, REL_TOL))
+        if not torch.isfinite(k.float()).all() or (ulps and
+                                                   k.dtype != p.dtype):
+            raise AssertionError("{}: kernel output {} is {} or not "
+                                 "finite".format(name[0], label, k.dtype))
+        err = float((k.float() - p.float()).abs().max())
+        rel = _rel_err(k.float(), p.float())
+        print("  {} {}: max|{}| = {:.3e}, {:.3e} of its row's scale{}".format(
+            name[0], label, what, err, rel,
+            " (bf16)" if k.dtype == torch.bfloat16 else ""))
+        over = _excess(torch, k, p, ulps, carried)
+        if not over <= 0:
+            raise AssertionError("{}: {} disagrees ({}): {:.3e} beyond "
+                                 "{:.1e} of its row's scale plus {} bf16 "
+                                 "ulps".format(name[0], label, what, over,
+                                               REL_TOL, ulps))
         worst = max(worst, err)
+    flips, total = _bf16_flips(torch, got, want)
+    if ulps and total:
+        share, limit = flips / total, BF16_WITNESS * max(witness, BF16_FLOOR)
+        print("  {}: {:.3e} of the bf16 values differ by an ulp or more "
+              "(witness, plain on the card vs the CPU: {:.3e}; limit "
+              "{:.3e})".format(name[0], share, witness, limit))
+        if share > limit:
+            raise AssertionError("{}: {:.3e} of the bf16 values differ, "
+                                 "beyond {:.3e}".format(name[0], share,
+                                                        limit))
     if floor is None:
         return worst
     print("  {}: floor (plain version from a 1e-7 nudge) {:.3e}".format(
@@ -247,23 +340,34 @@ def _compare(torch, name, got, want, floor=None, what="kernel-plain"):
 
 
 def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
-                  complete=True):
+                  complete=True, tags=(" (device)", " (bf16)")):
     """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v;
     raises where ``complete`` and the log lacks a kernel of ``instances``
     (an older tree's log lacks the newer kernels)."""
     out = {}
-    flags = r"ILi(\d)E" + r"Lb(\d)E" * (len(next(iter(instances))) - 1)
+    k = len(next(iter(instances)))
+    # the flags that follow, where the tree has them, name their
+    # instantiations "... <tag>": the fused kernels' placement and
+    # v-storage (kDevice, kVBf16), the slim kernels' bf16 operands (kMixed)
+    flags = (r"ILi(\d)E" + r"Lb(\d)E" * (k - 1)
+             + r"(?:Lb(\d)E)?" * len(tags))
+    # (a kernel's other entries of the same body, e.g. fused_kernel_unhinted,
+    # share its name and flags)
     pattern = re.compile(
-        kernel + flags + r".*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
+        kernel + r"(?:_[a-z]+)?" + flags + r".*?\n\s*(\d+) bytes stack "
+        r"frame, (\d+) bytes "
         r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
         re.S)
     for m in pattern.finditer(log_text):
-        k = len(next(iter(instances)))
         name = instances[tuple(int(m.group(i)) for i in range(1, k + 1))]
+        for i, tag in enumerate(tags):
+            if m.group(k + 1 + i) == "1":
+                name += tag
+        j = k + len(tags)
         out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
-                    "loads".format(m.group(k + 4), m.group(k + 2),
-                                   m.group(k + 3))
-    if complete and set(out) != set(instances.values()):
+                    "loads".format(m.group(j + 4), m.group(j + 2),
+                                   m.group(j + 3))
+    if complete and not set(instances.values()) <= set(out):
         raise AssertionError("ptxas report lacks kernels: {}".format(
             sorted(set(instances.values()) - set(out))))
     return out
@@ -444,22 +548,23 @@ def _kernel_checks(torch, fs, checks, x_win, y_win, streams):
     return err
 
 
-def _burned_in(torch, x, y, sampler_cls, n_chains, device):
+def _burned_in(torch, x, y, sampler_cls, n_chains, device, h=H):
     """A sampler and its states after BURNED_IN burn-in steps at EPS from
-    He-normal weights, through the port's burn-in driver (B2 / B6)."""
+    He-normal weights of an ``h``-wide 3-layer network, through the port's
+    burn-in driver (B2 / B6) with f32 state."""
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import fused_step as fs
     from pysgmcmc_tpu_torch.parallel import burnin_chain_fused
 
-    init_fn, _ = dense_network(1, units=(H, H, H), device=device)
+    init_fn, _ = dense_network(1, units=(h, h, h), device=device)
     gen = torch.Generator(device=device).manual_seed(11)
-    n_params = fs.FusedLayout(1, H, 3).n_params
+    n_params = fs.FusedLayout(1, h, 3).n_params
     sampler = sampler_cls(lambda p, b: None, stepsize_schedule=EPS,
                           scale_grad=float(N_DATA),
                           gaussian_prior_scale=1.0 / (n_params * N_DATA))
     states = burnin_chain_fused(
         sampler, sampler.init(init_fn(gen, (n_chains,))), gen, BURNED_IN,
-        x, y)
+        x, y, state_dtype=torch.float32)
     return sampler, states
 
 
@@ -499,24 +604,32 @@ def _packed_states(torch, sampler, st, n_chains):
     return states._replace(**fields)
 
 
-def _driver_check(torch, x, y, sampler, states, kernel):
+def _driver_check(torch, x, y, sampler, states, kernel, multi_kernel=None,
+                  state_dtype=None):
     """The one-step driver (B3 / B4-* per step) against the multi-step
-    driver (B1 / B5-*) from the same state and generator seed; returns
-    (worst error, launches of the one-step ``kernel`` in the
-    multistep=False run)."""
+    driver (B1 / B5-*) from the same state and generator seed, with
+    ``state_dtype`` state (float32 unless given); returns (worst error,
+    launches of the one-step ``kernel`` in the multistep=False run,
+    launches of ``multi_kernel`` in the multistep=True run)."""
     from pysgmcmc_tpu_torch.parallel import sample_chain_fused
 
     device = states.step.device
-    runs = []
+    state_dtype = state_dtype or torch.float32
+    runs, multi_launches = [], 0
     for multistep in (True, False):
         kernel.launches = 0
+        if multi_kernel is not None:
+            multi_kernel.launches = 0
         runs.append(sample_chain_fused(
             sampler, states, torch.Generator(device=device).manual_seed(5),
             DRIVER_SAMPLES, x, y, keep_every=DRIVER_KEEP,
-            multistep=multistep))
+            state_dtype=state_dtype, multistep=multistep))
         launches = kernel.launches
+        if multistep and multi_kernel is not None:
+            multi_launches = multi_kernel.launches
     torch.cuda.synchronize()
-    label = "one-step driver ({})".format(type(sampler).__name__)
+    label = "one-step driver ({}, {} state)".format(
+        type(sampler).__name__, str(state_dtype).split(".")[1])
     keys = sorted(runs[0][1])
     worst = _compare(torch, (label, ["positions " + k for k in keys]),
                      [runs[1][1][k] for k in keys],
@@ -524,29 +637,36 @@ def _driver_check(torch, x, y, sampler, states, kernel):
                      what="one-step - multi-step")
     if int(runs[0][0].step) != int(runs[1][0].step):
         raise AssertionError("{}: step counters differ".format(label))
-    return worst, launches
+    return worst, launches, multi_launches
 
 
 def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
               step_impl="fused", network="dense", expected=None,
-              stepsize=None):
-    """Train + predict the 8192-chain flagship through the port's BNN (at
-    the BNN's default stepsize unless ``stepsize`` is given) with every
-    kernel count set to 0 just before; returns the launches (which must
-    equal ``expected`` where given) and adds the phase rates to
-    ``rates``."""
+              stepsize=None, chains=MAIN_CHAINS, burn_in=BURN_IN,
+              sample_steps=SAMPLE_STEPS, gate=True, tag="", **bnn_kw):
+    """Train + predict a flagship through the port's BNN (``chains``
+    chains, ``burn_in`` + ``sample_steps`` steps, at the BNN's default
+    stepsize unless ``stepsize`` is given, ``bnn_kw`` such as
+    ``compute_dtype`` or ``units`` passed on) with every kernel count and
+    the fused placement counts set to 0 just before; returns the launches
+    (which must equal ``expected`` where given) and the BNN, and adds the
+    phase rates to ``rates`` under ``tag``.  ``gate=False`` (a short run
+    that only drives kernels) skips the MSE gate."""
     import numpy as np
 
     from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
 
     for fn in kernels.values():
         fn.launches = 0
+    fs.placements.clear()
     bnn = BayesianNeuralNetwork(
         sampling_method=sampling_method, network=network,
-        step_impl=step_impl, n_chains=MAIN_CHAINS, n_nets=MAIN_CHAINS,
-        burn_in_steps=BURN_IN, sample_steps=SAMPLE_STEPS,
-        n_iters=BURN_IN + SAMPLE_STEPS,
-        **({} if stepsize is None else dict(stepsize_schedule=stepsize)))
+        step_impl=step_impl, n_chains=chains, n_nets=chains,
+        burn_in_steps=burn_in, sample_steps=sample_steps,
+        n_iters=burn_in + sample_steps,
+        **({} if stepsize is None else dict(stepsize_schedule=stepsize)),
+        **bnn_kw)
     t0 = time.perf_counter()
     bnn.train(x_np, y_np)
     train_s = time.perf_counter() - t0
@@ -555,20 +675,24 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
     mean, var = bnn.predict(x_grid)
     predict_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    label = "{} {} main path ({} network{})".format(
+    label = "{} {} main path ({} network{}{})".format(
         sampling_method.value, step_impl, network,
-        "" if stepsize is None else ", eps {:g}".format(stepsize))
+        "" if stepsize is None else ", eps {:g}".format(stepsize),
+        "".join(", {}={}".format(k, str(v).replace("torch.", ""))
+                for k, v in sorted(bnn_kw.items())))
     mse = float(np.mean((mean - np.sinc(x_grid[:, 0] * 10 - 5)) ** 2))
     print("{}: {} chains, {} burn-in + {} sampling steps, {} samples; train "
-          "{:.2f} s, predict {:.3f} s; launches {}".format(
-              label, MAIN_CHAINS, BURN_IN, SAMPLE_STEPS,
-              len(bnn.samples["w2"]), train_s, predict_s, launches))
+          "{:.2f} s, predict {:.3f} s; launches {}; fused launches by "
+          "placement {}".format(
+              label, chains, burn_in, sample_steps,
+              len(bnn.samples["w2"]), train_s, predict_s, launches,
+              dict(fs.placements) or "none"))
     if not (np.isfinite(mean).all() and np.isfinite(var).all()):
         raise AssertionError("{}: predictions are not finite".format(label))
     if mean.shape != (200,) or var.shape != (200,):
         raise AssertionError("{}: prediction shapes {} {}".format(
             label, mean.shape, var.shape))
-    if not mse < 0.1:
+    if gate and not mse < 0.1:
         raise AssertionError("{}: predictive MSE {} >= 0.1".format(label, mse))
     if min(launches.values()) < 1:
         raise AssertionError("{}: a kernel was not launched: {}".format(
@@ -576,15 +700,17 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
     if expected is not None and launches != expected:
         raise AssertionError("{}: launches {}, want {}".format(
             label, launches, expected))
-    print("{}: predictive MSE on sinc: {:.3e} (gate 0.1)".format(label, mse))
-    for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
+    print("{}: predictive MSE on sinc: {:.3e} ({})".format(
+        label, mse, "gate 0.1" if gate else "a short run: not gated"))
+    for phase, steps in (("burn_in", burn_in), ("sampling", sample_steps)):
         seconds = bnn.phase_seconds[phase]
-        rates[(step_impl, sampling_method.value, phase)] = \
-            MAIN_CHAINS * steps / seconds
+        rates[(step_impl, sampling_method.value + tag, phase)] = \
+            chains * steps / seconds
         print("{}: {} update-steps/s: {:.4e} ({} chains x {} steps in {:.3f} "
-              "s; {})".format(label, phase, MAIN_CHAINS * steps / seconds,
-                              MAIN_CHAINS, steps, seconds, card))
-    return launches
+              "s; {})".format(label, phase, chains * steps / seconds,
+                              chains, steps, seconds, card))
+    rates[(step_impl, sampling_method.value + tag, "mse")] = mse
+    return launches, bnn
 
 
 def _tuple(out):
@@ -709,16 +835,17 @@ def _lanes_check_states(torch, x, y):
 
 
 def _slim_states(torch, fs, state, lay, x_win, y_win):
-    """The burned-in check states tiled to the flagship's MAIN_CHAINS
-    chains, each rule's with the gradient of its theta on the Philox
-    windows of one step (the plain backward pass of the fused kernels,
-    whose layout the reference network's lanes packing shares)."""
-    reps = MAIN_CHAINS // CHECK_CHAINS
+    """The burned-in check states tiled to the flagship's chains, each
+    rule's with the gradient of its theta on the Philox windows of one step
+    (the plain backward pass of the fused kernels, whose layout the
+    reference network's lanes packing shares)."""
+    n_chains = MAIN_CHAINS
+    reps = n_chains // CHECK_CHAINS
     out = {}
     for rule, st in state.items():
         st = {k: v.repeat(reps, *(1,) * (v.ndim - 1))
               for k, v in st.items()}
-        widx = fs.philox_windows(77, 0, MAIN_CHAINS, x_win.shape[0],
+        widx = fs.philox_windows(77, 0, n_chains, x_win.shape[0],
                                  st["theta"].device)
         xw = x_win[widx][:, :, None]
         st["grad"] = fs._fwd_bwd(st["theta"], lay, xw, y_win[widx],
@@ -727,17 +854,23 @@ def _slim_states(torch, fs, state, lay, x_win, y_win):
     return out
 
 
-def _slim_checks(torch, su, states, kws):
+def _slim_checks(torch, su, states, kws, bf16=False):
     """The seven slim kernels against their plain versions at the flagship
     shape, one step each, on injected noise, on the Philox stream and on the
-    Philox stream with a per-chain eps row, each beside its floor; returns
-    ``{kernel: max abs error}``."""
+    Philox stream with a per-chain eps row; returns ``{kernel: max abs
+    error}``.  With f32 operands each beside its floor; with ``bf16`` the
+    operands of SLIM_BF16 in bf16, each beside the witness (BF16_STEPS
+    comment) of its first CHECK_CHAINS rows: the plain version on the card
+    against the plain version on the CPU."""
     gen = torch.Generator(device=states["SGHMC"]["theta"].device)
     gen.manual_seed(4321)
     err = {}
     for name, (fn, ref) in _slim_functions(su).items():
-        rule, _, labels, eps = SLIM[name]
+        rule, operands, labels, eps = SLIM[name]
         args = _slim_args(name, states[rule])
+        if bf16:
+            args = [a.to(torch.bfloat16) if key in SLIM_BF16 else a
+                    for key, a in zip(operands, args)]
         n = args[0].shape[0]
         streams = [
             ("injected", eps, dict(noise=torch.randn(
@@ -746,18 +879,41 @@ def _slim_checks(torch, su, states, kws):
             ("philox, per-chain eps", eps * (0.5 + torch.rand(
                 n, generator=gen, device=args[0].device)), dict(step=12345)),
         ]
-        err[name] = 0.0
+        tag = name + (" (bf16)" if bf16 else "")
+        err[tag] = 0.0
         for stream, e, extra in streams:
             kw = dict(kws[rule], **extra)
             want = _tuple(ref(*args, e, SEED, **kw))
-            floor = max(_rel_err(a, b) for a, b in zip(_tuple(ref(
-                _nudge(torch, args[0]), *args[1:], e, SEED, **kw)), want))
             got = _tuple(fn(*args, e, SEED, **kw))
             torch.cuda.synchronize()
-            err[name] = max(err[name], _compare(
-                torch, ("{}/{} x 1".format(name, stream), labels), got, want,
-                floor))
+            label = ("{}/{} x 1".format(tag, stream), labels)
+            if bf16:
+                flips, total = _bf16_flips(
+                    torch, [w[:CHECK_CHAINS].cpu() for w in want],
+                    _tuple(ref(*_head(torch, args, n), _head(torch, e, n),
+                               SEED, **_head(torch, kw, n))))
+                err[tag] = max(err[tag], _compare(
+                    torch, label, got, want, ulps=1,
+                    witness=flips / total if total else 0.0))
+                continue
+            floor = max(_rel_err(a, b) for a, b in zip(_tuple(ref(
+                _nudge(torch, args[0]), *args[1:], e, SEED, **kw)), want))
+            err[tag] = max(err[tag], _compare(torch, label, got, want,
+                                              floor))
     return err
+
+
+def _head(torch, x, n):
+    """``x`` (a tensor, a list of operands or a dict of keywords) with each
+    per-chain tensor (leading dimension ``n``) cut to its first
+    CHECK_CHAINS rows, on the CPU."""
+    if isinstance(x, dict):
+        return {k: _head(torch, v, n) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_head(torch, v, n) for v in x]
+    if torch.is_tensor(x) and x.ndim and x.shape[0] == n:
+        return x[:CHECK_CHAINS].cpu()
+    return x
 
 
 def _fused_cost(torch, apply):
@@ -799,23 +955,27 @@ def _lanes_vs_fused(torch, x, y, sampler, states, eps):
     burn_in = hasattr(states, "stats")
     if burn_in:
         drivers = {
-            "fused": (lambda s, g: burnin_chain_fused(sampler, s, g, 8, x, y),
+            "fused": (lambda s, g: burnin_chain_fused(
+                sampler, s, g, 8, x, y, state_dtype=torch.float32),
                       lambda s, g: sample_chain_fused(
                           sampler, s, g, 1, x, y, keep_every=8,
-                          multistep=True)),
-            "lanes": (lambda s, g: burnin_chain_lanes(sampler, s, g, 8,
-                                                      batch_fn=select),
+                          state_dtype=torch.float32, multistep=True)),
+            "lanes": (lambda s, g: burnin_chain_lanes(
+                sampler, s, g, 8, batch_fn=select, compute_dtype=None),
                       lambda s, g: sample_chain_lanes(
-                          sampler, s, g, 1, batch_fn=select, keep_every=8)),
+                          sampler, s, g, 1, batch_fn=select, keep_every=8,
+                          compute_dtype=None)),
         }
         labels = ("positions after 8 burn-in steps",
                   "positions after 8 sampling steps")
     else:
         drivers = {
             "fused": (lambda s, g: s, lambda s, g: sample_chain_fused(
-                sampler, s, g, 2, x, y, keep_every=8, multistep=True)),
+                sampler, s, g, 2, x, y, keep_every=8,
+                state_dtype=torch.float32, multistep=True)),
             "lanes": (lambda s, g: s, lambda s, g: sample_chain_lanes(
-                sampler, s, g, 2, batch_fn=select, keep_every=8)),
+                sampler, s, g, 2, batch_fn=select, keep_every=8,
+                compute_dtype=None)),
         }
         labels = ("positions after 8 steps", "positions after 16 steps")
 
@@ -1211,6 +1371,141 @@ def _svgd_flagship(torch, x_np, y_np, ss, card):
     return launches
 
 
+# bf16 instantiations of the fused kernels -> (kernel name in FUSED_NEW or
+# the SGHMC / SGLD checks, rule of its check state, state operands, which of
+# them bf16, one-step?)
+FUSED_BF16 = {
+    "B1": ("SGHMC", ("theta", "v", "minv"), ("v", "minv"), False),
+    "B2": ("SGHMC", ("theta", "v", "tau", "g", "v_hat"), ("v",), False),
+    "B3": ("SGHMC", ("theta", "v", "minv"), ("v", "minv"), True),
+    "B4-sgld": ("SGLD", ("theta", "minv"), ("minv",), True),
+    "B5-sgld": ("SGLD", ("theta", "minv"), ("minv",), False),
+    "B4-psgld": ("PSGLD", ("theta", "v"), ("v",), True),
+    "B4-sgnht": ("SGNHT", ("theta", "v", "xi"), ("v",), True),
+    "B4-rsghmc": ("RelativisticSGHMC", ("theta", "v"), ("v",), True),
+    "B5-sgnht": ("SGNHT", ("theta", "v", "xi"), ("v",), False),
+    "B5-rsghmc": ("RelativisticSGHMC", ("theta", "v"), ("v",), False),
+}
+# the slim kernels' bf16 operands (the lanes path under compute_dtype and
+# bf16 state): the gradient always, v and minv where the kernel has them
+SLIM_BF16 = ("v", "minv", "grad")
+
+
+def _fused_functions(fs):
+    """fused kernel -> (wrapper, plain version), all twelve."""
+    out = {"B1": (fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref),
+           "B2": (fs.fused_bnn_multistep_burnin,
+                  fs.fused_bnn_multistep_burnin_ref),
+           "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref),
+           "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref),
+           "B5-sgld": (fs.fused_bnn_multistep_sgld,
+                       fs.fused_bnn_multistep_sgld_ref),
+           "B6": (fs.fused_bnn_multistep_burnin_sgld,
+                  fs.fused_bnn_multistep_burnin_sgld_ref)}
+    out.update(_fused_new_functions(fs))
+    return out
+
+
+def _bf16_args(torch, st, inputs, bf16):
+    """The state operands ``inputs`` of ``st``, those in ``bf16`` rounded
+    to bfloat16."""
+    return tuple(st[k].to(torch.bfloat16) if k in bf16 else st[k]
+                 for k in inputs)
+
+
+def _bf16_kw(torch, kw, bf16):
+    """A kernel's keywords with ``state_dtype=bfloat16`` where it has a
+    bf16 momentum or accumulator."""
+    return dict(kw, state_dtype=torch.bfloat16) if "v" in bf16 else kw
+
+
+def _bf16_checks(torch, fs, state, kws, x_win, y_win):
+    """Every bf16 instantiation of the fused kernels against its plain
+    version on the Philox stream from the burned-in states (CHECK_CHAINS
+    chains) over BF16_STEPS steps (one for the one-step kernels), each
+    beside the witness (the plain version on the CPU).  Returns ``{kernel:
+    max abs error}``."""
+    err = {}
+    fns = _fused_functions(fs)
+    for name, (rule, inputs, bf16, one_step) in FUSED_BF16.items():
+        fn, ref = fns[name]
+        args = _bf16_args(torch, state[rule], inputs, bf16)
+        kw = _bf16_kw(torch, kws[rule], bf16)
+        eps = B8_EPS.get(rule, EPS_SGLD if rule == "SGLD" else EPS)
+        steps = 1 if one_step else BF16_STEPS
+
+        def run(wrapper, start, x, y):
+            return _run(fs, wrapper, one_step, start, x, y, eps, kw, steps,
+                        "philox", dict(step0=12345))
+
+        want = run(ref, args, x_win, y_win)
+        witness = run(ref, tuple(a.cpu() for a in args), x_win.cpu(),
+                      y_win.cpu())
+        flips, total = _bf16_flips(torch, [w.cpu() for w in want], witness)
+        got = run(fn, args, x_win, y_win)
+        torch.cuda.synchronize()
+        labels = FUSED_NEW[name][2] if name in FUSED_NEW else {
+            "B2": ("theta", "v", "tau", "g", "v_hat", "minv", "cost"),
+            "B4-sgld": ("theta", "cost"), "B5-sgld": ("theta", "cost"),
+        }.get(name, ("theta", "v", "cost"))
+        err[name + " (bf16)"] = _compare(
+            torch, ("{} (bf16)/philox/eps {:g} x {}".format(
+                name, eps, steps), labels), got, want, ulps=steps,
+            witness=flips / total if total else 0.0)
+    return err
+
+
+def _predict_rates(torch, bnn, card):
+    """Predict's serving rate on ``bnn``'s ensemble at PREDICT_POINTS
+    points, f32 and ``compute_dtype=bfloat16`` (median of PREDICT_TIMED
+    calls each, after a warm-up, ending in the copy to the host); the bf16
+    means must be finite and near the f32 ones."""
+    import numpy as np
+
+    x = np.linspace(0.0, 1.0, PREDICT_POINTS)[:, None]
+    members = len(bnn.samples["w2"])
+    means = {}
+    for dtype in (None, torch.bfloat16):
+        bnn.predict(x, compute_dtype=dtype)
+        times = []
+        for _ in range(PREDICT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means[dtype] = bnn.predict(x, compute_dtype=dtype)[0]
+            times.append(time.perf_counter() - t0)
+        seconds = sorted(times)[PREDICT_TIMED // 2]
+        print("predict ({}): {} members x {} points in {:.4f} s (median of "
+              "{}): {:.4e} queries/s, {:.4e} member-queries/s ({})".format(
+                  "float32" if dtype is None else "compute_dtype=bfloat16",
+                  members, PREDICT_POINTS, seconds, PREDICT_TIMED,
+                  PREDICT_POINTS / seconds, members * PREDICT_POINTS / seconds,
+                  card))
+    gap = float(np.abs(means[torch.bfloat16] - means[None]).max())
+    print("predict: max|bf16 mean - f32 mean| = {:.3e} (scale {:.3e})".format(
+        gap, float(np.abs(means[None]).max())))
+    if not np.isfinite(means[torch.bfloat16]).all() or not gap < 0.05:
+        raise AssertionError("predict(compute_dtype=bfloat16): predictions "
+                             "not finite or {:.3e} from f32's".format(gap))
+
+
+def _wide_states(torch, fs, x, y, device):
+    """The SGHMC and SGLD check states of the WIDE_H network after
+    BURNED_IN burn-in steps (CHECK_CHAINS chains), packed as in main."""
+    lay = fs.FusedLayout(1, WIDE_H, 3)
+    state = {}
+    from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
+    for sampler_cls in (SGHMCSampler, SGLDSampler):
+        burned = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, device,
+                            h=WIDE_H)[1]
+        rule = sampler_cls.__name__[:-7]
+        state[rule] = {"theta": fs.pack(burned.position, lay)}
+        state[rule].update(zip(("tau", "g", "v_hat", "minv"), (
+            fs.pack(leaf, lay) for leaf in burned.stats)))
+        if rule == "SGHMC":
+            state[rule]["v"] = fs.pack(burned.momentum, lay)
+    return lay, state
+
+
 def main():
     import numpy as np
     import torch
@@ -1244,11 +1539,13 @@ def main():
               os.path.relpath(path, HERE) for path in paths.values()),
               seconds))
     reports = {}
-    for source, kernel, instances in (
-            ("fused_step", "fused_kernel", INSTANCES),
-            ("slim_update", "slim_kernel", SLIM_INSTANCES)):
+    for source, kernel, instances, tags in (
+            ("fused_step", "fused_kernel", INSTANCES,
+             (" (device)", " (bf16)")),
+            ("slim_update", "slim_kernel", SLIM_INSTANCES, (" (bf16)",))):
         with open(_build.log_path(source)) as f:
-            reports.update(_ptxas_report(f.read(), kernel, instances))
+            reports.update(_ptxas_report(f.read(), kernel, instances,
+                                         tags=tags))
     with open(_build.log_path("svgd_streaming")) as f:
         reports.update(_ptxas_svgd(f.read()))
     for name, line in sorted(reports.items()):
@@ -1338,8 +1635,39 @@ def main():
                "SGNHT": dict(prior, a_diff=1.0, scale_grad=float(N_DATA))}
     slim_states = _slim_states(torch, fs, state, lay, x_win, y_win)
     err.update(_slim_checks(torch, su, slim_states, slim_kw))
+    # bf16 state: every bf16 instantiation from the same burned-in states,
+    # the slim kernels at the flagship shape
+    err.update(_bf16_checks(torch, fs, state,
+                            dict(fused_kw, SGHMC=sghmc, SGLD=sgld), x_win,
+                            y_win))
+    err.update(_slim_checks(torch, su, slim_states, slim_kw, bf16=True))
     lanes_states = {method: state[method] for method in B8_EPS}
     del noise, widx, state
+    # the wide kernels at H = WIDE_H, their state in device memory
+    wide_lay, wide_state = _wide_states(torch, fs, x, y, device)
+    wide_base = dict(base, h=WIDE_H,
+                     prior_scale=1.0 / (wide_lay.n_params * N_DATA))
+    noise = torch.randn((CHECK_STEPS, CHECK_CHAINS, wide_lay.n_params),
+                        generator=gen, device=device)
+    widx = torch.randint(0, n_windows, (CHECK_STEPS, CHECK_CHAINS),
+                         generator=gen, device=device, dtype=torch.int32)
+    fs.placements.clear()
+    wide_err = _kernel_checks(torch, fs, [
+        (name + " (H={})".format(WIDE_H), fn, ref,
+         tuple(wide_state[rule][k] for k in inputs),
+         dict(wide_base, mdecay=0.05) if rule == "SGHMC"
+         else dict(wide_base, a_coef=1.0), labels, False, plan)
+        for name, fn, ref, rule, inputs, labels, one_step, plan in checks
+        if name in ("B1", "B2", "B5-sgld", "B6")], x_win, y_win,
+        [("injected", dict(noise=noise, widx=widx)),
+         ("philox", dict(step0=12345))])
+    print("wide kernel checks (H={}, P={}): fused launches by placement "
+          "{}".format(WIDE_H, wide_lay.n_params, dict(fs.placements)))
+    if {where for _, where in fs.placements} != {"device"}:
+        raise AssertionError("the H={} kernels did not all run in device "
+                             "memory: {}".format(WIDE_H, fs.placements))
+    err.update(wide_err)
+    del noise, widx, wide_state
     # the fused kernels without a mass matrix, from the lanes check states
     # tiled to the flagship's chains
     n = MAIN_CHAINS
@@ -1366,28 +1694,32 @@ def main():
     theta = fs.pack(init_fn(gen, (n,)), lay)
     zeros, ones = torch.zeros_like(theta), torch.ones_like(theta)
     timed, bounds = {}, {}
-    f4 = 4 * n * P  # bytes of one (n, P) f32 tensor
     table = 4 * n_windows * BATCH * 2  # the x and y window tables
 
     def nbytes(tensors):
-        return sum(4 * t.numel() for t in tensors if torch.is_tensor(t))
+        return sum(t.element_size() * t.numel() for t in tensors
+                   if torch.is_tensor(t))
 
-    def time_multi(name, fn, ref, args, kw, step0=0):
-        """Times launches of k steps, the median of MULTI_TIMED (the plain
-        version: one); the bound counts every tensor argument read once
-        (the state and the window tables) and every output written once."""
+    def time_multi(name, fn, ref, args, kw, step0=0, layout=lay,
+                   chains=None, steps=k):
+        """Times launches of ``steps`` steps, the median of MULTI_TIMED
+        (the plain version: one); the bound counts every tensor argument
+        read once (the state and the window tables) and every output
+        written once, each in its own type."""
         fn(*args, k_steps=2, step0=step0, **kw)  # warm-up
         times = []
         for _ in range(MULTI_TIMED):
             ms, out = _time_ms(
-                torch, lambda: fn(*args, k_steps=k, step0=step0, **kw))
+                torch, lambda: fn(*args, k_steps=steps, step0=step0, **kw))
             times.append(ms)
         timed[name] = sorted(times)[MULTI_TIMED // 2]
         ref(*args, k_steps=2, step0=step0, **kw)
         timed[name + " plain"], _ = _time_ms(
-            torch, lambda: ref(*args, k_steps=k, step0=step0, **kw))
-        flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
-        bounds[name] = _bound(n, k, flops, nbytes(args) + nbytes(out))
+            torch, lambda: ref(*args, k_steps=steps, step0=step0, **kw))
+        flops = _flops_per_chain_step(layout, BATCH,
+                                      RULE_FLOPS[name.split(" ")[0]])
+        bounds[name] = _bound(chains or n, steps, flops,
+                              nbytes(args) + nbytes(out))
         return out
 
     out = time_multi("B2", fs.fused_bnn_multistep_burnin,
@@ -1411,8 +1743,30 @@ def main():
         time_multi(name, *new_fns[name],
                    (*(big[method][key] for key in inputs), x_win, y_win,
                     B8_EPS[method], 48), fused_kw[method], step0=BURNED_IN)
+    # the same at bf16 state: the momentum (and SGHMC's and SGLD's minv)
+    # in bf16
+    bf = torch.bfloat16
+    out = time_multi("B2 (bf16)", fs.fused_bnn_multistep_burnin,
+                     fs.fused_bnn_multistep_burnin_ref,
+                     (theta, zeros.to(bf), ones, ones, ones, x_win, y_win,
+                      EPS, 42), dict(sghmc, state_dtype=bf))
+    time_multi("B1 (bf16)", fs.fused_bnn_multistep,
+               fs.fused_bnn_multistep_ref,
+               (out[0], out[1], out[5].to(bf), x_win, y_win, EPS, 43),
+               dict(sghmc, state_dtype=bf), step0=k)
+    time_multi("B5-sgld (bf16)", fs.fused_bnn_multistep_sgld,
+               fs.fused_bnn_multistep_sgld_ref,
+               (out[0], minv_big.to(bf), x_win, y_win, EPS_SGLD, 45), sgld,
+               step0=k)
+    for name in ("B5-rsghmc", "B5-sgnht"):
+        method, inputs, _ = FUSED_NEW[name]
+        time_multi(name + " (bf16)", *new_fns[name],
+                   _bf16_args(torch, big[method], inputs, ("v",))
+                   + (x_win, y_win, B8_EPS[method], 48),
+                   dict(fused_kw[method], state_dtype=bf), step0=BURNED_IN)
     for name in ("B2", "B1", "B6", "B5-sgld", "B5-psgld", "B5-rsghmc",
-                 "B5-sgnht"):
+                 "B5-sgnht", "B2 (bf16)", "B1 (bf16)", "B5-sgld (bf16)",
+                 "B5-rsghmc (bf16)", "B5-sgnht (bf16)"):
         print("time {} at {} chains x {} steps: kernel {:.2f} ms (median of "
               "{}), plain {:.2f} ms (one launch), bound {:.2f} ms ({}) "
               "({})".format(name, n, k, timed[name], MULTI_TIMED,
@@ -1432,6 +1786,17 @@ def main():
         one_step[name] = (*new_fns[name],
                           tuple(big[method][key] for key in inputs),
                           B8_EPS[method], fused_kw[method])
+    one_step["B3 (bf16)"] = (fs.fused_bnn_step, fs.fused_bnn_step_ref,
+                             (theta, zeros.to(bf), minv_big.to(bf)), EPS,
+                             dict(sghmc, state_dtype=bf))
+    one_step["B4-sgld (bf16)"] = (fs.fused_bnn_step_sgld,
+                                  fs.fused_bnn_step_sgld_ref,
+                                  (theta, minv_big.to(bf)), EPS_SGLD, sgld)
+    for name in ("B4-rsghmc", "B4-sgnht"):
+        method, inputs, _ = FUSED_NEW[name]
+        one_step[name + " (bf16)"] = (
+            *new_fns[name], _bf16_args(torch, big[method], inputs, ("v",)),
+            B8_EPS[method], dict(fused_kw[method], state_dtype=bf))
     for name, (fn, ref, state, eps, kw) in one_step.items():
         def launch(f=fn, s=state, e=eps, w=kw):
             return f(*s, *sel, e, 46, step=0, **w)
@@ -1443,7 +1808,8 @@ def main():
         timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
         plain()
         timed[name + " plain"] = _median_ms(torch, plain, 5)
-        flops = _flops_per_chain_step(lay, BATCH, RULE_FLOPS[name])
+        flops = _flops_per_chain_step(lay, BATCH,
+                                      RULE_FLOPS[name.split(" ")[0]])
         # the state and the gathered rows read once, the outputs written once
         bounds[name] = _bound(n, 1, flops,
                               nbytes(state) + nbytes(sel) + nbytes(out))
@@ -1452,10 +1818,16 @@ def main():
               "ms ({}) ({})".format(name, n, timed[name], ONE_STEP_TIMED,
                                     timed[name + " plain"], bounds[name][0],
                                     bounds[name][1], card))
-    # slim kernels: one launch (one step) at the flagship shape, Philox
-    for name, (fn, ref) in _slim_functions(su).items():
-        rule, _, labels, eps = SLIM[name]
-        args = _slim_args(name, slim_states[rule])
+    # slim kernels: one launch (one step) at the flagship shape, Philox;
+    # f32 operands, then bf16 v, minv and gradient
+    for name, (fn, ref) in [*_slim_functions(su).items(),
+                            *((name + " (bf16)", fns) for name, fns in
+                              _slim_functions(su).items())]:
+        rule, operands, labels, eps = SLIM[name.split(" ")[0]]
+        args = _slim_args(name.split(" ")[0], slim_states[rule])
+        if name.endswith("(bf16)"):
+            args = [a.to(bf) if key in SLIM_BF16 else a
+                    for key, a in zip(operands, args)]
 
         def launch(f=fn, a=args, e=eps, w=slim_kw[rule]):
             return f(*a, e, 47, step=0, **w)
@@ -1463,13 +1835,12 @@ def main():
         def plain(f=ref, a=args, e=eps, w=slim_kw[rule]):
             return f(*a, e, 47, step=0, **w)
 
-        launch()
+        outs = _tuple(launch())
         timed[name] = _median_ms(torch, launch, ONE_STEP_TIMED)
         plain()
         timed[name + " plain"] = _median_ms(torch, plain, 5)
-        n_bytes = sum(4 * a.numel() for a in args if a is not None) \
-            + len(labels) * f4
-        compute_ms = n * P * SLIM_OPS[name] / F32_FLOPS * 1e3
+        n_bytes = nbytes(args) + nbytes(outs)
+        compute_ms = n * P * SLIM_OPS[name.split(" ")[0]] / F32_FLOPS * 1e3
         bounds[name] = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                            (compute_ms, "operations"))
         print("time {} per launch (one step) at {} chains x {} parameters: "
@@ -1478,7 +1849,40 @@ def main():
               "({})".format(name, n, P, timed[name], ONE_STEP_TIMED,
                             timed[name + " plain"], bounds[name][0],
                             bounds[name][1], compute_ms, card))
-    del theta, zeros, ones, out, minv_big, sel, slim_states, big
+    del theta, zeros, ones, out, minv_big, sel, slim_states, big, outs
+    torch.cuda.empty_cache()
+    # the wide kernels at WIDE_CHAINS chains x WIDE_STEPS steps, state in
+    # device memory
+    wide_theta = fs.pack(dense_network(1, units=(WIDE_H,) * 3, device=device)[
+        0](gen, (WIDE_CHAINS,)), wide_lay)
+    wz, wo = torch.zeros_like(wide_theta), torch.ones_like(wide_theta)
+    wide_kw = dict(layout=wide_lay, chains=WIDE_CHAINS, steps=WIDE_STEPS)
+    wide_sghmc = dict(wide_base, mdecay=0.05)
+    wide_sgld = dict(wide_base, a_coef=1.0)
+    tag = " (H={})".format(WIDE_H)
+    out = time_multi("B2" + tag, fs.fused_bnn_multistep_burnin,
+                     fs.fused_bnn_multistep_burnin_ref,
+                     (wide_theta, wz, wo, wo, wo, x_win, y_win, EPS, 42),
+                     wide_sghmc, **wide_kw)
+    time_multi("B1" + tag, fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+               (out[0], out[1], out[5], x_win, y_win, EPS, 43), wide_sghmc,
+               step0=WIDE_STEPS, **wide_kw)
+    out = time_multi("B6" + tag, fs.fused_bnn_multistep_burnin_sgld,
+                     fs.fused_bnn_multistep_burnin_sgld_ref,
+                     (wide_theta, wo, wo, wo, x_win, y_win, EPS_SGLD, 44),
+                     wide_sgld, **wide_kw)
+    time_multi("B5-sgld" + tag, fs.fused_bnn_multistep_sgld,
+               fs.fused_bnn_multistep_sgld_ref,
+               (out[0], out[4], x_win, y_win, EPS_SGLD, 45), wide_sgld,
+               step0=WIDE_STEPS, **wide_kw)
+    for name in ("B2", "B1", "B6", "B5-sgld"):
+        print("time {} at {} chains x {} steps (P = {}, state in device "
+              "memory): kernel {:.2f} ms (median of {}), plain {:.2f} ms "
+              "(one launch), bound {:.2f} ms ({}) ({})".format(
+                  name + tag, WIDE_CHAINS, WIDE_STEPS, wide_lay.n_params,
+                  timed[name + tag], MULTI_TIMED, timed[name + tag + " plain"],
+                  bounds[name + tag][0], bounds[name + tag][1], card))
+    del wide_theta, wz, wo, out
     torch.cuda.empty_cache()
 
     # ---- the one-step driver vs the multi-step driver on the card ----
@@ -1494,7 +1898,7 @@ def main():
         drivers[name] = (new_fns[name][0], sampler, _packed_states(
             torch, sampler, lanes_states[method], DRIVER_CHAINS))
     for name, (kernel, sampler, states) in drivers.items():
-        err_driver, launches[name] = _driver_check(
+        err_driver, launches[name], _ = _driver_check(
             torch, x, y, sampler, states, kernel)
         print("one-step driver ({}): {} chains x {} steps, max|one-step - "
               "multi-step| = {:.3e}, {} launches of {}".format(
@@ -1504,6 +1908,38 @@ def main():
         if launches[name] != DRIVER_SAMPLES * DRIVER_KEEP:
             raise AssertionError("{}: {} launches, want {}".format(
                 name, launches[name], DRIVER_SAMPLES * DRIVER_KEEP))
+    # the same drivers at bf16 state, JAX's default (pSGLD's accumulator
+    # stays f32): SGHMC burns in with it (B2), then the one-step and the
+    # multi-step kernels run their bf16 instantiations
+    from pysgmcmc_tpu_torch.parallel import burnin_chain_fused
+
+    sghmc_sampler = drivers["B3"][1]
+    fs.fused_bnn_multistep_burnin.launches = 0
+    init_gen = torch.Generator(device=device).manual_seed(11)
+    drivers["B3"] = (fs.fused_bnn_step, sghmc_sampler, burnin_chain_fused(
+        sghmc_sampler, sghmc_sampler.init(init_fn(init_gen,
+                                                  (DRIVER_CHAINS,))),
+        init_gen, BURNED_IN, x, y))
+    launches["B2 (bf16)"] = fs.fused_bnn_multistep_burnin.launches
+    multi_of = {"B3": ("B1", fs.fused_bnn_multistep),
+                "B4-sgld": ("B5-sgld", fs.fused_bnn_multistep_sgld),
+                "B4-sgnht": ("B5-sgnht", fs.fused_bnn_multistep_sgnht),
+                "B4-rsghmc": ("B5-rsghmc", fs.fused_bnn_multistep_rsghmc)}
+    for name, (multi_name, multi_kernel) in multi_of.items():
+        kernel, sampler, states = drivers[name]
+        err_driver, one, multi = _driver_check(
+            torch, x, y, sampler, states, kernel, multi_kernel,
+            state_dtype=torch.bfloat16)
+        launches[name + " (bf16)"] = one
+        launches[multi_name + " (bf16)"] = multi
+        print("one-step driver ({}, bf16 state): {} chains x {} steps, "
+              "max|one-step - multi-step| = {:.3e}, {} launches of {}, {} "
+              "of {}".format(type(sampler).__name__, DRIVER_CHAINS,
+                             DRIVER_SAMPLES * DRIVER_KEEP, err_driver, one,
+                             name, multi, multi_name))
+        if one != DRIVER_SAMPLES * DRIVER_KEEP or multi != DRIVER_SAMPLES:
+            raise AssertionError("{} (bf16): {} and {} launches".format(
+                name, one, multi))
     del drivers
 
     # ---- the lanes drivers vs the fused drivers on the dense network ----
@@ -1566,11 +2002,11 @@ def main():
     count(_flagship(
         torch, x_np, y_np, Sampler.SGHMC,
         {"B1": fs.fused_bnn_multistep, "B2": fs.fused_bnn_multistep_burnin},
-        card, rates))
+        card, rates)[0])
     count(_flagship(
         torch, x_np, y_np, Sampler.SGLD,
         {"B5-sgld": fs.fused_bnn_multistep_sgld,
-         "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates))
+         "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates)[0])
     # pSGLD, relativistic SGHMC and SGNHT: burn-in on discarded steps of
     # the lanes driver (their slim kernel), sampling on B5-*, at their
     # stepsizes
@@ -1580,7 +2016,7 @@ def main():
         count(_flagship(
             torch, x_np, y_np, Sampler[method],
             {b8: slim[b8][0], b5: new_fns[b5][0]}, card, rates,
-            expected={b8: BURN_IN, b5: 1}, stepsize=B8_EPS[method]))
+            expected={b8: BURN_IN, b5: 1}, stepsize=B8_EPS[method])[0])
     # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
     # in sampling, B8-psgld / B8-rsghmc / B8-sgnht in both
     for method, burn, sample in LANES_FLAGSHIPS:
@@ -1591,7 +2027,7 @@ def main():
             torch, x_np, y_np, Sampler[method],
             {burn: slim[burn][0], sample: slim[sample][0]}, card, rates,
             step_impl="lanes", network="reference", expected=expected,
-            stepsize=B8_EPS.get(method)))
+            stepsize=B8_EPS.get(method))[0])
     for method in ("SGHMC", "SGLD", *SLIM_OF):
         print("{} flagship update-steps/s, fused{} vs lanes (reference "
               "network): burn-in {:.4e} vs {:.4e}, sampling {:.4e} vs {:.4e} "
@@ -1601,6 +2037,64 @@ def main():
                   *(rates[(impl, method, phase)]
                     for phase in ("burn_in", "sampling")
                     for impl in ("fused", "lanes")), card))
+    # mixed precision, compute_dtype=torch.bfloat16: SGHMC on the fused
+    # path (B2 burn-in at f32 state, B1 sampling at bf16 state) and on the
+    # lanes path (bf16 gradients into B9-sghmc, then B7 with bf16 state and
+    # gradients), then predict's serving rate in f32 and bf16 on the fused
+    # flagship's 8192 members
+    bf = torch.bfloat16
+    more, bnn_bf16 = _flagship(
+        torch, x_np, y_np, Sampler.SGHMC,
+        {"B1 (bf16)": fs.fused_bnn_multistep,
+         "B2": fs.fused_bnn_multistep_burnin}, card, rates, tag=" bf16",
+        compute_dtype=bf)
+    count(more)
+    _predict_rates(torch, bnn_bf16, card)
+    del bnn_bf16
+    count(_flagship(
+        torch, x_np, y_np, Sampler.SGHMC,
+        {"B9-sghmc (bf16)": slim["B9-sghmc"][0],
+         "B7 (bf16)": slim["B7"][0]}, card, rates, step_impl="lanes",
+        network="reference", tag=" bf16", compute_dtype=bf,
+        expected={"B9-sghmc (bf16)": BURN_IN, "B7 (bf16)": SAMPLE_STEPS})[0])
+    for impl in ("fused", "lanes"):
+        print("SGHMC {} flagship, compute_dtype=bfloat16 vs float32: MSE "
+              "{:.3e} vs {:.3e}; burn-in {:.4e} vs {:.4e}, sampling {:.4e} "
+              "vs {:.4e} update-steps/s ({})".format(
+                  impl, rates[(impl, "SGHMC bf16", "mse")],
+                  rates[(impl, "SGHMC", "mse")],
+                  *(rates[(impl, "SGHMC" + t, phase)]
+                    for phase in ("burn_in", "sampling")
+                    for t in (" bf16", "")), card))
+    # the other samplers' lanes paths under compute_dtype, short runs that
+    # drive their bf16 slim instantiations (not gated: 50 + 20 steps)
+    for method, burn, sample in LANES_FLAGSHIPS[1:]:
+        kernels = {burn + " (bf16)": slim[burn][0],
+                   sample + " (bf16)": slim[sample][0]}
+        count(_flagship(
+            torch, x_np, y_np, Sampler[method], kernels, card, rates,
+            step_impl="lanes", network="reference", burn_in=50,
+            sample_steps=20, gate=False, tag=" bf16 short",
+            stepsize=B8_EPS.get(method), compute_dtype=bf)[0])
+    # the wide network JAX's fused path takes: units=(WIDE_H,) * 3, SGHMC
+    # (gated) and SGLD (a short run), their state in device memory
+    for method, kernels, burn_in, sample_steps, gate in (
+            ("SGHMC", {"B1": fs.fused_bnn_multistep,
+                       "B2": fs.fused_bnn_multistep_burnin},
+             BURN_IN, SAMPLE_STEPS, True),
+            ("SGLD", {"B5-sgld": fs.fused_bnn_multistep_sgld,
+                      "B6": fs.fused_bnn_multistep_burnin_sgld}, 200, 200,
+             False)):
+        more, _ = _flagship(
+            torch, x_np, y_np, Sampler[method],
+            {name + tag: fn for name, fn in kernels.items()}, card, rates,
+            chains=WIDE_CHAINS, burn_in=burn_in, sample_steps=sample_steps,
+            gate=gate, tag=tag, units=(WIDE_H,) * 3)
+        if {where for _, where in fs.placements} != {"device"}:
+            raise AssertionError("the H={} flagship's fused launches did not "
+                                 "all run in device memory: {}".format(
+                                     WIDE_H, dict(fs.placements)))
+        count(more)
     # SVGD: the first steps at full size on B11 and on the plain phi, then
     # the flagship (B11's count set to 0 just before)
     _svgd_plain_vs_kernel(torch, x_np, y_np, ss)
@@ -1632,15 +2126,26 @@ def main():
                 "B4-rsghmc": ("fused_bnn_step_rsghmc", "fused_step", 2168),
                 "B4-sgnht": ("fused_bnn_step_sgnht", "fused_step", 2106),
                 "B11": ("svgd_phi_streaming", "svgd_streaming", 99)}
+    # the bf16-state instantiations and the wide (device-memory) kernels,
+    # each its own record
+    variants = [name + " (bf16)" for name in (
+        "B2", "B1", "B3", "B4-sgld", "B5-sgld", "B4-sgnht", "B4-rsghmc",
+        "B5-sgnht", "B5-rsghmc", *SLIM)]
+    variants += [name + tag for name in ("B2", "B1", "B6", "B5-sgld")]
     records = [
-        {"name": fn_name, "route": "cuda",
+        {"name": fn_name + name[len(name.split(" ")[0]):], "route": "cuda",
          "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),
          "replaces": "pysgmcmc_tpu/ops/{}.py:{}".format(module, line),
          "launches": launches[name], "max_abs_err": err[name],
          "ms": timed[name], "plain_ms": timed[name + " plain"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
-        for name, (fn_name, module, line) in replaces.items()]
+        for name in [*replaces, *variants]
+        for fn_name, module, line in [replaces[name.split(" ")[0]]]]
+    idle = [r["name"] for r in records if r["launches"] < 1]
+    if idle:
+        raise AssertionError("kernels not launched on a main path: "
+                             "{}".format(idle))
     print("chip_smoke wall time: {:.1f} s ({})".format(
         time.perf_counter() - wall_start, card))
     print(json.dumps({"kernels": records}))

@@ -10,9 +10,17 @@ and power limit, then one JSON line: the ``ptxas`` report of each fused
 kernel the tree has, and the median device time of 5 launches of 200 steps
 at 8192 chains on the flagship network (3x50 tanh, 100 sinc points, batch
 20) of each multi-step fused kernel it has (B1, B2, B5-sgld, B6, and
-B5-psgld, B5-rsghmc, B5-sgnht where they exist).  The constants, the data,
-the register report and the timing (CUDA events on a spinning stream) are
-``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
+B5-psgld, B5-rsghmc, B5-sgnht where they exist), at f32 state, and where
+the tree takes bf16 state also B1, B2, B5-sgld, B5-rsghmc and B5-sgnht at
+bf16 state ("B1 (bf16)", ...); then, at f32 state and operands, the
+median of 20 launches of one step at 8192 chains of each one-step fused
+kernel (B3, B4-sgld, and B4-psgld, B4-rsghmc, B4-sgnht where they exist)
+and each slim kernel (B7, B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc,
+B9-sgld; on the flagship's 5,252 parameters), with the slim kernels'
+``ptxas`` report too; where the tree trains wide networks, B2, B1, B6 and
+B5-sgld at hidden width 100 (state in device memory), median of 5
+launches of 20 steps at 8192 chains ("B1 (H=100)", ...).  The constants, the data, the register report and
+the timing (CUDA events on a spinning stream) are ``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
 call (A, B, B, A): a card's times move between calls more than within one.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -41,11 +49,16 @@ def main(argv=None):
     cs._import_port(root)
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import _build, fused_step as fs
+    from pysgmcmc_tpu_torch.ops import slim_update as su
 
     print(cs._card())
     _build.build()
     with open(_build.log_path("fused_step")) as f:
         registers = cs._ptxas_report(f.read(), complete=False)
+    with open(_build.log_path("slim_update")) as f:
+        registers.update(cs._ptxas_report(
+            f.read(), "slim_kernel", cs.SLIM_INSTANCES, complete=False,
+            tags=(" (bf16)",)))
 
     device = torch.device("cuda")
     n, k = cs.MAIN_CHAINS, cs.SAMPLE_STEPS
@@ -62,7 +75,7 @@ def main(argv=None):
     sg = dict(base, scale_grad=float(cs.N_DATA))
     ms = {}
 
-    def timed(name, fn, state, eps, kw):
+    def timed(name, fn, state, eps, kw, k=k):
         """Median ms of REPEATS launches of k steps; returns the outputs."""
         def run(steps=k):
             return fn(*state, x_win, y_win, eps, 7, k_steps=steps, **kw)
@@ -73,15 +86,17 @@ def main(argv=None):
         ms[name] = runs[REPEATS // 2][0]
         return runs[0][1]
 
-    out = timed("B2", fs.fused_bnn_multistep_burnin,
-                (theta, zeros, ones, ones, ones), cs.EPS,
-                dict(sg, mdecay=0.05))
-    timed("B1", fs.fused_bnn_multistep, (out[0], out[1], out[5]), cs.EPS,
-          dict(sg, mdecay=0.05))
+    burned = timed("B2", fs.fused_bnn_multistep_burnin,
+                   (theta, zeros, ones, ones, ones), cs.EPS,
+                   dict(sg, mdecay=0.05))
+    timed("B1", fs.fused_bnn_multistep, (burned[0], burned[1], burned[5]),
+          cs.EPS, dict(sg, mdecay=0.05))
+    minv_sghmc = burned[5]
     out = timed("B6", fs.fused_bnn_multistep_burnin_sgld,
                 (theta, ones, ones, ones), cs.EPS_SGLD, dict(sg, a_coef=1.0))
     timed("B5-sgld", fs.fused_bnn_multistep_sgld, (out[0], out[4]),
           cs.EPS_SGLD, dict(sg, a_coef=1.0))
+    minv_sgld = out[4]
     if hasattr(fs, "fused_bnn_multistep_psgld"):
         eps = cs.B8_EPS
         timed("B5-psgld", fs.fused_bnn_multistep_psgld,
@@ -91,6 +106,100 @@ def main(argv=None):
         timed("B5-sgnht", fs.fused_bnn_multistep_sgnht,
               (theta, normal, torch.ones(n, device=device)), eps["SGNHT"],
               sg)
+    if hasattr(fs, "STATE_DTYPES"):  # the tree takes bf16 state
+        bf = torch.bfloat16
+        out = timed("B2 (bf16)", fs.fused_bnn_multistep_burnin,
+                    (theta, zeros.to(bf), ones, ones, ones), cs.EPS,
+                    dict(sg, mdecay=0.05, state_dtype=bf))
+        timed("B1 (bf16)", fs.fused_bnn_multistep,
+              (out[0], out[1], out[5].to(bf)), cs.EPS,
+              dict(sg, mdecay=0.05, state_dtype=bf))
+        timed("B5-sgld (bf16)", fs.fused_bnn_multistep_sgld,
+              (theta, ones.to(bf)), cs.EPS_SGLD, dict(sg, a_coef=1.0))
+        timed("B5-rsghmc (bf16)", fs.fused_bnn_multistep_rsghmc,
+              (theta, normal.to(bf)), eps["RelativisticSGHMC"],
+              dict(base, state_dtype=bf))
+        timed("B5-sgnht (bf16)", fs.fused_bnn_multistep_sgnht,
+              (theta, normal.to(bf), torch.ones(n, device=device)),
+              eps["SGNHT"], dict(sg, state_dtype=bf))
+
+    def timed_one(name, fn, args, kw):
+        """Median ms of cs.ONE_STEP_TIMED launches of one step."""
+        fn(*args, **kw)  # warm-up
+        ms[name] = cs._median_ms(torch, lambda: fn(*args, **kw),
+                                 cs.ONE_STEP_TIMED)
+
+    # one-step kernels on each chain's Philox window, f32 state
+    sel = fs.gather_batch(x_win, y_win, fs.philox_windows(
+        46, 0, n, x_win.shape[0], device))
+    eps = cs.B8_EPS
+    one_step = {"B3": (fs.fused_bnn_step, (theta, zeros, minv_sghmc),
+                       cs.EPS, dict(sg, mdecay=0.05)),
+                "B4-sgld": (fs.fused_bnn_step_sgld, (theta, minv_sgld),
+                            cs.EPS_SGLD, dict(sg, a_coef=1.0))}
+    if hasattr(fs, "fused_bnn_step_psgld"):
+        one_step.update({
+            "B4-psgld": (fs.fused_bnn_step_psgld, (theta, 1e-4 * ones),
+                         eps["PSGLD"], sg),
+            "B4-rsghmc": (fs.fused_bnn_step_rsghmc, (theta, normal),
+                          eps["RelativisticSGHMC"], base),
+            "B4-sgnht": (fs.fused_bnn_step_sgnht,
+                         (theta, normal, torch.ones(n, device=device)),
+                         eps["SGNHT"], sg)})
+    for name, (fn, state, e, kw) in one_step.items():
+        timed_one(name, fn, (*state, *sel, e, 46), dict(kw, step=0))
+    # slim kernels, f32 operands: a unit gradient and momentum scale
+    del sel
+    grad, v = normal, 1e-2 * normal
+    pr = dict(prior_scale=base["prior_scale"])
+    sg_slim = dict(pr, scale_grad=float(cs.N_DATA))
+    slim = {
+        "B7": (su.slim_sghmc_update, (theta, v, grad, ones, None), cs.EPS,
+               dict(sg_slim, mdecay=0.05)),
+        "B8-sgld": (su.slim_sgld_update, (theta, grad, ones, None),
+                    cs.EPS_SGLD, dict(sg_slim, a_coef=1.0)),
+        "B9-sghmc": (su.slim_sghmc_burnin_update,
+                     (theta, v, ones, ones, ones, grad, None), cs.EPS,
+                     dict(sg_slim, mdecay=0.05)),
+        "B9-sgld": (su.slim_sgld_burnin_update,
+                    (theta, ones, ones, ones, grad, None), cs.EPS_SGLD,
+                    dict(sg_slim, a_coef=1.0))}
+    if hasattr(su, "slim_psgld_update"):
+        slim.update({
+            "B8-psgld": (su.slim_psgld_update,
+                         (theta, 1e-4 * ones, grad, None), eps["PSGLD"],
+                         dict(sg_slim, alpha=0.99, lambda_reg=1e-5)),
+            "B8-rsghmc": (su.slim_rsghmc_update, (theta, v, grad, None),
+                          eps["RelativisticSGHMC"],
+                          dict(pr, d_coef=1.0, bhat=0.0, mass=1.0,
+                               speed_of_light=1.0)),
+            "B8-sgnht": (su.slim_sgnht_update,
+                         (theta, v, grad, None,
+                          torch.ones(n, device=device)), eps["SGNHT"],
+                         dict(sg_slim, a_diff=1.0))})
+    for name, (fn, args, e, kw) in slim.items():
+        timed_one(name, fn, (*args, e, 47), dict(kw, step=0))
+    if hasattr(fs, "fused_placement"):  # the tree trains wide networks
+        del theta, zeros, ones, normal, grad, v, burned, out
+        wide = fs.FusedLayout(1, cs.WIDE_H, 3)
+        theta = fs.pack(dense_network(1, units=(cs.WIDE_H,) * 3,
+                                      device=device)[0](
+            gen, (cs.WIDE_CHAINS,)), wide)
+        ones = torch.ones_like(theta)
+        kw = dict(base, h=cs.WIDE_H,
+                  prior_scale=1.0 / (wide.n_params * cs.N_DATA),
+                  scale_grad=float(cs.N_DATA))
+        tag, steps = " (H={})".format(cs.WIDE_H), cs.WIDE_STEPS
+        out = timed("B2" + tag, fs.fused_bnn_multistep_burnin,
+                    (theta, torch.zeros_like(theta), ones, ones, ones),
+                    cs.EPS, dict(kw, mdecay=0.05), steps)
+        timed("B1" + tag, fs.fused_bnn_multistep, (out[0], out[1], out[5]),
+              cs.EPS, dict(kw, mdecay=0.05), steps)
+        out = timed("B6" + tag, fs.fused_bnn_multistep_burnin_sgld,
+                    (theta, ones, ones, ones), cs.EPS_SGLD,
+                    dict(kw, a_coef=1.0), steps)
+        timed("B5-sgld" + tag, fs.fused_bnn_multistep_sgld,
+              (out[0], out[4]), cs.EPS_SGLD, dict(kw, a_coef=1.0), steps)
     print(json.dumps({"root": root, "ptxas": registers, "ms": ms,
                       "chains": n, "steps": k, "repeats": REPEATS}))
     return 0

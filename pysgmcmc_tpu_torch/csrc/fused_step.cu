@@ -50,8 +50,34 @@
 // B4-*) load and store the whole state every step: at the flagship (8192
 // chains x 5,252 parameters) B4-psgld, B4-sgnht and B4-rsghmc read theta
 // and one state array and write both, 0.69 GB, 0.205 ms at 3.35 TB/s.
-// All arithmetic is f32 on the CUDA cores (no tensor cores yet) and the
-// layout is the port's flat per-chain vector (pysgmcmc_tpu_torch/ops/
+// All arithmetic is f32 on the CUDA cores (no tensor cores yet).
+//
+// bf16 state (JAX's state_dtype=jnp.bfloat16).  The momentum (SGHMC,
+// SGNHT, relativistic SGHMC) or accumulator (pSGLD) may be stored as bf16,
+// and so may the frozen minv of SGHMC and SGLD; the flags v_bf16 and
+// minv_bf16 say which, per launch: one body serves both types, v's as a
+// template parameter (its rounding sits in every step's update), minv's
+// read at run time (once per launch).  The
+// working copy stays f32 in the block's state.  As the TPU kernels, which
+// write the aux state back to its bf16 ref after every inner step, the
+// kernel rounds the new momentum to bf16 (round to nearest even) after each
+// step's update, while theta moves by the unrounded value and SGNHT's
+// p'^T p' sums the unrounded values: two launches of k steps equal one of
+// 2k.  minv is read once (its bf16 values are exact in f32).
+//
+// Placement.  A chain's P-long arrays (theta, the aux state, the gradient,
+// minv or tau, g, v_hat) live in the block's shared memory when they fit
+// (fused_step_smem_bytes <= 232,448 bytes).  A wider network (JAX's fused
+// path takes hidden widths up to 114, where theta alone is 104 KB at depth
+// 3) runs the same body, instantiated with kDevice, with those arrays in a
+// per-chain workspace in device memory that the wrapper allocates
+// (Args::work); the activations and the scalars stay in shared memory.
+// The choice depends on the count alone and is made by the wrapper before
+// the launch.  In device memory
+// every product reads its weights through L1/L2: such launches are several
+// times their operation bound (a cluster design is later work).
+//
+// The layout is the port's flat per-chain vector (pysgmcmc_tpu_torch/ops/
 // fused_step.py, FusedLayout):
 //   w1 (k*H) | b1 (H) | w2 (H*H) | b2 (H) | ... | wD (H*H) | bD (H)
 //   | w_head (H) | b_head (1) | log_variance_bias (1)
@@ -65,6 +91,7 @@
 // Built with nvcc into a shared library with a plain C interface, one entry
 // per TPU kernel; each returns cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,9 +116,11 @@ enum Rule { kSghmc = 0, kSgld = 1, kPsgld = 2, kRsghmc = 3, kSgnht = 4 };
 
 struct Args {
   const float* theta;
-  const float* v;      // SGHMC momentum, pSGLD accumulator, SGNHT and
-                       // relativistic SGHMC momentum
-  const float* minv;   // SGHMC / SGLD sampling phase only
+  const void* v;       // SGHMC momentum, pSGLD accumulator, SGNHT and
+                       // relativistic SGHMC momentum: f32, or bf16 where
+                       // v_bf16
+  const void* minv;    // SGHMC / SGLD sampling phase only: f32, or bf16
+                       // where minv_bf16
   const float* tau;    // burn-in only
   const float* g;      // burn-in only
   const float* v_hat;  // burn-in only
@@ -108,7 +137,7 @@ struct Args {
   const float* noise;  // optional (k_steps, n_chains, n_params)
   const int* widx;     // optional (k_steps, n_chains)
   float* theta_out;
-  float* v_out;        // the rules with a v
+  void* v_out;         // the rules with a v, in v's type
   float* tau_out;      // burn-in only
   float* g_out;        // burn-in only
   float* v_hat_out;    // burn-in only
@@ -131,7 +160,23 @@ struct Args {
   float c2, c3;
   const float* xi;     // SGNHT only: (n_chains,) thermostat
   float* xi_out;       // SGNHT only
+  // bf16 state and device-memory placement come last for the same reason.
+  int v_bf16, minv_bf16;  // v (and v_out) / minv stored as bf16
+  float* work;  // nullptr: the state in shared memory; else (n_chains,
+                // state_arrays, P) f32 in device memory
 };
+
+// bf16 storage of the aux state: values rounded to nearest even, arithmetic
+// in f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float load_state(const void* p, size_t i,
+                                            int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
 
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -376,11 +421,21 @@ __host__ __device__ constexpr int scalar_slots(int rule) {
   return rule == kSgnht ? 3 + kWarps : 2;
 }
 
-template <int kRule, bool kBurnin, bool kGathered>
-__global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
+// kDevice: the P-long arrays live in the device-memory workspace Args::work
+// instead of shared memory.  kVBf16: v is stored as bf16 (Args::v_bf16).
+// Template parameters, not runtime choices: a pointer that may point to
+// either memory compiles to generic loads and stores, and either choice
+// made at run time moved the f32 resident kernels' register allocation
+// (B1 +17 %, B2 +4 % against the kernels before bf16 state).
+// The body of every instantiation; the __global__ entries below differ only
+// in the hint they give ptxas.
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
+          bool kVBf16>
+__device__ __forceinline__ void fused_body(const Args& a) {
   constexpr bool kAux = kRule != kSgld;
   constexpr bool kMinv = !kBurnin && (kRule == kSghmc || kRule == kSgld);
   constexpr int kCols = kRule == kSgld || kRule == kPsgld ? 1 : 2;
+  constexpr int kState = state_arrays(kRule, kBurnin);
   extern __shared__ float smem[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -388,14 +443,23 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
   const size_t base = static_cast<size_t>(c) * P;
   const Layout L = make_layout(a.n_inputs, a.hidden, a.depth);
 
-  float* s_theta = smem;
+  // the chain's P-long arrays: in shared memory, or in its slice of the
+  // device-memory workspace (then shared memory holds the scratch alone)
+  float* s_theta;
+  float* rest;
+  if constexpr (kDevice) {
+    s_theta = a.work + static_cast<size_t>(c) * kState * P;
+    rest = smem;
+  } else {
+    s_theta = smem;
+    rest = smem + kState * P;
+  }
   float* s_v = s_theta + P;                       // kAux
   float* s_grad = s_theta + (kAux ? 2 : 1) * P;
   float* s_minv = s_grad + P;                     // kMinv
   float* s_tau = s_grad + P;                      // burn-in
   float* s_g = s_tau + P;                         // burn-in
   float* s_vhat = s_g + P;                        // burn-in
-  float* rest = s_grad + (kBurnin ? 4 : kMinv ? 2 : 1) * P;
   Scratch s;
   s.act = rest;
   s.dz = s.act + a.depth * a.batch * a.hidden;
@@ -408,13 +472,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     s_theta[p] = a.theta[base + p];
-    if constexpr (kAux) s_v[p] = a.v[base + p];
+    if constexpr (kAux) s_v[p] = load_state(a.v, base + p, kVBf16);
     if constexpr (kBurnin) {
       s_tau[p] = a.tau[base + p];
       s_g[p] = a.g[base + p];
       s_vhat[p] = a.v_hat[base + p];
     }
-    if constexpr (kMinv) s_minv[p] = a.minv[base + p];
+    if constexpr (kMinv) s_minv[p] = load_state(a.minv, base + p, a.minv_bf16);
   }
   if constexpr (kRule == kSgnht) {
     if (tid == 0) s.scal[2] = a.xi[c];
@@ -449,7 +513,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
             sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
         float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
         if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;
-        s_v[p] = vn;
+        s_v[p] = kVBf16 ? round_bf16(vn) : vn;
         s_theta[p] = th + vn;
       }
     } else if constexpr (kRule == kSgld) {
@@ -487,7 +551,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
         const float vn = alpha * s_v[p] + (1.0f - alpha) * gg * gg;
         const float precond = 1.0f / (lambda + sqrtf(fmaxf(vn, 0.0f)));
         const float sigma = sqrtf(fmaxf(eps * precond * inv_sg, 0.0f));
-        s_v[p] = vn;
+        s_v[p] = kVBf16 ? round_bf16(vn) : vn;
         s_theta[p] = th + (-0.5f * eps * precond * gg + sigma * eta);
       }
     } else if constexpr (kRule == kRsghmc) {
@@ -503,7 +567,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
         const float pv = s_v[p];
         const float vel = eps * pv * inv_m * rsqrtf(pv * pv * inv_mc2 + 1.0f);
         const float pn = pv + eps * -gg + noise_scale * eta - d * vel;
-        s_v[p] = pn;
+        s_v[p] = kVBf16 ? round_bf16(pn) : pn;
         s_theta[p] = th + eps * pn * inv_m * rsqrtf(pn * pn * inv_mc2 + 1.0f);
       }
     } else {
@@ -519,7 +583,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
         const float gg = s_grad[p] + prior_scale * th;
         const float pv = s_v[p];
         const float pn = pv - xi * eps * pv - eps * gg + sigma * eta;
-        s_v[p] = pn;
+        s_v[p] = kVBf16 ? round_bf16(pn) : pn;
         s_theta[p] = th + eps * pn;
         kinetic += pn * pn;
       }
@@ -539,7 +603,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
 
   for (int p = tid; p < P; p += kThreads) {
     a.theta_out[base + p] = s_theta[p];
-    if constexpr (kAux) a.v_out[base + p] = s_v[p];
+    if constexpr (kAux) {
+      if constexpr (kVBf16)
+        static_cast<__nv_bfloat16*>(a.v_out)[base + p] =
+            __float2bfloat16_rn(s_v[p]);
+      else
+        static_cast<float*>(a.v_out)[base + p] = s_v[p];
+    }
     if constexpr (kBurnin) {
       a.tau_out[base + p] = s_tau[p];
       a.g_out[base + p] = s_g[p];
@@ -548,47 +618,117 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(Args a) {
   }
 }
 
+// kMinBlocks: two blocks per SM (at most 128 registers a thread).  Without
+// that hint ptxas picked 32-64 registers per instantiation, and its choice
+// moved single kernels by up to 9 % with unrelated changes of the source
+// (H100: B5-rsghmc at 32 registers, 293 ms against 40 and 270 ms); with it the
+// resident kernels take 64-128 registers and none is slower than before,
+// and the sampling kernels with their state in device memory (80-128
+// registers) run twice as fast at H = 100.
+constexpr int kMinBlocks = 2;
+
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
+          bool kVBf16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_kernel(Args a) {
+  fused_body<kRule, kBurnin, kGathered, kDevice, kVBf16>(a);
+}
+
+// The burn-in kernels with their state in device memory keep ptxas's own
+// choice (B2 106, B6 80 registers): the hint gave them 114 and 128 and made
+// them 11-27 % slower at H = 100 on an H100.
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
+          bool kVBf16>
+__global__ void __launch_bounds__(kThreads) fused_kernel_unhinted(Args a) {
+  fused_body<kRule, kBurnin, kGathered, kDevice, kVBf16>(a);
+}
+
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
+          bool kVBf16>
+constexpr auto kernel_of() {
+  if constexpr (kDevice && kBurnin)
+    return &fused_kernel_unhinted<kRule, kBurnin, kGathered, kDevice, kVBf16>;
+  else
+    return &fused_kernel<kRule, kBurnin, kGathered, kDevice, kVBf16>;
+}
+
+// Shared memory of one block: the scratch, plus the P-long arrays where they
+// are resident (no device-memory workspace).
 size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
-                  int hidden, int depth, int batch) {
+                  int hidden, int depth, int batch, bool resident) {
   const size_t state =
-      static_cast<size_t>(state_arrays(rule, burnin)) * n_params;
+      resident ? static_cast<size_t>(state_arrays(rule, burnin)) * n_params
+               : 0;
   const size_t scratch = static_cast<size_t>(depth + 2) * batch * hidden +
                          static_cast<size_t>(batch) * n_inputs + 3 * batch +
                          scalar_slots(rule);
   return (state + scratch) * sizeof(float);
 }
 
-template <int kRule, bool kBurnin, bool kGathered>
-int launch(const Args& a, void* stream) {
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
+          bool kVBf16>
+int launch_placed(const Args& a, void* stream) {
   const size_t bytes = smem_bytes(kRule, kBurnin, a.n_params, a.n_inputs,
-                                  a.hidden, a.depth, a.batch);
+                                  a.hidden, a.depth, a.batch, !kDevice);
+  constexpr auto kernel =
+      kernel_of<kRule, kBurnin, kGathered, kDevice, kVBf16>();
   cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<kRule, kBurnin, kGathered>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_kernel<kRule, kBurnin, kGathered>
-      <<<a.n_chains, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<a.n_chains, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <int kRule, bool kBurnin, bool kGathered, bool kDevice>
+int launch_typed(const Args& a, void* stream) {
+  if constexpr (kRule != kSgld) {  // SGLD has no v
+    if (a.v_bf16)
+      return launch_placed<kRule, kBurnin, kGathered, kDevice, true>(a,
+                                                                     stream);
+  }
+  return launch_placed<kRule, kBurnin, kGathered, kDevice, false>(a, stream);
+}
+
+// The wrapper chose the placement (a workspace or none) from
+// fused_step_smem_bytes and the storage of v; the launch follows them.
+template <int kRule, bool kBurnin, bool kGathered>
+int launch(const Args& a, void* stream) {
+  if (a.work != nullptr)
+    return launch_typed<kRule, kBurnin, kGathered, true>(a, stream);
+  return launch_typed<kRule, kBurnin, kGathered, false>(a, stream);
+}
+
+int rule_of(int kernel) {
+  switch (kernel) {
+    case kB1: case kB2: case kB3: return kSghmc;
+    case kB4Psgld: case kB5Psgld: return kPsgld;
+    case kB4Sgnht: case kB5Sgnht: return kSgnht;
+    case kB4Rsghmc: case kB5Rsghmc: return kRsghmc;
+    default: return kSgld;
+  }
+}
+
+bool burnin_of(int kernel) { return kernel == kB2 || kernel == kB6; }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of kernel `kernel` (a KernelId) needs, in bytes.
+// Shared memory one block of kernel `kernel` (a KernelId) needs with the
+// chain's state resident, in bytes: the placement rule.  Above a block's
+// limit the wrapper passes a device-memory workspace instead.
 unsigned long long fused_step_smem_bytes(int kernel, int n_params,
                                          int n_inputs, int hidden, int depth,
                                          int batch) {
-  int rule = kSgld;
-  switch (kernel) {
-    case kB1: case kB2: case kB3: rule = kSghmc; break;
-    case kB4Psgld: case kB5Psgld: rule = kPsgld; break;
-    case kB4Sgnht: case kB5Sgnht: rule = kSgnht; break;
-    case kB4Rsghmc: case kB5Rsghmc: rule = kRsghmc; break;
-    default: break;
-  }
-  const bool burnin = kernel == kB2 || kernel == kB6;
-  return smem_bytes(rule, burnin, n_params, n_inputs, hidden, depth, batch);
+  return smem_bytes(rule_of(kernel), burnin_of(kernel), n_params, n_inputs,
+                    hidden, depth, batch, true);
+}
+
+// Floats of one chain's slice of the device-memory workspace.
+unsigned long long fused_step_workspace_floats(int kernel, int n_params) {
+  return static_cast<unsigned long long>(
+             state_arrays(rule_of(kernel), burnin_of(kernel))) * n_params;
 }
 
 const char* fused_step_error_string(int code) {
@@ -597,21 +737,24 @@ const char* fused_step_error_string(int code) {
 
 // One entry per TPU kernel, all with the same arguments (the Args fields in
 // order, then the stream); a kernel reads only the operands of its rule and
-// phase, and the others may be NULL.  The one-step kernels (B3, B4-*) take
-// each chain's gathered rows as x/y (n_windows = n_chains, k_steps = 1) and
-// the noise of absolute step `step0`.
+// phase, and the others may be NULL.  v_bf16 / minv_bf16 give the storage
+// of v and v_out / minv; work is NULL, or the device-memory workspace of
+// fused_step_workspace_floats per chain.  The one-step kernels (B3, B4-*)
+// take each chain's gathered rows as x/y (n_windows = n_chains, k_steps =
+// 1) and the noise of absolute step `step0`.
 #define FUSED_STEP_ENTRY(entry, rule, burnin, gathered)                      \
-  int entry(const float* theta, const float* v, const float* minv,          \
+  int entry(const float* theta, const void* v, const void* minv,            \
             const float* tau, const float* g, const float* v_hat,           \
             const float* xi, const float* x, const float* y,                \
             const float* tab, const float* noise, const int* widx,          \
-            float* theta_out, float* v_out, float* tau_out, float* g_out,   \
+            float* theta_out, void* v_out, float* tau_out, float* g_out,    \
             float* v_hat_out, float* minv_out, float* xi_out,               \
             float* cost_out, int n_chains, int n_inputs, int hidden,        \
             int depth, int batch, int n_windows, int k_steps,               \
             int n_params, unsigned long long seed, unsigned step0,          \
             float coef, float cdiv, float c2, float c3, float prior_scale,  \
-            float inv_b, float inv_n, void* stream) {                       \
+            float inv_b, float inv_n, int v_bf16, int minv_bf16,            \
+            float* work, void* stream) {                                    \
     const Args a = {theta,     v,         minv,      tau,       g,          \
                     v_hat,     x,         y,         tab,       noise,      \
                     widx,      theta_out, v_out,     tau_out,   g_out,      \
@@ -619,7 +762,7 @@ const char* fused_step_error_string(int code) {
                     hidden,    depth,     batch,     n_windows, k_steps,    \
                     n_params,  seed,      step0,     coef,      cdiv,       \
                     prior_scale, inv_b,   inv_n,     c2,        c3,         \
-                    xi,        xi_out};                                     \
+                    xi,        xi_out,    v_bf16,    minv_bf16, work};      \
     return launch<rule, burnin, gathered>(a, stream);                       \
   }
 

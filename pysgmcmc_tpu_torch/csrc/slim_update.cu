@@ -40,9 +40,22 @@
 // pattern), and injected noise may replace the draw (the tests).  All
 // arithmetic is f32; outputs are new buffers, not aliases of the inputs.
 //
+// bf16 operands.  As JAX's slim kernels, v (the momentum or accumulator),
+// minv and the gradient may arrive as bf16 (the gradient of a bf16 network
+// pass, state_dtype=bfloat16 state); the flags v_bf16, minv_bf16 and
+// grad_bf16 say which, per launch, so one body serves every combination.
+// The flags are read only in the instantiation with kMixed set; with all
+// operands f32 the launch takes the kMixed = false one, whose loads and
+// stores are plain f32, as the kernels before bf16 operands had them.
+// Each is widened to f32 on load, and v_out keeps v's type (the new value
+// rounded to nearest even); theta, tau, g, v_hat and minv_out are f32.  A
+// bf16 operand halves its bytes: at the flagship, B7 with bf16 v, minv and
+// grad moves 16 bytes per element instead of 24.
+//
 // Built with nvcc into a shared library with a plain C interface, one entry
 // per TPU kernel; each returns cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,18 +74,18 @@ enum Rule { kSghmc = 0, kSgld = 1, kPsgld = 2, kRsghmc = 3, kSgnht = 4 };
 
 struct Args {
   const float* theta;
-  const float* v;        // SGHMC momentum, pSGLD accumulator, RSGHMC and
-                         // SGNHT momentum
-  const float* minv;     // SGHMC / SGLD sampling only
+  const void* v;         // SGHMC momentum, pSGLD accumulator, RSGHMC and
+                         // SGNHT momentum: f32, or bf16 where v_bf16
+  const void* minv;      // SGHMC / SGLD sampling only: f32 or bf16
   const float* tau;      // burn-in only
   const float* g;        // burn-in only
   const float* v_hat;    // burn-in only
-  const float* grad;
+  const void* grad;      // f32 or bf16
   const float* xi;       // SGNHT only: (n_chains,) thermostat
   const float* eps_vec;  // optional (n_chains,): replaces eps
   const float* noise;    // optional (n_chains, n_params): replaces the draw
   float* theta_out;
-  float* v_out;          // the rules with a v
+  void* v_out;           // the rules with a v, in v's type
   float* tau_out;        // burn-in only
   float* g_out;          // burn-in only
   float* v_hat_out;      // burn-in only
@@ -89,13 +102,31 @@ struct Args {
   //   RSGHMC  coef = D, cdiv = Bhat, c2 = 1 / m, c3 = 1 / (m^2 c^2)
   //   SGNHT   coef = 2 A, cdiv = scale_grad
   float eps, sqrt_sg, coef, cdiv, c2, c3, prior_scale;
+  int v_bf16, minv_bf16, grad_bf16;  // which of v, minv, grad are bf16
 };
+
+// kMixed: some operand may be bf16 (the flag says whether this one is);
+// without it every operand is f32 and the flag is not read.
+template <bool kMixed>
+__device__ __forceinline__ float load(const void* p, size_t i, int bf16) {
+  return kMixed && bf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+             : static_cast<const float*>(p)[i];
+}
+
+template <bool kMixed>
+__device__ __forceinline__ void store(void* p, size_t i, int bf16, float x) {
+  if (kMixed && bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
 
 __device__ __forceinline__ float sign_of(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
 }
 
-template <int kRule, bool kBurnin>
+template <int kRule, bool kBurnin, bool kMixed>
 __global__ void __launch_bounds__(kThreads) slim_kernel(Args a) {
   const int P = a.n_params;
   for (int c = blockIdx.y; c < a.n_chains; c += gridDim.y) {
@@ -117,7 +148,8 @@ __global__ void __launch_bounds__(kThreads) slim_kernel(Args a) {
                             : philox_normal(a.seed, static_cast<unsigned>(c),
                                             a.step, static_cast<unsigned>(p));
       const float th = a.theta[i];
-      const float gg = a.grad[i] + a.prior_scale * th;
+      const float gg =
+          load<kMixed>(a.grad, i, a.grad_bf16) + a.prior_scale * th;
       if constexpr (kRule == kSghmc || kRule == kSgld) {
         float minv;
         if constexpr (kBurnin) {
@@ -132,18 +164,18 @@ __global__ void __launch_bounds__(kThreads) slim_kernel(Args a) {
           a.v_hat_out[i] = vh - r * vh + r * gg * gg;
           a.minv_out[i] = minv;
         } else {
-          minv = a.minv[i];
+          minv = load<kMixed>(a.minv, i, a.minv_bf16);
         }
         if constexpr (kRule == kSghmc) {
           const float es = eps / a.sqrt_sg;
           const float es2 = es * es;
           const float mdecay = a.coef;
-          const float vv = a.v[i];
+          const float vv = load<kMixed>(a.v, i, a.v_bf16);
           const float sigma =
               sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
           const float vn =
               vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
-          a.v_out[i] = vn;
+          store<kMixed>(a.v_out, i, a.v_bf16, vn);
           a.theta_out[i] = th + vn;
         } else {
           const float A = a.coef;
@@ -155,23 +187,24 @@ __global__ void __launch_bounds__(kThreads) slim_kernel(Args a) {
       } else if constexpr (kRule == kPsgld) {
         // RMSprop accumulator, then G = 1 / (lambda + sqrt(v'))
         const float alpha = a.coef;
-        const float vn = alpha * a.v[i] + (1.0f - alpha) * gg * gg;
+        const float vn = alpha * load<kMixed>(a.v, i, a.v_bf16) +
+                         (1.0f - alpha) * gg * gg;
         const float precond = 1.0f / (a.cdiv + sqrtf(fmaxf(vn, 0.0f)));
         const float sigma = sqrtf(fmaxf(eps * precond * a.c2, 0.0f));
-        a.v_out[i] = vn;
+        store<kMixed>(a.v_out, i, a.v_bf16, vn);
         a.theta_out[i] = th + (-0.5f * eps * precond * gg + sigma * eta);
       } else if constexpr (kRule == kRsghmc) {
         // the dynamics use the log-likelihood gradient, -gg; the velocity is
         // eps p / m / sqrt(p^2 / (m^2 c^2) + 1)
-        const float pv = a.v[i];
+        const float pv = load<kMixed>(a.v, i, a.v_bf16);
         const float vel = eps * pv * a.c2 * rsqrtf(pv * pv * a.c3 + 1.0f);
         const float pn = pv + eps * -gg + chain_sigma * eta - a.coef * vel;
-        a.v_out[i] = pn;
+        store<kMixed>(a.v_out, i, a.v_bf16, pn);
         a.theta_out[i] = th + eps * pn * a.c2 * rsqrtf(pn * pn * a.c3 + 1.0f);
       } else {  // kSgnht
-        const float pv = a.v[i];
+        const float pv = load<kMixed>(a.v, i, a.v_bf16);
         const float pn = pv - xi * eps * pv - eps * gg + chain_sigma * eta;
-        a.v_out[i] = pn;
+        store<kMixed>(a.v_out, i, a.v_bf16, pn);
         a.theta_out[i] = th + eps * pn;
       }
     }
@@ -183,8 +216,12 @@ int launch(const Args& a, void* stream) {
   if (a.n_chains <= 0 || a.n_params <= 0) return 0;
   const int bx = std::min((a.n_params + kThreads - 1) / kThreads, kMaxBlocksX);
   const int by = std::min(a.n_chains, kMaxBlocksY);
-  slim_kernel<kRule, kBurnin>
-      <<<dim3(bx, by), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(bx, by);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.v_bf16 || a.minv_bf16 || a.grad_bf16)
+    slim_kernel<kRule, kBurnin, true><<<grid, kThreads, 0, s>>>(a);
+  else
+    slim_kernel<kRule, kBurnin, false><<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,23 +235,25 @@ const char* slim_update_error_string(int code) {
 
 // One entry per TPU kernel, all with the same arguments (the Args fields in
 // order, then the stream); a kernel reads only the operands of its rule and
-// phase, and the others may be NULL.
+// phase, and the others may be NULL.  The three flags give the storage of
+// v (and v_out), minv and grad: 0 f32, 1 bf16.
 #define SLIM_ENTRY(entry, rule, burnin)                                       \
-  int entry(const float* theta, const float* v, const float* minv,          \
+  int entry(const float* theta, const void* v, const void* minv,            \
             const float* tau, const float* g, const float* v_hat,           \
-            const float* grad, const float* xi, const float* eps_vec,       \
-            const float* noise, float* theta_out, float* v_out,             \
+            const void* grad, const float* xi, const float* eps_vec,        \
+            const float* noise, float* theta_out, void* v_out,              \
             float* tau_out, float* g_out, float* v_hat_out,                 \
             float* minv_out, int n_chains, int n_params,                    \
             unsigned long long seed, unsigned step, float eps,              \
             float sqrt_sg, float coef, float cdiv, float c2, float c3,      \
-            float prior_scale, void* stream) {                              \
+            float prior_scale, int v_bf16, int minv_bf16, int grad_bf16,    \
+            void* stream) {                                                 \
     const Args a = {theta,     v,         minv,     tau,      g,            \
                     v_hat,     grad,      xi,       eps_vec,  noise,        \
                     theta_out, v_out,     tau_out,  g_out,    v_hat_out,    \
                     minv_out,  n_chains,  n_params, seed,     step,         \
                     eps,       sqrt_sg,   coef,     cdiv,     c2,           \
-                    c3,        prior_scale};                                \
+                    c3,        prior_scale, v_bf16, minv_bf16, grad_bf16};  \
     return launch<rule, burnin>(a, stream);                                 \
   }
 

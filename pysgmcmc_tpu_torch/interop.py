@@ -3,7 +3,11 @@
 Everything crosses as numpy arrays, so this module imports no JAX: pass
 ``np.asarray``-able leaves (JAX arrays qualify) and get tensors back, or the
 reverse.  Parameter dicts keep the JAX key names and shapes, with the
-leading chain axis where JAX stacks chains.
+leading chain axis where JAX stacks chains.  A bfloat16 leaf (a JAX bf16
+array, whose numpy type numpy itself does not define) crosses bit for bit
+as a ``torch.bfloat16`` tensor: its 16-bit words are read as ``int16``, so
+no ``ml_dtypes`` import is needed; a bf16 tensor comes back as float32
+numpy, which holds every bf16 value exactly.
 
 Examples
 --------
@@ -27,16 +31,34 @@ from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTState
 from pysgmcmc_tpu_torch.samplers.svgd import SVGDState
 
 
+def tensor_from_numpy(leaf, device):
+    """An ``np.asarray``-able array -> a tensor on ``device`` (a copy); a
+    bfloat16 array keeps its bits."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.tensor(arr.view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def tensor_to_numpy(leaf):
+    """A tensor -> a numpy array (a bfloat16 tensor as float32, exactly)."""
+    leaf = leaf.detach().cpu()
+    if leaf.dtype == torch.bfloat16:
+        leaf = leaf.float()
+    return leaf.numpy()
+
+
 def params_from_numpy(params, device):
-    """Dict of arrays (e.g. JAX ``dense_network`` params, single or stacked)
-    -> dict of tensors on ``device`` (copies)."""
-    return {name: torch.tensor(np.asarray(leaf), device=device)
+    """Dict of arrays (e.g. JAX ``dense_network`` params, single or stacked,
+    float32 or bfloat16) -> dict of tensors on ``device`` (copies)."""
+    return {name: tensor_from_numpy(leaf, device)
             for name, leaf in params.items()}
 
 
 def params_to_numpy(params):
     """Dict of tensors -> dict of numpy arrays."""
-    return {name: leaf.detach().cpu().numpy() for name, leaf in params.items()}
+    return {name: tensor_to_numpy(leaf) for name, leaf in params.items()}
 
 
 def _stats_from_numpy(stats, device):

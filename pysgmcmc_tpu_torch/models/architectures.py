@@ -10,7 +10,10 @@ shapes, in the order ``w1, b1, ..., w{L}, b{L}, log_variance_bias``:
 :func:`default_network` has the reference's shapes, :func:`dense_network`
 the fused kernels' (``w1`` is ``(H,)`` for one input, the head weight is
 ``(H,)``); ``log_variance_bias`` is ``(1, 1)``.  Any leading axes (chains,
-ensemble members) broadcast through ``apply``.
+ensemble members) broadcast through ``apply``.  ``apply`` casts the input to
+the network's ``dtype`` and promotes mixed operands as ``jnp.dot`` does
+(``torch.promote_types``): bf16 weights in a float32 network compute in
+float32, as in the JAX package, and bf16 weights in a bf16 network in bf16.
 
 Examples
 --------
@@ -36,6 +39,13 @@ import torch
 # stddev correction of a unit normal truncated to [-2, 2]
 # (jax.nn.initializers.variance_scaling's "truncated_normal" constant)
 _TRUNC_STD = 0.87962566103423978
+
+
+def _matmul(a, b):
+    """``torch.matmul`` on operands promoted to their common type, as
+    ``jnp.dot`` promotes (``torch.matmul`` refuses mixed types)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dtype), b.to(dtype))
 
 
 def default_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
@@ -75,12 +85,13 @@ def default_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
     def apply(params, x):
         h = torch.as_tensor(x, dtype=dtype)
         for i in range(1, n_layers):
-            h = torch.tanh(torch.matmul(h, params["w{}".format(i)])
+            h = torch.tanh(_matmul(h, params["w{}".format(i)])
                            + params["b{}".format(i)][..., None, :])
-        mean = (torch.matmul(h, params["w{}".format(n_layers)])
+        mean = (_matmul(h, params["w{}".format(n_layers)])
                 + params["b{}".format(n_layers)][..., None, :])
         log_var = params["log_variance_bias"].expand(mean.shape)
-        return torch.cat([mean, log_var], dim=-1)
+        out_dtype = torch.promote_types(mean.dtype, log_var.dtype)
+        return torch.cat([mean.to(out_dtype), log_var.to(out_dtype)], dim=-1)
 
     return init, apply
 
@@ -113,13 +124,15 @@ def dense_network(n_inputs, units=(50, 50, 50), dtype=torch.float32, *,
         if squeeze_first:
             h = torch.tanh(x * w1[..., None, :] + params["b1"][..., None, :])
         else:
-            h = torch.tanh(torch.matmul(x, w1) + params["b1"][..., None, :])
+            h = torch.tanh(_matmul(x, w1) + params["b1"][..., None, :])
         for i in range(2, n_layers):
-            h = torch.tanh(torch.matmul(h, params["w{}".format(i)])
+            h = torch.tanh(_matmul(h, params["w{}".format(i)])
                            + params["b{}".format(i)][..., None, :])
-        mean = (torch.matmul(h, params[head][..., :, None])[..., 0]
+        mean = (_matmul(h, params[head][..., :, None])[..., 0]
                 + params["b{}".format(n_layers)])
         log_var = params["log_variance_bias"][..., 0].expand(mean.shape)
-        return torch.stack([mean, log_var], dim=-1)
+        out_dtype = torch.promote_types(mean.dtype, log_var.dtype)
+        return torch.stack([mean.to(out_dtype), log_var.to(out_dtype)],
+                           dim=-1)
 
     return init, apply

@@ -27,6 +27,12 @@ one minibatch window shared by the ensemble, with the dense kernel matrix
 (``kernel_impl="dense"``, ``torch.matmul``) or kernel B11
 (``kernel_impl="streaming"``, :mod:`pysgmcmc_tpu_torch.ops.svgd_streaming`).
 
+``compute_dtype=torch.bfloat16`` is JAX's mixed precision: bf16 network
+passes in the cost, bf16 sampling state (momentum, accumulator, minv) in
+the kernels, f32 state in the adaptive burn-in, and a bf16 serving path in
+``predict(compute_dtype=)``.  The fused path takes hidden widths up to 114,
+as JAX's.
+
 Other step implementations raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
 
@@ -62,14 +68,13 @@ from pysgmcmc_tpu_torch.models.base_model import (
 )
 from pysgmcmc_tpu_torch.ops.fused_step import (
     MAX_INPUTS,
-    FusedLayout,
-    check_fused_fits,
+    STATE_DTYPES,
+    check_hidden,
 )
 from pysgmcmc_tpu_torch.parallel.packed import (
     _draw_seed,
     burnin_chain_fused,
     burnin_chain_lanes,
-    fused_kernel_ids,
     resolve_noise_impl,
     sample_chain_fused,
     sample_chain_lanes,
@@ -81,12 +86,6 @@ from pysgmcmc_tpu_torch.stepsize_schedules import (
 )
 from pysgmcmc_tpu_torch.utils.numeric import safe_divide
 from pysgmcmc_tpu_torch.utils.pytree import tree_size
-
-# the gradient samplers' kinds in the fused drivers (parallel.packed)
-_FUSED_KIND = {Sampler.SGHMC: "sghmc", Sampler.SGLD: "sgld",
-               Sampler.PSGLD: "psgld", Sampler.SGNHT: "sgnht",
-               Sampler.RelativisticSGHMC: "rsghmc"}
-
 
 def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
     """Gaussian prior (in log space) on the predicted log variance:
@@ -136,7 +135,14 @@ class BayesianNeuralNetwork(BaseModel):
     gets ``scale_grad`` = N by default where it has one; ``noise_impl`` is
     ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
     ``"zero"`` (the degenerate stream of the parity tests: zero noise,
-    window 0).
+    window 0).  ``compute_dtype`` (``None``, ``torch.float32`` or
+    ``torch.bfloat16``) is JAX's mixed precision: set, the network passes of
+    the cost run on the weights and inputs cast to it, and the sampling
+    state is bf16: the fused path samples with bf16 momentum and minv
+    (B1 / B5-*; burn-in keeps float32 state), the lanes path feeds the
+    bf16 gradient to the slim kernels and keeps its momentum, accumulator
+    and minv in bf16 (burn-in: float32 state).  ``predict(compute_dtype=)``
+    serves the ensemble from bf16 copies of the samples.
     """
 
     def __init__(
@@ -224,6 +230,7 @@ class BayesianNeuralNetwork(BaseModel):
             if len(set(units)) != 1:
                 raise ValueError(
                     "step_impl='fused' requires equal hidden widths")
+            check_hidden(units[0])
             if sampling_method not in (
                 Sampler.SGHMC, Sampler.SGLD, Sampler.PSGLD, Sampler.SGNHT,
                 Sampler.RelativisticSGHMC,
@@ -234,7 +241,7 @@ class BayesianNeuralNetwork(BaseModel):
             if get_net is not None:
                 raise ValueError(
                     "step_impl='fused' supports the dense NxH architecture "
-                    "family (via units=); pass get_net only with "
+                    "family (H <= 114, via units=); pass get_net only with "
                     "step_impl='lanes' or 'pytree'")
         if pair_dots:
             if step_impl != "fused":
@@ -247,6 +254,10 @@ class BayesianNeuralNetwork(BaseModel):
             raise ValueError(
                 "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
                 + repr(noise_impl))
+        if compute_dtype is not None and compute_dtype not in STATE_DTYPES:
+            raise ValueError(
+                "compute_dtype must be None, torch.float32 or "
+                "torch.bfloat16; got {}".format(compute_dtype))
 
         # the paths the port has not reached yet (SVGD ignores step_impl)
         if step_impl == "pytree" and sampling_method != Sampler.SVGD:
@@ -255,8 +266,6 @@ class BayesianNeuralNetwork(BaseModel):
             raise _not_ported("mesh", "queue A item 15")
         if pair_dots:
             raise _not_ported("pair_dots=True", "queue B, B-pair")
-        if compute_dtype is not None:
-            raise _not_ported("compute_dtype", "queue A items 6 and 14")
         if dtype != torch.float32:
             raise _not_ported("dtype={}".format(dtype), "queue A item 6")
         resolve_noise_impl(noise_impl)  # raises on hadamard_clt
@@ -293,8 +302,11 @@ class BayesianNeuralNetwork(BaseModel):
 
     def negative_log_likelihood(self, apply_fn, params, x, y, n_examples):
         """NLL and MSE of one network's ``params`` on minibatch ``(x, y)``
-        (``y`` shaped ``(N, 1)``); returns ``(nll, mse)``."""
-        net_out = apply_fn(params, x)
+        (``y`` shaped ``(N, 1)``); returns ``(nll, mse)``.  With
+        ``compute_dtype`` set, the network pass runs on the parameters and
+        ``x`` cast to it (the likelihood and the priors stay in
+        ``dtype``)."""
+        net_out = self._network_output(apply_fn, params, x)
         f_mean = net_out[:, 0:1]
         f_log_var = net_out[:, 1:2]
         f_var_inv = 1.0 / (torch.exp(f_log_var) + 1e-16)
@@ -305,6 +317,23 @@ class BayesianNeuralNetwork(BaseModel):
         log_like = log_like + log_variance_prior_log_like(f_log_var) / n_examples
         log_like = log_like + weight_prior_log_like(params) / n_examples
         return -log_like, torch.mean(mse)
+
+    def _network_output(self, apply_fn, params, x):
+        """``apply_fn(params, x)``, under ``compute_dtype`` on the
+        parameters and ``x`` cast to it and the output cast back to
+        ``dtype``, as JAX's BNN does."""
+        if self.compute_dtype is None:
+            return apply_fn(params, x)
+        cast = {name: leaf.to(self.compute_dtype)
+                for name, leaf in params.items()}
+        return apply_fn(cast, x.to(self.compute_dtype)).to(self.dtype)
+
+    @property
+    def _state_dtype(self):
+        """The sampling phase's state type: bf16 under ``compute_dtype``,
+        as JAX's BNN chooses."""
+        return torch.float32 if self.compute_dtype is None \
+            else torch.bfloat16
 
     #  Training ---------------------------------------------------------------
 
@@ -351,14 +380,6 @@ class BayesianNeuralNetwork(BaseModel):
         ``n_iters`` steps).  ``phase_seconds`` records the wall time of each
         phase."""
         self._check_device()
-        if self.step_impl == "fused" and self.device.type == "cuda":
-            # fault C1: refuse a network too wide for the fused kernels
-            # before any work is done (the CPU's plain versions take any)
-            check_fused_fits(
-                "BayesianNeuralNetwork.train",
-                fused_kernel_ids(_FUSED_KIND[self.sampling_method]),
-                FusedLayout(X.shape[1], self.units[0], len(self.units)),
-                min(self.batch_size, X.shape[0]))
         start_time = time.time()
         self.X, self.y = X, y
 
@@ -477,8 +498,9 @@ class BayesianNeuralNetwork(BaseModel):
         B6 for SGHMC and SGLD, on discarded steps of
         :func:`sample_chain_lanes` (B8-psgld, B8-sgnht, B8-rsghmc, one launch
         a step) for the samplers without burn-in machinery, as the JAX
-        package's ``make_burn`` does; then one B1 / B5-* launch of
-        ``sample_steps`` steps per sample."""
+        package's ``make_burn`` does, with float32 state; then one B1 / B5-*
+        launch of ``sample_steps`` steps per sample, with bf16 state under
+        ``compute_dtype``."""
         n_chains = next(iter(positions.values())).shape[0]
         n_params = tree_size(positions) // n_chains
         prior_scale = 1.0 / (n_params * float(n_datapoints))
@@ -487,7 +509,7 @@ class BayesianNeuralNetwork(BaseModel):
             # likelihood + log-variance prior only: the weight prior is
             # folded into the sampler update via gaussian_prior_scale
             x_batch, y_batch = batch
-            net_out = apply_fn(params, x_batch)
+            net_out = self._network_output(apply_fn, params, x_batch)
             f_mean = net_out[:, 0:1]
             f_log_var = net_out[:, 1:2]
             f_var_inv = 1.0 / (torch.exp(f_log_var) + 1e-16)
@@ -506,15 +528,17 @@ class BayesianNeuralNetwork(BaseModel):
             if Sampler.is_burn_in_mcmc(self.sampling_method):
                 return burnin_chain_fused(
                     sampler, states, keys, n_steps, x_dev, y_dev,
-                    batch_size=self.batch_size, noise_impl=self.noise_impl)
+                    batch_size=self.batch_size, state_dtype=torch.float32,
+                    noise_impl=self.noise_impl)
             return self._discarded_steps(sampler, states, keys, n_steps,
-                                         select_batch)
+                                         select_batch, torch.float32)
 
         def sample(states, n_keep):
             return sample_chain_fused(
                 sampler, states, keys, n_keep, x_dev, y_dev,
                 batch_size=self.batch_size, keep_every=self.sample_steps,
-                multistep=True, noise_impl=self.noise_impl)
+                state_dtype=self._state_dtype, multistep=True,
+                noise_impl=self.noise_impl)
 
         return sampler, burn, sample
 
@@ -525,7 +549,9 @@ class BayesianNeuralNetwork(BaseModel):
         on B9-sghmc / B9-sgld, sampling on B7 / B8-sgld, one launch per
         step, each chain on its own minibatch window.  The samplers without
         burn-in machinery burn in on discarded steps of
-        :func:`sample_chain_lanes`, as they sample."""
+        :func:`sample_chain_lanes`, as they sample.  The network passes run
+        in ``compute_dtype``; the state is float32 in the adaptive burn-in
+        and bf16 elsewhere under ``compute_dtype``, as in JAX."""
         def cost_fn(params, batch):
             x_batch, y_batch = batch
             nll, _ = self.negative_log_likelihood(
@@ -539,24 +565,31 @@ class BayesianNeuralNetwork(BaseModel):
             if Sampler.is_burn_in_mcmc(self.sampling_method):
                 return burnin_chain_lanes(sampler, states, keys, n_steps,
                                           batch_fn=select_batch,
+                                          compute_dtype=self.compute_dtype,
+                                          state_dtype=torch.float32,
                                           noise_impl=self.noise_impl)
             return self._discarded_steps(sampler, states, keys, n_steps,
-                                         select_batch)
+                                         select_batch, self._state_dtype)
 
         def sample(states, n_keep):
             return sample_chain_lanes(
                 sampler, states, keys, n_keep, batch_fn=select_batch,
-                keep_every=self.sample_steps, noise_impl=self.noise_impl)
+                keep_every=self.sample_steps,
+                compute_dtype=self.compute_dtype,
+                state_dtype=self._state_dtype, noise_impl=self.noise_impl)
 
         return sampler, burn, sample
 
-    def _discarded_steps(self, sampler, states, keys, n_steps, select_batch):
+    def _discarded_steps(self, sampler, states, keys, n_steps, select_batch,
+                         state_dtype):
         """The burn-in of pSGLD, SGNHT and relativistic SGHMC, which have no
         burn-in machinery: ``n_steps`` discarded steps of
-        :func:`sample_chain_lanes` (JAX's ``make_burn``)."""
+        :func:`sample_chain_lanes` (JAX's ``make_burn``), network passes in
+        ``compute_dtype``."""
         return sample_chain_lanes(
             sampler, states, keys, 1, batch_fn=select_batch,
-            keep_every=n_steps, collect_positions=False,
+            keep_every=n_steps, compute_dtype=self.compute_dtype,
+            state_dtype=state_dtype, collect_positions=False,
             noise_impl=self.noise_impl)[0]
 
     def _run_chains(self, states, burn, sample, apply_fn, x_dev, y_dev,
@@ -636,28 +669,55 @@ class BayesianNeuralNetwork(BaseModel):
         return self._apply_fn(params, torch.as_tensor(
             input_data, dtype=self.dtype, device=self.device))
 
+    def _serving_fn(self, compute_dtype):
+        """The ensemble forward at ``compute_dtype``: the trained built-in
+        network rebuilt at that precision over copies of the samples cast to
+        it, the outputs widened to float32 (JAX's ``_serving_fn``)."""
+        if self.get_net is not None:
+            raise ValueError(
+                "predict(compute_dtype=...) supports the built-in "
+                "architectures only (get_net is custom; its apply closes "
+                "over its own precision)")
+        network = dense_network if self.network == "dense" \
+            else default_network
+        _, apply_cd = network(self._n_inputs, units=self.units,
+                              dtype=compute_dtype, device=self.device)
+
+        def ensemble(samples, x):
+            cast = {name: leaf.to(compute_dtype)
+                    for name, leaf in samples.items()}
+            out = torch.func.vmap(apply_cd, in_dims=(0, None))(cast, x)
+            return out.to(torch.float32)
+        return ensemble
+
     @BaseModel._check_shapes_predict
     def predict(self, X_test, return_individual_predictions=False,
                 compute_dtype=None, *args, **kwargs):
         """Ensemble predictive mean and variance at ``X_test``: one forward
-        pass of every posterior sample, vectorized over the samples."""
+        pass of every posterior sample, vectorized over the samples.
+        ``compute_dtype`` (``torch.bfloat16``) serves the ensemble at that
+        precision, the reduction in float32, as JAX's serving path does."""
         if not self.is_trained:
             raise ValueError(
                 "Calling `bnn.predict()` on an untrained Bayesian Neural "
                 "Network 'bnn' is not supported! Please call `bnn.train()` "
                 "before calling `bnn.predict()`"
             )
-        if compute_dtype is not None and compute_dtype != self.dtype:
-            raise _not_ported("predict(compute_dtype=...)", "queue A item 14")
 
         x_test = np.asarray(X_test, dtype=np.float64)
         if self.normalize_input:
             x_test, _, _ = zero_mean_unit_var_normalization(
                 x_test, self.x_mean, self.x_std)
-        x_dev = torch.as_tensor(x_test, dtype=self.dtype, device=self.device)
+        if compute_dtype is not None and compute_dtype != self.dtype:
+            ensemble_fn = self._serving_fn(compute_dtype)
+            x_dev = torch.as_tensor(x_test, dtype=compute_dtype,
+                                    device=self.device)
+        else:
+            ensemble_fn = torch.func.vmap(self._apply_fn, in_dims=(0, None))
+            x_dev = torch.as_tensor(x_test, dtype=self.dtype,
+                                    device=self.device)
         with torch.no_grad():
-            outputs = torch.func.vmap(self._apply_fn, in_dims=(0, None))(
-                self.samples, x_dev)
+            outputs = ensemble_fn(self.samples, x_dev)
         f_out = outputs[:, :, 0].cpu().numpy()
         theta_noise = np.exp(outputs[:, :, 1].cpu().numpy())
 

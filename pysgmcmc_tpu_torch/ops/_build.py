@@ -37,14 +37,18 @@ _U64 = ctypes.c_ulonglong
 _U32 = ctypes.c_uint
 # every launch entry of csrc/fused_step.cu takes the same arguments
 # (FUSED_STEP_ENTRY): 7 state inputs, x, y, tab, noise, widx, 7 state
-# outputs and the cost; 8 ints, the seed, the step, 7 floats and the stream
-_FUSED_LAUNCH = (_I, [_P] * 20 + [_I] * 8 + [_U64, _U32] + [_F] * 7 + [_P])
+# outputs and the cost; 8 ints, the seed, the step, 7 floats, the two bf16
+# flags, the workspace and the stream
+_FUSED_LAUNCH = (_I, [_P] * 20 + [_I] * 8 + [_U64, _U32] + [_F] * 7
+                 + [_I, _I, _P, _P])
 # and every one of csrc/slim_update.cu (SLIM_ENTRY): 10 inputs, 6 outputs,
-# 2 ints, the seed, the step, 7 floats and the stream
-_SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7 + [_P])
+# 2 ints, the seed, the step, 7 floats, the three bf16 flags and the stream
+_SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7
+                + [_I] * 3 + [_P])
 _SIGNATURES = {
     "fused_step": {
         "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
+        "fused_step_workspace_floats": (_U64, [_I, _I]),
         "fused_step_error_string": (ctypes.c_char_p, [_I]),
         **{name + "_launch": _FUSED_LAUNCH for name in (
             "fused_bnn_multistep",                # B1

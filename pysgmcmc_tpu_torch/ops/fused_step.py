@@ -34,6 +34,24 @@ log_variance_bias``; matrices row-major ``(in, out)``), so state is
 ``(n_chains, P)``.  :func:`pack` / :func:`unpack` convert from and to the
 dict of tensors.
 
+bf16 state, as JAX's ``state_dtype=jnp.bfloat16``: theta is float32, and the
+momentum (SGHMC, SGNHT, relativistic SGHMC) or the accumulator (B4-psgld)
+is stored in ``state_dtype``, which the wrapper's ``v`` must have and its
+``v'`` keeps; the frozen ``minv`` of SGHMC and SGLD may be float32 or
+bfloat16.  The arithmetic is float32.  The new momentum is rounded to bf16
+(to nearest even) after every step, as the TPU kernels write it back to its
+bf16 ref after every inner step, while theta moves by the unrounded value
+and SGNHT's ``p'^T p'`` sums the unrounded values; so two launches of k
+steps equal one of 2k.  The burn-in's tau, g, v_hat and minv, pSGLD's
+multi-step accumulator and everything of B6 stay float32.
+
+Placement: a launch keeps each chain's P-long arrays in its block's shared
+memory where they fit, by the library's own count (:func:`fused_placement`),
+and otherwise in a device-memory workspace the wrapper allocates, with the
+same kernel body; so every hidden width JAX's fused path takes (up to
+:data:`MAX_HIDDEN`) runs.  :data:`placements` counts the launches of each
+kernel by placement.
+
 Randomness: Philox4x32-10 keyed by a 64-bit seed, counter ``(chain,
 absolute step, element, purpose)``.  Normals are Box-Muller on two uniforms
 ``u = ((bits >> 8) + 1) * 2**-24`` in (0, 1]; the window index is
@@ -59,6 +77,7 @@ Examples
 [[2.0, 3.0, 4.0, 5.0], [0.0, 1.0, 2.0, 3.0]]
 """
 
+import collections
 import math
 from typing import NamedTuple
 
@@ -68,6 +87,11 @@ LOG_MP = math.log(1e-6)   # log-variance prior mean (reference)
 VAR_P = 0.01              # log-variance prior variance
 MIN_DEPTH, MAX_DEPTH = 2, 4
 MAX_INPUTS = 4
+# the widest hidden layer of JAX's fused kernels (its 128-slot layout,
+# fused_slot); the port's kernels have no slots but keep the domain
+MAX_HIDDEN = 114
+STATE_DTYPES = (torch.float32, torch.bfloat16)
+F32 = (torch.float32,)
 
 PURPOSE_WINDOW, PURPOSE_NOISE = 0, 1
 _MASK32 = 0xFFFFFFFF
@@ -108,6 +132,16 @@ class FusedLayout(NamedTuple):
         return sum(math.prod(shape) for _, shape in self.entries())
 
 
+def check_hidden(hidden):
+    """Raise ``ValueError`` beyond the widest hidden layer of JAX's fused
+    kernels (:data:`MAX_HIDDEN`, with JAX's ``fused_slot`` message)."""
+    if hidden > MAX_HIDDEN:
+        raise ValueError(
+            "fused kernels support hidden widths up to {} (got {}); use the "
+            "chains-on-lanes path for wider networks".format(MAX_HIDDEN,
+                                                             hidden))
+
+
 def fused_layout(params):
     """The :class:`FusedLayout` of a stacked dense-network dict (leaves
     ``(n_chains, ...)``); raises outside the fused family's domain."""
@@ -117,6 +151,7 @@ def fused_layout(params):
             "fused kernels support {}-{} hidden dense layers; got a "
             "{}-hidden-layer network".format(MIN_DEPTH, MAX_DEPTH, depth))
     hidden = params["w2"].shape[-1]
+    check_hidden(hidden)
     if any(params["w{}".format(i)].shape[-2:] != (hidden, hidden)
            for i in range(2, depth + 1)):
         raise ValueError("fused kernels require equal hidden widths")
@@ -389,6 +424,14 @@ def _masked(minv, x):
     return torch.where(minv > 0.0, x, torch.zeros_like(x))
 
 
+def _stored(x, state_dtype):
+    """``x`` as the kernels keep it between steps: rounded to bf16 (to
+    nearest even) under bf16 state, held in float32."""
+    if state_dtype == torch.float32:
+        return x
+    return x.to(state_dtype).to(torch.float32)
+
+
 def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
                             mdecay=0.05, scale_grad=1.0, prior_scale=0.0,
                             batch_size=20, n_data=100,
@@ -398,22 +441,26 @@ def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
     """Plain PyTorch version of :func:`fused_bnn_multistep` (same arguments,
     same result up to float32 summation order)."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep", theta, [v, minv], x_win, y_win, eps, seed,
-        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+        "fused_bnn_multistep", theta,
+        {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     tab = _sghmc_table(eps_vec, scale_grad)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    v, minv = v.float(), minv.float()
     cost = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
                               widx, theta.device)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
-        v = _masked(minv, _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay))
-        theta = theta + v
-    return theta, v, cost
+        v_new = _masked(minv, _sghmc_velocity(v, minv, gg, eta, tab[t],
+                                              mdecay))
+        theta = theta + v_new
+        v = _stored(v_new, state_dtype)
+    return theta, v.to(state_dtype), cost
 
 
 def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
@@ -425,13 +472,16 @@ def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
                                    noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_burnin`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_burnin", theta, [v, tau, g, v_hat], x_win,
-        y_win, eps, seed, batch_size, state_dtype, k_steps, h, pair_dots,
-        noise_impl, noise, widx)
+        "fused_bnn_multistep_burnin", theta,
+        {"v": (v, (state_dtype,)), "tau": (tau, F32), "g": (g, F32),
+         "v_hat": (v_hat, F32)},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     tab = _sghmc_table(eps_vec, scale_grad)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    v = v.float()
     cost = minv = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
@@ -439,9 +489,10 @@ def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
         minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
-        v = _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay)
-        theta = theta + v
-    return theta, v, tau, g, v_hat, minv, cost
+        v_new = _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay)
+        theta = theta + v_new
+        v = _stored(v_new, state_dtype)
+    return theta, v.to(state_dtype), tau, g, v_hat, minv, cost
 
 
 def fused_bnn_step_ref(theta, v, minv, x_sel, y_sel, eps, seed,
@@ -457,16 +508,19 @@ def fused_bnn_step_ref(theta, v, minv, x_sel, y_sel, eps, seed,
             prior_scale, batch_size, n_data, state_dtype, 1, h, pair_dots,
             noise_impl, step)
     layout, eps_vec = _validate(
-        "fused_bnn_step", theta, [v, minv], x_sel, y_sel, eps, seed,
-        batch_size, state_dtype, 1, h, pair_dots, noise_impl, noise, None,
-        n_inputs)
+        "fused_bnn_step", theta,
+        {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, pair_dots,
+        noise_impl, noise, None, n_inputs)
     eta = _one_step_noise(theta, layout, seed, step, noise)
     cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
                           1.0 / batch_size, 1.0 / n_data)
     gg = grad + prior_scale * theta
+    minv = minv.float()
     v = _masked(minv, _sghmc_velocity(
-        v, minv, gg, eta, _sghmc_table(eps_vec, scale_grad)[0], mdecay))
-    return theta + v, v, cost
+        v.float(), minv, gg, eta, _sghmc_table(eps_vec, scale_grad)[0],
+        mdecay))
+    return theta + v, v.to(state_dtype), cost
 
 
 def fused_bnn_step_sgld_ref(theta, minv, x_sel, y_sel, eps, seed,
@@ -475,14 +529,15 @@ def fused_bnn_step_sgld_ref(theta, minv, x_sel, y_sel, eps, seed,
                             noise_impl="box_muller", step=0, noise=None):
     """Plain PyTorch version of :func:`fused_bnn_step_sgld`."""
     layout, eps_vec = _validate(
-        "fused_bnn_step_sgld", theta, [minv], x_sel, y_sel, eps, seed,
-        batch_size, torch.float32, 1, h, False, noise_impl, noise, None,
-        n_inputs)
+        "fused_bnn_step_sgld", theta, {"minv": (minv, STATE_DTYPES)},
+        x_sel, y_sel, eps, seed, batch_size, torch.float32, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     eta = _one_step_noise(theta, layout, seed, step, noise)
     cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
                           1.0 / batch_size, 1.0 / n_data)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     gg = grad + prior_scale * theta
+    minv = minv.float()
     return theta + _masked(minv, _sgld_delta(minv, gg, eta, eps_vec[0],
                                              a_coef, c, False)), cost
 
@@ -494,10 +549,11 @@ def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
                                  step0=0, noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_sgld`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_sgld", theta, [minv], x_win, y_win, eps, seed,
-        batch_size, torch.float32, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+        "fused_bnn_multistep_sgld", theta, {"minv": (minv, STATE_DTYPES)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
+    minv = minv.float()
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
@@ -521,9 +577,10 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
                                         noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_burnin_sgld`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_burnin_sgld", theta, [tau, g, v_hat], x_win,
-        y_win, eps, seed, batch_size, torch.float32, k_steps, h, pair_dots,
-        noise_impl, noise, widx)
+        "fused_bnn_multistep_burnin_sgld", theta,
+        {"tau": (tau, F32), "g": (g, F32), "v_hat": (v_hat, F32)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     n = theta.shape[0]
     xw = _windows_3d(x_win)
@@ -541,16 +598,19 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
 
 
 def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
-                consts, prior_scale, batch_size, n_data):
+                consts, prior_scale, batch_size, n_data,
+                state_dtype=torch.float32):
     """``k_steps`` steps of pSGLD, SGNHT or relativistic SGHMC (``kind``
     ``"psgld"``, ``"sgnht"`` or ``"rsghmc"``), the samplers without a mass
     matrix.  Step ``t`` takes its minibatch rows and normals from
     ``step_inputs(t)``, its stepsize (and SGNHT's or relativistic SGHMC's
     noise scale) from row ``t`` of ``tab``, and the rule's constants from
     ``consts``, the kernel's ``coef``/``cdiv``/``c2``/``c3``.  SGNHT's
-    thermostat then moves by ``eps (p'^T p' / P - 1)``.  Returns ``(theta',
-    v', xi', cost)``."""
+    thermostat then moves by ``eps (p'^T p' / P - 1)`` of the unrounded
+    ``p'``; ``v`` is kept in ``state_dtype`` between steps.  Returns
+    ``(theta', v' (in state_dtype), xi', cost)``."""
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    v = v.float()
     cost = None
     for t in range(int(k_steps)):
         xb, yb, eta = step_inputs(t)
@@ -567,7 +627,8 @@ def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
         else:
             theta, v = _sgnht_update(theta, v, gg, eta, xi, eps, tab[t, 1])
             xi = xi + eps * (torch.sum(v * v, dim=1) * consts["c2"] - 1.0)
-    return theta, v, xi, cost
+        v = _stored(v, state_dtype)
+    return theta, v.to(state_dtype), xi, cost
 
 
 def _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta):
@@ -596,15 +657,15 @@ def fused_bnn_step_psgld_ref(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
                              noise_impl="box_muller", step=0, noise=None):
     """Plain PyTorch version of :func:`fused_bnn_step_psgld`."""
     layout, eps_vec = _validate(
-        "fused_bnn_step_psgld", theta, [v], x_sel, y_sel, eps, seed,
-        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
-        n_inputs)
+        "fused_bnn_step_psgld", theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     theta, v, _, cost = _rule_steps(
         "psgld", theta, v, None, layout, 1,
         _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
         _psgld_table(eps_vec), _psgld_constants(alpha, lambda_reg,
                                                 scale_grad),
-        prior_scale, batch_size, n_data)
+        prior_scale, batch_size, n_data, state_dtype)
     return theta, v, cost
 
 
@@ -615,14 +676,14 @@ def fused_bnn_step_sgnht_ref(theta, v, xi, x_sel, y_sel, eps, seed,
                              noise_impl="box_muller", step=0, noise=None):
     """Plain PyTorch version of :func:`fused_bnn_step_sgnht`."""
     layout, eps_vec = _validate(
-        "fused_bnn_step_sgnht", theta, [v], x_sel, y_sel, eps, seed,
-        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
-        n_inputs, xi=xi)
+        "fused_bnn_step_sgnht", theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs, xi=xi)
     return _rule_steps(
         "sgnht", theta, v, xi, layout, 1,
         _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
         _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
-        prior_scale, batch_size, n_data)
+        prior_scale, batch_size, n_data, state_dtype)
 
 
 def fused_bnn_step_rsghmc_ref(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
@@ -632,15 +693,15 @@ def fused_bnn_step_rsghmc_ref(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
                               noise_impl="box_muller", step=0, noise=None):
     """Plain PyTorch version of :func:`fused_bnn_step_rsghmc`."""
     layout, eps_vec = _validate(
-        "fused_bnn_step_rsghmc", theta, [v], x_sel, y_sel, eps, seed,
-        batch_size, state_dtype, 1, h, False, noise_impl, noise, None,
-        n_inputs)
+        "fused_bnn_step_rsghmc", theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     theta, v, _, cost = _rule_steps(
         "rsghmc", theta, v, None, layout, 1,
         _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
         _rsghmc_table(eps_vec, d_coef, b_hat),
         _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
-        batch_size, n_data)
+        batch_size, n_data, state_dtype)
     return theta, v, cost
 
 
@@ -652,9 +713,9 @@ def fused_bnn_multistep_psgld_ref(theta, v, x_win, y_win, eps, seed,
                                   step0=0, noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_psgld`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_psgld", theta, [v], x_win, y_win, eps, seed,
-        batch_size, torch.float32, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+        "fused_bnn_multistep_psgld", theta, {"v": (v, F32)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     theta, v, _, cost = _rule_steps(
         "psgld", theta, v, None, layout, k_steps,
         _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
@@ -673,14 +734,14 @@ def fused_bnn_multistep_sgnht_ref(theta, v, xi, x_win, y_win, eps, seed,
                                   noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_sgnht`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_sgnht", theta, [v], x_win, y_win, eps, seed,
-        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
-        widx, xi=xi)
+        "fused_bnn_multistep_sgnht", theta, {"v": (v, (state_dtype,))},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx, xi=xi)
     return _rule_steps(
         "sgnht", theta, v, xi, layout, k_steps,
         _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
         _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
-        prior_scale, batch_size, n_data)
+        prior_scale, batch_size, n_data, state_dtype)
 
 
 def fused_bnn_multistep_rsghmc_ref(theta, v, x_win, y_win, eps, seed,
@@ -692,15 +753,15 @@ def fused_bnn_multistep_rsghmc_ref(theta, v, x_win, y_win, eps, seed,
                                    noise=None, widx=None):
     """Plain PyTorch version of :func:`fused_bnn_multistep_rsghmc`."""
     layout, eps_vec = _validate(
-        "fused_bnn_multistep_rsghmc", theta, [v], x_win, y_win, eps, seed,
-        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+        "fused_bnn_multistep_rsghmc", theta, {"v": (v, (state_dtype,))},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     theta, v, _, cost = _rule_steps(
         "rsghmc", theta, v, None, layout, k_steps,
         _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
         _rsghmc_table(eps_vec, d_coef, b_hat),
         _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
-        batch_size, n_data)
+        batch_size, n_data, state_dtype)
     return theta, v, cost
 
 
@@ -739,7 +800,10 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
     ``n_inputs`` given (the one-step kernels) they are instead each chain's
     gathered minibatch (:func:`gather_batch`), ``(n_chains, batch)`` or
     ``(n_chains, batch, n_inputs)``, and ``noise`` is ``(n_chains, P)``.
-    ``xi`` is SGNHT's thermostat, where the rule has one.
+    ``xi`` is SGNHT's thermostat, where the rule has one.  ``state`` maps
+    each state operand's name to ``(tensor, the dtypes it may have)``:
+    float32 (``F32``), ``state_dtype`` (the momentum or accumulator), or
+    float32 or bfloat16 (``STATE_DTYPES``, a frozen minv).
     """
     _seed_key(seed)
     if pair_dots:
@@ -754,10 +818,10 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
         raise ValueError(
             "{}: noise_impl must be 'box_muller'; got {!r}".format(
                 name, noise_impl))
-    if state_dtype != torch.float32:
-        raise NotImplementedError(
-            "{}: only float32 momentum/mass state is ported; bfloat16 state "
-            "is ROADMAP.md queue A item 6".format(name))
+    if state_dtype not in STATE_DTYPES:
+        raise ValueError(
+            "{}: state_dtype must be torch.float32 or torch.bfloat16; got "
+            "{}".format(name, state_dtype))
     if int(k_steps) < 1:
         raise ValueError("{}: k_steps must be >= 1; got {}".format(
             name, k_steps))
@@ -766,14 +830,15 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
         raise ValueError(
             "{}: theta must be a float32 (n_chains, P) tensor; got {} "
             "{}".format(name, theta.dtype, tuple(theta.shape)))
-    for arr in state:
-        if (arr.shape != theta.shape or arr.dtype != torch.float32
+    for label, (arr, dtypes) in state.items():
+        if (arr.shape != theta.shape or arr.dtype not in dtypes
                 or arr.device != device):
             raise ValueError(
-                "{}: every state tensor must match theta ({} float32 on "
-                "{}); got {} {} on {}".format(
-                    name, tuple(theta.shape), device, tuple(arr.shape),
-                    arr.dtype, arr.device))
+                "{}: every state tensor must match theta ({} {} on {}); "
+                "got {} {} {} on {}".format(
+                    name, tuple(theta.shape), " or ".join(
+                        str(d) for d in dtypes), device, label,
+                    tuple(arr.shape), arr.dtype, arr.device))
     if xi is not None:
         _check_xi(name, theta, xi)
     n = theta.shape[0]
@@ -920,26 +985,24 @@ B1, B2, B3, B4_SGLD, B5_SGLD, B6 = 1, 2, 3, 4, 5, 6
 B4_PSGLD, B4_SGNHT, B4_RSGHMC, B5_PSGLD, B5_SGNHT, B5_RSGHMC = range(7, 13)
 
 
-def check_fused_fits(name, kernel_ids, layout, batch_size):
-    """Raise ``NotImplementedError`` (ROADMAP.md queue B row 6, fault C1)
-    where one chain of ``layout`` needs more shared memory in any of the
-    fused kernels ``kernel_ids`` than a block may use, by the library's own
-    count (``fused_step_smem_bytes`` of ``csrc/fused_step.cu``).  Called
-    on the card only, before any work: it builds the library if needed."""
+def fused_placement(kernel_id, layout, batch_size):
+    """Where a launch of fused kernel ``kernel_id`` keeps each chain's P-long
+    arrays: ``"shared"`` where one chain's state and scratch fit a block's
+    shared memory by the library's own count (``fused_step_smem_bytes`` of
+    ``csrc/fused_step.cu``, at most ``MAX_SMEM_BYTES``), else ``"device"``
+    (a workspace in device memory; the scratch stays in shared memory).
+    The count alone decides.  Builds the library if needed."""
     from pysgmcmc_tpu_torch.ops._build import MAX_SMEM_BYTES, load
 
-    lib = load("fused_step")
-    need = max(lib.fused_step_smem_bytes(
-        k, layout.n_params, layout.n_inputs, layout.hidden, layout.depth,
-        batch_size) for k in kernel_ids)
-    if need > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            "{}: one chain's state and scratch need {} bytes of shared "
-            "memory in the fused kernels (hidden width {}, depth {}), more "
-            "than the {} a block may use; the kernels for wider networks "
-            "are not ported yet (ROADMAP.md queue B row 6 (fault C1)); "
-            "step_impl='lanes' trains any width".format(
-                name, need, layout.hidden, layout.depth, MAX_SMEM_BYTES))
+    need = load("fused_step").fused_step_smem_bytes(
+        kernel_id, layout.n_params, layout.n_inputs, layout.hidden,
+        layout.depth, batch_size)
+    return "shared" if need <= MAX_SMEM_BYTES else "device"
+
+
+# launches of each fused kernel by placement: (C entry name, placement) ->
+# count; callers may clear it
+placements = collections.Counter()
 
 
 def _ptr(t):
@@ -952,6 +1015,10 @@ _STATE_IN = ("theta", "v", "minv", "tau", "g", "v_hat", "xi")
 _STATE_OUT = ("theta", "v", "tau", "g", "v_hat", "minv", "xi")
 
 
+def _is_bf16(t):
+    return int(t is not None and t.dtype == torch.bfloat16)
+
+
 def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             k_steps, seed, step0, prior_scale, batch_size, n_data, coef=0.0,
             cdiv=0.0, c2=0.0, c3=0.0):
@@ -959,16 +1026,18 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     of ``csrc/fused_step.cu``.
 
     ``ins`` maps state names (``_STATE_IN``) to ``(n_chains, P)`` tensors
-    (SGNHT's ``xi`` ``(n_chains,)``), ``outs`` names the state outputs to
-    allocate; ``tab`` is the per-step table (SGHMC ``(k, 2)``: eps, eps /
-    sqrt(scale_grad); SGLD ``(k,)`` and pSGLD ``(k, 1)``: eps; SGNHT and
-    relativistic SGHMC ``(k, 2)``: eps and the noise scale), ``coef``,
-    ``cdiv``, ``c2`` and ``c3`` the rule's constants as the source's
-    ``Args`` lists them (``mdecay`` for SGHMC, :func:`_sgld_constants`,
-    :func:`_psgld_constants`, ...).  Checks contiguity and shared memory
-    (:func:`check_fused_fits`),
-    raises on a failed launch, and returns the outputs in ``outs`` order,
-    then the ``(n_chains, 1)`` cost.
+    (SGNHT's ``xi`` ``(n_chains,)``; ``v`` and ``minv`` float32 or
+    bfloat16), ``outs`` names the state outputs to allocate; ``tab`` is the
+    per-step table (SGHMC ``(k, 2)``: eps, eps / sqrt(scale_grad); SGLD
+    ``(k,)`` and pSGLD ``(k, 1)``: eps; SGNHT and relativistic SGHMC ``(k,
+    2)``: eps and the noise scale), ``coef``, ``cdiv``, ``c2`` and ``c3``
+    the rule's constants as the source's ``Args`` lists them (``mdecay``
+    for SGHMC, :func:`_sgld_constants`, :func:`_psgld_constants`, ...).
+    Checks contiguity, places the state by :func:`fused_placement` (a
+    device-memory workspace where it does not fit shared memory), counts
+    the launch in :data:`placements`, raises on a failed launch, and
+    returns the outputs in ``outs`` order, then the ``(n_chains, 1)``
+    cost.
     """
     from pysgmcmc_tpu_torch.ops import _build
 
@@ -976,10 +1045,15 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     for arr in (*ins.values(), x, y, tab, noise, widx):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
-    check_fused_fits(name, (kernel_id,), layout, batch_size)
     lib = _build.load("fused_step")
     n = theta.shape[0]
-    # each output shaped as its input (burn-in's minv as theta)
+    placement = fused_placement(kernel_id, layout, batch_size)
+    work = None
+    if placement == "device":
+        work = torch.empty(
+            (n, lib.fused_step_workspace_floats(kernel_id, layout.n_params)),
+            dtype=torch.float32, device=theta.device)
+    # each output shaped as its input, in its type (burn-in's minv as theta)
     out = {key: torch.empty_like(ins.get(key, theta)) for key in outs}
     cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):  # the launch uses the current device
@@ -991,7 +1065,9 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             x.shape[0], int(k_steps), layout.n_params, int(seed),
             int(step0) & _MASK32, float(coef), float(cdiv), float(c2),
             float(c3), float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
+            _is_bf16(ins.get("v")), _is_bf16(ins.get("minv")), _ptr(work),
             torch.cuda.current_stream().cuda_stream), "fused_step")
+    placements[(name, placement)] += 1
     return (*[out[key] for key in outs], cost)
 
 
@@ -1010,8 +1086,10 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
                         widx=None):
     """``k_steps`` fused SGHMC sampling steps with a frozen ``minv`` (B1).
 
-    ``theta``/``v``/``minv`` are ``(n_chains, P)`` float32 in the
-    :class:`FusedLayout` of a ``h``-wide network; ``x_win``/``y_win`` the
+    ``theta``/``v``/``minv`` are ``(n_chains, P)`` in the
+    :class:`FusedLayout` of a ``h``-wide network, ``theta`` float32, ``v``
+    in ``state_dtype`` (float32 or bfloat16; ``v'`` keeps it) and ``minv``
+    float32 or bfloat16; ``x_win``/``y_win`` the
     shared window tables of :func:`data_windows`; ``eps`` a scalar or a
     ``(k_steps,)`` vector of per-step stepsizes; ``seed`` the 64-bit Philox
     key and ``step0`` the absolute step of the first step.  Returns
@@ -1026,8 +1104,9 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
             prior_scale, batch_size, n_data, state_dtype, k_steps, h,
             pair_dots, noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [v, minv], x_win, y_win, eps, seed, batch_size,
-        state_dtype, k_steps, h, pair_dots, noise_impl, noise, widx)
+        name, theta, {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     out = _launch(name, B1, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_win, y_win,
                   _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
@@ -1058,9 +1137,11 @@ def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
             scale_grad, prior_scale, batch_size, n_data, state_dtype,
             k_steps, h, pair_dots, noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [v, tau, g, v_hat], x_win, y_win, eps, seed,
-        batch_size, state_dtype, k_steps, h, pair_dots, noise_impl, noise,
-        widx)
+        name, theta,
+        {"v": (v, (state_dtype,)), "tau": (tau, F32), "g": (g, F32),
+         "v_hat": (v_hat, F32)},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     out = _launch(name, B2, layout,
                   dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat),
                   ("theta", "v", "tau", "g", "v_hat", "minv"), x_win, y_win,
@@ -1103,8 +1184,9 @@ def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
             prior_scale, batch_size, n_data, state_dtype, False, pair_dots,
             n_inputs, h, noise_impl, step, noise)
     layout, eps_vec = _validate(
-        name, theta, [v, minv], x_sel, y_sel, eps, seed, batch_size,
-        state_dtype, 1, h, pair_dots, noise_impl, noise, None, n_inputs)
+        name, theta, {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, pair_dots,
+        noise_impl, noise, None, n_inputs)
     out = _launch(name, B3, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_sel, y_sel,
                   _sghmc_table(eps_vec, scale_grad), noise, None, 1, seed,
@@ -1133,8 +1215,9 @@ def fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps, seed, a_coef=1.0,
             prior_scale, batch_size, n_data, n_inputs, h, noise_impl, step,
             noise)
     layout, eps_vec = _validate(
-        name, theta, [minv], x_sel, y_sel, eps, seed, batch_size,
-        torch.float32, 1, h, False, noise_impl, noise, None, n_inputs)
+        name, theta, {"minv": (minv, STATE_DTYPES)},
+        x_sel, y_sel, eps, seed, batch_size, torch.float32, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     out = _launch(name, B4_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_sel, y_sel, eps_vec.contiguous(), noise, None,
@@ -1163,8 +1246,9 @@ def fused_bnn_multistep_sgld(theta, minv, x_win, y_win, eps, seed,
             prior_scale, batch_size, n_data, k_steps, h, pair_dots,
             noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [minv], x_win, y_win, eps, seed, batch_size,
-        torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+        name, theta, {"minv": (minv, STATE_DTYPES)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
     out = _launch(name, B5_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_win, y_win, eps_vec.contiguous(), noise, widx,
@@ -1196,8 +1280,9 @@ def fused_bnn_multistep_burnin_sgld(theta, tau, g, v_hat, x_win, y_win, eps,
             scale_grad, prior_scale, batch_size, n_data, k_steps, h,
             pair_dots, noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [tau, g, v_hat], x_win, y_win, eps, seed, batch_size,
-        torch.float32, k_steps, h, pair_dots, noise_impl, noise, widx)
+        name, theta, {"tau": (tau, F32), "g": (g, F32), "v_hat": (v_hat, F32)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     out = _launch(name, B6, layout,
                   dict(theta=theta, tau=tau, g=g, v_hat=v_hat),
@@ -1220,7 +1305,8 @@ def fused_bnn_step_psgld(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
     with ``g`` the gradient plus ``prior_scale * theta``, ``v' = alpha v +
     (1 - alpha) g^2``, ``G = 1 / (lambda_reg + sqrt(max(v', 0)))`` and
     ``theta' = theta - eps/2 G g + sqrt(max(eps G / scale_grad, 0)) eta``.
-    ``v`` is the RMSprop accumulator, float32; other arguments as
+    ``v`` is the RMSprop accumulator in ``state_dtype``, rounded to it after
+    the update as the momenta are; other arguments as
     :func:`fused_bnn_step`.  Returns ``(theta', v', cost)``.  CPU tensors
     run :func:`fused_bnn_step_psgld_ref`."""
     name = "fused_bnn_step_psgld"
@@ -1230,8 +1316,9 @@ def fused_bnn_step_psgld(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
             prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
             noise_impl, step, noise)
     layout, eps_vec = _validate(
-        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
-        1, h, False, noise_impl, noise, None, n_inputs)
+        name, theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     out = _launch(name, B4_PSGLD, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_sel, y_sel, _psgld_table(eps_vec), noise,
                   None, 1, seed, step, prior_scale, batch_size, n_data,
@@ -1261,8 +1348,9 @@ def fused_bnn_step_sgnht(theta, v, xi, x_sel, y_sel, eps, seed, a_diff=1.0,
             prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
             noise_impl, step, noise)
     layout, eps_vec = _validate(
-        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
-        1, h, False, noise_impl, noise, None, n_inputs, xi=xi)
+        name, theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs, xi=xi)
     out = _launch(name, B4_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
                   ("theta", "v", "xi"), x_sel, y_sel,
                   _sgnht_table(eps_vec, a_diff, scale_grad), noise, None, 1,
@@ -1295,8 +1383,9 @@ def fused_bnn_step_rsghmc(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
             b_hat, prior_scale, batch_size, n_data, state_dtype, n_inputs, h,
             noise_impl, step, noise)
     layout, eps_vec = _validate(
-        name, theta, [v], x_sel, y_sel, eps, seed, batch_size, state_dtype,
-        1, h, False, noise_impl, noise, None, n_inputs)
+        name, theta, {"v": (v, (state_dtype,))},
+        x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
+        noise_impl, noise, None, n_inputs)
     out = _launch(name, B4_RSGHMC, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_sel, y_sel,
                   _rsghmc_table(eps_vec, d_coef, b_hat), noise, None, 1, seed,
@@ -1327,8 +1416,9 @@ def fused_bnn_multistep_psgld(theta, v, x_win, y_win, eps, seed, alpha=0.99,
             prior_scale, batch_size, n_data, k_steps, h, pair_dots,
             noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [v], x_win, y_win, eps, seed, batch_size, torch.float32,
-        k_steps, h, pair_dots, noise_impl, noise, widx)
+        name, theta, {"v": (v, F32)},
+        x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     out = _launch(name, B5_PSGLD, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_win, y_win, _psgld_table(eps_vec), noise,
                   widx, k_steps, seed, step0, prior_scale, batch_size, n_data,
@@ -1358,8 +1448,9 @@ def fused_bnn_multistep_sgnht(theta, v, xi, x_win, y_win, eps, seed,
             prior_scale, batch_size, n_data, state_dtype, k_steps, h,
             pair_dots, noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [v], x_win, y_win, eps, seed, batch_size, state_dtype,
-        k_steps, h, pair_dots, noise_impl, noise, widx, xi=xi)
+        name, theta, {"v": (v, (state_dtype,))},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx, xi=xi)
     out = _launch(name, B5_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
                   ("theta", "v", "xi"), x_win, y_win,
                   _sgnht_table(eps_vec, a_diff, scale_grad), noise, widx,
@@ -1389,8 +1480,9 @@ def fused_bnn_multistep_rsghmc(theta, v, x_win, y_win, eps, seed, mass=1.0,
             b_hat, prior_scale, batch_size, n_data, state_dtype, k_steps, h,
             pair_dots, noise_impl, step0, noise, widx)
     layout, eps_vec = _validate(
-        name, theta, [v], x_win, y_win, eps, seed, batch_size, state_dtype,
-        k_steps, h, pair_dots, noise_impl, noise, widx)
+        name, theta, {"v": (v, (state_dtype,))},
+        x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
+        pair_dots, noise_impl, noise, widx)
     out = _launch(name, B5_RSGHMC, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_win, y_win,
                   _rsghmc_table(eps_vec, d_coef, b_hat), noise, widx,

@@ -36,8 +36,13 @@ The gradient comes from the driver (autograd); the kernels add the prior
 fold, draw the noise and apply the rule.  The math is shared with the fused
 kernels' plain versions (:mod:`pysgmcmc_tpu_torch.ops.fused_step`).
 
-Layout: every operand is ``(n_chains, P)`` float32, one chain per row, the
-leaves of the parameter dict in its order (``parallel.packed.pack_lanes``).
+Layout: every operand is ``(n_chains, P)``, one chain per row, the leaves
+of the parameter dict in its order (``parallel.packed.pack_lanes``).  theta,
+tau, g and v_hat are float32; ``v`` (momentum or accumulator), ``minv`` and
+``grad`` may be float32 or bfloat16, as JAX's slim kernels let them arrive
+(a bf16 network pass, ``state_dtype=bfloat16``): the arithmetic is float32,
+``v'`` keeps ``v``'s type (rounded to nearest even), the other outputs are
+float32.
 The TPU's ``(rows, n_chains)`` layout and its padding mask do not carry
 over; ``mask`` must be ``None``, and SGNHT's ``xi`` is ``(n_chains,)``
 where JAX's is a ``(1, n_chains)`` row.  ``eps`` is a scalar or an ``(n_chains,)``
@@ -61,6 +66,7 @@ import torch
 
 from pysgmcmc_tpu_torch.ops.fused_step import (
     _MASK32,
+    STATE_DTYPES,
     _adapt,
     _check_xi,
     _f32,
@@ -79,10 +85,13 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
 
 #  Validation, shared by the kernels and their plain versions -----------------
 
-def _validate(name, theta, state, grad, mask, eps, seed, noise):
+def _validate(name, theta, state, grad, mask, eps, seed, noise,
+              f32_state=()):
     """Check every operand; returns the stepsize as a float32 ``(1,)`` or
     ``(n_chains,)`` vector, where ``eps`` was (a float stays on the host,
-    so a scalar launch reads no device memory)."""
+    so a scalar launch reads no device memory).  ``state`` (v, minv) and
+    ``grad`` may be float32 or bfloat16, ``f32_state`` (tau, g, v_hat)
+    float32."""
     _seed_key(seed)
     if mask is not None:
         raise NotImplementedError(
@@ -94,18 +103,17 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise):
             "{}: theta must be a float32 (n_chains, P) tensor; got {} "
             "{}".format(name, theta.dtype, tuple(theta.shape)))
     device = theta.device
-    for arr in (*state, grad):
-        if arr.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "{}: bfloat16 state and gradients are not ported yet "
-                "(ROADMAP.md queue A items 6 and 14)".format(name))
-        if (arr.shape != theta.shape or arr.dtype != torch.float32
-                or arr.device != device):
-            raise ValueError(
-                "{}: every state tensor and the gradient must match theta "
-                "({} float32 on {}); got {} {} on {}".format(
-                    name, tuple(theta.shape), device, tuple(arr.shape),
-                    arr.dtype, arr.device))
+    for arrs, dtypes, what in (((*state, grad), STATE_DTYPES,
+                                "float32 or bfloat16"),
+                               (f32_state, (torch.float32,), "float32")):
+        for arr in arrs:
+            if (arr.shape != theta.shape or arr.dtype not in dtypes
+                    or arr.device != device):
+                raise ValueError(
+                    "{}: every state tensor and the gradient must match "
+                    "theta ({} {} on {}); got {} {} on {}".format(
+                        name, tuple(theta.shape), what, device,
+                        tuple(arr.shape), arr.dtype, arr.device))
     if noise is not None and (noise.shape != theta.shape
                               or noise.dtype != torch.float32
                               or noise.device != device):
@@ -142,11 +150,12 @@ def slim_sghmc_update_ref(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
     """Plain PyTorch version of :func:`slim_sghmc_update`."""
     eps_vec = _validate("slim_sghmc_update", theta, [v, minv], grad, mask,
                         eps, seed, noise)
-    gg = grad + prior_scale * theta
-    v = _sghmc_velocity(v, minv, gg, _eta(theta, seed, step, noise),
-                        _sghmc_row(eps_vec, scale_grad, theta.device),
-                        mdecay)
-    return theta + v, v
+    gg = grad.float() + prior_scale * theta
+    v_new = _sghmc_velocity(v.float(), minv.float(), gg,
+                            _eta(theta, seed, step, noise),
+                            _sghmc_row(eps_vec, scale_grad, theta.device),
+                            mdecay)
+    return theta + v_new, v_new.to(v.dtype)
 
 
 def slim_sgld_update_ref(theta, grad, minv, mask, eps, seed, a_coef=1.0,
@@ -155,8 +164,9 @@ def slim_sgld_update_ref(theta, grad, minv, mask, eps, seed, a_coef=1.0,
     eps_vec = _validate("slim_sgld_update", theta, [minv], grad, mask, eps,
                         seed, noise)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
-    gg = grad + prior_scale * theta
-    return theta + _sgld_delta(minv, gg, _eta(theta, seed, step, noise),
+    gg = grad.float() + prior_scale * theta
+    return theta + _sgld_delta(minv.float(), gg,
+                               _eta(theta, seed, step, noise),
                                eps_vec.to(theta.device)[:, None], a_coef, c,
                                False)
 
@@ -167,9 +177,11 @@ def slim_psgld_update_ref(theta, v, grad, mask, eps, seed, alpha=0.99,
     """Plain PyTorch version of :func:`slim_psgld_update`."""
     eps_col = _validate("slim_psgld_update", theta, [v], grad, mask, eps,
                         seed, noise).to(theta.device)[:, None]
-    return _psgld_update(theta, v, grad + prior_scale * theta,
-                         _eta(theta, seed, step, noise), eps_col,
-                         _f32(alpha), lambda_reg, _f32(1.0 / scale_grad))
+    theta, v_new = _psgld_update(
+        theta, v.float(), grad.float() + prior_scale * theta,
+        _eta(theta, seed, step, noise), eps_col, _f32(alpha), lambda_reg,
+        _f32(1.0 / scale_grad))
+    return theta, v_new.to(v.dtype)
 
 
 def slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef=1.0,
@@ -180,10 +192,11 @@ def slim_rsghmc_update_ref(theta, p, grad, mask, eps, seed, d_coef=1.0,
                         seed, noise).to(theta.device)[:, None]
     noise_scale = torch.sqrt(torch.clamp(
         eps_col * (2.0 * d_coef - eps_col * bhat), min=0.0))
-    return _rsghmc_update(theta, p, grad + prior_scale * theta,
-                          _eta(theta, seed, step, noise), eps_col, noise_scale,
-                          d_coef, _f32(1.0 / mass),
-                          _f32(1.0 / (mass**2 * speed_of_light**2)))
+    theta, p_new = _rsghmc_update(
+        theta, p.float(), grad.float() + prior_scale * theta,
+        _eta(theta, seed, step, noise), eps_col, noise_scale, d_coef,
+        _f32(1.0 / mass), _f32(1.0 / (mass**2 * speed_of_light**2)))
+    return theta, p_new.to(p.dtype)
 
 
 def slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
@@ -195,32 +208,35 @@ def slim_sgnht_update_ref(theta, p, grad, mask, xi, eps, seed, a_diff=1.0,
     _check_xi("slim_sgnht_update", theta, xi)
     sigma = torch.sqrt(torch.clamp(2.0 * a_diff * eps_col / scale_grad,
                                    min=0.0))
-    return _sgnht_update(theta, p, grad + prior_scale * theta,
-                         _eta(theta, seed, step, noise), xi, eps_col, sigma)
+    theta, p_new = _sgnht_update(
+        theta, p.float(), grad.float() + prior_scale * theta,
+        _eta(theta, seed, step, noise), xi, eps_col, sigma)
+    return theta, p_new.to(p.dtype)
 
 
 def slim_sghmc_burnin_update_ref(theta, v, tau, g, v_hat, grad, mask, eps,
                                  seed, mdecay=0.05, scale_grad=1.0,
                                  prior_scale=0.0, noise=None, step=0):
     """Plain PyTorch version of :func:`slim_sghmc_burnin_update`."""
-    eps_vec = _validate("slim_sghmc_burnin_update", theta, [v, tau, g, v_hat],
-                        grad, mask, eps, seed, noise)
-    gg = grad + prior_scale * theta
+    eps_vec = _validate("slim_sghmc_burnin_update", theta, [v], grad, mask,
+                        eps, seed, noise, f32_state=[tau, g, v_hat])
+    gg = grad.float() + prior_scale * theta
     minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
-    v = _sghmc_velocity(v, minv, gg, _eta(theta, seed, step, noise),
-                        _sghmc_row(eps_vec, scale_grad, theta.device),
-                        mdecay)
-    return theta + v, v, tau, g, v_hat, minv
+    v_new = _sghmc_velocity(v.float(), minv, gg,
+                            _eta(theta, seed, step, noise),
+                            _sghmc_row(eps_vec, scale_grad, theta.device),
+                            mdecay)
+    return theta + v_new, v_new.to(v.dtype), tau, g, v_hat, minv
 
 
 def slim_sgld_burnin_update_ref(theta, tau, g, v_hat, grad, mask, eps, seed,
                                 a_coef=1.0, scale_grad=1.0, prior_scale=0.0,
                                 noise=None, step=0):
     """Plain PyTorch version of :func:`slim_sgld_burnin_update`."""
-    eps_vec = _validate("slim_sgld_burnin_update", theta, [tau, g, v_hat],
-                        grad, mask, eps, seed, noise)
+    eps_vec = _validate("slim_sgld_burnin_update", theta, [], grad, mask,
+                        eps, seed, noise, f32_state=[tau, g, v_hat])
     a_coef, c = _sgld_constants(a_coef, scale_grad, True)
-    gg = grad + prior_scale * theta
+    gg = grad.float() + prior_scale * theta
     minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
     theta = theta + _sgld_delta(minv, gg, _eta(theta, seed, step, noise),
                                 eps_vec.to(theta.device)[:, None], a_coef, c,
@@ -247,7 +263,9 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
     """Launch the C entry ``name + "_launch"`` of ``csrc/slim_update.cu``.
 
     ``ins`` maps operand names (``_IN``) to tensors (``(n_chains, P)``;
-    ``xi`` ``(n_chains,)``), ``outs`` names the outputs to allocate.  A
+    ``xi`` ``(n_chains,)``; ``v``, ``minv`` and ``grad`` float32 or
+    bfloat16), ``outs`` names the outputs to allocate (``v'`` in ``v``'s
+    type, the others float32).  A
     one-entry ``eps_vec`` goes as the scalar argument, a per-chain one as
     the kernel's eps vector.  ``consts`` are the rule's constants
     (``_CONSTS``, each 0 where not given), as the source's ``Args`` lists
@@ -268,15 +286,18 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
     eps_dev = eps_vec.to(theta.device).contiguous() if per_chain else None
     lib = _build.load("slim_update")
     n, p = theta.shape
-    out = {key: torch.empty_like(theta) for key in outs}
+    out = {key: torch.empty_like(ins["v"] if key == "v" else theta)
+           for key in outs}
     with torch.cuda.device(theta.device):  # the launch uses the current device
         _build.check(getattr(lib, name + "_launch")(
             *[_ptr(ins.get(key)) for key in _IN], _ptr(eps_dev), _ptr(noise),
             *[_ptr(out.get(key)) for key in _OUT], n, p, int(seed),
             int(step) & _MASK32, 0.0 if per_chain else float(eps_vec[0]),
             *[float(consts.get(key, 0.0)) for key in _CONSTS],
-            float(prior_scale), torch.cuda.current_stream().cuda_stream),
-            "slim_update")
+            float(prior_scale),
+            *[int(key in ins and ins[key].dtype == torch.bfloat16)
+              for key in ("v", "minv", "grad")],
+            torch.cuda.current_stream().cuda_stream), "slim_update")
     return tuple(out[key] for key in outs)
 
 
@@ -290,7 +311,8 @@ def slim_sghmc_update(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
     """One SGHMC sampling step over packed state with a frozen ``minv``
     (B7).
 
-    ``theta``, ``v``, ``grad``, ``minv`` are ``(n_chains, P)`` float32;
+    ``theta``, ``v``, ``grad``, ``minv`` are ``(n_chains, P)``, ``theta``
+    float32 and the others float32 or bfloat16 (``v'`` keeps ``v``'s type);
     ``mask`` must be ``None``; ``eps`` a scalar or ``(n_chains,)``; ``seed``
     the 64-bit Philox key and ``step`` the absolute step of the noise
     counter, or ``noise`` ``(n_chains, P)`` injected normals.  Returns
@@ -423,8 +445,8 @@ def slim_sghmc_burnin_update(theta, v, tau, g, v_hat, grad, mask, eps, seed,
         return slim_sghmc_burnin_update_ref(
             theta, v, tau, g, v_hat, grad, mask, eps, seed, mdecay,
             scale_grad, prior_scale, noise, step)
-    eps_vec = _validate(name, theta, [v, tau, g, v_hat], grad, mask, eps,
-                        seed, noise)
+    eps_vec = _validate(name, theta, [v], grad, mask, eps, seed, noise,
+                        f32_state=[tau, g, v_hat])
     out = _launch(name, dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat,
                              grad=grad),
                   ("theta", "v", "tau", "g", "v_hat", "minv"), eps_vec, noise,
@@ -451,8 +473,8 @@ def slim_sgld_burnin_update(theta, tau, g, v_hat, grad, mask, eps, seed,
         return slim_sgld_burnin_update_ref(
             theta, tau, g, v_hat, grad, mask, eps, seed, a_coef, scale_grad,
             prior_scale, noise, step)
-    eps_vec = _validate(name, theta, [tau, g, v_hat], grad, mask, eps, seed,
-                        noise)
+    eps_vec = _validate(name, theta, [], grad, mask, eps, seed, noise,
+                        f32_state=[tau, g, v_hat])
     a_coef, c = _sgld_constants(a_coef, scale_grad, True)
     out = _launch(name, dict(theta=theta, tau=tau, g=g, v_hat=v_hat,
                              grad=grad),

@@ -34,6 +34,13 @@ batch_fn`), ``batch_fn=None`` a full-data cost.  With the same seed, on the
 dense network, windows and noise are those of the fused drivers.  A stacked
 per-chain schedule state gives every chain its own stepsize.
 
+Precision, as JAX's drivers: the fused drivers keep the momentum (and
+SGHMC's and SGLD's frozen minv) in ``state_dtype``, ``torch.bfloat16`` by
+default, rounded every step inside the kernels; the lanes drivers run the
+network passes in ``compute_dtype``, ``torch.bfloat16`` by default, and
+keep their state in ``state_dtype``, ``torch.float32`` by default.  States
+come back float32.
+
 ``noise_impl``: ``'auto'`` and ``'box_muller'`` are the Philox Box-Muller
 stream; ``'zero'`` is the degenerate stream (zero noise, window 0 every
 step) that reproduces the JAX kernels' interpret-mode stream for parity
@@ -45,9 +52,8 @@ from typing import NamedTuple
 
 import torch
 
-from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops.fused_step import (
-    check_fused_fits,
+    STATE_DTYPES,
     data_windows,
     fused_bnn_multistep,
     fused_bnn_multistep_burnin,
@@ -105,23 +111,6 @@ def resolve_noise_impl(noise_impl):
 _KINDS = ((SGHMCSampler, "sghmc"), (SGLDSampler, "sgld"),
           (PSGLDSampler, "psgld"), (RelativisticSGHMCSampler, "rsghmc"),
           (SGNHTSampler, "sgnht"))
-# sampler kind -> the fused kernels of its drivers: burn-in (None where the
-# sampler burns in on the lanes driver), multi-step, one-step
-_FUSED_IDS = {
-    "sghmc": (fs.B2, fs.B1, fs.B3),
-    "sgld": (fs.B6, fs.B5_SGLD, fs.B4_SGLD),
-    "psgld": (None, fs.B5_PSGLD, fs.B4_PSGLD),
-    "sgnht": (None, fs.B5_SGNHT, fs.B4_SGNHT),
-    "rsghmc": (None, fs.B5_RSGHMC, fs.B4_RSGHMC),
-}
-
-
-def fused_kernel_ids(kind):
-    """The ids of the fused kernels the drivers launch for the sampler
-    ``kind`` (``"sghmc"``, ``"sgld"``, ``"psgld"``, ``"rsghmc"`` or
-    ``"sgnht"``), for
-    :func:`~pysgmcmc_tpu_torch.ops.fused_step.check_fused_fits`."""
-    return tuple(k for k in _FUSED_IDS[kind] if k is not None)
 
 
 def _sampler_kind(name, sampler):
@@ -189,10 +178,6 @@ def _stream_inputs(noise_impl, k_steps, n_chains, n_params, device):
                         device=device))
 
 
-def _on_card(position):
-    return next(iter(position.values())).device.type == "cuda"
-
-
 def _data(x, y, batch_size, device):
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
@@ -201,7 +186,7 @@ def _data(x, y, batch_size, device):
 
 
 def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
-                       state_dtype=torch.float32, mesh=None, pair_dots=False,
+                       state_dtype=torch.bfloat16, mesh=None, pair_dots=False,
                        noise_impl="auto"):
     """Run ``n_steps`` burn-in steps of every chain in one B2 (SGHMC) or B6
     (SGLD) launch.
@@ -211,15 +196,14 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     ``torch.Generator`` on the states' device, ``x``/``y`` the raw training
     data.  Returns the advanced states with ``stats.minv`` holding the
     mass-matrix inverse the final step used (the value the sampling phase
-    freezes).  On the card, a network too wide for the kernel's shared
-    memory raises ``NotImplementedError`` before any work (ROADMAP.md queue
-    B row 6, fault C1).
+    freezes).
 
-    ``state_dtype`` defaults to ``torch.float32``, where the JAX package's
-    driver defaults to ``jnp.bfloat16``: bf16 momentum and mass state is
-    not ported yet (ROADMAP.md queue B row 5), so a bare call runs in f32
-    on both sides only when JAX is given ``jnp.float32`` (as the BNN
-    does).
+    ``state_dtype`` is the storage of SGHMC's momentum in the kernel,
+    ``torch.bfloat16`` by default as in the JAX package's driver: the
+    momentum is rounded to it before the launch and after every step, and
+    comes back float32; tau, g, v_hat and minv stay float32 (SGLD has no
+    momentum).  ``BayesianNeuralNetwork`` burns in with ``torch.float32``,
+    as JAX's does.
     """
     name = "burnin_chain_fused"
     _check_burn_in(name, sampler)
@@ -228,9 +212,6 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
         return states
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
-    if _on_card(states.position):
-        check_fused_fits(name, (_FUSED_IDS["sghmc" if sghmc else "sgld"][0],),
-                         layout, batch_size)
     theta = pack(states.position, layout)
     device = theta.device
     x_win, y_win, n_data = _data(x, y, batch_size, device)
@@ -247,9 +228,9 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     eps = _eps_table(sampler, states.schedule_state, step0, n_steps)
     if sghmc:
         theta, v, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin(
-            theta, pack(states.momentum, layout), *stats, x_win, y_win, eps,
-            _draw_seed(key), mdecay=sampler.mdecay, state_dtype=state_dtype,
-            **common)
+            theta, pack(states.momentum, layout).to(state_dtype), *stats,
+            x_win, y_win, eps, _draw_seed(key), mdecay=sampler.mdecay,
+            state_dtype=state_dtype, **common)
     else:
         theta, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin_sgld(
             theta, *stats, x_win, y_win, eps, _draw_seed(key),
@@ -263,7 +244,7 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
         schedule_state=states.schedule_state,
     )
     if sghmc:
-        return SGHMCState(momentum=unpack(v, layout), **fields)
+        return SGHMCState(momentum=unpack(v.float(), layout), **fields)
     return SGLDState(**fields)
 
 
@@ -280,7 +261,7 @@ _FUSED_KERNELS = {
 def _fused_rule(kind, sampler, state_dtype):
     """The keywords of the sampler's fused kernels, as the sampler sets
     them (the prior scale and, but for relativistic SGHMC, scale_grad
-    included)."""
+    included); the momentum's ``state_dtype`` where the sampler has one."""
     rule = _lanes_rule(kind, sampler)
     if kind == "rsghmc":
         rule["b_hat"] = rule.pop("bhat")
@@ -290,7 +271,7 @@ def _fused_rule(kind, sampler, state_dtype):
 
 
 def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
-                       keep_every=1, state_dtype=torch.float32,
+                       keep_every=1, state_dtype=torch.bfloat16,
                        collect_positions=True, mesh=None, multistep=False,
                        pair_dots=False, noise_impl="auto"):
     """Sampling-phase driver: ``n_samples`` collected samples, each after
@@ -307,33 +288,30 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     ``(n_chains,)``.  Returns ``(states, positions, costs)``: ``positions``
     stacks the position after each sample as leaves ``(n_chains, n_samples,
     ...)`` (``None`` without ``collect_positions``), ``costs`` is
-    ``(n_chains, n_samples)``, each sample's final-step cost.  On the card,
-    a network too wide for the kernel's shared memory raises
-    ``NotImplementedError`` before any work (ROADMAP.md queue B row 6,
-    fault C1).
+    ``(n_chains, n_samples)``, each sample's final-step cost.
 
-    ``state_dtype`` defaults to ``torch.float32``, where the JAX package's
-    driver defaults to ``jnp.bfloat16``: bf16 momentum state is not ported
-    yet (ROADMAP.md queue B row 5), so a bare call runs in f32 on both
-    sides only when JAX is given ``jnp.float32`` (as the BNN does).
+    ``state_dtype`` is the storage of the momentum (SGHMC, SGNHT,
+    relativistic SGHMC) and of SGHMC's and SGLD's frozen minv in the
+    kernels, ``torch.bfloat16`` by default as in the JAX package's driver:
+    they are rounded to it before the first launch, the momentum again
+    after every step, and the momentum comes back float32.  pSGLD's
+    accumulator stays float32 whatever ``state_dtype`` says, as in JAX.
     """
     name = "sample_chain_fused"
     kind = _check_driver(name, sampler, mesh, pair_dots)
     noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
-    if _on_card(states.position):
-        check_fused_fits(name, (_FUSED_IDS[kind][1 if multistep else 2],),
-                         layout, batch_size)
     theta = pack(states.position, layout)
     device = theta.device
     n = theta.shape[0]
     v = minv = xi = None
-    if kind == "psgld":
+    if kind == "psgld":  # the accumulator adapts every step and stays f32
         v = pack(states.v, layout)
+        state_dtype = torch.float32
     elif kind != "sgld":
-        v = pack(states.momentum, layout)
+        v = pack(states.momentum, layout).to(state_dtype)
     if kind in ("sghmc", "sgld"):
-        minv = pack(states.stats.minv, layout)
+        minv = pack(states.stats.minv, layout).to(state_dtype)
     if kind == "sgnht":
         xi = _lanes_xi(name, states, n, device)
     x_win, y_win, n_data = _data(x, y, batch_size, device)
@@ -390,7 +368,7 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     if kind == "psgld":
         moved["v"] = unpack(v, layout)
     elif v is not None:
-        moved["momentum"] = unpack(v, layout)
+        moved["momentum"] = unpack(v.float(), layout)
     if xi is not None:
         moved["xi"] = xi
     return _sampling_result(states, int(n_samples) * keep_every, positions,
@@ -490,22 +468,26 @@ def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
     """Raises on what the lanes drivers do not take; returns the sampler's
     kind (:func:`_sampler_kind`)."""
     kind = _check_driver(name, sampler, mesh, False)
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "{}: compute_dtype (bfloat16 network passes) is not ported yet "
-            "(ROADMAP.md queue A items 6 and 14); pass None".format(name))
-    if state_dtype != torch.float32:
-        raise NotImplementedError(
-            "{}: only float32 momentum/mass state is ported; bfloat16 state "
-            "is ROADMAP.md queue A item 6".format(name))
+    if compute_dtype is not None and compute_dtype not in STATE_DTYPES:
+        raise ValueError(
+            "{}: compute_dtype must be None, torch.float32 or "
+            "torch.bfloat16; got {}".format(name, compute_dtype))
+    if state_dtype not in STATE_DTYPES:
+        raise ValueError(
+            "{}: state_dtype must be torch.float32 or torch.bfloat16; got "
+            "{}".format(name, state_dtype))
     return kind
 
 
-def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step):
+def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step,
+                    compute_dtype=None):
     """Every chain's cost ``(n_chains,)`` and packed gradient at ``theta``,
     on the minibatch ``batch_fn(window_seed, step, n_chains)`` (the full
-    data without a ``batch_fn``)."""
-    position = unpack_lanes(spec, theta)
+    data without a ``batch_fn``).  The network pass runs on ``theta``'s
+    leaves cast to ``compute_dtype`` (``None``: float32), and the gradient
+    is packed in the type it comes in (bf16 under bf16 leaves), as JAX's
+    lanes drivers do."""
+    position = unpack_lanes(spec, theta, compute_dtype)
     if batch_fn is None:
         grads, cost = torch.func.vmap(torch.func.grad_and_value(
             lambda pos: sampler.cost_fn(pos)))(position)
@@ -513,7 +495,8 @@ def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step):
         grads, cost = torch.func.vmap(torch.func.grad_and_value(
             sampler.cost_fn))(position, batch_fn(window_seed, step,
                                                  theta.shape[0]))
-    return cost, pack_lanes(spec, grads)
+    return cost, pack_lanes(spec, grads,
+                            dtype=next(iter(grads.values())).dtype)
 
 
 def _lanes_rule(kind, sampler):
@@ -552,8 +535,8 @@ def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
                  mesh, noise_impl):
     """What both lanes drivers set up: ``(kind, spec, theta, v, step0,
     eps_of, seed, window_seed, rule keywords)``; ``v`` is the packed
-    momentum (SGHMC, RSGHMC, SGNHT) or accumulator (pSGLD), ``None`` for
-    SGLD."""
+    momentum (SGHMC, RSGHMC, SGNHT) or accumulator (pSGLD) in
+    ``state_dtype``, ``None`` for SGLD."""
     kind = _check_lanes(name, sampler, mesh, compute_dtype, state_dtype)
     zero = resolve_noise_impl(noise_impl) == "zero"
     spec = make_lanes_spec({k: leaf[0] for k, leaf in states.position.items()})
@@ -562,7 +545,7 @@ def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
         v = None
     else:
         v = pack_lanes(spec, states.v if kind == "psgld"
-                       else states.momentum)
+                       else states.momentum, dtype=state_dtype)
     seed = _draw_seed(key)
     rule = dict(_lanes_rule(kind, sampler),
                 noise=torch.zeros_like(theta) if zero else None)
@@ -572,8 +555,9 @@ def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
 
 
 def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
-                       compute_dtype=None, state_dtype=torch.float32,
-                       mesh=None, noise_impl="auto"):
+                       compute_dtype=torch.bfloat16,
+                       state_dtype=torch.float32, mesh=None,
+                       noise_impl="auto"):
     """Run ``n_steps`` self-tuning burn-in steps of every chain, one launch
     of B9-sghmc (SGHMC) or B9-sgld (SGLD) per step.
 
@@ -584,6 +568,12 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     takes no batch).  Returns the advanced states, with ``stats.minv``
     holding the mass-matrix inverse the final step used (the value the
     sampling phase freezes).
+
+    As in the JAX package's driver, each step's network pass runs on the
+    position cast to ``compute_dtype`` (``torch.bfloat16`` by default;
+    ``None`` keeps float32) and its gradient reaches the kernel in that
+    type; SGHMC's momentum is stored in ``state_dtype`` (float32 by
+    default) and comes back float32; tau, g, v_hat and minv are float32.
     """
     name = "burnin_chain_lanes"
     _check_burn_in(name, sampler)
@@ -597,7 +587,7 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     n_steps = int(n_steps)
     for step in range(step0, step0 + n_steps):
         _, grad = _lanes_gradient(sampler, spec, theta, batch_fn, window_seed,
-                                  step)
+                                  step, compute_dtype)
         if sghmc:
             theta, v, tau, g, v_hat, minv = slim_sghmc_burnin_update(
                 theta, v, tau, g, v_hat, grad, None, eps_of(step), seed,
@@ -615,12 +605,13 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
         schedule_state=states.schedule_state,
     )
     if sghmc:
-        return SGHMCState(momentum=unpack_lanes(spec, v), **fields)
+        return SGHMCState(momentum=unpack_lanes(spec, v, torch.float32),
+                          **fields)
     return SGLDState(**fields)
 
 
 def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
-                       keep_every=1, compute_dtype=None,
+                       keep_every=1, compute_dtype=torch.bfloat16,
                        state_dtype=torch.float32, collect_positions=True,
                        mesh=None, noise_impl="auto"):
     """Sampling-phase driver on the chains-on-lanes kernels: ``n_samples``
@@ -631,14 +622,17 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
     p' / P - 1)``).  ``states`` is a stacked state of any of the five
     samplers; an SGNHT ``xi`` may be a shared scalar or ``(n_chains,)``
     and comes back ``(n_chains,)``.  Other arguments as
-    :func:`burnin_chain_lanes`.  Returns ``(states, positions, costs)``
-    shaped as :func:`sample_chain_fused`'s; a sample's cost is that of its
-    final step's gradient pass.
+    :func:`burnin_chain_lanes`; the momentum or accumulator and SGHMC's and
+    SGLD's frozen minv are stored in ``state_dtype``, and SGNHT's
+    thermostat sums the stored (rounded) momentum, as JAX's lanes driver
+    does.  Returns ``(states, positions, costs)`` shaped as
+    :func:`sample_chain_fused`'s (the momentum or accumulator float32); a
+    sample's cost is that of its final step's gradient pass.
     """
     kind, spec, theta, v, step, eps_of, seed, window_seed, rule = \
         _lanes_start("sample_chain_lanes", sampler, states, key,
                      compute_dtype, state_dtype, mesh, noise_impl)
-    minv = (pack_lanes(spec, states.stats.minv)
+    minv = (pack_lanes(spec, states.stats.minv, dtype=state_dtype)
             if kind in ("sghmc", "sgld") else None)
     xi = _lanes_xi("sample_chain_lanes", states, theta.shape[0],
                    theta.device) if kind == "sgnht" else None
@@ -646,7 +640,7 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
     for _ in range(int(n_samples)):
         for _ in range(keep_every):
             cost, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
-                                         window_seed, step)
+                                         window_seed, step, compute_dtype)
             eps = eps_of(step)
             if kind == "sghmc":
                 theta, v = slim_sghmc_update(theta, v, grad, minv, None, eps,
@@ -663,20 +657,22 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
             else:
                 theta, v = slim_sgnht_update(theta, v, grad, None, xi, eps,
                                              seed, step=step, **rule)
-                # the thermostat: one reduction over every chain's row (a
-                # float eps stays a host scalar: no copy, no stream wait)
+                # the thermostat: one reduction over every chain's row of
+                # the stored momentum (a float eps stays a host scalar: no
+                # copy, no stream wait)
                 if torch.is_tensor(eps):
                     eps = eps.to(xi.device)
-                xi = xi + eps * (torch.sum(v * v, dim=1) / spec.width - 1.0)
+                p = v.float()
+                xi = xi + eps * (torch.sum(p * p, dim=1) / spec.width - 1.0)
             step += 1
         if collect_positions:
             positions.append(unpack_lanes(spec, theta))
         costs.append(cost)
     moved = dict(position=unpack_lanes(spec, theta))
     if kind in ("sghmc", "rsghmc", "sgnht"):
-        moved["momentum"] = unpack_lanes(spec, v)
+        moved["momentum"] = unpack_lanes(spec, v, torch.float32)
     elif kind == "psgld":
-        moved["v"] = unpack_lanes(spec, v)
+        moved["v"] = unpack_lanes(spec, v, torch.float32)
     if kind == "sgnht":
         moved["xi"] = xi
     return _sampling_result(states, int(n_samples) * keep_every, positions,

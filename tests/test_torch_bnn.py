@@ -26,7 +26,12 @@ from pysgmcmc_tpu_torch import interop
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import _build
 from pysgmcmc_tpu_torch.ops import fused_step as fs
-from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+from pysgmcmc_tpu_torch.parallel import (
+    burnin_chain_fused,
+    burnin_chain_lanes,
+    sample_chain_fused,
+    sample_chain_lanes,
+)
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
 
@@ -229,6 +234,8 @@ def test_philox_training_is_reproducible_and_learns():
     dict(sampling_method="SVGD", step_impl="lanes"),
     dict(sampling_method="SVGD", network="dense", step_impl="fused"),
     dict(sampling_method="SVGD", step_impl="fused"),
+    # the fused family's widest hidden layer, JAX's fused_slot
+    dict(network="dense", step_impl="fused", units=(115,) * 3),
 ])
 def test_constructor_errors_match_jax(kwargs):
     jax_kwargs = kwargs
@@ -240,18 +247,18 @@ def test_constructor_errors_match_jax(kwargs):
         JaxBNN(**jax_kwargs)
     with pytest.raises(ValueError) as got:
         BayesianNeuralNetwork(device="cpu", **kwargs)
-    # the port drops the TPU slot limit ("H <= 114") from one message
-    assert str(got.value) == str(want.value).replace("H <= 114, ", "")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(network="dense"),
-    dict(network="dense", step_impl="lanes", compute_dtype=torch.bfloat16),
+    dict(network="dense", step_impl="lanes", noise_impl="hadamard_clt"),
     dict(network="dense", step_impl="pytree"),
     dict(step_impl="lanes", mesh=object()),
     dict(network="dense", step_impl="fused", mesh=object()),
     dict(network="dense", step_impl="fused", pair_dots=True),
-    dict(network="dense", step_impl="fused", compute_dtype=torch.bfloat16),
+    dict(network="dense", step_impl="fused", compute_dtype=torch.bfloat16,
+         dtype=torch.float64),
     dict(network="dense", step_impl="fused", dtype=torch.float64),
     dict(network="dense", step_impl="fused", noise_impl="hadamard_clt"),
 ])
@@ -266,13 +273,12 @@ def test_unported_paths_raise(kwargs):
         BayesianNeuralNetwork(device="cpu", **kwargs)
 
 
-def test_fused_network_too_wide_is_refused_before_any_work(monkeypatch):
-    """Fault C1: on the card, a fused network whose chain does not fit a
-    block's shared memory raises before the data are prepared (the CPU's
-    plain versions train any width).  The count is the library's own
-    ``fused_step_smem_bytes``, stood in for here (the card tests hold the
-    real one): the check asks it for every fused kernel of the sampler at
-    the network's layout and the batch."""
+def test_fused_placement_follows_the_library_count(monkeypatch):
+    """Fault C1, repaired: a launch keeps a chain's state in shared memory
+    exactly where the library's own count (``fused_step_smem_bytes``,
+    stood in for here; the card tests hold the real one) fits a block, and
+    in device memory above it; nothing refuses a wide network, which trains
+    on the CPU's plain versions as JAX's interpret path does."""
     asked = []
 
     class Library:
@@ -283,36 +289,45 @@ def test_fused_network_too_wide_is_refused_before_any_work(monkeypatch):
                           batch))
             return _build.MAX_SMEM_BYTES + (hidden > 100)
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(_build, "load", lambda name: {
         "fused_step": Library}[name])
-    bnn = BayesianNeuralNetwork(network="dense", step_impl="fused",
-                                units=(114,) * 4, n_chains=2, n_nets=2)
+    wide, narrow = fs.FusedLayout(1, 114, 4), fs.FusedLayout(1, 50, 3)
+    assert fs.fused_placement(fs.B2, wide, 20) == "device"
+    assert fs.fused_placement(fs.B1, narrow, 20) == "shared"  # at the limit
+    assert asked == [(fs.B2, wide.n_params, 1, 114, 4, 20),
+                     (fs.B1, narrow.n_params, 1, 50, 3, 20)]
+    monkeypatch.undo()
     x, y = _data()
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue B row 6 \(fault C1\)"):
-        bnn.train(x, y)
-    assert not hasattr(bnn, "x_mean") and bnn.X is None
-    lay = fs.FusedLayout(1, 114, 4)
-    assert sorted(asked) == [(k, lay.n_params, 1, 114, 4, 20)
-                             for k in (fs.B1, fs.B2, fs.B3)]
-    # a count at the limit fits
-    fs.check_fused_fits("t", range(1, 13), fs.FusedLayout(1, 50, 3), 20)
-    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
-        fs.check_fused_fits("t", [fs.B2], lay, 20)
+    bnn = BayesianNeuralNetwork(device="cpu", network="dense",
+                                step_impl="fused", units=(100,) * 3,
+                                n_chains=2, n_nets=2, burn_in_steps=4,
+                                sample_steps=2, n_iters=6, log_every=None)
+    bnn.train(x, y)
+    assert bnn.samples["w2"].shape == (2, 100, 100)
+    mean, var = bnn.predict(x)
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
 
 
-def test_fused_drivers_state_dtype_defaults_differ_from_jax():
-    """Fault C3, documented: the port's fused drivers default to f32 state
-    where JAX's default to bf16 (bf16 state is ROADMAP.md queue B row 5)."""
-    for port_fn, jax_fn in (
-            (burnin_chain_fused, jax_packed.burnin_chain_fused),
-            (sample_chain_fused, jax_packed.sample_chain_fused)):
-        assert inspect.signature(port_fn).parameters[
-            "state_dtype"].default is torch.float32
-        assert inspect.signature(jax_fn).parameters[
-            "state_dtype"].default is jax.numpy.bfloat16
-        assert "queue B row 5" in port_fn.__doc__
+def test_fused_drivers_state_dtype_defaults_match_jax():
+    """Fault C3, repaired: the fused drivers default to bf16 state and the
+    lanes drivers to bf16 network passes with f32 state, as JAX's do."""
+    for port_fn, jax_fn, arg, want in (
+            (burnin_chain_fused, jax_packed.burnin_chain_fused,
+             "state_dtype", torch.bfloat16),
+            (sample_chain_fused, jax_packed.sample_chain_fused,
+             "state_dtype", torch.bfloat16),
+            (burnin_chain_lanes, jax_packed.burnin_chain_lanes,
+             "compute_dtype", torch.bfloat16),
+            (sample_chain_lanes, jax_packed.sample_chain_lanes,
+             "compute_dtype", torch.bfloat16),
+            (burnin_chain_lanes, jax_packed.burnin_chain_lanes,
+             "state_dtype", torch.float32),
+            (sample_chain_lanes, jax_packed.sample_chain_lanes,
+             "state_dtype", torch.float32)):
+        got = inspect.signature(port_fn).parameters[arg].default
+        jax_default = inspect.signature(jax_fn).parameters[arg].default
+        assert got is want
+        assert jax.numpy.dtype(jax_default).name == str(got).split(".")[1]
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -11,12 +11,20 @@ against its plain PyTorch version on the same inputs, from the state a
 Philox stream, with the tolerance
 ``chip_smoke.py`` uses: 2e-4 of the largest value in each chain's row of
 each output (summation order and libm ulps, carried through the steps).
+The bf16-state instantiations are held over k <= 3 steps with one bf16 ulp
+of each bf16 value per step on top (a value whose f32 result straddles a
+rounding boundary rounds one ulp apart) and the share of differing bf16
+values beside a CPU witness (``chip_smoke._compare``), and under bf16
+state two launches of k steps must equal one of 2k bit for bit; B1, B2,
+B5-sgld and B6 are also held at hidden width 100 (depth 3), whose state
+lives in device memory.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops import _build, pairwise
@@ -75,7 +83,7 @@ def _burned_in(sampler_cls, x, y, n):
                           scale_grad=100.0,
                           gaussian_prior_scale=1.0 / (lay.n_params * 100))
     st = burnin_chain_fused(sampler, sampler.init(init(gen, (n,))), gen, 200,
-                            x, y)
+                            x, y, state_dtype=torch.float32)
     state = {"theta": fs.pack(st.position, lay)}
     state.update(zip(("tau", "g", "v_hat", "minv"),
                      (fs.pack(leaf, lay) for leaf in st.stats)))
@@ -403,11 +411,12 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="match theta"):
         fs.fused_bnn_multistep(theta, st["v"].cpu(), st["minv"], x_win,
                                y_win, 0.01, 1)
-    lay4, st4, x4, y4, _ = _state(cuda_device, 2, h=114, depth=4)
-    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
-        fs.fused_bnn_multistep_burnin(
-            st4["theta"], st4["v"], st4["tau"], st4["g"], st4["v_hat"], x4,
-            y4, 0.01, 1, h=114)
+    with pytest.raises(ValueError, match="match theta"):  # f32 state wanted
+        fs.fused_bnn_multistep(theta, st["v"].bfloat16(), st["minv"], x_win,
+                               y_win, 0.01, 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        su.slim_sghmc_update(theta, st["v"].half(), st["g"], st["minv"],
+                             None, 0.01, 1)
 
 
 @pytest.mark.cuda
@@ -489,38 +498,247 @@ def test_lanes_bnn_without_burn_in_trains_on_the_card(method, kernel, eps,
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("h", [8, 50, 64, 114])
-def test_fused_fit_check_refuses_exactly_the_too_wide(depth, h, cuda_device):
-    """Fault C1's early check refuses a layout exactly where the library's
-    fused_step_smem_bytes exceeds a block's shared memory, for every fused
-    kernel; the flagship's network fits them all."""
+def test_fused_placement_is_device_exactly_where_too_wide(depth, h,
+                                                          cuda_device):
+    """Fault C1, repaired: a launch keeps the state in shared memory exactly
+    where the library's fused_step_smem_bytes fits a block, else in device
+    memory, for every fused kernel; the flagship's network fits them all,
+    and a launch is counted under the placement it took."""
     lib = _build.load("fused_step")
     for n_inputs, batch in ((1, 20), (3, 7)):
         lay = fs.FusedLayout(n_inputs, h, depth)
         for kernel_id in range(1, 13):
             need = lib.fused_step_smem_bytes(kernel_id, lay.n_params,
                                              n_inputs, h, depth, batch)
-            if need > _build.MAX_SMEM_BYTES:
-                with pytest.raises(NotImplementedError, match="fault C1"):
-                    fs.check_fused_fits("t", [kernel_id], lay, batch)
-            else:
-                fs.check_fused_fits("t", [kernel_id], lay, batch)
+            want = "device" if need > _build.MAX_SMEM_BYTES else "shared"
+            assert fs.fused_placement(kernel_id, lay, batch) == want
     if (h, depth) == (50, 3):
-        fs.check_fused_fits("t", range(1, 13), fs.FusedLayout(1, 50, 3), 20)
+        assert {fs.fused_placement(k, fs.FusedLayout(1, 50, 3), 20)
+                for k in range(1, 13)} == {"shared"}
     if (h, depth) == (114, 4):
-        with pytest.raises(NotImplementedError, match="fault C1"):
-            fs.check_fused_fits("t", [fs.B2], fs.FusedLayout(1, 114, 4), 20)
+        lay, st, x_win, y_win, _ = _state(cuda_device, 2, h=114, depth=4)
+        fs.placements.clear()
+        out = fs.fused_bnn_multistep_burnin(
+            st["theta"], st["v"], st["tau"], st["g"], st["v_hat"], x_win,
+            y_win, 0.01, 1, h=114)
+        torch.cuda.synchronize()
+        assert fs.placements == {("fused_bnn_multistep_burnin", "device"): 1}
+        assert all(torch.isfinite(t).all() for t in out)
 
 
 @pytest.mark.cuda
-def test_fused_bnn_too_wide_raises_before_any_launch(cuda_device):
+def test_fused_bnn_wide_trains_on_the_card(cuda_device):
+    """units=(100,) * 3 with SGHMC on the fused path, which JAX's fused
+    path takes: burn-in and sampling run on the device-memory placement."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
     fs.fused_bnn_multistep_burnin.launches = 0
+    fs.fused_bnn_multistep.launches = 0
+    fs.placements.clear()
     bnn = BayesianNeuralNetwork(network="dense", step_impl="fused",
-                                units=(114,) * 4, n_chains=2, n_nets=2)
-    x = np.random.RandomState(0).uniform(0.0, 1.0, (100, 1))
-    with pytest.raises(NotImplementedError, match="fault C1"):
-        bnn.train(x, np.sinc(x[:, 0] * 10 - 5))
-    assert fs.fused_bnn_multistep_burnin.launches == 0
-    assert not hasattr(bnn, "x_mean")
+                                units=(100,) * 3, n_chains=64, n_nets=128,
+                                burn_in_steps=300, sample_steps=50,
+                                n_iters=400, log_every=None)
+    bnn.train(x, np.sinc(x[:, 0] * 10 - 5))
+    assert fs.fused_bnn_multistep_burnin.launches == 1
+    assert fs.fused_bnn_multistep.launches == 2
+    assert set(fs.placements) == {("fused_bnn_multistep_burnin", "device"),
+                                  ("fused_bnn_multistep", "device")}
+    mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+
+
+def _bf16_check(label, ref, args, common, got, want, ulps):
+    """``chip_smoke.py``'s bf16 check of a kernel's outputs against its
+    plain version's: REL_TOL of each row's largest |value| plus ``ulps``
+    bf16 ulps of each bf16 value (for the other outputs, of the row's
+    largest bf16 value, at most of their own), and the share of bf16 values
+    that differ beside the witness, the plain version on the CPU against
+    the one on the card."""
+    cpu = ref(*[a.cpu() if torch.is_tensor(a) else a for a in args],
+              **common)
+    flips, total = cs._bf16_flips(torch, [w.cpu() for w in want],
+                                  cpu if isinstance(cpu, tuple) else (cpu,))
+    cs._compare(torch, (label, [str(i) for i in range(len(got))]), got,
+                want, ulps=ulps, witness=flips / total if total else 0.0)
+
+
+# bf16 instantiation -> (wrapper, plain version, state names, which of them
+# bf16, keywords, stepsize, one-step?)
+BF16_KERNELS = {
+    "B1": (fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+           ("theta", "v", "minv"), ("v", "minv"), dict(mdecay=0.05), 0.01,
+           False),
+    "B2": (fs.fused_bnn_multistep_burnin, fs.fused_bnn_multistep_burnin_ref,
+           ("theta", "v", "tau", "g", "v_hat"), ("v",), dict(mdecay=0.05),
+           0.01, False),
+    "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref, ("theta", "v", "minv"),
+           ("v", "minv"), dict(mdecay=0.05), 0.01, True),
+    "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref,
+                ("theta", "minv"), ("minv",), {}, 1e-3, True),
+    "B5-sgld": (fs.fused_bnn_multistep_sgld, fs.fused_bnn_multistep_sgld_ref,
+                ("theta", "minv"), ("minv",), {}, 1e-3, False),
+    "B4-psgld": (fs.fused_bnn_step_psgld, fs.fused_bnn_step_psgld_ref,
+                 ("theta", "acc"), ("acc",), {}, 1e-3, True),
+    "B4-sgnht": (fs.fused_bnn_step_sgnht, fs.fused_bnn_step_sgnht_ref,
+                 ("theta", "p", "xi"), ("p",), {}, 1e-3, True),
+    "B4-rsghmc": (fs.fused_bnn_step_rsghmc, fs.fused_bnn_step_rsghmc_ref,
+                  ("theta", "p"), ("p",), {}, 1e-3, True),
+    "B5-sgnht": (fs.fused_bnn_multistep_sgnht,
+                 fs.fused_bnn_multistep_sgnht_ref, ("theta", "p", "xi"),
+                 ("p",), {}, 1e-3, False),
+    "B5-rsghmc": (fs.fused_bnn_multistep_rsghmc,
+                  fs.fused_bnn_multistep_rsghmc_ref, ("theta", "p"), ("p",),
+                  {}, 1e-3, False),
+}
+
+
+def _bf16_state(kernel, device, n):
+    """The bf16 test's operands of ``kernel`` and its keywords: the state a
+    200-step SGHMC burn-in leaves, bf16 where the kernel takes it."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    x, y = _data(gen)
+    _, _, names, bf16, kw, eps, _ = BF16_KERNELS[kernel]
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    st["acc"] = st["v_hat"] * 1e-3
+    st["p"] = torch.randn(st["theta"].shape, generator=gen, device=device)
+    st["xi"] = 1.0 + 0.1 * torch.randn(n, generator=gen, device=device)
+    state = [st[name].to(torch.bfloat16) if name in bf16 else st[name]
+             for name in names]
+    common = dict(prior_scale=1.0 / (lay.n_params * 100), **kw)
+    if kernel[3:] != "rsghmc":
+        common["scale_grad"] = 100.0
+    if any(name in ("v", "acc", "p") for name in bf16):
+        common["state_dtype"] = torch.bfloat16
+    return state, fs.data_windows(x, y, 20), eps, common
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(BF16_KERNELS))
+def test_bf16_kernel_matches_plain_version(kernel, cuda_device):
+    """Each bf16-state instantiation against its plain version on the
+    Philox stream, 3 steps from the burned-in state."""
+    n, k = 64, 3
+    fn, ref, _, _, _, _, one_step = BF16_KERNELS[kernel]
+    state, (x_win, y_win), eps, common = _bf16_state(kernel, cuda_device, n)
+    if one_step:
+        steps = 1
+        widx = fs.philox_windows(9, 77, n, x_win.shape[0], cuda_device)
+        args = state + [*fs.gather_batch(x_win, y_win, widx), eps, 9]
+        common["step"] = 77
+    else:
+        steps = k
+        args = state + [x_win, y_win, eps, 9]
+        common.update(k_steps=k, step0=77)
+    before = fn.launches
+    got = fn(*args, **common)
+    assert fn.launches == before + 1
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    _bf16_check(kernel, ref, args, common, got, want, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B5-sgld", "B5-sgnht",
+                                    "B5-rsghmc"])
+def test_bf16_chunked_launches_equal_one_launch(kernel, cuda_device):
+    """Under bf16 state two launches of k steps equal one launch of 2k on
+    the card, bit for bit: the kernel rounds the momentum after every step,
+    not once per launch."""
+    n, k = 64, 2
+    fn = BF16_KERNELS[kernel][0]
+    state, (x_win, y_win), eps, common = _bf16_state(kernel, cuda_device, n)
+    whole = fn(*state, x_win, y_win, eps, 9, k_steps=2 * k, step0=77,
+               **common)
+    first = fn(*state, x_win, y_win, eps, 9, k_steps=k, step0=77, **common)
+    carried = min(len(first) - 1, len(state))  # the state the kernel moves
+    second = fn(*first[:carried], *state[carried:], x_win, y_win, eps, 9,
+                k_steps=k, step0=77 + k, **common)
+    torch.cuda.synchronize()
+    assert len(whole) == len(second)
+    for a, b in zip(whole, second):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if "state_dtype" in common:
+        assert whole[1].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(SLIM) + sorted(SLIM_B8))
+def test_bf16_slim_kernel_matches_plain_version(kernel, cuda_device):
+    """Each slim kernel with bf16 v, minv and gradient (the lanes path under
+    compute_dtype and bf16 state) against its plain version on the Philox
+    stream: one step, one bf16 ulp on top of REL_TOL; v' stays bf16."""
+    n = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, y = _data(gen)
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    widx = fs.philox_windows(3, 0, n, x_win.shape[0], cuda_device)
+    st["grad"] = fs._fwd_bwd(st["theta"], lay, x_win[widx][:, :, None],
+                             y_win[widx], 1.0 / 20, 1.0 / 100)[1]
+    prior = 1.0 / (lay.n_params * 100)
+    if kernel in SLIM:
+        fn, ref, _, names, eps = SLIM[kernel]
+        common = dict(scale_grad=100.0, prior_scale=prior)
+        args = [st[name] for name in names] + [None]
+    else:
+        fn, ref, rule = SLIM_B8[kernel]
+        eps, common = 1e-3, dict(prior_scale=prior, **rule)
+        aux = (st["grad"] * st["grad"] if kernel == "B8-psgld"
+               else torch.randn(st["theta"].shape, generator=gen,
+                                device=cuda_device))
+        args = [st["theta"], aux, st["grad"], None]
+        if kernel == "B8-sgnht":
+            args.append(1.0 + 0.1 * torch.randn(n, generator=gen,
+                                                device=cuda_device))
+    names = SLIM[kernel][3] if kernel in SLIM else ("theta", "v", "grad")
+    args = [a.to(torch.bfloat16) if name in ("v", "minv", "grad") else a
+            for name, a in zip(names, args)] + args[len(names):]
+    before = fn.launches
+    got = fn(*args, eps, 2**63 + 5, step=2**32 - 1, **common)
+    assert fn.launches == before + 1
+    want = ref(*args, eps, 2**63 + 5, step=2**32 - 1, **common)
+    torch.cuda.synchronize()
+    got, want = (out if isinstance(out, tuple) else (out,)
+                 for out in (got, want))
+    assert len(got) == len(want)
+    _bf16_check(kernel, ref, [*args, eps, 2**63 + 5],
+                dict(step=2**32 - 1, **common), got, want, 1)
+
+
+# the kernels held at hidden width 100, depth 3, on the device-memory
+# placement: (wrapper, plain version, state names, keywords, stepsize)
+WIDE = {
+    "B1": KERNELS["B1"], "B2": KERNELS["B2"], "B5-sgld": KERNELS["B5-sgld"],
+    "B6": KERNELS["B6"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(WIDE))
+def test_wide_kernel_matches_plain_version(kernel, cuda_device):
+    """H = 100, depth 3 (P = 20,502): the state lives in device memory; the
+    kernel against its plain version over 4 steps on the Philox stream,
+    from the uniform test state (minv in [0.2, 1.2])."""
+    n, k = 32, 4
+    fn, ref, _, names, eps = WIDE[kernel]
+    lay, st, x_win, y_win, _ = _state(cuda_device, n, h=100, depth=3)
+    assert fs.fused_placement({"B1": fs.B1, "B2": fs.B2,
+                               "B5-sgld": fs.B5_SGLD, "B6": fs.B6}[kernel],
+                              lay, 20) == "device"
+    args = [st[name] for name in names] + [x_win, y_win, eps, 2**40 + 1]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  h=100, k_steps=k, step0=5)
+    fs.placements.clear()
+    got = fn(*args, **common)
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    assert sum(fs.placements.values()) == 1
+    assert next(iter(fs.placements))[1] == "device"
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
 
 
 def _svgd_inputs(device, n, d, seed=0):

@@ -320,7 +320,9 @@ def test_wrappers_run_plain_versions_on_cpu():
 
 
 @pytest.mark.parametrize("bad,error", [
-    (dict(state_dtype=torch.bfloat16), NotImplementedError),
+    # bf16 state wants v in bf16, as JAX's aliased v must be
+    (dict(state_dtype=torch.bfloat16), ValueError),
+    (dict(state_dtype=torch.float16), ValueError),
     (dict(pair_dots=True), NotImplementedError),
     (dict(noise_impl="hadamard_clt"), NotImplementedError),
     (dict(noise_impl="clt"), ValueError),

@@ -157,8 +157,8 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
                             for k in ("theta", "v", "grad", "minv"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         su.slim_sghmc_update(theta, v, grad, minv, torch.ones(1, P), 0.01, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        su.slim_sghmc_update(theta, v.bfloat16(), grad, minv, None, 0.01, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        su.slim_sghmc_update(theta, v.half(), grad, minv, None, 0.01, 0)
     with pytest.raises(ValueError, match="match theta"):
         su.slim_sgld_update(theta, grad[:, :3], minv, None, 0.01, 0)
     with pytest.raises(ValueError, match="one entry per chain"):
@@ -292,9 +292,10 @@ def test_lanes_drivers_match_jax_interpret(method, eps):
     gen = torch.Generator().manual_seed(0)
     port_states = sampler.init(interop.params_from_numpy(positions, "cpu"))
     port_burned = burnin_chain_lanes(sampler, port_states, gen, 8,
-                                     noise_impl="zero")
+                                     compute_dtype=None, noise_impl="zero")
     got_states, got_pos, got_costs = sample_chain_lanes(
-        sampler, port_burned, gen, 2, keep_every=4, noise_impl="zero")
+        sampler, port_burned, gen, 2, keep_every=4, compute_dtype=None,
+        noise_impl="zero")
 
     assert int(got_states.step) == int(want_states.step[0]) == 16
     for name, want in (("minv", burned.stats.minv),
@@ -354,10 +355,12 @@ def test_lanes_drivers_shapes_and_bookkeeping():
     for kwargs, match in ((dict(), "BayesianNeuralNetwork's SVGD path"),):
         with pytest.raises(NotImplementedError, match=match):
             sample_chain_lanes(unported, burned, gen, 1, **kwargs)
-    for kwargs in (dict(compute_dtype=torch.bfloat16),
-                   dict(state_dtype=torch.bfloat16), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kwargs in (dict(compute_dtype=torch.float16),
+                   dict(state_dtype=torch.float16)):
+        with pytest.raises(ValueError, match="torch.bfloat16"):
             burnin_chain_lanes(sampler, states, gen, 1, **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        burnin_chain_lanes(sampler, states, gen, 1, mesh=object())
 
 
 @pytest.mark.parametrize("cls", [SGHMCSampler, SGLDSampler])

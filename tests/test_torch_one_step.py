@@ -329,7 +329,8 @@ def test_one_step_refuses_what_jax_refuses():
     state = [to_flat(st[k]) for k in ("theta", "v", "minv")]
     with pytest.raises(NotImplementedError, match="B-pair"):
         fs.fused_bnn_step(*state, x_sel, y_sel, 0.01, 1, pair_dots=True)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    # bf16 state wants a bf16 v (JAX refuses an f32 v for its bf16 ref)
+    with pytest.raises(ValueError, match="match theta"):
         fs.fused_bnn_step(*state, x_sel, y_sel, 0.01, 1,
                           state_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="select_in_kernel"):

@@ -334,7 +334,7 @@ def test_lanes_driver_matches_jax_interpret(method):
         step=torch.zeros((), dtype=torch.int64))
     got_states, got_pos, got_costs = sample_chain_lanes(
         sampler, start, torch.Generator().manual_seed(0), 2, keep_every=8,
-        noise_impl="zero")
+        compute_dtype=None, noise_impl="zero")
 
     assert int(got_states.step) == int(want_states.step[0]) == 16
     for key, leaf in want_pos.items():
