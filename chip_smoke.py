@@ -5,14 +5,17 @@
 
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
-spills, holds each of the twenty kernels against its plain PyTorch
+spills, holds each of the twenty-three kernels against its plain PyTorch
 version on the card (flagship shapes, from burned-in states, injected noise
 and the Philox stream, each check beside the plain version's own floor):
 the fused kernels B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc,
 B5-sgld, B5-psgld, B5-sgnht, B5-rsghmc, B6, the slim kernels B7,
 B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc, B9-sgld (also with a
-per-chain eps row) and the SVGD transport B11 (on the flagship's ensemble
-after 50 SVGD steps and at the JAX package's test shapes).  Every bf16
+per-chain eps row), FusedSGHMC's B10 (both phases), B7 with its mask
+(the packed slab, f32 and bf16 gradient) and B7' (the stacked tree, and
+with bf16 gradient and the bf16 copy of theta), and the SVGD transport
+B11 (on the flagship's ensemble after 50 SVGD steps and at the JAX
+package's test shapes).  Every bf16
 instantiation (bf16 momentum and minv in the fused kernels, bf16 v, minv
 and gradient in the slim kernels) is held against its plain version over
 at most 3 steps with one bf16 ulp per value and step on top, its share of
@@ -33,7 +36,13 @@ burn in on the lanes driver) and all five on the lanes path
 (``network="reference"``), SGHMC under ``compute_dtype=torch.bfloat16`` on
 both paths (with predict's serving rate in f32 and bf16 at 10,000 points),
 short bf16 lanes runs of the other four samplers, the 3x100 network on the
-fused path (SGHMC, and a short SGLD run) at 8192 chains, and the SVGD
+fused path (SGHMC, and a short SGLD run) at 8192 chains, FusedSGHMC
+over the reference network (8192 chains, 3000 + 200 steps on B10; B10, B7
+mask and B7' checked and timed from its state) and from its state 200
+sampling steps each of ``sample_chain_packed`` (B7 mask, bf16 passes and
+f32 passes, the slot padding checked to stay 0) and ``sample_chain_stacked`` (B7', f32 and
+``bf16_params``), the packed and stacked drivers against the lanes driver
+over 16 steps, and the SVGD
 flagship (4096 particle networks x
 500 steps on B11, after its first 10 steps on B11, on the plain phi and on
 the dense path, and a 64-particle SVGD path card vs CPU beside the same
@@ -43,8 +52,12 @@ Each kernel's launches are counted over the paths that run it (the fused
 flagships for B1/B2, B5-sgld/B6 and B5-psgld, B5-rsghmc, B5-sgnht, the
 one-step driver for B3 and B4-*, the lanes flagships for B7/B9-sghmc and
 B8-sgld/B9-sgld, both flagships of each sampler for B8-psgld, B8-rsghmc
-and B8-sgnht, the SVGD flagship for B11; the bf16 flagships and the bf16
-drivers for the bf16 instantiations, the 3x100 runs for the wide records).
+and B8-sgnht, the SVGD flagship for B11, the FusedSGHMC flagship for B10,
+the packed flagships for B7 mask (bf16 passes at the default
+``compute_dtype``, f32 passes at ``compute_dtype=None``), the stacked
+flagships for B7' (f32 and bf16); the bf16 flagships
+and the bf16 drivers for the bf16 instantiations, the 3x100 runs for the
+wide records).
 It prints each fused launch's placement (shared or device memory) and its
 own wall time;
 the second-to-last line is the kernels' JSON record, the last line
@@ -132,7 +145,10 @@ INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
              (4, 0, 1): "B4-sgnht", (4, 0, 0): "B5-sgnht"}
 SLIM_INSTANCES = {(0, 0): "B7", (1, 0): "B8-sgld", (2, 0): "B8-psgld",
                   (3, 0): "B8-rsghmc", (4, 0): "B8-sgnht", (0, 1): "B9-sghmc",
-                  (1, 1): "B9-sgld"}
+                  (1, 1): "B9-sgld", (5, 1): "B10"}
+# slim_kernel's layout parameter -> the name's suffix: the flat row, B7's
+# mask row, B7''s stacked tree
+SLIM_LAYOUTS = {0: "", 1: "-mask", 2: "'"}
 # SVGD (kernel B11): the flagship's ensemble of 3x50 reference networks
 # (5,252 parameters each) at the BNN's default stepsize; 4096 particles is
 # the largest ensemble whose streaming bandwidth is exact (the sampler's
@@ -340,17 +356,20 @@ def _compare(torch, name, got, want, floor=None, what="kernel-plain",
 
 
 def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
-                  complete=True, tags=(" (device)", " (bf16)")):
+                  complete=True, tags=(" (device)", " (bf16)"), layouts=None):
     """``{kernel: "N registers, S bytes spill stores"}`` from ptxas -v;
     raises where ``complete`` and the log lacks a kernel of ``instances``
-    (an older tree's log lacks the newer kernels)."""
+    (an older tree's log lacks the newer kernels).  ``layouts`` maps the
+    slim kernels' trailing layout parameter to a suffix of the name."""
     out = {}
     k = len(next(iter(instances)))
     # the flags that follow, where the tree has them, name their
     # instantiations "... <tag>": the fused kernels' placement and
     # v-storage (kDevice, kVBf16), the slim kernels' bf16 operands (kMixed)
+    # and then their layout (kLayout: B7 mask, B7')
     flags = (r"ILi(\d)E" + r"Lb(\d)E" * (k - 1)
-             + r"(?:Lb(\d)E)?" * len(tags))
+             + r"(?:Lb(\d)E)?" * len(tags)
+             + (r"(?:Li(\d)E)?" if layouts else ""))
     # (a kernel's other entries of the same body, e.g. fused_kernel_unhinted,
     # share its name and flags)
     pattern = re.compile(
@@ -360,10 +379,13 @@ def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
         re.S)
     for m in pattern.finditer(log_text):
         name = instances[tuple(int(m.group(i)) for i in range(1, k + 1))]
+        j = k + len(tags)
+        if layouts:
+            j += 1
+            name += layouts[int(m.group(j) or 0)]
         for i, tag in enumerate(tags):
             if m.group(k + 1 + i) == "1":
                 name += tag
-        j = k + len(tags)
         out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
                     "loads".format(m.group(j + 4), m.group(j + 2),
                                    m.group(j + 3))
@@ -1391,6 +1413,417 @@ FUSED_BF16 = {
 SLIM_BF16 = ("v", "minv", "grad")
 
 
+# ---- FusedSGHMC (B10) and the packed (B7 mask) and stacked (B7') drivers:
+# SGHMC over the reference network's full cost (weight and log-variance
+# priors in the cost: B10 folds no prior, and these samplers fold none) ----
+FLAT_SEED = 21
+# elementwise f32 operations per element, counted as SLIM_OPS: B10 is
+# B9-sghmc without the prior fold (48 - 2), B7 mask B7 with the mask's
+# multiply (18 + 1), B7' B7 (its bf16 copy a conversion, not counted)
+FLAT_OPS = {"B10": NOISE_OPS + 46, "B7-mask": NOISE_OPS + 19,
+            "B7'": NOISE_OPS + 18}
+
+
+def _reference_cost(torch, apply_fn, device):
+    """The reference BNN's full cost of one chain on a minibatch, the lanes
+    path's (``BayesianNeuralNetwork.negative_log_likelihood``)."""
+    from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
+
+    bnn = BayesianNeuralNetwork(batch_size=BATCH, step_impl="lanes",
+                                device=device)
+
+    def cost(params, batch):
+        return bnn.negative_log_likelihood(apply_fn, params, *batch,
+                                           N_DATA)[0]
+    return cost
+
+
+def _ensemble_mse(torch, x_np, y_np, apply_fn, positions):
+    """The sinc MSE of the ensemble mean of ``positions`` (stacked leaves)
+    at 200 grid points, in the data's units (inputs and outputs normalized
+    as ``_data`` normalizes the training data)."""
+    import numpy as np
+
+    grid = np.linspace(0.0, 1.0, 200)[:, None]
+    device = next(iter(positions.values())).device
+    xg = torch.as_tensor((grid - x_np.mean(axis=0)) / x_np.std(axis=0),
+                         dtype=torch.float32, device=device)
+    with torch.no_grad():
+        f_mean = apply_fn({k: v.float() for k, v in positions.items()},
+                          xg)[..., 0]
+    mean = f_mean.mean(0).cpu().numpy() * y_np.std() + y_np.mean()
+    if not np.isfinite(mean).all():
+        raise AssertionError("the ensemble's predictions are not finite")
+    return float(np.mean((mean - np.sinc(grid[:, 0] * 10 - 5)) ** 2))
+
+
+def _fused_sghmc_flagship(torch, x_np, y_np, x, y, card, rates):
+    """FusedSGHMC at MAIN_CHAINS chains of the reference network: BURN_IN +
+    SAMPLE_STEPS steps through ``run`` with per-chain windows, one B10
+    launch a step, B10's count set to 0 just before; gated on the sinc MSE
+    of the final positions' ensemble mean.  Returns ``(sampler, final
+    state, apply_fn, cost, window selector, launches, the network's leaf
+    order)``."""
+    from pysgmcmc_tpu_torch.data_batches import batch_fn
+    from pysgmcmc_tpu_torch.models import default_network
+    from pysgmcmc_tpu_torch.ops import fused_update as fu
+    from pysgmcmc_tpu_torch.samplers import FusedSGHMC
+
+    device = x.device
+    init_fn, apply_fn = default_network(1, units=(H, H, H), device=device)
+    positions = init_fn(torch.Generator(device=device).manual_seed(
+        FLAT_SEED), (MAIN_CHAINS,))
+    cost = _reference_cost(torch, apply_fn, device)
+    fused = FusedSGHMC(cost, {k: v[0] for k, v in positions.items()},
+                       stepsize=EPS, burn_in_steps=BURN_IN,
+                       scale_grad=float(N_DATA), seed=SEED)
+    select = batch_fn(x, y, BATCH)
+    gen = torch.Generator(device=device).manual_seed(FLAT_SEED)
+    state = fused.init(positions)
+    fu.fused_sghmc_update.launches = 0
+    seconds = {}
+    for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, costs = fused.run(state, gen, steps, batch_fn=select)
+        torch.cuda.synchronize()
+        seconds[phase] = time.perf_counter() - start
+    launches = fu.fused_sghmc_update.launches
+    label = "FusedSGHMC main path (reference network, eps {:g})".format(EPS)
+    mse = _ensemble_mse(torch, x_np, y_np, apply_fn,
+                        fused.unflatten_positions(state.theta))
+    dim = fused.dim
+    padding_finite = all(bool(torch.isfinite(getattr(state, f)[:, dim:]).all())
+                         for f in ("theta", "momentum", "tau", "g", "v_hat",
+                                   "minv"))
+    print("{}: {} chains x {} parameters ({} columns), {} burn-in + {} "
+          "sampling steps; launches of B10 {}; costs finite: {}; padding "
+          "columns finite (never read): {}; predictive MSE on sinc {:.3e} "
+          "(gate 0.1)".format(
+              label, MAIN_CHAINS, dim, fused.dim_padded, BURN_IN,
+              SAMPLE_STEPS, launches, bool(torch.isfinite(costs).all()),
+              padding_finite, mse))
+    for phase, steps in (("burn_in", BURN_IN), ("sampling", SAMPLE_STEPS)):
+        rates[("flat", "FusedSGHMC", phase)] = MAIN_CHAINS * steps / seconds[
+            phase]
+        print("{}: {} update-steps/s: {:.4e} ({} chains x {} steps in {:.3f} "
+              "s; {})".format(label, phase, rates[("flat", "FusedSGHMC",
+                                                   phase)],
+                              MAIN_CHAINS, steps, seconds[phase], card))
+    if launches != BURN_IN + SAMPLE_STEPS:
+        raise AssertionError("{}: {} launches of B10, want {}".format(
+            label, launches, BURN_IN + SAMPLE_STEPS))
+    if not (mse < 0.1 and torch.isfinite(costs).all()):
+        raise AssertionError("{}: predictive MSE {} (gate 0.1)".format(
+            label, mse))
+    return fused, state, apply_fn, cost, select, launches, tuple(positions)
+
+
+def _sghmc_states(torch, fused, state, order):
+    """FusedSGHMC's flat state as a stacked SGHMCState, leaves in
+    ``order`` (the network's), its step counter a device tensor."""
+    from pysgmcmc_tpu_torch.samplers import AdaptiveStats, SGHMCState
+
+    def tree(flat):
+        leaves = fused.unflatten_positions(flat)
+        return {k: leaves[k].contiguous() for k in order}
+
+    return SGHMCState(
+        position=tree(state.theta), momentum=tree(state.momentum),
+        stats=AdaptiveStats(*(tree(getattr(state, f))
+                              for f in ("tau", "g", "v_hat", "minv"))),
+        step=torch.tensor(state.step, device=state.theta.device),
+        schedule_state=())
+
+
+def _flat_driver_flagship(torch, x_np, y_np, name, fn, kernel, sampler,
+                          states, select, apply_fn, card, rates, **kw):
+    """SAMPLE_STEPS steps of ``fn`` (sample_chain_packed or
+    sample_chain_stacked) from the burned-in ``states``, the kernel's count
+    set to 0 just before; gated on the sinc MSE.  The packed driver's last
+    launch is recorded to check that the slot padding of theta and v is
+    exactly 0 at the end.  Returns the launches."""
+    from pysgmcmc_tpu_torch.parallel import packed
+
+    real, last = packed.slim_sghmc_update, []
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        last[:] = [out, args[4]]
+        return out
+
+    packed.slim_sghmc_update = recording
+    kernel.launches = 0
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out, _, costs = fn(sampler, states, torch.Generator(
+            device=states.step.device).manual_seed(FLAT_SEED), 1,
+            batch_fn=select, keep_every=SAMPLE_STEPS,
+            collect_positions=False, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        packed.slim_sghmc_update = real
+    launches = kernel.launches
+    mse = _ensemble_mse(torch, x_np, y_np, apply_fn, out.position)
+    rate = MAIN_CHAINS * SAMPLE_STEPS / seconds
+    rates[("flat", name, "sampling")] = rate
+    rates[("flat", name, "mse")] = mse
+    label = "{} main path ({})".format(name, ", ".join(
+        "{}={}".format(k, str(v).replace("torch.", ""))
+        for k, v in sorted(kw.items())) or "defaults")
+    padding = ""
+    if last:
+        pad = last[1][0] == 0
+        zero = not (last[0][0][:, pad].any() or last[0][1][:, pad].any())
+        padding = "; padding columns of theta and v exactly 0: {}".format(
+            zero)
+        if not zero:
+            raise AssertionError("{}: the slot padding moved".format(label))
+    print("{}: {} chains, {} sampling steps from the FusedSGHMC state; "
+          "launches {}; predictive MSE on sinc {:.3e} (gate 0.1){}; "
+          "update-steps/s {:.4e} ({:.3f} s; {})".format(
+              label, MAIN_CHAINS, SAMPLE_STEPS, launches, mse, padding, rate,
+              seconds, card))
+    if launches != SAMPLE_STEPS:
+        raise AssertionError("{}: {} launches, want {}".format(
+            label, launches, SAMPLE_STEPS))
+    if not (mse < 0.1 and torch.isfinite(costs).all()):
+        raise AssertionError("{}: predictive MSE {} (gate 0.1)".format(
+            label, mse))
+    return launches
+
+
+def _flat_checks(torch, fused, state, sampler, states, select, card):
+    """B10, B7 mask and B7' against their plain versions at the flagship
+    shape from the burned-in state, one step each on injected noise and on
+    the Philox stream; B10 in both phases (its real columns: the padding is
+    never read), B7 mask with f32 and bf16 gradient (its padding exactly 0),
+    B7' with f32 gradient and with bf16 gradient and the bf16 copy (one bf16
+    ulp, beside the CPU witness).  Returns ``({record: max abs error},
+    {record: (wrapper, plain version, arguments, keywords)})`` for the
+    timings."""
+    from pysgmcmc_tpu_torch.ops import fused_update as fu
+    from pysgmcmc_tpu_torch.ops import slim_update as su
+    from pysgmcmc_tpu_torch.parallel import packed
+
+    device = state.theta.device
+    gen = torch.Generator(device=device).manual_seed(4321)
+    err, timing = {}, {}
+    n = MAIN_CHAINS
+    # B10
+    _, grad = fused._grads(state.theta, select(SEED, 12345, n))
+    args = (state.theta, state.momentum, state.tau, state.g, state.v_hat,
+            state.minv, grad)
+    dim = fused.dim
+    err["B10"] = 0.0
+    for burning_in in (True, False):
+        for stream, extra in (
+                ("injected", dict(noise=torch.randn(
+                    state.theta.shape, generator=gen, device=device))),
+                ("philox", dict(step=12345))):
+            kw = dict(mdecay=0.05, scale_grad=float(N_DATA), **extra)
+            want = fu.fused_sghmc_update_ref(*args, EPS, burning_in, SEED,
+                                             **kw)
+            floor = max(_rel_err(a[:, :dim], b[:, :dim]) for a, b in zip(
+                fu.fused_sghmc_update_ref(_nudge(torch, args[0]), *args[1:],
+                                          EPS, burning_in, SEED, **kw),
+                want))
+            got = fu.fused_sghmc_update(*args, EPS, burning_in, SEED, **kw)
+            torch.cuda.synchronize()
+            err["B10"] = max(err["B10"], _compare(
+                torch, ("B10/{}/{} x 1".format(
+                    stream, "burning in" if burning_in else "sampling"),
+                    ("theta", "v", "tau", "g", "v_hat", "minv")),
+                [t[:, :dim] for t in got], [t[:, :dim] for t in want],
+                floor))
+    kw = dict(mdecay=0.05, scale_grad=float(N_DATA))
+    timing["B10"] = (fu.fused_sghmc_update, fu.fused_sghmc_update_ref,
+                     args + (EPS, False, 47), dict(kw, step=0))
+    del grad, args
+    # B7 mask, on the packed slabs of the stacked state
+    template = {k: v[0] for k, v in states.position.items()}
+    spec = packed.make_pack_spec(template)
+    _, grads = packed._stacked_gradient(sampler, states.position, select,
+                                        SEED, 12345)
+    grads = {k: g.contiguous() for k, g in grads.items()}
+    slab = [packed.pack_tree(spec, t) for t in (
+        states.position, states.momentum, grads, states.stats.minv)]
+    mask = packed.pack_mask(spec, device=device)
+    index = packed._noise_index(spec, template).to(device)
+    pad = mask[0] == 0
+    for tag, grad_dtype in (("B7-mask", torch.float32),
+                            ("B7-mask (bf16)", torch.bfloat16)):
+        margs = slab[:2] + [slab[2].to(grad_dtype), slab[3], mask]
+        err[tag] = 0.0
+        for stream, extra in (
+                ("injected", dict(noise=torch.randn(
+                    slab[0].shape, generator=gen, device=device))),
+                ("philox", dict(step=12345, noise_index=index))):
+            kw = dict(mdecay=0.05, scale_grad=float(N_DATA), **extra)
+            want = su.slim_sghmc_update_ref(*margs, EPS, SEED, **kw)
+            floor = max(_rel_err(a, b) for a, b in zip(
+                su.slim_sghmc_update_ref(_nudge(torch, margs[0]),
+                                         *margs[1:], EPS, SEED, **kw), want))
+            got = su.slim_sghmc_update(*margs, EPS, SEED, **kw)
+            torch.cuda.synchronize()
+            if got[0][:, pad].any() or got[1][:, pad].any():
+                raise AssertionError("{}: the padding moved".format(tag))
+            err[tag] = max(err[tag], _compare(
+                torch, ("{}/{} x 1".format(tag, stream), ("theta", "v")),
+                got, want, floor))
+        print("  {}: padding columns of theta' and v' exactly 0".format(tag))
+        timing[tag] = (su.slim_sghmc_update, su.slim_sghmc_update_ref,
+                       margs + [EPS, 47],
+                       dict(mdecay=0.05, scale_grad=float(N_DATA), step=0,
+                            noise_index=index))
+    del slab, margs
+    # B7', on the stacked leaves
+    lanes = packed.make_lanes_spec(template)
+
+    def rows(out):
+        return [packed.pack_lanes(lanes, t, dtype=next(iter(t.values())).dtype)
+                for t in out]
+
+    tree = [states.position, states.momentum, grads, states.stats.minv]
+    for tag, grad_dtype, emit in (("B7'", torch.float32, False),
+                                  ("B7' (bf16)", torch.bfloat16, True)):
+        targs = tree[:2] + [{k: g.to(grad_dtype) for k, g in
+                             tree[2].items()}, tree[3]]
+        labels = ("theta", "v", "theta bf16") if emit else ("theta", "v")
+        err[tag] = 0.0
+        for stream, extra in (
+                ("injected", dict(noise={k: torch.randn(
+                    t.shape, generator=gen, device=device)
+                    for k, t in tree[0].items()})),
+                ("philox", dict(step=12345))):
+            kw = dict(mdecay=0.05, scale_grad=float(N_DATA), emit_bf16=emit,
+                      **extra)
+            want = rows(su.slim_sghmc_update_tree_ref(*targs, EPS, SEED,
+                                                      **kw))
+            got = rows(su.slim_sghmc_update_tree(*targs, EPS, SEED, **kw))
+            torch.cuda.synchronize()
+            name = ("{}/{} x 1".format(tag, stream), labels)
+            if emit:
+                head = [{k: t[:CHECK_CHAINS].cpu() for k, t in a.items()}
+                        for a in targs]
+                hkw = {k: ({n_: t[:CHECK_CHAINS].cpu() for n_, t in
+                            v.items()} if isinstance(v, dict) else v)
+                       for k, v in kw.items()}
+                flips, total = _bf16_flips(
+                    torch, [w[:CHECK_CHAINS].cpu() for w in want],
+                    rows(su.slim_sghmc_update_tree_ref(*head, EPS, SEED,
+                                                       **hkw)))
+                err[tag] = max(err[tag], _compare(
+                    torch, name, got, want, ulps=1,
+                    witness=flips / total if total else 0.0))
+                continue
+            floor = max(_rel_err(a, b) for a, b in zip(rows(
+                su.slim_sghmc_update_tree_ref(
+                    {k: _nudge(torch, t) for k, t in targs[0].items()},
+                    *targs[1:], EPS, SEED, **kw)), want))
+            err[tag] = max(err[tag], _compare(torch, name, got, want, floor))
+        timing[tag] = (su.slim_sghmc_update_tree,
+                       su.slim_sghmc_update_tree_ref, targs + [EPS, 47],
+                       dict(mdecay=0.05, scale_grad=float(N_DATA), step=0,
+                            emit_bf16=emit))
+    return err, timing
+
+
+def _nbytes(torch, values):
+    """Bytes of the tensors in ``values`` (tensors, dicts and sequences of
+    them), each counted once."""
+    if torch.is_tensor(values):
+        return values.element_size() * values.numel()
+    if isinstance(values, dict):
+        values = list(values.values())
+    if isinstance(values, (list, tuple)):
+        return sum(_nbytes(torch, v) for v in values)
+    return 0
+
+
+def _flat_times(torch, timing, card):
+    """Each new kernel at the flagship shape: one launch on a spinning
+    stream, median of ONE_STEP_TIMED, beside its plain version (median of
+    5) and its bound (every input read once, every output written once;
+    its operations as FLAT_OPS over the f32 peak).  Returns ``(timed,
+    bounds)``."""
+    timed, bounds = {}, {}
+    for tag, (fn, ref, args, kw) in timing.items():
+        def launch(f=fn, a=args, w=kw):
+            return f(*a, **w)
+
+        def plain(f=ref, a=args, w=kw):
+            return f(*a, **w)
+
+        outs = _tuple(launch())
+        timed[tag] = _median_ms(torch, launch, ONE_STEP_TIMED)
+        plain()
+        timed[tag + " plain"] = _median_ms(torch, plain, 5)
+        n_bytes = _nbytes(torch, list(args) + [kw.get("noise_index")]) \
+            + _nbytes(torch, list(outs))
+        elements = sum(t.numel() for t in (
+            outs[0].values() if isinstance(outs[0], dict) else [outs[0]]))
+        compute_ms = elements * FLAT_OPS[tag.split(" ")[0]] / F32_FLOPS * 1e3
+        bounds[tag] = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                          (compute_ms, "operations"))
+        print("time {} per launch (one step) at {} chains, {} elements: "
+              "kernel {:.3f} ms (median of {}), plain {:.3f} ms (median of "
+              "5), bound {:.3f} ms ({}; {:.3f} ms for its operations) "
+              "({})".format(tag, MAIN_CHAINS, elements, timed[tag],
+                            ONE_STEP_TIMED, timed[tag + " plain"],
+                            bounds[tag][0], bounds[tag][1], compute_ms,
+                            card))
+    return timed, bounds
+
+
+def _flat_drivers_agree(torch, sampler, states, select):
+    """The packed, stacked and lanes drivers from one state and one
+    generator seed, f32 passes, 2 samples of 8 steps each, on the Philox
+    stream with a window per chain: the same chains.  Returns ``(worst
+    error, launches of B7 mask in the packed run)``."""
+    from pysgmcmc_tpu_torch.ops import slim_update as su
+    from pysgmcmc_tpu_torch.parallel import (
+        make_lanes_spec,
+        pack_lanes,
+        sample_chain_lanes,
+        sample_chain_packed,
+        sample_chain_stacked,
+    )
+
+    device = states.step.device
+    spec = make_lanes_spec({k: v[0] for k, v in states.position.items()})
+    launches = {}
+
+    def run(fn, start, **kw):
+        su.slim_sghmc_update.launches = 0
+        _, pos, _ = fn(sampler, start,
+                       torch.Generator(device=device).manual_seed(5), 2,
+                       batch_fn=select, keep_every=8, **kw)
+        launches[fn.__name__] = su.slim_sghmc_update.launches
+        return [pack_lanes(spec, {k: v[:, i] for k, v in pos.items()})
+                for i in range(2)]
+
+    want = run(sample_chain_lanes, states, compute_dtype=None)
+    floor = max(_rel_err(a, b) for a, b in zip(run(
+        sample_chain_lanes, states._replace(position={
+            k: _nudge(torch, v) for k, v in states.position.items()}),
+        compute_dtype=None), want))
+    worst = 0.0
+    for name, fn, kw in (("packed", sample_chain_packed,
+                          dict(compute_dtype=None)),
+                         ("stacked", sample_chain_stacked, {})):
+        got = run(fn, states, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _compare(
+            torch, ("{} vs lanes drivers (SGHMC, reference network, eps "
+                    "{:g})".format(name, EPS),
+                    ("positions after 8 steps", "positions after 16 steps")),
+            got, want, floor, what="{} - lanes".format(name)))
+    return worst, launches["sample_chain_packed"]
+
+
 def _fused_functions(fs):
     """fused kernel -> (wrapper, plain version), all twelve."""
     out = {"B1": (fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref),
@@ -1544,8 +1977,9 @@ def main():
              (" (device)", " (bf16)")),
             ("slim_update", "slim_kernel", SLIM_INSTANCES, (" (bf16)",))):
         with open(_build.log_path(source)) as f:
-            reports.update(_ptxas_report(f.read(), kernel, instances,
-                                         tags=tags))
+            reports.update(_ptxas_report(
+                f.read(), kernel, instances, tags=tags,
+                layouts=SLIM_LAYOUTS if source == "slim_update" else None))
     with open(_build.log_path("svgd_streaming")) as f:
         reports.update(_ptxas_svgd(f.read()))
     for name, line in sorted(reports.items()):
@@ -2095,6 +2529,58 @@ def main():
                                  "all run in device memory: {}".format(
                                      WIDE_H, dict(fs.placements)))
         count(more)
+    # FusedSGHMC (B10) at the flagship's size, its kernel checks and times
+    # from its burned-in state, then the packed (B7 mask) and stacked (B7')
+    # drivers from that state (converted to a stacked SGHMCState), and the
+    # three SGHMC drivers against each other
+    from pysgmcmc_tpu_torch.parallel import (
+        sample_chain_packed,
+        sample_chain_stacked,
+    )
+
+    fused, flat_state, ref_apply, ref_cost, select, launches["B10"], \
+        order = _fused_sghmc_flagship(torch, x_np, y_np, x, y, card, rates)
+    flat_sampler = SGHMCSampler(ref_cost, stepsize_schedule=EPS,
+                                burn_in_steps=BURN_IN,
+                                scale_grad=float(N_DATA))
+    stacked = _sghmc_states(torch, fused, flat_state, order)
+    flat_err, flat_timing = _flat_checks(torch, fused, flat_state,
+                                         flat_sampler, stacked, select, card)
+    err.update(flat_err)
+    flat_ms, flat_bounds = _flat_times(torch, flat_timing, card)
+    timed.update(flat_ms)
+    bounds.update(flat_bounds)
+    del flat_timing, flat_state
+    for record, kw in (("B7-mask (bf16)", {}),
+                       ("B7-mask", dict(compute_dtype=None))):
+        launches[record] = _flat_driver_flagship(
+            torch, x_np, y_np, "sample_chain_packed" + (
+                " f32" if kw else ""), sample_chain_packed,
+            su.slim_sghmc_update, flat_sampler, stacked, select, ref_apply,
+            card, rates, **kw)
+    for record, bf16_params in (("B7'", False), ("B7' (bf16)", True)):
+        launches[record] = _flat_driver_flagship(
+            torch, x_np, y_np, "sample_chain_stacked" + (
+                " bf16" if bf16_params else ""), sample_chain_stacked,
+            su.slim_sghmc_update_tree, flat_sampler, stacked, select,
+            ref_apply, card, rates, bf16_params=bf16_params)
+    agree, agree_launches = _flat_drivers_agree(torch, flat_sampler,
+                                                stacked, select)
+    print("packed and stacked vs lanes drivers (SGHMC): {} chains x 16 "
+          "steps, max|diff| = {:.3e}; launches of B7 mask (f32 passes) "
+          "{}".format(MAIN_CHAINS, agree, agree_launches))
+    print("FusedSGHMC flagship update-steps/s: burn-in {:.4e}, sampling "
+          "{:.4e}; from its state, sampling: packed (bf16 passes) {:.4e}, "
+          "packed (f32 passes) {:.4e}, stacked {:.4e}, stacked bf16_params "
+          "{:.4e} ({})".format(
+              rates[("flat", "FusedSGHMC", "burn_in")],
+              rates[("flat", "FusedSGHMC", "sampling")],
+              *(rates[("flat", name, "sampling")] for name in (
+                  "sample_chain_packed", "sample_chain_packed f32",
+                  "sample_chain_stacked", "sample_chain_stacked bf16")),
+              card))
+    del fused, stacked, flat_sampler
+    torch.cuda.empty_cache()
     # SVGD: the first steps at full size on B11 and on the plain phi, then
     # the flagship (B11's count set to 0 just before)
     _svgd_plain_vs_kernel(torch, x_np, y_np, ss)
@@ -2125,16 +2611,21 @@ def main():
                 "B4-psgld": ("fused_bnn_step_psgld", "fused_step", 2054),
                 "B4-rsghmc": ("fused_bnn_step_rsghmc", "fused_step", 2168),
                 "B4-sgnht": ("fused_bnn_step_sgnht", "fused_step", 2106),
-                "B11": ("svgd_phi_streaming", "svgd_streaming", 99)}
+                "B11": ("svgd_phi_streaming", "svgd_streaming", 99),
+                "B10": ("fused_sghmc_update", "fused_update", 169),
+                "B7-mask": ("slim_sghmc_update (mask)", "slim_update", 331),
+                "B7'": ("slim_sghmc_update_tree", "slim_update", 269)}
     # the bf16-state instantiations and the wide (device-memory) kernels,
     # each its own record
     variants = [name + " (bf16)" for name in (
         "B2", "B1", "B3", "B4-sgld", "B5-sgld", "B4-sgnht", "B4-rsghmc",
         "B5-sgnht", "B5-rsghmc", *SLIM)]
     variants += [name + tag for name in ("B2", "B1", "B6", "B5-sgld")]
+    variants += ["B7-mask (bf16)", "B7' (bf16)"]
     records = [
         {"name": fn_name + name[len(name.split(" ")[0]):], "route": "cuda",
-         "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(module),
+         "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(
+             "slim_update" if module == "fused_update" else module),
          "replaces": "pysgmcmc_tpu/ops/{}.py:{}".format(module, line),
          "launches": launches[name], "max_abs_err": err[name],
          "ms": timed[name], "plain_ms": timed[name + " plain"],

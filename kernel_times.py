@@ -16,7 +16,11 @@ bf16 state ("B1 (bf16)", ...); then, at f32 state and operands, the
 median of 20 launches of one step at 8192 chains of each one-step fused
 kernel (B3, B4-sgld, and B4-psgld, B4-rsghmc, B4-sgnht where they exist)
 and each slim kernel (B7, B8-sgld, B8-psgld, B8-rsghmc, B8-sgnht, B9-sghmc,
-B9-sgld; on the flagship's 5,252 parameters), with the slim kernels'
+B9-sgld; on the flagship's 5,252 parameters; and where the tree has them
+B10 on the 5,376 padded columns, B7-mask on the 6,016-column slab and B7'
+on the dense network's leaves, each of these two also with a bf16
+gradient, B7' then with its bf16 copy of theta: "B7-mask (bf16)",
+"B7' (bf16)"), with the slim kernels'
 ``ptxas`` report too; where the tree trains wide networks, B2, B1, B6 and
 B5-sgld at hidden width 100 (state in device memory), median of 5
 launches of 20 steps at 8192 chains ("B1 (H=100)", ...).  The constants, the data, the register report and
@@ -58,7 +62,7 @@ def main(argv=None):
     with open(_build.log_path("slim_update")) as f:
         registers.update(cs._ptxas_report(
             f.read(), "slim_kernel", cs.SLIM_INSTANCES, complete=False,
-            tags=(" (bf16)",)))
+            tags=(" (bf16)",), layouts=cs.SLIM_LAYOUTS))
 
     device = torch.device("cuda")
     n, k = cs.MAIN_CHAINS, cs.SAMPLE_STEPS
@@ -177,7 +181,48 @@ def main(argv=None):
                          (theta, v, grad, None,
                           torch.ones(n, device=device)), eps["SGNHT"],
                          dict(sg_slim, a_diff=1.0))})
+    if hasattr(su, "slim_sghmc_update_tree"):  # B10, B7 mask, B7'
+        from pysgmcmc_tpu_torch.ops import fused_update as fu
+        from pysgmcmc_tpu_torch.parallel import packed
+
+        pad = fu.pad_dim(lay.n_params) - lay.n_params
+
+        def padded(t):
+            return torch.nn.functional.pad(t, (0, pad), value=1.0)
+
+        slim["B10"] = (fu.fused_sghmc_update,
+                       (padded(theta), padded(v)) + (padded(ones),) * 4
+                       + (padded(grad), cs.EPS, False), 0, {})
+        tree = {k: {name: leaf.contiguous() for name, leaf in
+                    fs.unpack(t, lay).items()} for k, t in
+                (("theta", theta), ("v", v), ("grad", grad), ("minv", ones))}
+        spec = packed.make_pack_spec({k: t[0] for k, t in
+                                      tree["theta"].items()})
+        slab = [packed.pack_tree(spec, tree[k])
+                for k in ("theta", "v", "grad", "minv")]
+        slim["B7-mask"] = (su.slim_sghmc_update,
+                           (*slab, packed.pack_mask(spec, device=device)),
+                           cs.EPS, dict(sg_slim, mdecay=0.05))
+        slim["B7-mask (bf16)"] = (su.slim_sghmc_update,
+                                  (*slab[:2], slab[2].to(torch.bfloat16),
+                                   *slab[3:], packed.pack_mask(
+                                       spec, device=device)),
+                                  cs.EPS, dict(sg_slim, mdecay=0.05))
+        slim["B7'"] = (su.slim_sghmc_update_tree,
+                       [tree[k] for k in ("theta", "v", "grad", "minv")],
+                       cs.EPS, dict(sg_slim, mdecay=0.05))
+        slim["B7' (bf16)"] = (su.slim_sghmc_update_tree,
+                              [tree["theta"], tree["v"],
+                               {k: g.to(torch.bfloat16)
+                                for k, g in tree["grad"].items()},
+                               tree["minv"]],
+                              cs.EPS, dict(sg_slim, mdecay=0.05,
+                                           emit_bf16=True))
     for name, (fn, args, e, kw) in slim.items():
+        if name == "B10":  # eps and the phase come with the state
+            timed_one(name, fn, (*args, 47), dict(step=0, mdecay=0.05,
+                                                  scale_grad=cs.N_DATA))
+            continue
         timed_one(name, fn, (*args, e, 47), dict(kw, step=0))
     if hasattr(fs, "fused_placement"):  # the tree trains wide networks
         del theta, zeros, ones, normal, grad, v, burned, out

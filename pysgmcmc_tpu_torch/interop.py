@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
+from pysgmcmc_tpu_torch.samplers.fused import FusedSGHMCState
 from pysgmcmc_tpu_torch.samplers.psgld import PSGLDState
 from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
     RelativisticSGHMCState,
@@ -148,13 +149,28 @@ def svgd_state_from_numpy(state, device, schedule_state=()):
     )
 
 
+def fused_sghmc_state_from_numpy(state, device):
+    """A JAX ``FusedSGHMCState`` (``theta``, ``momentum``, ``tau``, ``g``,
+    ``v_hat``, ``minv``: ``(n_chains, dim_padded)`` arrays; ``step``) -> the
+    port's :class:`FusedSGHMCState` on ``device``, its step a host int."""
+    return FusedSGHMCState(
+        *(tensor_from_numpy(getattr(state, field), device)
+          for field in FusedSGHMCState._fields[:-1]),
+        step=int(np.asarray(state.step)))
+
+
 def state_to_numpy(state):
     """Any of the port's sampler states -> a dict of its fields as numpy:
     ``"position"`` and, where the state has them, ``"momentum"``, ``"v"``
     (pSGLD's accumulator) and ``"tau"``, ``"g"``, ``"v_hat"``, ``"minv"``
     (SGHMC's and SGLD's stats) and ``"historical_grad"`` (SVGD's Adagrad
     accumulator) as dicts of arrays, ``"xi"`` (SGNHT) and ``"step"`` as
-    arrays."""
+    arrays; a :class:`FusedSGHMCState` as its fields, each an array."""
+    if isinstance(state, FusedSGHMCState):
+        out = {field: tensor_to_numpy(getattr(state, field))
+               for field in FusedSGHMCState._fields[:-1]}
+        out["step"] = np.asarray(state.step)
+        return out
     out = {"position": params_to_numpy(state.position),
            "step": np.asarray(state.step.cpu())}
     for field in ("momentum", "v", "historical_grad"):

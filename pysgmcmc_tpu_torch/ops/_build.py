@@ -42,9 +42,10 @@ _U32 = ctypes.c_uint
 _FUSED_LAUNCH = (_I, [_P] * 20 + [_I] * 8 + [_U64, _U32] + [_F] * 7
                  + [_I, _I, _P, _P])
 # and every one of csrc/slim_update.cu (SLIM_ENTRY): 10 inputs, 6 outputs,
-# 2 ints, the seed, the step, 7 floats, the three bf16 flags and the stream
+# 2 ints, the seed, the step, 7 floats, the three bf16 flags, the mask and
+# noise-index rows, the burning_in flag and the stream
 _SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7
-                + [_I] * 3 + [_P])
+                + [_I] * 3 + [_P, _P, _I] + [_P])
 _SIGNATURES = {
     "fused_step": {
         "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
@@ -75,7 +76,13 @@ _SIGNATURES = {
             "slim_sgnht_update",                  # B8-sgnht
             "slim_sghmc_burnin_update",           # B9-sghmc
             "slim_sgld_burnin_update",            # B9-sgld
+            "fused_sghmc_update",                 # B10
         )},
+        # B7': the leaf table and its length, n_chains, n_params, the seed,
+        # the step, eps, sqrt(scale_grad), mdecay, prior_scale, the bf16
+        # gradient flag and the stream
+        "slim_sghmc_update_tree_launch": (
+            _I, [_P, _I, _I, _I, _U64, _U32] + [_F] * 4 + [_I, _P]),
     },
     "svgd_streaming": {
         "svgd_streaming_error_string": (ctypes.c_char_p, [_I]),

@@ -274,10 +274,16 @@ def philox_windows(seed, step, n_chains, n_windows, device):
     return torch.clamp((u * n_windows).to(torch.int64), max=n_windows - 1)
 
 
-def philox_normals(seed, step, n_chains, n_params, device):
-    """The ``(n_chains, n_params)`` standard normals of absolute ``step``."""
+def philox_normals(seed, step, n_chains, n_params, device, elements=None):
+    """The ``(n_chains, n_params)`` standard normals of absolute ``step``:
+    each chain's elements ``0 .. n_params - 1``, or those of the
+    ``(n_params,)`` integer tensor ``elements``."""
     chain = torch.arange(n_chains, dtype=torch.int64, device=device)[:, None]
-    element = torch.arange(n_params, dtype=torch.int64, device=device)[None, :]
+    if elements is None:
+        element = torch.arange(n_params, dtype=torch.int64, device=device)
+    else:
+        element = elements.to(device=device, dtype=torch.int64)
+    element = element[None, :]
     r = philox4x32_10((chain, step & _MASK32, element, PURPOSE_NOISE),
                       _seed_key(seed))
     u1, u2 = bits_to_uniform(r[0]), bits_to_uniform(r[1])
@@ -357,14 +363,16 @@ def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device):
     return w, eta
 
 
-def _sghmc_velocity(v, minv, gg, eta, row, mdecay):
+def _sghmc_velocity(v, minv, gg, eta, row, mdecay, mask=None):
     """SGHMC momentum update (JAX ``_sghmc_rule``); ``row`` is ``(eps,
-    eps / sqrt(scale_grad))``."""
+    eps / sqrt(scale_grad))``; a ``mask`` row multiplies the new momentum
+    (JAX's ``slim_update._update_math``)."""
     eps_t, es = row[0], row[1]
     es2 = es * es
     sigma = torch.sqrt(torch.clamp(2.0 * es2 * mdecay * minv - es2 * es2,
                                    min=1e-16))
-    return v - eps_t * eps_t * minv * gg - mdecay * v + sigma * eta
+    v_new = v - eps_t * eps_t * minv * gg - mdecay * v + sigma * eta
+    return v_new if mask is None else v_new * mask
 
 
 def _sgld_delta(minv, gg, eta, eps, a_coef, c, burnin):

@@ -1,5 +1,5 @@
 """Slim elementwise sampler updates on Hopper: one pass over the packed
-state per step of the chains-on-lanes drivers.
+state per step of the chains-on-lanes, packed and stacked drivers.
 
 PyTorch port of the packed-state kernels of
 :mod:`pysgmcmc_tpu.ops.slim_update`.  Each wrapper launches a hand-written
@@ -14,7 +14,12 @@ nothing falls back from a kernel to its plain version.
       v'     = v - eps^2 minv (grad + prior_scale theta) - mdecay v + sigma eta
       theta' = theta + v'
 
-  with ``eps_s = eps / sqrt(scale_grad)``.
+  with ``eps_s = eps / sqrt(scale_grad)``.  B7 mask: with a ``(1, P)``
+  ``mask`` row, ``v'`` is multiplied by it (the packed driver's slot
+  padding, :func:`pysgmcmc_tpu_torch.parallel.packed.pack_mask`).
+- B7' :func:`slim_sghmc_update_tree`: B7 over every leaf of a stacked
+  parameter dict in one launch, each leaf in its own shape, optionally
+  emitting a bf16 copy of ``theta'`` (``sample_chain_stacked``).
 - B8-sgld :func:`slim_sgld_update`: ``theta' = theta - eps minv A g +
   sqrt(2 eps minv A / scale_grad) eta``, ``g = grad + prior_scale theta``.
 - B8-psgld :func:`slim_psgld_update`: ``v' = alpha v + (1 - alpha) g^2``,
@@ -37,18 +42,22 @@ fold, draw the noise and apply the rule.  The math is shared with the fused
 kernels' plain versions (:mod:`pysgmcmc_tpu_torch.ops.fused_step`).
 
 Layout: every operand is ``(n_chains, P)``, one chain per row, the leaves
-of the parameter dict in its order (``parallel.packed.pack_lanes``).  theta,
+of the parameter dict in its order (``parallel.packed.pack_lanes``), or
+for B7 mask the packed driver's slots (``parallel.packed.pack_tree``).  theta,
 tau, g and v_hat are float32; ``v`` (momentum or accumulator), ``minv`` and
 ``grad`` may be float32 or bfloat16, as JAX's slim kernels let them arrive
 (a bf16 network pass, ``state_dtype=bfloat16``): the arithmetic is float32,
 ``v'`` keeps ``v``'s type (rounded to nearest even), the other outputs are
 float32.
-The TPU's ``(rows, n_chains)`` layout and its padding mask do not carry
-over; ``mask`` must be ``None``, and SGNHT's ``xi`` is ``(n_chains,)``
-where JAX's is a ``(1, n_chains)`` row.  ``eps`` is a scalar or an ``(n_chains,)``
+The TPU's ``(rows, n_chains)`` lanes layout and its padding do not carry
+over: only B7 takes a ``mask`` (the packed layout's), the others raise on
+one, and SGNHT's ``xi`` is ``(n_chains,)`` where JAX's is a ``(1,
+n_chains)`` row.  ``eps`` is a scalar or an ``(n_chains,)``
 per-chain vector (the ``TracedStepsizeSchedule`` sweep pattern).  The noise
 is the Philox stream of the fused kernels at ``(chain, step, element)`` with
-the 64-bit ``seed``, or the injected ``noise`` ``(n_chains, P)``.  Outputs
+the 64-bit ``seed`` (B7 mask: element ``noise_index[column]`` where that
+row is given; B7': the element's index in the chain's unpadded row, the
+leaves in the dict's order), or the injected ``noise`` ``(n_chains, P)``.  Outputs
 are new tensors; the inputs are not modified.
 
 Examples
@@ -61,6 +70,8 @@ Examples
 >>> torch.allclose(v2, torch.full((2, 3), -0.01))  # -eps^2 minv grad
 True
 """
+
+import math
 
 import torch
 
@@ -86,18 +97,21 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
 #  Validation, shared by the kernels and their plain versions -----------------
 
 def _validate(name, theta, state, grad, mask, eps, seed, noise,
-              f32_state=()):
+              f32_state=(), noise_index=None):
     """Check every operand; returns the stepsize as a float32 ``(1,)`` or
     ``(n_chains,)`` vector, where ``eps`` was (a float stays on the host,
     so a scalar launch reads no device memory).  ``state`` (v, minv) and
     ``grad`` may be float32 or bfloat16, ``f32_state`` (tau, g, v_hat)
-    float32."""
+    float32.  Only ``slim_sghmc_update`` takes a ``mask`` and a
+    ``noise_index``."""
     _seed_key(seed)
-    if mask is not None:
+    if (mask is not None or noise_index is not None) \
+            and name != "slim_sghmc_update":
         raise NotImplementedError(
-            "{}: the padding mask of the TPU's packed layout is not ported "
-            "(ROADMAP.md queue B, B7 mask); the port's (n_chains, P) layout "
-            "has no padding, pass mask=None".format(name))
+            "{}: the padding mask of the TPU's packed layout is ported for "
+            "slim_sghmc_update only, the packed driver's kernel (ROADMAP.md "
+            "queue B); the port's (n_chains, P) lanes layout has no padding, "
+            "pass mask=None".format(name))
     if theta.ndim != 2 or theta.dtype != torch.float32:
         raise ValueError(
             "{}: theta must be a float32 (n_chains, P) tensor; got {} "
@@ -119,6 +133,7 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise,
                               or noise.device != device):
         raise ValueError("{}: noise must be float32 {} on {}".format(
             name, tuple(theta.shape), device))
+    _check_mask(name, theta, mask, noise_index)
     eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
     if eps_vec.numel() not in (1, theta.shape[0]):
         raise ValueError(
@@ -128,11 +143,33 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise,
     return eps_vec
 
 
-def _eta(theta, seed, step, noise):
+def _check_mask(name, theta, mask, noise_index):
+    """JAX's check of B7's mask (a ``(1, width)`` row), in float32 on
+    theta's device; and the port's ``noise_index``, an int32 ``(width,)``
+    row that comes with a mask."""
+    width = theta.shape[1]
+    if mask is not None and tuple(mask.shape) != (1, width):
+        raise ValueError("{}: mask must be (1, {}); got {}".format(
+            name, width, tuple(mask.shape)))
+    if mask is not None and (mask.dtype != torch.float32
+                             or mask.device != theta.device):
+        raise ValueError("{}: mask must be float32 on {}; got {} on "
+                         "{}".format(name, theta.device, mask.dtype,
+                                     mask.device))
+    if noise_index is not None and (
+            mask is None or tuple(noise_index.shape) != (width,)
+            or noise_index.dtype != torch.int32
+            or noise_index.device != theta.device):
+        raise ValueError(
+            "{}: noise_index must be an int32 ({},) row on {}, with a "
+            "mask".format(name, width, theta.device))
+
+
+def _eta(theta, seed, step, noise, noise_index=None):
     if noise is not None:
         return noise
     return philox_normals(seed, step, theta.shape[0], theta.shape[1],
-                          theta.device)
+                          theta.device, noise_index)
 
 
 def _sghmc_row(eps_vec, scale_grad, device):
@@ -146,15 +183,15 @@ def _sghmc_row(eps_vec, scale_grad, device):
 
 def slim_sghmc_update_ref(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
                           scale_grad=1.0, prior_scale=0.0, noise=None,
-                          step=0):
+                          step=0, noise_index=None):
     """Plain PyTorch version of :func:`slim_sghmc_update`."""
     eps_vec = _validate("slim_sghmc_update", theta, [v, minv], grad, mask,
-                        eps, seed, noise)
+                        eps, seed, noise, noise_index=noise_index)
     gg = grad.float() + prior_scale * theta
     v_new = _sghmc_velocity(v.float(), minv.float(), gg,
-                            _eta(theta, seed, step, noise),
+                            _eta(theta, seed, step, noise, noise_index),
                             _sghmc_row(eps_vec, scale_grad, theta.device),
-                            mdecay)
+                            mdecay, mask)
     return theta + v_new, v_new.to(v.dtype)
 
 
@@ -259,7 +296,7 @@ _CONSTS = ("sqrt_sg", "coef", "cdiv", "c2", "c3")
 
 
 def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
-            **consts):
+            mask=None, noise_index=None, burning_in=False, **consts):
     """Launch the C entry ``name + "_launch"`` of ``csrc/slim_update.cu``.
 
     ``ins`` maps operand names (``_IN``) to tensors (``(n_chains, P)``;
@@ -269,8 +306,9 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
     one-entry ``eps_vec`` goes as the scalar argument, a per-chain one as
     the kernel's eps vector.  ``consts`` are the rule's constants
     (``_CONSTS``, each 0 where not given), as the source's ``Args`` lists
-    them per rule.  Raises on a failed launch; returns the outputs in
-    ``outs`` order.
+    them per rule; ``mask``/``noise_index`` B7's rows, ``burning_in`` B10's
+    phase.  Raises on a failed launch; returns the outputs in ``outs``
+    order.
     """
     from pysgmcmc_tpu_torch.ops import _build
 
@@ -279,7 +317,7 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
         raise TypeError("{}: unknown rule constants {}".format(
             name, sorted(unknown)))
     theta = ins["theta"]
-    for arr in (*ins.values(), noise):
+    for arr in (*ins.values(), noise, mask, noise_index):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
     per_chain = eps_vec.numel() > 1
@@ -297,6 +335,7 @@ def _launch(name, ins, outs, eps_vec, noise, seed, step, prior_scale,
             float(prior_scale),
             *[int(key in ins and ins[key].dtype == torch.bfloat16)
               for key in ("v", "minv", "grad")],
+            _ptr(mask), _ptr(noise_index), int(bool(burning_in)),
             torch.cuda.current_stream().cuda_stream), "slim_update")
     return tuple(out[key] for key in outs)
 
@@ -307,32 +346,192 @@ def _sqrt_sg(scale_grad):
 
 
 def slim_sghmc_update(theta, v, grad, minv, mask, eps, seed, mdecay=0.05,
-                      scale_grad=1.0, prior_scale=0.0, noise=None, step=0):
+                      scale_grad=1.0, prior_scale=0.0, noise=None, step=0,
+                      noise_index=None):
     """One SGHMC sampling step over packed state with a frozen ``minv``
-    (B7).
+    (B7; B7 mask with a ``mask``).
 
     ``theta``, ``v``, ``grad``, ``minv`` are ``(n_chains, P)``, ``theta``
     float32 and the others float32 or bfloat16 (``v'`` keeps ``v``'s type);
-    ``mask`` must be ``None``; ``eps`` a scalar or ``(n_chains,)``; ``seed``
-    the 64-bit Philox key and ``step`` the absolute step of the noise
-    counter, or ``noise`` ``(n_chains, P)`` injected normals.  Returns
-    ``(theta', v')``.  CUDA tensors launch the kernel; CPU tensors run
+    ``mask`` ``None`` or a float32 ``(1, P)`` row that multiplies ``v'``
+    (1 on real columns, 0 on slot padding; any other shape raises JAX's
+    ``ValueError``); ``eps`` a scalar or ``(n_chains,)``; ``seed`` the
+    64-bit Philox key and ``step`` the absolute step of the noise counter,
+    or ``noise`` ``(n_chains, P)`` injected normals.  ``noise_index`` (with
+    a mask only) is an int32 ``(P,)`` row giving each column's element of
+    the stream (values in ``[0, 2**32)``; by default the column itself).
+    Unlike JAX's, ``P`` need not be a multiple of 128.  Returns ``(theta',
+    v')``.  CUDA tensors launch the kernel; CPU tensors run
     :func:`slim_sghmc_update_ref`.
     """
     name = "slim_sghmc_update"
     if not _require_device(name, theta):
         return slim_sghmc_update_ref(theta, v, grad, minv, mask, eps, seed,
                                      mdecay, scale_grad, prior_scale, noise,
-                                     step)
-    eps_vec = _validate(name, theta, [v, minv], grad, mask, eps, seed, noise)
+                                     step, noise_index)
+    eps_vec = _validate(name, theta, [v, minv], grad, mask, eps, seed, noise,
+                        noise_index=noise_index)
     out = _launch(name, dict(theta=theta, v=v, minv=minv, grad=grad),
                   ("theta", "v"), eps_vec, noise, seed, step, prior_scale,
+                  mask=mask, noise_index=noise_index,
                   sqrt_sg=_sqrt_sg(scale_grad), coef=mdecay)
     slim_sghmc_update.launches += 1
     return out
 
 
 slim_sghmc_update.launches = 0
+
+
+#  B7': the stacked tree -------------------------------------------------------
+
+def _check_tree(name, theta, v, grad, minv, eps, seed, noise):
+    """Check a stacked tree's operands: dicts with theta's keys, leaves
+    ``(n_chains, *shape)``; theta, v, minv and noise float32, grad float32
+    or bfloat16 (one type for every leaf), all on one device; a scalar
+    ``eps``.  Returns the stepsize as a float32 ``(1,)`` vector."""
+    _seed_key(seed)
+    trees = dict(v=v, grad=grad, minv=minv)
+    if noise is not None:
+        trees["noise"] = noise
+    if not isinstance(theta, dict) or not theta:
+        raise ValueError("{}: theta must be a non-empty dict of stacked "
+                         "leaves".format(name))
+    for what, tree in trees.items():
+        if not isinstance(tree, dict) or set(tree) != set(theta):
+            raise ValueError("{}: {} must be a dict with theta's "
+                             "keys".format(name, what))
+    first = next(iter(theta.values()))
+    grad_dtypes = {leaf.dtype for leaf in grad.values()}
+    if len(grad_dtypes) != 1 or not grad_dtypes <= set(STATE_DTYPES):
+        raise ValueError("{}: grad must be a dict of float32 or bfloat16 "
+                         "leaves, all of one type".format(name))
+    for key, t in theta.items():
+        if t.dtype != torch.float32 or t.ndim < 1 or first.ndim < 1 \
+                or t.shape[0] != first.shape[0] or t.device != first.device:
+            raise ValueError(
+                "{}: theta[{!r}] must be a float32 (n_chains, ...) leaf on "
+                "{}; got {} {}".format(name, key, first.device, t.dtype,
+                                       tuple(t.shape)))
+        for what, tree in trees.items():
+            leaf = tree[key]
+            want = grad_dtypes if what == "grad" else {torch.float32}
+            if leaf.shape != t.shape or leaf.dtype not in want \
+                    or leaf.device != t.device:
+                raise ValueError(
+                    "{}: {}[{!r}] must match theta ({} {} on {}); got {} {} "
+                    "on {}".format(name, what, key, tuple(t.shape),
+                                   "/".join(str(d) for d in want), t.device,
+                                   tuple(leaf.shape), leaf.dtype,
+                                   leaf.device))
+    eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
+    if eps_vec.numel() != 1:
+        raise ValueError("{}: eps must be a scalar; got {} entries".format(
+            name, eps_vec.numel()))
+    return eps_vec
+
+
+def _tree_offsets(theta):
+    """Each leaf's first element in a chain's unpadded row (the dict's
+    order) and the row's length."""
+    offsets, start = {}, 0
+    for key, leaf in theta.items():
+        offsets[key] = start
+        start += math.prod(leaf.shape[1:])
+    return offsets, start
+
+
+def slim_sghmc_update_tree_ref(theta, v, grad, minv, eps, seed, mdecay=0.05,
+                               scale_grad=1.0, prior_scale=0.0, noise=None,
+                               emit_bf16=False, step=0):
+    """Plain PyTorch version of :func:`slim_sghmc_update_tree`."""
+    name = "slim_sghmc_update_tree"
+    eps_vec = _check_tree(name, theta, v, grad, minv, eps, seed, noise)
+    first = next(iter(theta.values()))
+    offsets, width = _tree_offsets(theta)
+    eta = None if noise is not None else philox_normals(
+        seed, step, first.shape[0], width, first.device)
+    # (eps, eps_s) as 0-d tensors, which broadcast over a leaf of any shape
+    row = [r.reshape(()) for r in _sghmc_row(eps_vec, scale_grad,
+                                              first.device)]
+    theta_out, v_out = {}, {}
+    for key, t in theta.items():
+        if noise is not None:
+            e = noise[key]
+        else:
+            size = math.prod(t.shape[1:])
+            e = eta[:, offsets[key]:offsets[key] + size].reshape(t.shape)
+        gg = grad[key].float() + prior_scale * t
+        v_out[key] = _sghmc_velocity(v[key], minv[key], gg, e, row, mdecay)
+        theta_out[key] = t + v_out[key]
+    if emit_bf16:
+        return theta_out, v_out, {key: t.to(torch.bfloat16)
+                                  for key, t in theta_out.items()}
+    return theta_out, v_out
+
+
+def slim_sghmc_update_tree(theta, v, grad, minv, eps, seed, mdecay=0.05,
+                           scale_grad=1.0, prior_scale=0.0, noise=None,
+                           emit_bf16=False, step=0):
+    """One SGHMC sampling step over a stacked parameter dict (B7'), every
+    leaf in its own shape, with a frozen ``minv``.
+
+    ``theta``, ``v``, ``minv`` (and ``noise``, injected normals, where
+    given) are dicts of float32 leaves ``(n_chains, *shape)`` with theta's
+    keys, ``grad`` the same in float32 or bfloat16; ``eps`` a scalar,
+    ``seed`` and ``step`` as :func:`slim_sghmc_update`.  The normal of an
+    element is the stream's at its index in the chain's unpadded row, the
+    leaves in ``theta``'s order, which is what the lanes drivers draw for
+    it.  Returns ``(theta', v')``, with ``emit_bf16`` also theta' rounded
+    to bfloat16 (the next gradient pass's input), each a dict in theta's
+    order.  CUDA tensors make one launch for all leaves; CPU tensors run
+    :func:`slim_sghmc_update_tree_ref`.
+    """
+    name = "slim_sghmc_update_tree"
+    first = next(iter(theta.values()), None) if isinstance(theta, dict) \
+        else None
+    if first is None or not _require_device(name, first):
+        return slim_sghmc_update_tree_ref(theta, v, grad, minv, eps, seed,
+                                          mdecay, scale_grad, prior_scale,
+                                          noise, emit_bf16, step)
+    eps_vec = _check_tree(name, theta, v, grad, minv, eps, seed, noise)
+    from pysgmcmc_tpu_torch.ops import _build
+
+    n = first.shape[0]
+    offsets, width = _tree_offsets(theta)
+    theta_out, v_out, bf16_out, table = {}, {}, {}, []
+    for key, t in theta.items():
+        ops = (t, v[key], grad[key], minv[key],
+               None if noise is None else noise[key])
+        if any(op is not None and not op.is_contiguous() for op in ops):
+            raise ValueError("{}: CUDA operands must be contiguous".format(
+                name))
+        theta_out[key] = torch.empty_like(t)
+        v_out[key] = torch.empty_like(t)
+        if emit_bf16:
+            bf16_out[key] = torch.empty_like(t, dtype=torch.bfloat16)
+        table.append([_ptr(op) or 0 for op in ops] + [
+            theta_out[key].data_ptr(), v_out[key].data_ptr(),
+            bf16_out[key].data_ptr() if emit_bf16 else 0,
+            offsets[key], math.prod(t.shape[1:])])
+    # pinned and copied without waiting for the stream: the launch stays
+    # behind the work already queued
+    table = torch.tensor(table, dtype=torch.int64, pin_memory=True).to(
+        first.device, non_blocking=True)
+    lib = _build.load("slim_update")
+    with torch.cuda.device(first.device):
+        _build.check(lib.slim_sghmc_update_tree_launch(
+            table.data_ptr(), len(theta), n, width, int(seed),
+            int(step) & _MASK32, float(eps_vec[0]), _sqrt_sg(scale_grad),
+            float(mdecay), float(prior_scale),
+            int(next(iter(grad.values())).dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "slim_update")
+    slim_sghmc_update_tree.launches += 1
+    if emit_bf16:
+        return theta_out, v_out, bf16_out
+    return theta_out, v_out
+
+
+slim_sghmc_update_tree.launches = 0
 
 
 def slim_sgld_update(theta, grad, minv, mask, eps, seed, a_coef=1.0,
@@ -488,6 +687,8 @@ slim_sgld_burnin_update.launches = 0
 
 
 __all__ = [
+    "slim_sghmc_update_tree",
+    "slim_sghmc_update_tree_ref",
     "slim_psgld_update",
     "slim_psgld_update_ref",
     "slim_rsghmc_update",

@@ -34,6 +34,20 @@ batch_fn`), ``batch_fn=None`` a full-data cost.  With the same seed, on the
 dense network, windows and noise are those of the fused drivers.  A stacked
 per-chain schedule state gives every chain its own stepsize.
 
+Packed and stacked (SGHMC's sampling phase, as JAX's): :func:`sample_chain_packed`
+keeps the state as one ``(n_chains, width)`` slab in JAX's public slot
+layout (:func:`make_pack_spec`: the leaves in sorted-key order, each in a
+128-aligned slot; :func:`pack_tree`, :func:`unpack_tree`,
+:func:`pack_mask`), takes the gradient on the unpacked leaves in
+``compute_dtype`` and makes one launch of B7 mask per step, whose mask row
+keeps the slot padding at 0.  :func:`sample_chain_stacked` keeps every leaf
+in its own stacked shape and makes one launch of B7' per step for all
+leaves, optionally emitting the bf16 copy of the position that the next
+gradient pass reads (``bf16_params``).  Both key each normal by the
+element's index in the chain's unpadded row in the position dict's order,
+and draw windows and the Philox key as :func:`sample_chain_lanes` does, so
+the three drivers give the same chains for the same state and generator.
+
 Precision, as JAX's drivers: the fused drivers keep the momentum (and
 SGHMC's and SGLD's frozen minv) in ``state_dtype``, ``torch.bfloat16`` by
 default, rounded every step inside the kernels; the lanes drivers run the
@@ -73,11 +87,15 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
     philox_windows,
     unpack,
 )
+from pysgmcmc_tpu_torch.ops.fused_update import pad_dim
 from pysgmcmc_tpu_torch.ops.slim_update import (
     slim_psgld_update,
     slim_rsghmc_update,
     slim_sghmc_burnin_update,
     slim_sghmc_update,
+    slim_sghmc_update_ref,
+    slim_sghmc_update_tree,
+    slim_sghmc_update_tree_ref,
     slim_sgld_burnin_update,
     slim_sgld_update,
     slim_sgnht_update,
@@ -479,6 +497,19 @@ def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
     return kind
 
 
+def _stacked_gradient(sampler, position, batch_fn, window_seed, step):
+    """Every chain's cost and stacked gradient dict at ``position`` (leaves
+    in the network's type) on the windows of ``step``."""
+    n = next(iter(position.values())).shape[0]
+    if batch_fn is None:
+        grads, cost = torch.func.vmap(torch.func.grad_and_value(
+            lambda pos: sampler.cost_fn(pos)))(position)
+    else:
+        grads, cost = torch.func.vmap(torch.func.grad_and_value(
+            sampler.cost_fn))(position, batch_fn(window_seed, step, n))
+    return cost, grads
+
+
 def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step,
                     compute_dtype=None):
     """Every chain's cost ``(n_chains,)`` and packed gradient at ``theta``,
@@ -487,14 +518,9 @@ def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step,
     leaves cast to ``compute_dtype`` (``None``: float32), and the gradient
     is packed in the type it comes in (bf16 under bf16 leaves), as JAX's
     lanes drivers do."""
-    position = unpack_lanes(spec, theta, compute_dtype)
-    if batch_fn is None:
-        grads, cost = torch.func.vmap(torch.func.grad_and_value(
-            lambda pos: sampler.cost_fn(pos)))(position)
-    else:
-        grads, cost = torch.func.vmap(torch.func.grad_and_value(
-            sampler.cost_fn))(position, batch_fn(window_seed, step,
-                                                 theta.shape[0]))
+    cost, grads = _stacked_gradient(
+        sampler, unpack_lanes(spec, theta, compute_dtype), batch_fn,
+        window_seed, step)
     return cost, pack_lanes(spec, grads,
                             dtype=next(iter(grads.values())).dtype)
 
@@ -677,3 +703,267 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
         moved["xi"] = xi
     return _sampling_result(states, int(n_samples) * keep_every, positions,
                             costs, collect_positions, moved)
+
+
+#  Packed slots and the stacked tree (SGHMC sampling) ---------------------------
+
+class PackSpec(NamedTuple):
+    """Layout of a parameter dict packed into 128-aligned column slots
+    (JAX's public slot layout; ``names`` stands for JAX's treedef)."""
+
+    names: tuple     # leaf names in slot order: the keys sorted, as JAX's
+                     # tree_flatten orders a dict
+    shapes: tuple    # per-leaf shapes (without the chain axis)
+    sizes: tuple     # per-leaf element counts
+    offsets: tuple   # slot start columns
+    width: int       # total packed width (multiple of 128)
+
+
+def make_pack_spec(template):
+    """The slot layout of a single-chain parameter dict.
+
+    >>> spec = make_pack_spec({"w": torch.zeros(2, 3), "b": torch.zeros(2)})
+    >>> spec.names, spec.offsets, spec.width  # two leaves, two slots
+    (('b', 'w'), (0, 128), 256)
+    """
+    names = tuple(sorted(template))
+    shapes = tuple(tuple(template[name].shape) for name in names)
+    sizes = tuple(math.prod(shape) for shape in shapes)
+    offsets, off = [], 0
+    for size in sizes:
+        offsets.append(off)
+        off += pad_dim(size)
+    return PackSpec(names, shapes, sizes, tuple(offsets), off)
+
+
+def pack_mask(spec, dtype=torch.float32, device="cuda"):
+    """``(1, width)`` mask: 1 on real columns, 0 on slot padding, on the
+    card unless ``device="cpu"``.
+
+    >>> spec = make_pack_spec({"w": torch.zeros(2, 3), "b": torch.zeros(2)})
+    >>> mask = pack_mask(spec, device="cpu")
+    >>> mask.shape, int(mask.sum()), mask[0, :3].tolist()
+    (torch.Size([1, 256]), 8, [1.0, 1.0, 0.0])
+    """
+    mask = torch.zeros((1, spec.width), dtype=dtype)
+    for off, size in zip(spec.offsets, spec.sizes):
+        mask[0, off:off + size] = 1.0
+    return mask.to(device)
+
+
+def pack_tree(spec, stacked, dtype=torch.float32):
+    """Stacked dict (leaves ``(n, *shape)``) -> dense ``(n, width)``, the
+    padding 0."""
+    n = stacked[spec.names[0]].shape[0]
+    parts = []
+    for name, size in zip(spec.names, spec.sizes):
+        flat = stacked[name].reshape(n, size).to(dtype)
+        parts.append(torch.nn.functional.pad(flat, (0, pad_dim(size) - size)))
+    return torch.cat(parts, dim=1)
+
+
+def unpack_tree(spec, flat, dtype=None):
+    """Dense ``(n, width)`` -> stacked dict in slot order, optionally cast
+    to ``dtype``."""
+    n = flat.shape[0]
+    out = {}
+    for name, off, size, shape in zip(spec.names, spec.offsets, spec.sizes,
+                                      spec.shapes):
+        leaf = flat[:, off:off + size].reshape((n,) + shape)
+        out[name] = leaf if dtype is None else leaf.to(dtype)
+    return out
+
+
+def _noise_index(spec, template):
+    """The packed slab's int32 ``(width,)`` row of noise elements: a real
+    column's element is its index in the chain's unpadded row with the
+    leaves in ``template``'s order (the lanes layout's), a padding
+    column's lies past that row (its momentum is masked to 0)."""
+    lanes = make_lanes_spec(template)
+    lanes_off = dict(zip(lanes.names, lanes.offsets))
+    index = torch.arange(spec.width, dtype=torch.int64) + lanes.width
+    for name, off, size in zip(spec.names, spec.offsets, spec.sizes):
+        index[off:off + size] = torch.arange(size) + lanes_off[name]
+    return index.to(torch.int32)
+
+
+def _shared_schedule_state(states, driver="this driver"):
+    """Collapse a stacked per-chain schedule state to the shared one.
+
+    The packed and stacked drivers advance all chains at ONE stepsize, so a
+    stacked schedule state (a tensor with a leading chain axis) is only
+    admissible when every chain carries the same value; heterogeneous
+    states raise instead of running every chain at chain 0's stepsize (use
+    :func:`sample_chain_lanes`, which takes per-chain stepsizes).
+    """
+    state = states.schedule_state
+    if not torch.is_tensor(state) or state.ndim < 1:
+        return state
+    if not bool((state == state[:1]).all()):
+        raise ValueError(
+            "{}: chains carry heterogeneous per-chain schedule state, but "
+            "this driver advances all chains at one shared stepsize.  Use "
+            "sample_chain_lanes (which supports per-chain stepsizes) for "
+            "stepsize sweeps.".format(driver))
+    return state[0]
+
+
+def _sghmc_start(name, sampler, states, key, backend, noise_impl, interpret):
+    """What the packed and stacked drivers set up: raises on what they do
+    not take; returns ``(step0, eps_of, seed, window_seed, zero, rule
+    keywords)``."""
+    if not isinstance(sampler, SGHMCSampler):
+        raise NotImplementedError(
+            "{} currently supports SGHMCSampler; got {!r}".format(
+                name, type(sampler).__name__))
+    if backend not in ("pallas", "xla"):
+        raise ValueError("backend must be 'pallas' or 'xla'")
+    zero = resolve_noise_impl(noise_impl) == "zero"
+    first = next(iter(states.position.values()))
+    if interpret and first.device.type != "cpu":
+        raise ValueError(
+            "{}: interpret=True runs the plain versions, on CPU tensors "
+            "only; CUDA tensors launch the kernels (pass interpret=False)"
+            .format(name))
+    schedule_state = _shared_schedule_state(states, name)
+    value = sampler.stepsize_schedule.value
+    seed = _draw_seed(key)
+    return (int(torch.max(states.step)),
+            lambda step: float(value(schedule_state, step)), seed,
+            None if zero else seed, zero,
+            dict(mdecay=sampler.mdecay, scale_grad=sampler.scale_grad,
+                 prior_scale=sampler.gaussian_prior_scale))
+
+
+def _sghmc_result(states, position, momentum, n_steps, positions, costs,
+                  collect_positions):
+    """The sampling drivers' ``(states, positions, costs)``, every dict in
+    the order of ``states.position``."""
+    def ordered(tree):
+        return {name: tree[name] for name in states.position}
+
+    return _sampling_result(
+        states, n_steps, [ordered(p) for p in positions], costs,
+        collect_positions,
+        dict(position=ordered(position), momentum=ordered(momentum)))
+
+
+def sample_chain_stacked(sampler, states, key, n_samples, batch_fn=None,
+                         keep_every=1, backend="pallas", bf16_params=False,
+                         collect_positions=True, interpret=False,
+                         noise_impl="auto"):
+    """Sampling-phase SGHMC driver over stacked (native-layout) state: each
+    step the vmapped gradient on the leaves as they are, then one launch of
+    B7' (:func:`~pysgmcmc_tpu_torch.ops.slim_update.
+    slim_sghmc_update_tree`) for every leaf, with the frozen
+    ``stats.minv``.
+
+    ``states`` is a stacked :class:`SGHMCState` (leaves ``(n_chains,
+    ...)``, after burn-in), ``key`` a ``torch.Generator`` (the Philox key
+    and the windows' seed are drawn from it as :func:`sample_chain_lanes`
+    draws them), ``batch_fn`` a selector of :func:`pysgmcmc_tpu_torch.
+    data_batches.batch_fn`.  With ``bf16_params`` the cost runs on the
+    bfloat16 copy of the position that B7' emits each step (its gradient
+    stays bfloat16; the cost function must take bf16 leaves).
+    ``backend="xla"`` runs the same math in plain PyTorch with the normals
+    drawn from ``key``.  ``noise_impl="zero"`` is the degenerate stream
+    (zero noise, window 0), ``interpret=True`` runs the plain versions (CPU
+    tensors only).  Returns ``(states, positions, costs)`` like
+    :func:`sample_chain_lanes`.
+    """
+    name = "sample_chain_stacked"
+    step, eps_of, seed, window_seed, zero, rule = _sghmc_start(
+        name, sampler, states, key, backend, noise_impl, interpret)
+    # float32 and contiguous, as B7' reads every leaf in place
+    theta, v, minv = ({k: leaf.float().contiguous() for k, leaf in
+                       tree.items()} for tree in (
+        states.position, states.momentum, states.stats.minv))
+    theta_c = ({k: leaf.to(torch.bfloat16) for k, leaf in theta.items()}
+               if bf16_params else None)
+    update = slim_sghmc_update_tree_ref if interpret or backend == "xla" \
+        else slim_sghmc_update_tree
+    positions, costs = [], []
+    for _ in range(int(n_samples)):
+        for _ in range(keep_every):
+            cost, grads = _stacked_gradient(
+                sampler, theta_c if bf16_params else theta, batch_fn,
+                window_seed, step)
+            grads = {k: g.contiguous() for k, g in grads.items()}
+            noise = None
+            if zero:
+                noise = {k: torch.zeros_like(t) for k, t in theta.items()}
+            elif backend == "xla":
+                noise = {k: torch.randn(t.shape, generator=key,
+                                        device=key.device).to(t.device)
+                         for k, t in theta.items()}
+            out = update(theta, v, grads, minv, eps_of(step), seed,
+                         noise=noise, emit_bf16=bf16_params, step=step,
+                         **rule)
+            theta, v = out[0], out[1]
+            if bf16_params:
+                theta_c = out[2]
+            step += 1
+        if collect_positions:
+            positions.append(theta)
+        costs.append(cost)
+    return _sghmc_result(states, theta, v, int(n_samples) * keep_every,
+                         positions, costs, collect_positions)
+
+
+def sample_chain_packed(sampler, states, key, n_samples, batch_fn=None,
+                        keep_every=1, compute_dtype=torch.bfloat16,
+                        backend="pallas", collect_positions=True,
+                        interpret=False, noise_impl="auto"):
+    """Sampling-phase SGHMC driver over packed flat state: the position,
+    momentum and frozen minv as ``(n_chains, width)`` slabs in JAX's slot
+    layout (:func:`make_pack_spec`); each step unpacks the position into
+    ``compute_dtype`` leaves (``torch.bfloat16`` by default, as JAX's;
+    ``None`` keeps float32), takes the vmapped gradient, packs it in its
+    own type and makes one launch of B7 mask
+    (:func:`~pysgmcmc_tpu_torch.ops.slim_update.slim_sghmc_update` with
+    :func:`pack_mask`), which keeps the slot padding of the momentum and
+    the position at 0.  Other arguments and the result as
+    :func:`sample_chain_stacked`'s; the states come back float32, in the
+    position dict's order.
+    """
+    name = "sample_chain_packed"
+    step, eps_of, seed, window_seed, zero, rule = _sghmc_start(
+        name, sampler, states, key, backend, noise_impl, interpret)
+    if compute_dtype is not None and compute_dtype not in STATE_DTYPES:
+        raise ValueError(
+            "{}: compute_dtype must be None, torch.float32 or "
+            "torch.bfloat16; got {}".format(name, compute_dtype))
+    spec = make_pack_spec({k: leaf[0] for k, leaf in states.position.items()})
+    theta = pack_tree(spec, states.position)
+    device = theta.device
+    v = pack_tree(spec, states.momentum)
+    minv = pack_tree(spec, states.stats.minv)
+    mask = pack_mask(spec, device=device)
+    noise_index = _noise_index(
+        spec, {k: leaf[0] for k, leaf in states.position.items()}).to(device)
+    update = slim_sghmc_update_ref if interpret or backend == "xla" \
+        else slim_sghmc_update
+    positions, costs = [], []
+    for _ in range(int(n_samples)):
+        for _ in range(keep_every):
+            cost, grads = _stacked_gradient(
+                sampler, unpack_tree(spec, theta, compute_dtype), batch_fn,
+                window_seed, step)
+            grad = pack_tree(spec, grads,
+                             dtype=next(iter(grads.values())).dtype)
+            noise = None
+            if zero:
+                noise = torch.zeros_like(theta)
+            elif backend == "xla":
+                noise = torch.randn(theta.shape, generator=key,
+                                    device=key.device).to(device)
+            theta, v = update(theta, v, grad, minv, mask, eps_of(step), seed,
+                              noise=noise, step=step,
+                              noise_index=noise_index, **rule)
+            step += 1
+        if collect_positions:
+            positions.append(unpack_tree(spec, theta))
+        costs.append(cost)
+    return _sghmc_result(states, unpack_tree(spec, theta),
+                         unpack_tree(spec, v), int(n_samples) * keep_every,
+                         positions, costs, collect_positions)

@@ -1,5 +1,6 @@
 from pysgmcmc_tpu_torch.samplers._adaptive import AdaptiveStats
 from pysgmcmc_tpu_torch.samplers.base import MCMCSampler, SamplerInfo
+from pysgmcmc_tpu_torch.samplers.fused import FusedSGHMC, FusedSGHMCState
 from pysgmcmc_tpu_torch.samplers.psgld import PSGLDSampler, PSGLDState
 from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
     RelativisticSGHMCSampler,
@@ -12,6 +13,8 @@ from pysgmcmc_tpu_torch.samplers.svgd import SVGDSampler, SVGDState
 
 __all__ = [
     "AdaptiveStats",
+    "FusedSGHMC",
+    "FusedSGHMCState",
     "MCMCSampler",
     "PSGLDSampler",
     "PSGLDState",

@@ -5,7 +5,8 @@ one).  This file imports no JAX, so it also runs on a machine without it:
 
 Each kernel (B1, B2, B3, B4-sgld, B4-psgld, B4-sgnht, B4-rsghmc, B5-sgld,
 B5-psgld, B5-sgnht, B5-rsghmc, B6; the slim kernels B7, B8-sgld, B8-psgld,
-B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld; the SVGD transport B11) is held
+B8-rsghmc, B8-sgnht, B9-sghmc and B9-sgld; the SVGD transport B11;
+FusedSGHMC's B10, B7 with its mask and the stacked tree's B7') is held
 against its plain PyTorch version on the same inputs, from the state a
 200-step burn-in leaves, under injected noise and windows and under the
 Philox stream, with the tolerance
@@ -28,11 +29,22 @@ import chip_smoke as cs
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
 from pysgmcmc_tpu_torch.ops import fused_step as fs
 from pysgmcmc_tpu_torch.ops import _build, pairwise
+from pysgmcmc_tpu_torch.ops import fused_update as fu
 from pysgmcmc_tpu_torch.ops import slim_update as su
 from pysgmcmc_tpu_torch.ops import svgd_streaming as ss
 from pysgmcmc_tpu_torch.ops.relativistic import sample_relativistic_momentum
-from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+from pysgmcmc_tpu_torch.parallel import (
+    burnin_chain_fused,
+    make_pack_spec,
+    pack_mask,
+    pack_tree,
+    sample_chain_fused,
+    sample_chain_lanes,
+    sample_chain_packed,
+    sample_chain_stacked,
+)
 from pysgmcmc_tpu_torch.samplers import (
+    FusedSGHMC,
     PSGLDSampler,
     RelativisticSGHMCSampler,
     SGHMCSampler,
@@ -798,3 +810,221 @@ def test_svgd_bnn_trains_on_the_card(cuda_device):
     assert np.isfinite(mean).all() and np.isfinite(var).all()
     assert np.mean((mean - np.sinc(grid[:, 0] * 10 - 5)) ** 2) < 0.1
     assert np.std(f_out, axis=0).mean() > 1e-6
+
+
+#  B10, B7 mask, B7': FusedSGHMC and the packed and stacked drivers ----------
+
+def _sghmc_check_state(device, n=64):
+    """The burned-in SGHMC state with the gradient of one step's windows,
+    ``(lay, st)``; the leaves as a dict in ``st["tree"]``."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x, y = _data(gen)
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    widx = fs.philox_windows(3, 0, n, x_win.shape[0], device)
+    st["grad"] = fs._fwd_bwd(st["theta"], lay, x_win[widx][:, :, None],
+                             y_win[widx], 1.0 / 20, 1.0 / 100)[1]
+    return lay, st, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("burning_in", [True, False])
+@pytest.mark.parametrize("stream", ["injected", "philox"])
+def test_fused_update_matches_plain_version(burning_in, stream, cuda_device):
+    """B10 on the burned-in state padded to 128 columns (as FusedSGHMC
+    pads it), in both phases."""
+    lay, st, gen = _sghmc_check_state(cuda_device)
+    pad = fu.pad_dim(lay.n_params) - lay.n_params
+
+    def padded(t, value=0.0):
+        return torch.nn.functional.pad(t, (0, pad), value=value)
+
+    args = [padded(st["theta"]), padded(st["v"])] + [
+        padded(st[k], 1.0) for k in ("tau", "g", "v_hat", "minv")] + [
+        padded(st["grad"])]
+    extra = {"step": 2**32 - 1}
+    if stream == "injected":
+        extra = {"noise": torch.randn(args[0].shape, generator=gen,
+                                      device=cuda_device)}
+    kw = dict(mdecay=0.05, scale_grad=100.0, **extra)
+    before = fu.fused_sghmc_update.launches
+    got = fu.fused_sghmc_update(*args, 0.01, burning_in, 2**63 + 5, **kw)
+    assert fu.fused_sghmc_update.launches == before + 1
+    want = fu.fused_sghmc_update_ref(*args, 0.01, burning_in, 2**63 + 5,
+                                     **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a[:, :lay.n_params],
+                            b[:, :lay.n_params]) <= REL_TOL
+    if not burning_in:
+        assert torch.equal(got[5], args[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stream", ["injected", "philox"])
+def test_masked_kernel_matches_plain_version(grad_dtype, stream,
+                                             cuda_device):
+    """B7 mask on the packed slab of the dense network's leaves (noise
+    non-zero on the padding where injected); the padding of theta' and v'
+    stays exactly 0."""
+    lay, st, gen = _sghmc_check_state(cuda_device)
+    tree = {k: fs.unpack(st[k], lay) for k in ("theta", "v", "grad", "minv")}
+    spec = make_pack_spec({k: leaf[0] for k, leaf in tree["theta"].items()})
+    args = [pack_tree(spec, tree[k]) for k in ("theta", "v", "grad", "minv")]
+    args[2] = args[2].to(grad_dtype)
+    mask = pack_mask(spec, device=cuda_device)
+    extra = {"step": 2**32 - 1, "noise_index": torch.randperm(
+        spec.width, generator=gen, device=cuda_device).to(torch.int32)}
+    if stream == "injected":
+        extra = {"noise": torch.randn(args[0].shape, generator=gen,
+                                      device=cuda_device)}
+    kw = dict(mdecay=0.05, scale_grad=100.0,
+              prior_scale=1.0 / (lay.n_params * 100), **extra)
+    before = su.slim_sghmc_update.launches
+    got = su.slim_sghmc_update(*args, mask, 0.01, 2**63 + 5, **kw)
+    assert su.slim_sghmc_update.launches == before + 1
+    want = su.slim_sghmc_update_ref(*args, mask, 0.01, 2**63 + 5, **kw)
+    torch.cuda.synchronize()
+    padding = mask[0] == 0
+    for a, b in zip(got, want):
+        assert _row_rel_err(a, b) <= REL_TOL
+        assert not a[:, padding].any()
+
+
+def _many_leaves(device, n, n_leaves, gen):
+    """A stacked tree of ``n_leaves`` leaves of assorted shapes."""
+    shapes = [(3,), (7, 5), (), (1, 300), (2, 2, 2)]
+    theta = {"leaf{:02d}".format(i): torch.randn(
+        (n,) + shapes[i % len(shapes)], generator=gen, device=device)
+        for i in range(n_leaves)}
+
+    def like(scale=1.0, positive=False):
+        out = {k: scale * torch.randn(t.shape, generator=gen, device=device)
+               for k, t in theta.items()}
+        return {k: t.abs() + 0.1 for k, t in out.items()} if positive \
+            else out
+
+    return theta, like(1e-2), like(), like(positive=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_bf16", [False, True])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stream", ["injected", "philox"])
+def test_tree_kernel_matches_plain_version(emit_bf16, grad_dtype, stream,
+                                           cuda_device):
+    """B7' on the dense network's leaves; the bf16 copy is the kernel's
+    theta' rounded, exactly."""
+    lay, st, gen = _sghmc_check_state(cuda_device)
+    tree = {k: {name: leaf.contiguous() for name, leaf in
+                fs.unpack(st[k], lay).items()}
+            for k in ("theta", "v", "grad", "minv")}
+    tree["grad"] = {k: g.to(grad_dtype) for k, g in tree["grad"].items()}
+    extra = {"step": 2**32 - 1}
+    if stream == "injected":
+        extra = {"noise": {k: torch.randn(t.shape, generator=gen,
+                                          device=cuda_device)
+                           for k, t in tree["theta"].items()}}
+    kw = dict(mdecay=0.05, scale_grad=100.0, emit_bf16=emit_bf16,
+              prior_scale=1.0 / (lay.n_params * 100), **extra)
+    args = [tree[k] for k in ("theta", "v", "grad", "minv")]
+    before = su.slim_sghmc_update_tree.launches
+    got = su.slim_sghmc_update_tree(*args, 0.01, 2**63 + 5, **kw)
+    assert su.slim_sghmc_update_tree.launches == before + 1
+    want = su.slim_sghmc_update_tree_ref(*args, 0.01, 2**63 + 5, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (3 if emit_bf16 else 2)
+    spec = make_pack_spec({k: t[0] for k, t in tree["theta"].items()})
+    for a, b in zip(got[:2], want[:2]):
+        assert list(a) == list(tree["theta"])
+        assert _row_rel_err(pack_tree(spec, a), pack_tree(spec, b)) \
+            <= REL_TOL
+    if emit_bf16:
+        for key, leaf in got[2].items():
+            assert torch.equal(leaf, got[0][key].to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [1, 9, 40])
+def test_tree_kernel_launches_once_whatever_the_leaf_count(n_leaves,
+                                                           cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(n_leaves)
+    args = _many_leaves(cuda_device, 33, n_leaves, gen)
+    before = su.slim_sghmc_update_tree.launches
+    got = su.slim_sghmc_update_tree(*args, 0.01, 7, step=3)
+    assert su.slim_sghmc_update_tree.launches == before + 1
+    want = su.slim_sghmc_update_tree_ref(*args, 0.01, 7, step=3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        for key in args[0]:
+            err = (a[key] - b[key]).abs().max()
+            assert float(err) <= REL_TOL * float(b[key].abs().max()), key
+
+
+@pytest.mark.cuda
+def test_packed_stacked_and_lanes_drivers_agree_on_the_card(cuda_device):
+    """From one burned-in state and generator seed, the packed (B7 mask),
+    stacked (B7') and lanes (B7) drivers on the card, f32 passes, 2 samples
+    of 4 steps: each launches its kernel once a step and they agree."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, y = _data(gen)
+    _, apply = dense_network(1, device=cuda_device)
+    bnn = BayesianNeuralNetwork(batch_size=20, step_impl="lanes")
+    from pysgmcmc_tpu_torch.data_batches import batch_fn
+
+    def cost(params, batch):
+        return bnn.negative_log_likelihood(apply, params, *batch, 100)[0]
+
+    sampler = SGHMCSampler(cost, stepsize_schedule=0.01, scale_grad=100.0)
+    init, _ = dense_network(1, device=cuda_device)
+    states = sampler.init(init(gen, (64,)))
+    select = batch_fn(x, y, 20)
+    runs = {}
+    for name, fn, kernel, kw in (
+            ("lanes", sample_chain_lanes, su.slim_sghmc_update,
+             dict(compute_dtype=None)),
+            ("packed", sample_chain_packed, su.slim_sghmc_update,
+             dict(compute_dtype=None)),
+            ("stacked", sample_chain_stacked, su.slim_sghmc_update_tree, {})):
+        before = kernel.launches
+        runs[name] = fn(sampler, states,
+                        torch.Generator(device=cuda_device).manual_seed(5),
+                        2, batch_fn=select, keep_every=4, **kw)
+        assert kernel.launches == before + 8, name
+    torch.cuda.synchronize()
+    for name in ("packed", "stacked"):
+        for key, want in runs["lanes"][1].items():
+            got = runs[name][1][key]
+            err = (got - want).abs().max()
+            assert float(err) <= REL_TOL * float(want.abs().max()), (name,
+                                                                      key)
+
+
+@pytest.mark.cuda
+def test_fused_sghmc_card_matches_cpu(cuda_device):
+    """FusedSGHMC on the card (B10 each step) against the same run on the
+    CPU (its plain version), on the degenerate stream, across the burn-in
+    boundary."""
+    def cost(params):
+        return 0.5 * torch.sum(params["x"] ** 2) + torch.sum(
+            params["w"] ** 2)
+
+    template = {"x": torch.zeros(3), "w": torch.zeros(2, 2)}
+    runs = {}
+    for device in ("cpu", cuda_device):
+        fused = FusedSGHMC(cost, template, stepsize=0.05, burn_in_steps=10,
+                           noise_impl="zero")
+        gen = torch.Generator().manual_seed(0)
+        start = {"x": torch.randn(16, 3, generator=gen),
+                 "w": torch.randn(16, 2, 2, generator=gen)}
+        before = fu.fused_sghmc_update.launches
+        runs[str(device)] = fused.run(
+            fused.init({k: v.to(device) for k, v in start.items()}),
+            torch.Generator().manual_seed(1), 20)[0]
+    assert fu.fused_sghmc_update.launches == before + 20
+    got, want = runs[str(cuda_device)], runs["cpu"]
+    for field in ("theta", "momentum", "minv"):
+        assert _row_rel_err(getattr(got, field)[:, :7].cpu(),
+                            getattr(want, field)[:, :7]) <= REL_TOL, field

@@ -155,8 +155,12 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     inputs = _kernel_inputs()
     theta, v, grad, minv = (torch.tensor(inputs[k])
                             for k in ("theta", "v", "grad", "minv"))
+    # B7 takes a (1, P) mask row (the packed driver's); any other shape
+    # raises JAX's ValueError, and the other slim kernels refuse a mask
+    with pytest.raises(ValueError, match="mask must be"):
+        su.slim_sghmc_update(theta, v, grad, minv, torch.ones(P), 0.01, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        su.slim_sghmc_update(theta, v, grad, minv, torch.ones(1, P), 0.01, 0)
+        su.slim_sgld_update(theta, grad, minv, torch.ones(1, P), 0.01, 0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         su.slim_sghmc_update(theta, v.half(), grad, minv, None, 0.01, 0)
     with pytest.raises(ValueError, match="match theta"):
