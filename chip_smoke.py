@@ -282,18 +282,20 @@ def _bf16_flips(torch, got, want):
             sum(p.numel() for _, p in pairs))
 
 
-def _excess(torch, got, want, ulps=0, carried=None):
+def _excess(torch, got, want, ulps=0, carried=None, peak=None):
     """The largest amount by which ``got`` lies beyond ``want``'s bound:
     REL_TOL of the largest |value| in each row, plus ``ulps`` bf16 ulps of
-    each value where ``got`` is bf16, or where it is not ``ulps`` times the
-    smaller of ``carried`` (one ulp of each row's largest bf16 value) and
-    one ulp of the row's own largest value.  At most 0 where ``got`` is
-    within its bound."""
+    each value where ``got`` is bf16 (of its largest |value| over the
+    steps, ``peak``, where given: a rounding flips at the value it had
+    then), or where it is not ``ulps`` times the smaller of ``carried``
+    (one ulp of each row's largest bf16 value) and one ulp of the row's own
+    largest value.  At most 0 where ``got`` is within its bound."""
     g, w = _rows(got.float()), _rows(want.float())
     scale = w.abs().amax(1, keepdim=True)
     slack = REL_TOL * scale
     if ulps and got.dtype == torch.bfloat16:
-        slack = slack + ulps * _ulp_bf16(torch, w)
+        slack = slack + ulps * _ulp_bf16(
+            torch, w if peak is None else _rows(peak))
     elif ulps and carried is not None and carried.shape[0] == w.shape[0]:
         slack = slack + ulps * torch.minimum(carried,
                                              _ulp_bf16(torch, scale))
@@ -301,22 +303,26 @@ def _excess(torch, got, want, ulps=0, carried=None):
 
 
 def _compare(torch, name, got, want, floor=None, what="kernel-plain",
-             ulps=0, witness=0.0):
+             ulps=0, witness=0.0, peaks=None):
     """Max abs error over the outputs; raises beyond REL_TOL of a row's
     scale, or where a floor is given and is not below REL_TOL / 4.
 
     A bf16-state kernel over ``ulps`` steps (BF16_STEPS comment) may differ
-    by ``ulps`` bf16 ulps of each bf16 value on top, and its other outputs
-    by ``ulps`` ulps of the row's largest bf16 value (at most of their own
-    row's largest value); the share of its bf16 values that differ is held
-    to BF16_WITNESS times ``witness`` (or BF16_FLOOR)."""
+    by ``ulps`` bf16 ulps of each bf16 value on top (of its largest |value|
+    over the steps where ``peaks``, one per output or None, gives it), and
+    its other outputs by ``ulps`` ulps of the row's largest bf16 value (at
+    most of their own row's largest value); the share of its bf16 values
+    that differ is held to BF16_WITNESS times ``witness`` (or
+    BF16_FLOOR)."""
+    peaks = peaks or [None] * len(want)
     carried = None
-    for k, p in zip(got, want):
+    for k, p, peak in zip(got, want, peaks):
         if ulps and k.dtype == torch.bfloat16:
-            carried = _ulp_bf16(torch, _rows(p.float()).abs().amax(
-                1, keepdim=True))
+            carried = _ulp_bf16(torch, _rows(
+                (p if peak is None else peak).float()).abs().amax(
+                    1, keepdim=True))
     worst = 0.0
-    for label, k, p in zip(name[1], got, want):
+    for label, k, p, peak in zip(name[1], got, want, peaks):
         if not torch.isfinite(k.float()).all() or (ulps and
                                                    k.dtype != p.dtype):
             raise AssertionError("{}: kernel output {} is {} or not "
@@ -326,7 +332,12 @@ def _compare(torch, name, got, want, floor=None, what="kernel-plain",
         print("  {} {}: max|{}| = {:.3e}, {:.3e} of its row's scale{}".format(
             name[0], label, what, err, rel,
             " (bf16)" if k.dtype == torch.bfloat16 else ""))
-        over = _excess(torch, k, p, ulps, carried)
+        over = _excess(torch, k, p, ulps, carried, peak)
+        final = _excess(torch, k, p, ulps, carried)
+        if peak is not None and final > 0:
+            print("  {} {}: {:.3e} beyond the bound by the final values' "
+                  "ulps, {:.3e} by their largest |value| over the "
+                  "steps'".format(name[0], label, final, over))
         if not over <= 0:
             raise AssertionError("{}: {} disagrees ({}): {:.3e} beyond "
                                  "{:.1e} of its row's scale plus {} bf16 "
@@ -529,7 +540,8 @@ def _run(fs, wrapper, one_step, state, x_win, y_win, eps, kw, k, stream,
             step = extra["step0"] + t
             widx = fs.philox_windows(SEED, step, n, x_win.shape[0],
                                      state[0].device)
-            step_kw = dict(step=step)
+            step_kw = dict(step=step, **{key: extra[key] for key in
+                                         ("noise_impl",) if key in extra})
         out = wrapper(*cur, *fs.gather_batch(x_win, y_win, widx), eps, SEED,
                       **kw, **step_kw)
         # the next step takes the new state and the frozen inputs (minv)
@@ -570,10 +582,12 @@ def _kernel_checks(torch, fs, checks, x_win, y_win, streams):
     return err
 
 
-def _burned_in(torch, x, y, sampler_cls, n_chains, device, h=H):
+def _burned_in(torch, x, y, sampler_cls, n_chains, device, h=H,
+               noise_impl="auto"):
     """A sampler and its states after BURNED_IN burn-in steps at EPS from
     He-normal weights of an ``h``-wide 3-layer network, through the port's
-    burn-in driver (B2 / B6) with f32 state."""
+    burn-in driver (B2 / B6) with f32 state, its normals from
+    ``noise_impl`` (by default the main path's, the CLT generator)."""
     from pysgmcmc_tpu_torch.models import dense_network
     from pysgmcmc_tpu_torch.ops import fused_step as fs
     from pysgmcmc_tpu_torch.parallel import burnin_chain_fused
@@ -586,7 +600,7 @@ def _burned_in(torch, x, y, sampler_cls, n_chains, device, h=H):
                           gaussian_prior_scale=1.0 / (n_params * N_DATA))
     states = burnin_chain_fused(
         sampler, sampler.init(init_fn(gen, (n_chains,))), gen, BURNED_IN,
-        x, y, state_dtype=torch.float32)
+        x, y, state_dtype=torch.float32, noise_impl=noise_impl)
     return sampler, states
 
 
@@ -627,31 +641,32 @@ def _packed_states(torch, sampler, st, n_chains):
 
 
 def _driver_check(torch, x, y, sampler, states, kernel, multi_kernel=None,
-                  state_dtype=None):
+                  state_dtype=None, noise_impl="box_muller"):
     """The one-step driver (B3 / B4-* per step) against the multi-step
     driver (B1 / B5-*) from the same state and generator seed, with
     ``state_dtype`` state (float32 unless given); returns (worst error,
     launches of the one-step ``kernel`` in the multistep=False run,
-    launches of ``multi_kernel`` in the multistep=True run)."""
+    launches of ``multi_kernel`` in the multistep=True run), both of the
+    generator ``noise_impl``'s instantiations."""
     from pysgmcmc_tpu_torch.parallel import sample_chain_fused
 
     device = states.step.device
     state_dtype = state_dtype or torch.float32
+    variant = "clt" if noise_impl == "hadamard_clt" else ""
     runs, multi_launches = [], 0
     for multistep in (True, False):
-        kernel.launches = 0
-        if multi_kernel is not None:
-            multi_kernel.launches = 0
+        _zero_counts(kernel, *([multi_kernel] if multi_kernel else []))
         runs.append(sample_chain_fused(
             sampler, states, torch.Generator(device=device).manual_seed(5),
             DRIVER_SAMPLES, x, y, keep_every=DRIVER_KEEP,
-            state_dtype=state_dtype, multistep=multistep))
-        launches = kernel.launches
+            state_dtype=state_dtype, multistep=multistep,
+            noise_impl=noise_impl))
+        launches = _launches(kernel, variant)
         if multistep and multi_kernel is not None:
-            multi_launches = multi_kernel.launches
+            multi_launches = _launches(multi_kernel, variant)
     torch.cuda.synchronize()
-    label = "one-step driver ({}, {} state)".format(
-        type(sampler).__name__, str(state_dtype).split(".")[1])
+    label = "one-step driver ({}, {} state, {})".format(
+        type(sampler).__name__, str(state_dtype).split(".")[1], noise_impl)
     keys = sorted(runs[0][1])
     worst = _compare(torch, (label, ["positions " + k for k in keys]),
                      [runs[1][1][k] for k in keys],
@@ -660,6 +675,114 @@ def _driver_check(torch, x, y, sampler, states, kernel, multi_kernel=None,
     if int(runs[0][0].step) != int(runs[1][0].step):
         raise AssertionError("{}: step counters differ".format(label))
     return worst, launches, multi_launches
+
+
+def _paired_drivers(torch, fs, x, y, init_fn, drivers, sghmc_sampler,
+                    device):
+    """The paired drivers (``pair_dots=True``, multi-step, Box-Muller) from
+    the one-step driver checks' states: SGHMC's burn-in at bf16 state (B2
+    paired), then each sampler's sampling driver at f32 state against the
+    unpaired driver (bit for bit) and at bf16 state (the share of positions
+    the once-per-launch rounding moves, printed); B3 paired, which no
+    driver reaches, through its wrapper one step at a time on the Philox
+    windows, at f32 state against B3.  Returns the paired launches by
+    record."""
+    from pysgmcmc_tpu_torch.parallel import (
+        burnin_chain_fused,
+        sample_chain_fused,
+    )
+
+    launches = {}
+    _zero_counts(fs.fused_bnn_multistep_burnin)
+    gen = torch.Generator(device=device).manual_seed(11)
+    burned = burnin_chain_fused(
+        sghmc_sampler, sghmc_sampler.init(init_fn(gen, (DRIVER_CHAINS,))),
+        gen, BURNED_IN, x, y, pair_dots=True)
+    launches["B2 (bf16, paired)"] = _launches(fs.fused_bnn_multistep_burnin,
+                                              "paired")
+    multi_of = {"B3": ("B1", fs.fused_bnn_multistep),
+                "B4-sgld": ("B5-sgld", fs.fused_bnn_multistep_sgld),
+                "B4-psgld": ("B5-psgld", fs.fused_bnn_multistep_psgld),
+                "B4-sgnht": ("B5-sgnht", fs.fused_bnn_multistep_sgnht),
+                "B4-rsghmc": ("B5-rsghmc", fs.fused_bnn_multistep_rsghmc)}
+    for name, (multi_name, kernel) in multi_of.items():
+        _, sampler, states = drivers[name]
+        if name == "B3":
+            states = burned
+        dtypes = [torch.float32]
+        if name in ("B3", "B4-sgnht", "B4-rsghmc"):
+            dtypes.append(torch.bfloat16)
+        for dtype in dtypes:
+            runs = []
+            for pair_dots in (False, True):
+                _zero_counts(kernel)
+                runs.append(sample_chain_fused(
+                    sampler, states,
+                    torch.Generator(device=device).manual_seed(5),
+                    DRIVER_SAMPLES, x, y, keep_every=DRIVER_KEEP,
+                    state_dtype=dtype, multistep=True, pair_dots=pair_dots,
+                    noise_impl="box_muller")[1])
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            record = _record(multi_name + (" (bf16)" if bf16 else ""),
+                             "paired")
+            launches[record] = _launches(kernel, "paired")
+            keys = sorted(runs[0])
+            label = "paired driver ({}, {} state): {} chains x {} steps".format(
+                type(sampler).__name__, "bf16" if bf16 else "f32",
+                DRIVER_CHAINS, DRIVER_SAMPLES * DRIVER_KEEP)
+            if not bf16:
+                same = all(torch.equal(runs[0][k], runs[1][k]) for k in keys)
+                print("{}: positions equal the unpaired driver's bit for bit: "
+                      "{}; {} launches of {}".format(label, same,
+                                                    launches[record], record))
+                if not same:
+                    raise AssertionError("{}: positions differ".format(label))
+            else:
+                moved = sum(int((runs[0][k] != runs[1][k]).sum())
+                            for k in keys)
+                total = sum(runs[0][k].numel() for k in keys)
+                print("{}: {:.3e} of the positions differ from the unpaired "
+                      "driver's (the rounding once per launch), {:.3e} of a "
+                      "row's scale at most; {} launches of {}".format(
+                          label, moved / total, max(
+                              _rel_err(runs[1][k], runs[0][k])
+                              for k in keys), launches[record], record))
+    # B3 paired: the wrapper, step by step, as a caller would drive it
+    x_win, y_win = fs.data_windows(x, y, BATCH)
+    lay = fs.FusedLayout(1, H, 3)
+    theta0 = fs.pack(burned.position, lay)
+    minv = fs.pack(burned.stats.minv, lay)
+    kw = dict(mdecay=sghmc_sampler.mdecay,
+              scale_grad=sghmc_sampler.scale_grad,
+              prior_scale=sghmc_sampler.gaussian_prior_scale,
+              batch_size=BATCH, n_data=N_DATA)
+    for dtype in (torch.float32, torch.bfloat16):
+        ends = []
+        for pair_dots in (False, True):
+            _zero_counts(fs.fused_bnn_step)
+            theta = theta0
+            v = fs.pack(burned.momentum, lay).to(dtype)
+            for step in range(DRIVER_KEEP):
+                widx = fs.philox_windows(SEED, step, DRIVER_CHAINS,
+                                         x_win.shape[0], device)
+                theta, v, _ = fs.fused_bnn_step(
+                    theta, v, minv.to(dtype), *fs.gather_batch(
+                        x_win, y_win, widx), EPS, SEED, step=step,
+                    state_dtype=dtype, pair_dots=pair_dots, **kw)
+            ends.append((theta, v))
+            if pair_dots:
+                launches[_record("B3 (bf16)" if dtype == torch.bfloat16
+                                 else "B3", "paired")] = \
+                    _launches(fs.fused_bnn_step, "paired")
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*ends))
+        print("B3 paired ({} state): {} one-step launches, equal to B3's "
+              "bit for bit: {}".format(str(dtype).split(".")[1], DRIVER_KEEP,
+                                       same))
+        if not same:
+            raise AssertionError("B3 paired differs from B3")
+    return launches
 
 
 def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
@@ -679,9 +802,7 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
     from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
     from pysgmcmc_tpu_torch.ops import fused_step as fs
 
-    for fn in kernels.values():
-        fn.launches = 0
-    fs.placements.clear()
+    _zero_counts(*kernels.values())
     bnn = BayesianNeuralNetwork(
         sampling_method=sampling_method, network=network,
         step_impl=step_impl, n_chains=chains, n_nets=chains,
@@ -696,7 +817,7 @@ def _flagship(torch, x_np, y_np, sampling_method, kernels, card, rates,
     t0 = time.perf_counter()
     mean, var = bnn.predict(x_grid)
     predict_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: _launches(fn, name) for name, fn in kernels.items()}
     label = "{} {} main path ({} network{}{})".format(
         sampling_method.value, step_impl, network,
         "" if stepsize is None else ", eps {:g}".format(stepsize),
@@ -957,7 +1078,8 @@ def _fused_cost(torch, apply):
 def _lanes_vs_fused(torch, x, y, sampler, states, eps):
     """The lanes drivers (autograd gradient, then the slim kernels) against
     the fused drivers on the dense network, from one state and one
-    generator seed, on the Philox stream, over 16 steps: for SGHMC and SGLD
+    generator seed, on the Philox stream (Box-Muller, the lanes drivers'
+    generator), over 16 steps: for SGHMC and SGLD
     8 burn-in (B9 against B2 / B6) and 8 sampling steps (B7 or B8-sgld
     against B1 / B5-sgld), for the samplers without burn-in two samples of 8
     steps (B8-* against B5-*).  ``sampler`` carries the fused path's cost.
@@ -978,10 +1100,12 @@ def _lanes_vs_fused(torch, x, y, sampler, states, eps):
     if burn_in:
         drivers = {
             "fused": (lambda s, g: burnin_chain_fused(
-                sampler, s, g, 8, x, y, state_dtype=torch.float32),
+                sampler, s, g, 8, x, y, state_dtype=torch.float32,
+                noise_impl="box_muller"),
                       lambda s, g: sample_chain_fused(
                           sampler, s, g, 1, x, y, keep_every=8,
-                          state_dtype=torch.float32, multistep=True)),
+                          state_dtype=torch.float32, multistep=True,
+                          noise_impl="box_muller")),
             "lanes": (lambda s, g: burnin_chain_lanes(
                 sampler, s, g, 8, batch_fn=select, compute_dtype=None),
                       lambda s, g: sample_chain_lanes(
@@ -994,7 +1118,8 @@ def _lanes_vs_fused(torch, x, y, sampler, states, eps):
         drivers = {
             "fused": (lambda s, g: s, lambda s, g: sample_chain_fused(
                 sampler, s, g, 2, x, y, keep_every=8,
-                state_dtype=torch.float32, multistep=True)),
+                state_dtype=torch.float32, multistep=True,
+                noise_impl="box_muller")),
             "lanes": (lambda s, g: s, lambda s, g: sample_chain_lanes(
                 sampler, s, g, 2, batch_fn=select, keep_every=8,
                 compute_dtype=None)),
@@ -1411,6 +1536,61 @@ FUSED_BF16 = {
 # the slim kernels' bf16 operands (the lanes path under compute_dtype and
 # bf16 state): the gradient always, v and minv where the kernel has them
 SLIM_BF16 = ("v", "minv", "grad")
+
+# ---- the MXU-CLT generator (B-CLT) and the paired kernels (B-pair) ----
+# Each fused kernel has a CLT instantiation (noise_impl="hadamard_clt", the
+# fused drivers' default) and B1, B2, B3, B5-* and B6 a paired one
+# (pair_dots=True: Box-Muller, the matrix slabs' bf16 momentum rounded once
+# per launch).  Their records are named as the Box-Muller kernels' with a
+# "clt" or "paired" tag, and are timed over VARIANT_STEPS steps a launch,
+# kernel and plain version alike (kernel_times.py times them over
+# SAMPLE_STEPS beside the Box-Muller kernels).
+VARIANT_STEPS = 20
+VARIANT_KW = {"": {}, "clt": dict(noise_impl="hadamard_clt"),
+              "paired": dict(pair_dots=True)}
+PAIRED_KERNELS = ("B1", "B2", "B3", "B5-sgld", "B6", "B5-psgld", "B5-sgnht",
+                  "B5-rsghmc")
+# the TPU code each variant replaces in pysgmcmc_tpu/ops/fused_step.py: the
+# CLT generator _normal_clt (with _hadamard_pm1 and _block_etas' geometry),
+# and the paired kernels' generators
+CLT_LINE = 111
+PAIRED_LINES = {"B1": 1690, "B5-sgld": 1690, "B5-psgld": 1690,
+                "B5-sgnht": 1690, "B5-rsghmc": 1690, "B2": 2636, "B6": 2636,
+                "B3": 427}
+
+
+def _record(name, *tags):
+    """The record of a kernel variant: ``_record("B1 (bf16)", "clt")`` is
+    ``"B1 (bf16, clt)"``."""
+    base, _, rest = name.partition(" ")
+    tags = ([rest[1:-1]] if rest else []) + [t for t in tags if t]
+    return base + (" ({})".format(", ".join(tags)) if tags else "")
+
+
+def _zero_counts(*fns):
+    """Sets the launch counts of the wrappers ``fns`` to 0, and those of
+    the fused kernels' variants (``fs.placements``)."""
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+
+    for fn in fns:
+        fn.launches = 0
+    fs.placements.clear()
+
+
+def _launches(fn, record):
+    """The launches of wrapper ``fn`` since :func:`_zero_counts`: a fused
+    wrapper's of the variant ``record`` names (its tags, as
+    :func:`_record` writes them, or the tag itself: ``"clt"``,
+    ``"paired"``, else Box-Muller) from ``fs.placements``, another's
+    ``fn.launches``."""
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+
+    if fn.__module__ != fs.__name__:
+        return fn.launches
+    words = set(re.split(r"[ (),]+", record))
+    variant = ("hadamard_clt" if "clt" in words else
+               "paired" if "paired" in words else "box_muller")
+    return fs.variant_launches(fn, variant)
 
 
 # ---- FusedSGHMC (B10) and the packed (B7 mask) and stacked (B7') drivers:
@@ -1852,26 +2032,39 @@ def _bf16_kw(torch, kw, bf16):
     return dict(kw, state_dtype=torch.bfloat16) if "v" in bf16 else kw
 
 
-def _bf16_checks(torch, fs, state, kws, x_win, y_win):
-    """Every bf16 instantiation of the fused kernels against its plain
-    version on the Philox stream from the burned-in states (CHECK_CHAINS
-    chains) over BF16_STEPS steps (one for the one-step kernels), each
-    beside the witness (the plain version on the CPU).  Returns ``{kernel:
-    max abs error}``."""
+def _bf16_checks(torch, fs, state, kws, x_win, y_win, variant="",
+                 rules=None, label=""):
+    """Every bf16 instantiation of the fused kernels (of ``variant``:
+    ``""``, ``"clt"`` or ``"paired"``; of the samplers ``rules`` where
+    given) against its plain version on the Philox stream from the
+    burned-in states (CHECK_CHAINS chains) over BF16_STEPS steps (one for
+    the one-step kernels), each beside the witness (the plain version on
+    the CPU), the bf16 values' ulps those of their largest |value| over the
+    plain version's steps.  Returns ``{record: max abs error}``."""
     err = {}
     fns = _fused_functions(fs)
     for name, (rule, inputs, bf16, one_step) in FUSED_BF16.items():
+        if variant == "paired" and (name not in PAIRED_KERNELS
+                                    or "v" not in bf16):
+            continue
+        if rules is not None and rule not in rules:
+            continue
         fn, ref = fns[name]
         args = _bf16_args(torch, state[rule], inputs, bf16)
-        kw = _bf16_kw(torch, kws[rule], bf16)
+        kw = dict(_bf16_kw(torch, kws[rule], bf16), **VARIANT_KW[variant])
         eps = B8_EPS.get(rule, EPS_SGLD if rule == "SGLD" else EPS)
         steps = 1 if one_step else BF16_STEPS
 
-        def run(wrapper, start, x, y):
-            return _run(fs, wrapper, one_step, start, x, y, eps, kw, steps,
+        def run(wrapper, start, x, y, k=steps):
+            return _run(fs, wrapper, one_step, start, x, y, eps, kw, k,
                         "philox", dict(step0=12345))
 
         want = run(ref, args, x_win, y_win)
+        outs = [run(ref, args, x_win, y_win, k) for k in range(1, steps)]
+        peaks = [torch.stack([o[i].float().abs() for o in outs + [want]])
+                 .amax(0) if w.dtype == torch.bfloat16 else None
+                 for i, w in enumerate(want)]
+        del outs
         witness = run(ref, tuple(a.cpu() for a in args), x_win.cpu(),
                       y_win.cpu())
         flips, total = _bf16_flips(torch, [w.cpu() for w in want], witness)
@@ -1881,11 +2074,64 @@ def _bf16_checks(torch, fs, state, kws, x_win, y_win):
             "B2": ("theta", "v", "tau", "g", "v_hat", "minv", "cost"),
             "B4-sgld": ("theta", "cost"), "B5-sgld": ("theta", "cost"),
         }.get(name, ("theta", "v", "cost"))
-        err[name + " (bf16)"] = _compare(
-            torch, ("{} (bf16)/philox/eps {:g} x {}".format(
-                name, eps, steps), labels), got, want, ulps=steps,
-            witness=flips / total if total else 0.0)
+        record = _record(name + " (bf16)", variant)
+        err[record] = _compare(
+            torch, ("{}/philox/eps {:g} x {}{}".format(record, eps, steps,
+                                                       label), labels),
+            got, want, ulps=steps, witness=flips / total if total else 0.0,
+            peaks=peaks)
     return err
+
+
+def _paired_vs_unpaired(torch, fs, state, kws, x_win, y_win):
+    """Each paired kernel against its unpaired kernel at MAIN_CHAINS
+    chains (the check states tiled) on the Philox stream over CHECK_STEPS
+    steps (one for B3): at float32 state bit for bit (the same normals,
+    windows and arithmetic), at bf16 state the share of bf16 values the
+    once-per-launch rounding moves, printed."""
+    fns = _fused_functions(fs)
+    rules = {"B1": "SGHMC", "B2": "SGHMC", "B3": "SGHMC", "B5-sgld": "SGLD",
+             "B6": "SGLD", **{name: FUSED_NEW[name][0]
+                              for name in ("B5-psgld", "B5-sgnht",
+                                           "B5-rsghmc")}}
+    inputs = {"B1": ("theta", "v", "minv"), "B3": ("theta", "v", "minv"),
+              "B2": ("theta", "v", "tau", "g", "v_hat"),
+              "B5-sgld": ("theta", "minv"),
+              "B6": ("theta", "tau", "g", "v_hat"),
+              **{name: FUSED_NEW[name][1] for name in ("B5-psgld", "B5-sgnht",
+                                                       "B5-rsghmc")}}
+    for name in PAIRED_KERNELS:
+        fn = fns[name][0]
+        rule = rules[name]
+        reps = MAIN_CHAINS // CHECK_CHAINS
+        tiled = {k: v.repeat(reps, *(1,) * (v.ndim - 1))
+                 for k, v in state[rule].items()}
+        eps = B8_EPS.get(rule, EPS_SGLD if rule == "SGLD" else EPS)
+        one_step = name == "B3"
+        bf16s = [False] + ([True] if "v" in inputs[name]
+                           and name != "B5-psgld" else [])
+        for bf16 in bf16s:
+            args = _bf16_args(torch, tiled, inputs[name],
+                              ("v",) if bf16 else ())
+            kw = _bf16_kw(torch, kws[rule], ("v",) if bf16 else ())
+            out = [_run(fs, fn, one_step, args, x_win, y_win, eps,
+                        dict(kw, pair_dots=pair_dots),
+                        1 if one_step else CHECK_STEPS, "philox",
+                        dict(step0=12345)) for pair_dots in (False, True)]
+            torch.cuda.synchronize()
+            label = "{} paired vs unpaired ({} state, {} chains x {} steps)"\
+                .format(name, "bf16" if bf16 else "f32", MAIN_CHAINS,
+                        1 if one_step else CHECK_STEPS)
+            if not bf16:
+                same = all(torch.equal(a, b) for a, b in zip(*out))
+                print("  {}: bit for bit {}".format(label, same))
+                if not same:
+                    raise AssertionError("{}: outputs differ".format(label))
+                continue
+            flips, total = _bf16_flips(torch, out[1], out[0])
+            print("  {}: {:.3e} of the bf16 momentum values differ; theta "
+                  "{:.3e} of its row's scale apart".format(
+                      label, flips / total, _rel_err(out[1][0], out[0][0])))
 
 
 def _predict_rates(torch, bnn, card):
@@ -1923,13 +2169,17 @@ def _predict_rates(torch, bnn, card):
 
 def _wide_states(torch, fs, x, y, device):
     """The SGHMC and SGLD check states of the WIDE_H network after
-    BURNED_IN burn-in steps (CHECK_CHAINS chains), packed as in main."""
+    BURNED_IN burn-in steps (CHECK_CHAINS chains) on Box-Muller normals,
+    packed as in main.  (After the CLT burn-in the wide SGLD state moves
+    its plain version by 2.955e-4 of a row's scale from a 1e-7 nudge over
+    16 steps at EPS_SGLD, beyond what the check can resolve; after
+    Box-Muller's, by less than REL_TOL / 4.)"""
     lay = fs.FusedLayout(1, WIDE_H, 3)
     state = {}
     from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
     for sampler_cls in (SGHMCSampler, SGLDSampler):
         burned = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, device,
-                            h=WIDE_H)[1]
+                            h=WIDE_H, noise_impl="box_muller")[1]
         rule = sampler_cls.__name__[:-7]
         state[rule] = {"theta": fs.pack(burned.position, lay)}
         state[rule].update(zip(("tau", "g", "v_hat", "minv"), (
@@ -1980,6 +2230,20 @@ def main():
             reports.update(_ptxas_report(
                 f.read(), kernel, instances, tags=tags,
                 layouts=SLIM_LAYOUTS if source == "slim_update" else None))
+    # the CLT and paired instantiations (the paired ones resident only)
+    for source, tag in (("fused_step_clt", "clt"),
+                        ("fused_step_paired", "paired")):
+        with open(_build.log_path(source)) as f:
+            found = _ptxas_report(f.read(), "fused_kernel", INSTANCES,
+                                  complete=tag == "clt",
+                                  tags=(" (device)", " (bf16)"))
+        reports.update({_record(name, tag): line
+                        for name, line in found.items()})
+    missing = set(PAIRED_KERNELS) - {name.split(" ")[0] for name in reports
+                                     if "paired" in name}
+    if missing:
+        raise AssertionError("ptxas report lacks paired kernels: {}".format(
+            sorted(missing)))
     with open(_build.log_path("svgd_streaming")) as f:
         reports.update(_ptxas_svgd(f.read()))
     for name, line in sorted(reports.items()):
@@ -2010,15 +2274,20 @@ def main():
                          device=device, dtype=torch.int32)
     streams = [("injected", dict(noise=noise, widx=widx)),
                ("philox", dict(step0=12345))]
-    state = {}
+    # the check states, burned in on the CLT (the main path's generator),
+    # and on Box-Muller (state_bm) for the CLT kernels' bf16 checks
+    state, state_bm = {}, {}
     for sampler_cls in (SGHMCSampler, SGLDSampler):
-        burned = _burned_in(torch, x, y, sampler_cls, n, device)[1]
         rule = sampler_cls.__name__[:-7]
-        state[rule] = {"theta": fs.pack(burned.position, lay)}
-        state[rule].update(zip(("tau", "g", "v_hat", "minv"), (
-            fs.pack(leaf, lay) for leaf in burned.stats)))
-        if rule == "SGHMC":
-            state[rule]["v"] = fs.pack(burned.momentum, lay)
+        for states, noise_impl in ((state, "auto"),
+                                   (state_bm, "box_muller")):
+            burned = _burned_in(torch, x, y, sampler_cls, n, device,
+                                noise_impl=noise_impl)[1]
+            states[rule] = {"theta": fs.pack(burned.position, lay)}
+            states[rule].update(zip(("tau", "g", "v_hat", "minv"), (
+                fs.pack(leaf, lay) for leaf in burned.stats)))
+            if rule == "SGHMC":
+                states[rule]["v"] = fs.pack(burned.momentum, lay)
         print("{} check state after {} burn-in steps at eps {:g}: ".format(
             rule, BURNED_IN, EPS) + ", ".join(
                 "{} in [{:.3e}, {:.3e}]".format(k, float(t.min()),
@@ -2053,10 +2322,27 @@ def main():
         ("B4-sgld", fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref, "SGLD",
          ("theta", "minv"), ("theta", "cost"), True, sgld_plan[:2]),
     ]
+    # the CLT instantiations on the CLT stream (Philox, its own purpose) and
+    # the paired ones on the Philox stream, each plan as Box-Muller's
+    streams.append(("clt", dict(step0=12345, **VARIANT_KW["clt"])))
+
+    def variant_plan(plan, stream):
+        # the checked entries (the floors of the unchecked ones are
+        # Box-Muller's, printed above)
+        return [(eps, k, True, (stream,)) for eps, k, checked, *_ in plan
+                if checked]
+
     err = _kernel_checks(torch, fs, [
-        (name, fn, ref, tuple(state[rule][k] for k in inputs),
-         sghmc if rule == "SGHMC" else sgld, labels, one_step, plan)
-        for name, fn, ref, rule, inputs, labels, one_step, plan in checks],
+        (_record(name, variant), fn, ref,
+         tuple(state[rule][k] for k in inputs),
+         dict(sghmc if rule == "SGHMC" else sgld,
+              **({} if variant == "clt" else VARIANT_KW[variant])),
+         labels, one_step,
+         plan if not variant else variant_plan(
+             plan, "clt" if variant == "clt" else "philox"))
+        for name, fn, ref, rule, inputs, labels, one_step, plan in checks
+        for variant in ("", "clt", "paired")
+        if variant != "paired" or name in PAIRED_KERNELS],
         x_win, y_win, streams)
     # the slim kernels at the flagship shape, from the same burned-in states
     prior = dict(prior_scale=1.0 / (P * N_DATA))
@@ -2071,10 +2357,40 @@ def main():
     err.update(_slim_checks(torch, su, slim_states, slim_kw))
     # bf16 state: every bf16 instantiation from the same burned-in states,
     # the slim kernels at the flagship shape
-    err.update(_bf16_checks(torch, fs, state,
-                            dict(fused_kw, SGHMC=sghmc, SGLD=sgld), x_win,
-                            y_win))
+    for variant in ("", "clt", "paired"):
+        err.update(_bf16_checks(torch, fs, state,
+                                dict(fused_kw, SGHMC=sghmc, SGLD=sgld),
+                                x_win, y_win, variant))
+    # the CLT's bf16 kernels of SGHMC and SGLD from the Box-Muller-burned
+    # states too (where the final values' ulps did not bound B1's)
+    for record, e in _bf16_checks(
+            torch, fs, state_bm, dict(SGHMC=sghmc, SGLD=sgld), x_win, y_win,
+            "clt", rules=("SGHMC", "SGLD"),
+            label=" (Box-Muller-burned state)").items():
+        err[record] = max(err[record], e)
+    del state_bm
     err.update(_slim_checks(torch, su, slim_states, slim_kw, bf16=True))
+    # the fused kernels without a mass matrix: their CLT and paired
+    # instantiations at CHECK_CHAINS chains, from the lanes check states
+    new_plan = {method: [(eps, k, checked) for eps, k, checked, *names in plan
+                         if not names] for method, plan in
+                FUSED_NEW_PLAN.items()}
+    err.update(_kernel_checks(torch, fs, [
+        (_record(name, variant), fn, ref,
+         tuple(state[method][k] for k in FUSED_NEW[name][1]),
+         dict(fused_kw[method],
+              **({} if variant == "clt" else VARIANT_KW[variant])),
+         FUSED_NEW[name][2], name.startswith("B4"),
+         [(eps, k, checked, ("clt" if variant == "clt" else "philox",))
+          for eps, k, checked in new_plan[method]])
+        for name, (fn, ref) in _fused_new_functions(fs).items()
+        for method in [FUSED_NEW[name][0]]
+        for variant in ("clt", "paired")
+        if variant == "clt" or name in PAIRED_KERNELS], x_win, y_win,
+        streams))
+    # paired against unpaired at the flagship's chains
+    _paired_vs_unpaired(torch, fs, state,
+                        dict(fused_kw, SGHMC=sghmc, SGLD=sgld), x_win, y_win)
     lanes_states = {method: state[method] for method in B8_EPS}
     del noise, widx, state
     # the wide kernels at H = WIDE_H, their state in device memory
@@ -2087,14 +2403,17 @@ def main():
                          generator=gen, device=device, dtype=torch.int32)
     fs.placements.clear()
     wide_err = _kernel_checks(torch, fs, [
-        (name + " (H={})".format(WIDE_H), fn, ref,
+        (_record(name + " (H={})".format(WIDE_H), variant), fn, ref,
          tuple(wide_state[rule][k] for k in inputs),
          dict(wide_base, mdecay=0.05) if rule == "SGHMC"
-         else dict(wide_base, a_coef=1.0), labels, False, plan)
+         else dict(wide_base, a_coef=1.0), labels, False,
+         plan if not variant else variant_plan(plan, "clt"))
         for name, fn, ref, rule, inputs, labels, one_step, plan in checks
-        if name in ("B1", "B2", "B5-sgld", "B6")], x_win, y_win,
+        if name in ("B1", "B2", "B5-sgld", "B6")
+        for variant in ("", "clt")], x_win, y_win,
         [("injected", dict(noise=noise, widx=widx)),
-         ("philox", dict(step0=12345))])
+         ("philox", dict(step0=12345)),
+         ("clt", dict(step0=12345, **VARIANT_KW["clt"]))])
     print("wide kernel checks (H={}, P={}): fused launches by placement "
           "{}".format(WIDE_H, wide_lay.n_params, dict(fs.placements)))
     if {where for _, where in fs.placements} != {"device"}:
@@ -2128,6 +2447,7 @@ def main():
     theta = fs.pack(init_fn(gen, (n,)), lay)
     zeros, ones = torch.zeros_like(theta), torch.ones_like(theta)
     timed, bounds = {}, {}
+    timed_args = {}  # Box-Muller record -> its timing's inputs
     table = 4 * n_windows * BATCH * 2  # the x and y window tables
 
     def nbytes(tensors):
@@ -2140,6 +2460,7 @@ def main():
         (the plain version: one); the bound counts every tensor argument
         read once (the state and the window tables) and every output
         written once, each in its own type."""
+        timed_args[name] = (fn, ref, args, kw, step0, layout, chains)
         fn(*args, k_steps=2, step0=step0, **kw)  # warm-up
         times = []
         for _ in range(MULTI_TIMED):
@@ -2206,6 +2527,23 @@ def main():
               "({})".format(name, n, k, timed[name], MULTI_TIMED,
                             timed[name + " plain"], bounds[name][0],
                             bounds[name][1], card))
+    # the CLT and paired instantiations on the same inputs, VARIANT_STEPS
+    # steps a launch
+    for name in list(timed_args):
+        fn, ref, args, kw, step0, _, _ = timed_args[name]
+        for variant in ("clt", "paired"):
+            if variant == "paired" and (
+                    name.split(" ")[0] not in PAIRED_KERNELS
+                    or name == "B5-sgld (bf16)"):
+                continue
+            record = _record(name, variant)
+            time_multi(record, fn, ref, args, dict(kw, **VARIANT_KW[variant]),
+                       step0=step0, steps=VARIANT_STEPS)
+            print("time {} at {} chains x {} steps: kernel {:.2f} ms (median "
+                  "of {}), plain {:.2f} ms (one launch), bound {:.2f} ms ({}) "
+                  "({})".format(record, n, VARIANT_STEPS, timed[record],
+                                MULTI_TIMED, timed[record + " plain"],
+                                bounds[record][0], bounds[record][1], card))
     # one-step kernels: one launch (one step) at 8192 chains, Philox stream
     sel = fs.gather_batch(x_win, y_win, fs.philox_windows(46, 0, n, n_windows,
                                                           device))
@@ -2231,6 +2569,13 @@ def main():
         one_step[name + " (bf16)"] = (
             *new_fns[name], _bf16_args(torch, big[method], inputs, ("v",)),
             B8_EPS[method], dict(fused_kw[method], state_dtype=bf))
+    for name in list(one_step):
+        fn, ref, state, eps, kw = one_step[name]
+        one_step[_record(name, "clt")] = (fn, ref, state, eps,
+                                          dict(kw, **VARIANT_KW["clt"]))
+        if name.split(" ")[0] == "B3":
+            one_step[_record(name, "paired")] = (
+                fn, ref, state, eps, dict(kw, **VARIANT_KW["paired"]))
     for name, (fn, ref, state, eps, kw) in one_step.items():
         def launch(f=fn, s=state, e=eps, w=kw):
             return f(*s, *sel, e, 46, step=0, **w)
@@ -2310,13 +2655,18 @@ def main():
                (out[0], out[4], x_win, y_win, EPS_SGLD, 45), wide_sgld,
                step0=WIDE_STEPS, **wide_kw)
     for name in ("B2", "B1", "B6", "B5-sgld"):
-        print("time {} at {} chains x {} steps (P = {}, state in device "
-              "memory): kernel {:.2f} ms (median of {}), plain {:.2f} ms "
-              "(one launch), bound {:.2f} ms ({}) ({})".format(
-                  name + tag, WIDE_CHAINS, WIDE_STEPS, wide_lay.n_params,
-                  timed[name + tag], MULTI_TIMED, timed[name + tag + " plain"],
-                  bounds[name + tag][0], bounds[name + tag][1], card))
-    del wide_theta, wz, wo, out
+        fn, ref, args, kw, step0, _, _ = timed_args[name + tag]
+        time_multi(_record(name + tag, "clt"), fn, ref, args,
+                   dict(kw, **VARIANT_KW["clt"]), step0=step0, **wide_kw)
+    for name in ("B2", "B1", "B6", "B5-sgld"):
+        for record in (name + tag, _record(name + tag, "clt")):
+            print("time {} at {} chains x {} steps (P = {}, state in device "
+                  "memory): kernel {:.2f} ms (median of {}), plain {:.2f} ms "
+                  "(one launch), bound {:.2f} ms ({}) ({})".format(
+                      record, WIDE_CHAINS, WIDE_STEPS, wide_lay.n_params,
+                      timed[record], MULTI_TIMED, timed[record + " plain"],
+                      bounds[record][0], bounds[record][1], card))
+    del wide_theta, wz, wo, out, timed_args
     torch.cuda.empty_cache()
 
     # ---- the one-step driver vs the multi-step driver on the card ----
@@ -2331,49 +2681,72 @@ def main():
         sampler = _sampler(method, B8_EPS[method])
         drivers[name] = (new_fns[name][0], sampler, _packed_states(
             torch, sampler, lanes_states[method], DRIVER_CHAINS))
-    for name, (kernel, sampler, states) in drivers.items():
-        err_driver, launches[name], _ = _driver_check(
-            torch, x, y, sampler, states, kernel)
-        print("one-step driver ({}): {} chains x {} steps, max|one-step - "
-              "multi-step| = {:.3e}, {} launches of {}".format(
-                  type(sampler).__name__, DRIVER_CHAINS,
-                  DRIVER_SAMPLES * DRIVER_KEEP, err_driver, launches[name],
-                  name))
-        if launches[name] != DRIVER_SAMPLES * DRIVER_KEEP:
-            raise AssertionError("{}: {} launches, want {}".format(
-                name, launches[name], DRIVER_SAMPLES * DRIVER_KEEP))
+    multi_of = {"B3": ("B1", fs.fused_bnn_multistep),
+                "B4-sgld": ("B5-sgld", fs.fused_bnn_multistep_sgld),
+                "B4-psgld": ("B5-psgld", fs.fused_bnn_multistep_psgld),
+                "B4-sgnht": ("B5-sgnht", fs.fused_bnn_multistep_sgnht),
+                "B4-rsghmc": ("B5-rsghmc", fs.fused_bnn_multistep_rsghmc)}
+    # each driver with each generator: Box-Muller, then the CLT (the
+    # fused drivers' default)
+    for noise_impl, variant in (("box_muller", ""), ("hadamard_clt", "clt")):
+        for name, (kernel, sampler, states) in drivers.items():
+            multi_name, multi_kernel = multi_of[name]
+            err_driver, one, multi = _driver_check(
+                torch, x, y, sampler, states, kernel, multi_kernel,
+                noise_impl=noise_impl)
+            launches[_record(name, variant)] = one
+            launches[_record(multi_name, variant)] = \
+                launches.get(_record(multi_name, variant), 0) + multi
+            print("one-step driver ({}, {}): {} chains x {} steps, "
+                  "max|one-step - multi-step| = {:.3e}, {} launches of {}, "
+                  "{} of {}".format(
+                      type(sampler).__name__, noise_impl, DRIVER_CHAINS,
+                      DRIVER_SAMPLES * DRIVER_KEEP, err_driver, one,
+                      _record(name, variant), multi,
+                      _record(multi_name, variant)))
+            if one != DRIVER_SAMPLES * DRIVER_KEEP or multi != DRIVER_SAMPLES:
+                raise AssertionError("{}: {} and {} launches".format(
+                    _record(name, variant), one, multi))
     # the same drivers at bf16 state, JAX's default (pSGLD's accumulator
     # stays f32): SGHMC burns in with it (B2), then the one-step and the
     # multi-step kernels run their bf16 instantiations
     from pysgmcmc_tpu_torch.parallel import burnin_chain_fused
 
     sghmc_sampler = drivers["B3"][1]
-    fs.fused_bnn_multistep_burnin.launches = 0
-    init_gen = torch.Generator(device=device).manual_seed(11)
-    drivers["B3"] = (fs.fused_bnn_step, sghmc_sampler, burnin_chain_fused(
-        sghmc_sampler, sghmc_sampler.init(init_fn(init_gen,
-                                                  (DRIVER_CHAINS,))),
-        init_gen, BURNED_IN, x, y))
-    launches["B2 (bf16)"] = fs.fused_bnn_multistep_burnin.launches
-    multi_of = {"B3": ("B1", fs.fused_bnn_multistep),
-                "B4-sgld": ("B5-sgld", fs.fused_bnn_multistep_sgld),
-                "B4-sgnht": ("B5-sgnht", fs.fused_bnn_multistep_sgnht),
-                "B4-rsghmc": ("B5-rsghmc", fs.fused_bnn_multistep_rsghmc)}
-    for name, (multi_name, multi_kernel) in multi_of.items():
-        kernel, sampler, states = drivers[name]
-        err_driver, one, multi = _driver_check(
-            torch, x, y, sampler, states, kernel, multi_kernel,
-            state_dtype=torch.bfloat16)
-        launches[name + " (bf16)"] = one
-        launches[multi_name + " (bf16)"] = multi
-        print("one-step driver ({}, bf16 state): {} chains x {} steps, "
-              "max|one-step - multi-step| = {:.3e}, {} launches of {}, {} "
-              "of {}".format(type(sampler).__name__, DRIVER_CHAINS,
-                             DRIVER_SAMPLES * DRIVER_KEEP, err_driver, one,
-                             name, multi, multi_name))
-        if one != DRIVER_SAMPLES * DRIVER_KEEP or multi != DRIVER_SAMPLES:
-            raise AssertionError("{} (bf16): {} and {} launches".format(
-                name, one, multi))
+    del multi_of["B4-psgld"]  # its accumulator stays f32
+    for noise_impl, variant in (("box_muller", ""), ("hadamard_clt", "clt")):
+        _zero_counts(fs.fused_bnn_multistep_burnin)
+        init_gen = torch.Generator(device=device).manual_seed(11)
+        drivers["B3"] = (fs.fused_bnn_step, sghmc_sampler, burnin_chain_fused(
+            sghmc_sampler, sghmc_sampler.init(init_fn(init_gen,
+                                                      (DRIVER_CHAINS,))),
+            init_gen, BURNED_IN, x, y, noise_impl=noise_impl))
+        launches[_record("B2 (bf16)", variant)] = _launches(
+            fs.fused_bnn_multistep_burnin, variant)
+        for name, (multi_name, multi_kernel) in multi_of.items():
+            kernel, sampler, states = drivers[name]
+            err_driver, one, multi = _driver_check(
+                torch, x, y, sampler, states, kernel, multi_kernel,
+                state_dtype=torch.bfloat16, noise_impl=noise_impl)
+            launches[_record(name + " (bf16)", variant)] = one
+            launches[_record(multi_name + " (bf16)", variant)] = multi
+            print("one-step driver ({}, bf16 state, {}): {} chains x {} "
+                  "steps, max|one-step - multi-step| = {:.3e}, {} launches "
+                  "of {}, {} of {}".format(
+                      type(sampler).__name__, noise_impl, DRIVER_CHAINS,
+                      DRIVER_SAMPLES * DRIVER_KEEP, err_driver, one,
+                      _record(name + " (bf16)", variant), multi,
+                      _record(multi_name + " (bf16)", variant)))
+            if one != DRIVER_SAMPLES * DRIVER_KEEP or multi != DRIVER_SAMPLES:
+                raise AssertionError("{}: {} and {} launches".format(
+                    _record(name + " (bf16)", variant), one, multi))
+    # the paired drivers (pair_dots=True, Box-Muller, multi-step only) from
+    # these states: B2 paired at bf16 state (the driver's default), then
+    # B1 / B5-* paired at f32 state against the unpaired drivers (bit for
+    # bit) and at bf16 state; and B3 paired, which no driver reaches, by
+    # its wrapper one step at a time on the Philox windows
+    launches.update(_paired_drivers(torch, fs, x, y, init_fn, drivers,
+                                    sghmc_sampler, device))
     del drivers
 
     # ---- the lanes drivers vs the fused drivers on the dense network ----
@@ -2433,24 +2806,35 @@ def main():
             launches[name] = launches.get(name, 0) + n_launches
 
     rates = {}
-    count(_flagship(
-        torch, x_np, y_np, Sampler.SGHMC,
-        {"B1": fs.fused_bnn_multistep, "B2": fs.fused_bnn_multistep_burnin},
-        card, rates)[0])
-    count(_flagship(
-        torch, x_np, y_np, Sampler.SGLD,
-        {"B5-sgld": fs.fused_bnn_multistep_sgld,
-         "B6": fs.fused_bnn_multistep_burnin_sgld}, card, rates)[0])
+    # SGHMC and SGLD on the fused path under the default generator, the
+    # CLT's, and under Box-Muller; then the paired kernels (Box-Muller)
+    for method, sampling, burnin in (
+            ("SGHMC", "B1", "B2"), ("SGLD", "B5-sgld", "B6")):
+        fns = {"B1": fs.fused_bnn_multistep,
+               "B2": fs.fused_bnn_multistep_burnin,
+               "B5-sgld": fs.fused_bnn_multistep_sgld,
+               "B6": fs.fused_bnn_multistep_burnin_sgld}
+        for variant, kw in (("clt", {}),
+                            ("", dict(noise_impl="box_muller")),
+                            ("paired", dict(pair_dots=True))):
+            count(_flagship(
+                torch, x_np, y_np, Sampler[method],
+                {_record(name, variant): fns[name]
+                 for name in (sampling, burnin)}, card, rates,
+                tag="" if variant == "clt" else " " + (variant or
+                                                       "box_muller"),
+                **kw)[0])
     # pSGLD, relativistic SGHMC and SGNHT: burn-in on discarded steps of
-    # the lanes driver (their slim kernel), sampling on B5-*, at their
+    # the lanes driver (their slim kernel), sampling on B5-* (CLT), at their
     # stepsizes
     slim = _slim_functions(su)
     for method, b8 in SLIM_OF.items():
         b5 = "B5-" + b8[3:]
         count(_flagship(
             torch, x_np, y_np, Sampler[method],
-            {b8: slim[b8][0], b5: new_fns[b5][0]}, card, rates,
-            expected={b8: BURN_IN, b5: 1}, stepsize=B8_EPS[method])[0])
+            {b8: slim[b8][0], _record(b5, "clt"): new_fns[b5][0]}, card,
+            rates, expected={b8: BURN_IN, _record(b5, "clt"): 1},
+            stepsize=B8_EPS[method])[0])
     # the lanes path: one slim launch per step, B9 in burn-in, B7 / B8-sgld
     # in sampling, B8-psgld / B8-rsghmc / B8-sgnht in both
     for method, burn, sample in LANES_FLAGSHIPS:
@@ -2471,6 +2855,15 @@ def main():
                   *(rates[(impl, method, phase)]
                     for phase in ("burn_in", "sampling")
                     for impl in ("fused", "lanes")), card))
+    for method in ("SGHMC", "SGLD"):
+        print("{} fused flagship, CLT (the default) vs Box-Muller vs paired "
+              "(Box-Muller): MSE {:.3e} vs {:.3e} vs {:.3e}; burn-in {:.4e} "
+              "vs {:.4e} vs {:.4e}, sampling {:.4e} vs {:.4e} vs {:.4e} "
+              "update-steps/s ({})".format(
+                  method, *(rates[("fused", method + tag, phase)]
+                            for phase in ("mse", "burn_in", "sampling")
+                            for tag in ("", " box_muller", " paired")),
+                  card))
     # mixed precision, compute_dtype=torch.bfloat16: SGHMC on the fused
     # path (B2 burn-in at f32 state, B1 sampling at bf16 state) and on the
     # lanes path (bf16 gradients into B9-sghmc, then B7 with bf16 state and
@@ -2479,12 +2872,24 @@ def main():
     bf = torch.bfloat16
     more, bnn_bf16 = _flagship(
         torch, x_np, y_np, Sampler.SGHMC,
-        {"B1 (bf16)": fs.fused_bnn_multistep,
-         "B2": fs.fused_bnn_multistep_burnin}, card, rates, tag=" bf16",
-        compute_dtype=bf)
+        {"B1 (bf16, clt)": fs.fused_bnn_multistep,
+         "B2 (clt)": fs.fused_bnn_multistep_burnin}, card, rates,
+        tag=" bf16", compute_dtype=bf)
     count(more)
     _predict_rates(torch, bnn_bf16, card)
     del bnn_bf16
+    # the paired kernels under compute_dtype: B1 paired at bf16 state, its
+    # matrix slabs' momentum rounded once per 200-step launch
+    count(_flagship(
+        torch, x_np, y_np, Sampler.SGHMC,
+        {"B1 (bf16, paired)": fs.fused_bnn_multistep,
+         "B2 (paired)": fs.fused_bnn_multistep_burnin}, card, rates,
+        tag=" bf16 paired", compute_dtype=bf, pair_dots=True)[0])
+    print("SGHMC fused flagship, compute_dtype=bfloat16, paired vs CLT: MSE "
+          "{:.3e} vs {:.3e}; sampling {:.4e} vs {:.4e} update-steps/s "
+          "({})".format(*(rates[("fused", "SGHMC bf16" + tag, phase)]
+                          for phase in ("mse", "sampling")
+                          for tag in (" paired", "")), card))
     count(_flagship(
         torch, x_np, y_np, Sampler.SGHMC,
         {"B9-sghmc (bf16)": slim["B9-sghmc"][0],
@@ -2512,18 +2917,28 @@ def main():
             stepsize=B8_EPS.get(method), compute_dtype=bf)[0])
     # the wide network JAX's fused path takes: units=(WIDE_H,) * 3, SGHMC
     # (gated) and SGLD (a short run), their state in device memory
-    for method, kernels, burn_in, sample_steps, gate in (
+    # (the CLT, the default; and Box-Muller, 200 + 200 steps)
+    for method, kernels, burn_in, sample_steps, gate, variant in (
             ("SGHMC", {"B1": fs.fused_bnn_multistep,
                        "B2": fs.fused_bnn_multistep_burnin},
-             BURN_IN, SAMPLE_STEPS, True),
+             BURN_IN, SAMPLE_STEPS, True, "clt"),
             ("SGLD", {"B5-sgld": fs.fused_bnn_multistep_sgld,
                       "B6": fs.fused_bnn_multistep_burnin_sgld}, 200, 200,
-             False)):
+             False, "clt"),
+            ("SGHMC", {"B1": fs.fused_bnn_multistep,
+                       "B2": fs.fused_bnn_multistep_burnin},
+             200, 200, False, ""),
+            ("SGLD", {"B5-sgld": fs.fused_bnn_multistep_sgld,
+                      "B6": fs.fused_bnn_multistep_burnin_sgld}, 200, 200,
+             False, "")):
         more, _ = _flagship(
             torch, x_np, y_np, Sampler[method],
-            {name + tag: fn for name, fn in kernels.items()}, card, rates,
+            {_record(name + tag, variant): fn
+             for name, fn in kernels.items()}, card, rates,
             chains=WIDE_CHAINS, burn_in=burn_in, sample_steps=sample_steps,
-            gate=gate, tag=tag, units=(WIDE_H,) * 3)
+            gate=gate, tag=tag + (" " + variant if variant else
+                                  " box_muller"), units=(WIDE_H,) * 3,
+            **({} if variant else dict(noise_impl="box_muller")))
         if {where for _, where in fs.placements} != {"device"}:
             raise AssertionError("the H={} flagship's fused launches did not "
                                  "all run in device memory: {}".format(
@@ -2622,17 +3037,37 @@ def main():
         "B5-sgnht", "B5-rsghmc", *SLIM)]
     variants += [name + tag for name in ("B2", "B1", "B6", "B5-sgld")]
     variants += ["B7-mask (bf16)", "B7' (bf16)"]
+    # every fused record again as the CLT instantiation, and those of the
+    # paired kernels (f32, and bf16 where the kernel has a momentum) as the
+    # paired one
+    fused = [name for name in [*replaces, *variants]
+             if replaces[name.split(" ")[0]][1] == "fused_step"]
+    variants += [_record(name, "clt") for name in fused]
+    variants += [_record(name, "paired") for name in fused
+                 if name.split(" ")[0] in PAIRED_KERNELS and "H=" not in name
+                 and name not in ("B5-sgld (bf16)",)]
+
+    def source(name, module):
+        if "clt" in name:
+            return "fused_step_clt", "fused_step", CLT_LINE
+        if "paired" in name:
+            return ("fused_step_paired", "fused_step",
+                    PAIRED_LINES[name.split(" ")[0]])
+        return ("slim_update" if module == "fused_update" else module,
+                module, None)
+
     records = [
         {"name": fn_name + name[len(name.split(" ")[0]):], "route": "cuda",
-         "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(
-             "slim_update" if module == "fused_update" else module),
-         "replaces": "pysgmcmc_tpu/ops/{}.py:{}".format(module, line),
+         "source": "pysgmcmc_tpu_torch/csrc/{}.cu".format(src),
+         "replaces": "pysgmcmc_tpu/ops/{}.py:{}".format(
+             tpu_module, tpu_line or line),
          "launches": launches[name], "max_abs_err": err[name],
          "ms": timed[name], "plain_ms": timed[name + " plain"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
         for name in [*replaces, *variants]
-        for fn_name, module, line in [replaces[name.split(" ")[0]]]]
+        for fn_name, module, line in [replaces[name.split(" ")[0]]]
+        for src, tpu_module, tpu_line in [source(name, module)]]
     idle = [r["name"] for r in records if r["launches"] < 1]
     if idle:
         raise AssertionError("kernels not launched on a main path: "

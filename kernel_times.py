@@ -23,7 +23,12 @@ gradient, B7' then with its bf16 copy of theta: "B7-mask (bf16)",
 "B7' (bf16)"), with the slim kernels'
 ``ptxas`` report too; where the tree trains wide networks, B2, B1, B6 and
 B5-sgld at hidden width 100 (state in device memory), median of 5
-launches of 20 steps at 8192 chains ("B1 (H=100)", ...).  The constants, the data, the register report and
+launches of 20 steps at 8192 chains ("B1 (H=100)", ...); where the tree
+has the MXU-CLT and paired instantiations, each of these multi-step and
+one-step records again with ``noise_impl="hadamard_clt"`` ("B1 (clt)",
+"B1 (bf16, clt)", "B1 (H=100, clt)", ...) and, for B1, B2, B3, B5-* and B6,
+with ``pair_dots=True`` ("B1 (paired)", ...), with their ``ptxas``
+reports.  The constants, the data, the register report and
 the timing (CUDA events on a spinning stream) are ``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
 call (A, B, B, A): a card's times move between calls more than within one.
 Needs a CUDA device; exits non-zero without one.
@@ -63,6 +68,14 @@ def main(argv=None):
         registers.update(cs._ptxas_report(
             f.read(), "slim_kernel", cs.SLIM_INSTANCES, complete=False,
             tags=(" (bf16)",), layouts=cs.SLIM_LAYOUTS))
+    variants = "fused_step_clt" in _build.SOURCES
+    if variants:  # the CLT and paired instantiations
+        for source, tag in (("fused_step_clt", "clt"),
+                            ("fused_step_paired", "paired")):
+            with open(_build.log_path(source)) as f:
+                registers.update({
+                    cs._record(name, tag): line for name, line in
+                    cs._ptxas_report(f.read(), complete=False).items()})
 
     device = torch.device("cuda")
     n, k = cs.MAIN_CHAINS, cs.SAMPLE_STEPS
@@ -78,9 +91,12 @@ def main(argv=None):
                 batch_size=cs.BATCH, n_data=cs.N_DATA, h=cs.H)
     sg = dict(base, scale_grad=float(cs.N_DATA))
     ms = {}
+    inputs = {}  # record -> the arguments it was timed on
 
     def timed(name, fn, state, eps, kw, k=k):
         """Median ms of REPEATS launches of k steps; returns the outputs."""
+        inputs[name] = (fn, state, eps, kw, k)
+
         def run(steps=k):
             return fn(*state, x_win, y_win, eps, 7, k_steps=steps, **kw)
 
@@ -127,6 +143,22 @@ def main(argv=None):
               (theta, normal.to(bf), torch.ones(n, device=device)),
               eps["SGNHT"], dict(sg, state_dtype=bf))
 
+    def time_variants(names):
+        """Each multi-step record of ``names`` again as its CLT and, where
+        the kernel has one, paired instantiation."""
+        for name in names:
+            fn, state, eps, kw, steps = inputs[name]
+            for variant, extra in cs.VARIANT_KW.items():
+                if not variant or (variant == "paired" and (
+                        name.split(" ")[0] not in cs.PAIRED_KERNELS
+                        or "H=" in name or name == "B5-sgld (bf16)")):
+                    continue
+                timed(cs._record(name, variant), fn, state, eps,
+                      dict(kw, **extra), steps)
+
+    if variants:
+        time_variants(list(inputs))
+
     def timed_one(name, fn, args, kw):
         """Median ms of cs.ONE_STEP_TIMED launches of one step."""
         fn(*args, **kw)  # warm-up
@@ -152,6 +184,13 @@ def main(argv=None):
                          eps["SGNHT"], sg)})
     for name, (fn, state, e, kw) in one_step.items():
         timed_one(name, fn, (*state, *sel, e, 46), dict(kw, step=0))
+        if variants:
+            timed_one(cs._record(name, "clt"), fn, (*state, *sel, e, 46),
+                      dict(kw, step=0, **cs.VARIANT_KW["clt"]))
+            if name == "B3":
+                timed_one(cs._record(name, "paired"), fn,
+                          (*state, *sel, e, 46),
+                          dict(kw, step=0, **cs.VARIANT_KW["paired"]))
     # slim kernels, f32 operands: a unit gradient and momentum scale
     del sel
     grad, v = normal, 1e-2 * normal
@@ -245,6 +284,9 @@ def main(argv=None):
                     dict(kw, a_coef=1.0), steps)
         timed("B5-sgld" + tag, fs.fused_bnn_multistep_sgld,
               (out[0], out[4]), cs.EPS_SGLD, dict(kw, a_coef=1.0), steps)
+        if variants:
+            time_variants([name + tag for name in ("B2", "B1", "B6",
+                                                   "B5-sgld")])
     print(json.dumps({"root": root, "ptxas": registers, "ms": ms,
                       "chains": n, "steps": k, "repeats": REPEATS}))
     return 0

@@ -1,723 +1,16 @@
-// flash-SGHMC, flash-SGLD, pSGLD, SGNHT and relativistic SGHMC for Hopper:
-// whole SG-MCMC steps of the dense tanh BNN per launch.
-//
-// Replaces the TPU Pallas kernels of pysgmcmc_tpu/ops/fused_step.py
-//   B1        fused_bnn_multistep              k SGHMC sampling steps
-//   B2        fused_bnn_multistep_burnin       k SGHMC self-tuning burn-in steps
-//   B3        fused_bnn_step                   one SGHMC step, gathered minibatch
-//   B4-sgld   fused_bnn_step_sgld              one SGLD step, gathered minibatch
-//   B4-psgld  fused_bnn_step_psgld             one pSGLD step, gathered minibatch
-//   B4-sgnht  fused_bnn_step_sgnht             one SGNHT step, gathered minibatch
-//   B4-rsghmc fused_bnn_step_rsghmc            one relativistic SGHMC step, ditto
-//   B5-sgld   fused_bnn_multistep_sgld         k SGLD sampling steps
-//   B5-psgld  fused_bnn_multistep_psgld        k pSGLD steps
-//   B5-sgnht  fused_bnn_multistep_sgnht        k SGNHT steps
-//   B5-rsghmc fused_bnn_multistep_rsghmc       k relativistic SGHMC steps
-//   B6        fused_bnn_multistep_burnin_sgld  k SGLD burn-in steps
-// (generators _make_kernel_family, _make_multistep_kernel_family and
-// _make_multistep_kernel_burnin) with the same semantics at the
-// unpacked-parameter level: per step, take the chain's minibatch (a window
-// drawn from the shared window table, or the rows the caller gathered), run
-// the forward pass, the heteroscedastic Gaussian NLL plus the log-variance
-// prior, the hand-written backward pass, fold the Gaussian weight prior into
-// the gradient, draw the noise and apply the rule's update (JAX's
-// _sghmc_rule, _sgld_rule, _psgld_rule, _sgnht_rule, _rsghmc_rule).
-// Sampling phase: frozen minv.  Burn-in: the tau/g/v_hat EMAs and minv =
-// 1/sqrt(old v_hat), all reading OLD values.  SGHMC moves v then theta; SGLD
-// moves theta alone, with noise sqrt(2 eps minv A / scale_grad), i.e.
-// scaling with eps.  pSGLD, SGNHT and relativistic SGHMC have no mass matrix
-// and no burn-in phase: pSGLD adapts its RMSprop accumulator every step,
-// SGNHT moves its per-chain thermostat xi by eps (p'^T p' / P - 1) after
-// every element has read the old xi, and relativistic SGHMC moves theta by
-// the relativistic velocity of the new momentum.  The TPU kernels' validity
-// masks mark the padding of its slab layout; the flat layout has none.
-//
-// Design.  One kernel body, templated on the rule, the phase (sampling /
-// burn-in) and the minibatch source (window table / gathered rows), as JAX's
-// KernelRule.  One thread block owns one chain.  At launch it loads the
-// chain's whole state (theta, then v for SGHMC, the accumulator or momentum
-// for pSGLD, SGNHT and relativistic SGHMC, then minv or tau, g, v_hat) plus a
-// gradient buffer into dynamic shared memory, runs the k steps there and
-// writes the state back once: the counterpart of the TPU kernel's VMEM
-// residency.  SGNHT's thermostat lives in shared memory too; its p'^T p' is
-// a block reduction each step (warp shuffles, then one partial sum per warp),
-// summed in another order than torch.sum.  Device memory then sees only the
-// state's load and store per launch and the small window reads per step, so
-// once the state is resident a multi-step kernel is bound by FP32 FMA issue
-// and shared-memory bandwidth in the six batch x H x H products of each step,
-// not by HBM; the update rules, the reduction and relativistic SGHMC's two
-// rsqrtf per element are small beside them.  The one-step kernels (B3,
-// B4-*) load and store the whole state every step: at the flagship (8192
-// chains x 5,252 parameters) B4-psgld, B4-sgnht and B4-rsghmc read theta
-// and one state array and write both, 0.69 GB, 0.205 ms at 3.35 TB/s.
-// All arithmetic is f32 on the CUDA cores (no tensor cores yet).
-//
-// bf16 state (JAX's state_dtype=jnp.bfloat16).  The momentum (SGHMC,
-// SGNHT, relativistic SGHMC) or accumulator (pSGLD) may be stored as bf16,
-// and so may the frozen minv of SGHMC and SGLD; the flags v_bf16 and
-// minv_bf16 say which, per launch: one body serves both types, v's as a
-// template parameter (its rounding sits in every step's update), minv's
-// read at run time (once per launch).  The
-// working copy stays f32 in the block's state.  As the TPU kernels, which
-// write the aux state back to its bf16 ref after every inner step, the
-// kernel rounds the new momentum to bf16 (round to nearest even) after each
-// step's update, while theta moves by the unrounded value and SGNHT's
-// p'^T p' sums the unrounded values: two launches of k steps equal one of
-// 2k.  minv is read once (its bf16 values are exact in f32).
-//
-// Placement.  A chain's P-long arrays (theta, the aux state, the gradient,
-// minv or tau, g, v_hat) live in the block's shared memory when they fit
-// (fused_step_smem_bytes <= 232,448 bytes).  A wider network (JAX's fused
-// path takes hidden widths up to 114, where theta alone is 104 KB at depth
-// 3) runs the same body, instantiated with kDevice, with those arrays in a
-// per-chain workspace in device memory that the wrapper allocates
-// (Args::work); the activations and the scalars stay in shared memory.
-// The choice depends on the count alone and is made by the wrapper before
-// the launch.  In device memory
-// every product reads its weights through L1/L2: such launches are several
-// times their operation bound (a cluster design is later work).
-//
-// The layout is the port's flat per-chain vector (pysgmcmc_tpu_torch/ops/
-// fused_step.py, FusedLayout):
-//   w1 (k*H) | b1 (H) | w2 (H*H) | b2 (H) | ... | wD (H*H) | bD (H)
-//   | w_head (H) | b_head (1) | log_variance_bias (1)
-// Weight matrices are row-major (in, out).
-//
-// Randomness is the Philox4x32-10 stream of philox.cuh, keyed by the 64-bit
-// seed with the counter (chain, absolute step, element, purpose), so neither
-// the block shape nor the chunking of launches changes a trajectory; the
-// plain PyTorch version implements the same stream.
-//
-// Built with nvcc into a shared library with a plain C interface, one entry
-// per TPU kernel; each returns cudaGetLastError() after its launch.
+// The fused kernels B1-B6 with Box-Muller normals (fused_body.cuh holds the
+// body and its design notes): the library of ops/fused_step.py's wrappers
+// for noise_impl="box_muller", and the placement rule of all three variants.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "philox.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kLogMeanPrior = -13.815510557964274f;  // log(1e-6)
-constexpr float kVarPrior = 0.01f;
-constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
-constexpr float kSmall = 1e-16f;
-
-// The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
-enum KernelId {
-  kB1 = 1, kB2, kB3, kB4Sgld, kB5Sgld, kB6,
-  kB4Psgld, kB4Sgnht, kB4Rsghmc, kB5Psgld, kB5Sgnht, kB5Rsghmc
-};
-// numbered as the rules of slim_update.cu
-enum Rule { kSghmc = 0, kSgld = 1, kPsgld = 2, kRsghmc = 3, kSgnht = 4 };
-
-struct Args {
-  const float* theta;
-  const void* v;       // SGHMC momentum, pSGLD accumulator, SGNHT and
-                       // relativistic SGHMC momentum: f32, or bf16 where
-                       // v_bf16
-  const void* minv;    // SGHMC / SGLD sampling phase only: f32, or bf16
-                       // where minv_bf16
-  const float* tau;    // burn-in only
-  const float* g;      // burn-in only
-  const float* v_hat;  // burn-in only
-  // window tables (n_windows, batch, n_inputs) and (n_windows, batch), or
-  // for the one-step kernels each chain's rows (n_chains, batch, n_inputs)
-  // and (n_chains, batch)
-  const float* x_win;
-  const float* y_win;
-  // per-step table: SGHMC (k_steps, 2) = eps, eps / sqrt(scale_grad);
-  // SGLD and pSGLD (k_steps,) = eps; SGNHT (k_steps, 2) = eps,
-  // sqrt(max(2 A eps / scale_grad, 0)); relativistic SGHMC (k_steps, 2) =
-  // eps, sqrt(max(eps (2 D - eps Bhat), 0))
-  const float* tab;
-  const float* noise;  // optional (k_steps, n_chains, n_params)
-  const int* widx;     // optional (k_steps, n_chains)
-  float* theta_out;
-  void* v_out;         // the rules with a v, in v's type
-  float* tau_out;      // burn-in only
-  float* g_out;        // burn-in only
-  float* v_hat_out;    // burn-in only
-  float* minv_out;     // burn-in only: the minv the final step used
-  float* cost_out;     // (n_chains,): the final step's cost
-  int n_chains, n_inputs, hidden, depth, batch, n_windows, k_steps, n_params;
-  unsigned long long seed;
-  unsigned step0;
-  // The rule's constants, computed on the host in f32:
-  //   SGHMC   coef = mdecay
-  //   SGLD    coef = A, cdiv = A / scale_grad in sampling, sg_safe =
-  //           scale_grad + 2 sign(scale_grad) 1e-16 + 1e-16 in burn-in
-  //   pSGLD   coef = alpha, cdiv = lambda, c2 = 1 / scale_grad
-  //   SGNHT   c2 = 1 / P
-  //   RSGHMC  coef = D, c2 = 1 / m, c3 = 1 / (m^2 c^2)
-  float coef, cdiv, prior_scale, inv_b, inv_n;
-  // The fields of pSGLD, SGNHT and relativistic SGHMC come last, so that
-  // the others keep their parameter offsets (and the compiler its register
-  // allocation of B1-B6).
-  float c2, c3;
-  const float* xi;     // SGNHT only: (n_chains,) thermostat
-  float* xi_out;       // SGNHT only
-  // bf16 state and device-memory placement come last for the same reason.
-  int v_bf16, minv_bf16;  // v (and v_out) / minv stored as bf16
-  float* work;  // nullptr: the state in shared memory; else (n_chains,
-                // state_arrays, P) f32 in device memory
-};
-
-// bf16 storage of the aux state: values rounded to nearest even, arithmetic
-// in f32
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float load_state(const void* p, size_t i,
-                                            int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-
-__device__ __forceinline__ float sign_of(float x) {
-  return static_cast<float>((x > 0.0f) - (x < 0.0f));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Offsets of the parameter groups in the flat per-chain vector.
-struct Layout {
-  int w1, b1, head_w, head_b, lvb;
-  __device__ int w(int l, int hidden, int n_inputs) const {  // l = 2..depth
-    return n_inputs * hidden + hidden + (l - 2) * (hidden * hidden + hidden);
-  }
-  __device__ int b(int l, int hidden, int n_inputs) const {
-    return w(l, hidden, n_inputs) + hidden * hidden;
-  }
-};
-
-__device__ Layout make_layout(int n_inputs, int hidden, int depth) {
-  Layout L;
-  L.w1 = 0;
-  L.b1 = n_inputs * hidden;
-  L.head_w = n_inputs * hidden + hidden + (depth - 1) * (hidden * hidden + hidden);
-  L.head_b = L.head_w + hidden;
-  L.lvb = L.head_b + 1;
-  return L;
-}
-
-// Shared-memory scratch besides the state arrays.
-struct Scratch {
-  float* act;    // depth x (batch x hidden): post-tanh activations
-  float* dz;     // batch x hidden
-  float* da;     // batch x hidden
-  float* x;      // batch x n_inputs
-  float* y;      // batch
-  float* fmean;  // batch
-  float* dmean;  // batch
-  float* scal;   // [0]: cost; [1]: window index (as int bits); SGNHT: [2] xi
-                 // and [3 .. 3 + kWarps) the per-warp partial sums of p'^T p'
-};
-
-// Forward, likelihood and backward for the chain whose parameters are in
-// `th`; writes the likelihood gradient (without the weight prior) to `grad`
-// and the cost to s.scal[0].  Ends with a barrier.
-__device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
-                        float* grad, const Scratch& s) {
-  const int tid = threadIdx.x;
-  const int H = a.hidden, K = a.n_inputs, B = a.batch, D = a.depth;
-  const int BH = B * H;
-
-  // layer 1
-  for (int o = tid; o < BH; o += kThreads) {
-    const int b = o / H, j = o - b * H;
-    float z = 0.0f;
-    for (int i = 0; i < K; ++i) z += s.x[b * K + i] * th[L.w1 + i * H + j];
-    s.act[o] = tanhf(z + th[L.b1 + j]);
-  }
-  __syncthreads();
-  // hidden layers 2..D
-  for (int l = 2; l <= D; ++l) {
-    const float* w = th + L.w(l, H, K);
-    const float* bias = th + L.b(l, H, K);
-    const float* a_in = s.act + (l - 2) * BH;
-    float* a_out = s.act + (l - 1) * BH;
-    for (int o = tid; o < BH; o += kThreads) {
-      const int b = o / H, j = o - b * H;
-      const float* row = a_in + b * H;
-      float z = 0.0f;
-      for (int i = 0; i < H; ++i) z += row[i] * w[i * H + j];
-      a_out[o] = tanhf(z + bias[j]);
-    }
-    __syncthreads();
-  }
-  const float* a_last = s.act + (D - 1) * BH;
-  // mean head: one warp per batch row
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int b = warp; b < B; b += kWarps) {
-      float acc = 0.0f;
-      for (int j = lane; j < H; j += 32) acc += a_last[b * H + j] * th[L.head_w + j];
-      acc = warp_sum(acc);
-      if (lane == 0) s.fmean[b] = acc + th[L.head_b];
-    }
-  }
-  __syncthreads();
-  // heteroscedastic likelihood + log-variance prior (warp 0)
-  if (tid < 32) {
-    const float lvb = th[L.lvb];
-    const float e_lv = expf(lvb);
-    const float var_inv = 1.0f / (e_lv + kSmall);
-    float ll = 0.0f, dl = 0.0f, gb = 0.0f;
-    for (int b = tid; b < B; b += 32) {
-      const float diff = s.fmean[b] - s.y[b];
-      const float mse = diff * diff;
-      ll += -mse * (0.5f * var_inv) - 0.5f * lvb;
-      dl += mse * (0.5f * e_lv) * (var_inv * var_inv) - 0.5f;
-      const float dm = diff * var_inv * a.inv_b;
-      s.dmean[b] = dm;
-      gb += dm;
-    }
-    ll = warp_sum(ll);
-    dl = warp_sum(dl);
-    gb = warp_sum(gb);
-    if (tid == 0) {
-      const float dev = lvb - kLogMeanPrior;
-      const float p_term = -(dev * dev) / (2.0f * kVarPrior) - kHalfLogVarPrior;
-      s.scal[0] = -(ll * a.inv_b + p_term * a.inv_n);
-      grad[L.lvb] = -dl * a.inv_b + dev / kVarPrior * a.inv_n;
-      grad[L.head_b] = gb;
-    }
-  }
-  __syncthreads();
-  // head weight gradient and the last layer's pre-activation gradient
-  for (int j = tid; j < H; j += kThreads) {
-    float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += a_last[b * H + j] * s.dmean[b];
-    grad[L.head_w + j] = acc;
-  }
-  for (int o = tid; o < BH; o += kThreads) {
-    const int b = o / H, j = o - b * H;
-    const float act = a_last[o];
-    s.dz[o] = (s.dmean[b] * th[L.head_w + j]) * (1.0f - act * act);
-  }
-  __syncthreads();
-  // hidden layers D..2: weight/bias gradients and the backward product
-  for (int l = D; l >= 2; --l) {
-    const float* w = th + L.w(l, H, K);
-    const float* a_in = s.act + (l - 2) * BH;
-    float* gw = grad + L.w(l, H, K);
-    float* gbias = grad + L.b(l, H, K);
-    for (int o = tid; o < H * H; o += kThreads) {
-      const int i = o / H, j = o - i * H;
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += a_in[b * H + i] * s.dz[b * H + j];
-      gw[o] = acc;
-    }
-    for (int j = tid; j < H; j += kThreads) {
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += s.dz[b * H + j];
-      gbias[j] = acc;
-    }
-    for (int o = tid; o < BH; o += kThreads) {
-      const int b = o / H, i = o - b * H;
-      const float* dz_row = s.dz + b * H;
-      const float* w_row = w + i * H;
-      float acc = 0.0f;
-      for (int j = 0; j < H; ++j) acc += dz_row[j] * w_row[j];
-      s.da[o] = acc;
-    }
-    __syncthreads();
-    for (int o = tid; o < BH; o += kThreads) {
-      const float act = a_in[o];
-      s.dz[o] = s.da[o] * (1.0f - act * act);
-    }
-    __syncthreads();
-  }
-  // layer 1
-  for (int o = tid; o < K * H; o += kThreads) {
-    const int i = o / H, j = o - i * H;
-    float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += s.x[b * K + i] * s.dz[b * H + j];
-    grad[L.w1 + o] = acc;
-  }
-  for (int j = tid; j < H; j += kThreads) {
-    float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += s.dz[b * H + j];
-    grad[L.b1 + j] = acc;
-  }
-  __syncthreads();
-}
-
-// Stages this step's minibatch rows in shared memory: the chain's own
-// gathered rows, or a window drawn (or read from widx) from the shared table.
-template <bool kGathered>
-__device__ void load_batch(const Args& a, int t, unsigned step,
-                           const Scratch& s) {
-  const int c = blockIdx.x;
-  int row = c;
-  if constexpr (!kGathered) {
-    if (threadIdx.x == 0) {
-      int w;
-      if (a.widx != nullptr) {
-        w = a.widx[static_cast<size_t>(t) * a.n_chains + c];
-      } else {
-        const float u = bits_to_uniform(
-            philox_draw(a.seed, c, step, 0u, kPurposeWindow).x);
-        w = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
-                a.n_windows - 1);
-      }
-      reinterpret_cast<int*>(s.scal)[1] = w;
-    }
-    __syncthreads();
-    row = reinterpret_cast<const int*>(s.scal)[1];
-  }
-  const int bk = a.batch * a.n_inputs;
-  for (int i = threadIdx.x; i < bk; i += kThreads)
-    s.x[i] = a.x_win[static_cast<size_t>(row) * bk + i];
-  for (int i = threadIdx.x; i < a.batch; i += kThreads)
-    s.y[i] = a.y_win[static_cast<size_t>(row) * a.batch + i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ float noise_at(const Args& a, int t, unsigned step,
-                                          int p) {
-  const int c = blockIdx.x;
-  if (a.noise != nullptr)
-    return a.noise[(static_cast<size_t>(t) * a.n_chains + c) * a.n_params + p];
-  return philox_normal(a.seed, c, step, static_cast<unsigned>(p));
-}
-
-// The burn-in EMAs at element p, all reading OLD values (JAX
-// _sghmc_burnin_step_math / _sgld_burnin_step_math); returns the minv this
-// step uses, 1/sqrt(old v_hat) with the reference's guards.
-__device__ __forceinline__ float adapt(float* s_tau, float* s_g, float* s_vhat,
-                                       int p, float gg) {
-  const float tau = s_tau[p], gm = s_g[p], vh = s_vhat[p];
-  const float sq = sqrtf(fmaxf(vh, 0.0f));
-  const float minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
-  const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
-  const float r = 1.0f / (tau + 1.0f);
-  s_tau[p] = tau + (-gm * gm * tau) / denom + 1.0f;
-  s_g[p] = gm - r * gm + r * gg;
-  s_vhat[p] = vh - r * vh + r * gg * gg;
-  return minv;
-}
-
-// Number of P-long arrays a block keeps in shared memory: theta, v (all
-// rules but SGLD), the gradient, then minv (SGHMC and SGLD sampling) or tau,
-// g, v_hat (burn-in).
-__host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
-  return 1 + (rule == kSgld ? 0 : 1) + 1 +
-         (burnin ? 3 : (rule == kSghmc || rule == kSgld ? 1 : 0));
-}
-
-// Floats of Scratch::scal.
-__host__ __device__ constexpr int scalar_slots(int rule) {
-  return rule == kSgnht ? 3 + kWarps : 2;
-}
-
-// kDevice: the P-long arrays live in the device-memory workspace Args::work
-// instead of shared memory.  kVBf16: v is stored as bf16 (Args::v_bf16).
-// Template parameters, not runtime choices: a pointer that may point to
-// either memory compiles to generic loads and stores, and either choice
-// made at run time moved the f32 resident kernels' register allocation
-// (B1 +17 %, B2 +4 % against the kernels before bf16 state).
-// The body of every instantiation; the __global__ entries below differ only
-// in the hint they give ptxas.
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-__device__ __forceinline__ void fused_body(const Args& a) {
-  constexpr bool kAux = kRule != kSgld;
-  constexpr bool kMinv = !kBurnin && (kRule == kSghmc || kRule == kSgld);
-  constexpr int kCols = kRule == kSgld || kRule == kPsgld ? 1 : 2;
-  constexpr int kState = state_arrays(kRule, kBurnin);
-  extern __shared__ float smem[];
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int P = a.n_params;
-  const size_t base = static_cast<size_t>(c) * P;
-  const Layout L = make_layout(a.n_inputs, a.hidden, a.depth);
-
-  // the chain's P-long arrays: in shared memory, or in its slice of the
-  // device-memory workspace (then shared memory holds the scratch alone)
-  float* s_theta;
-  float* rest;
-  if constexpr (kDevice) {
-    s_theta = a.work + static_cast<size_t>(c) * kState * P;
-    rest = smem;
-  } else {
-    s_theta = smem;
-    rest = smem + kState * P;
-  }
-  float* s_v = s_theta + P;                       // kAux
-  float* s_grad = s_theta + (kAux ? 2 : 1) * P;
-  float* s_minv = s_grad + P;                     // kMinv
-  float* s_tau = s_grad + P;                      // burn-in
-  float* s_g = s_tau + P;                         // burn-in
-  float* s_vhat = s_g + P;                        // burn-in
-  Scratch s;
-  s.act = rest;
-  s.dz = s.act + a.depth * a.batch * a.hidden;
-  s.da = s.dz + a.batch * a.hidden;
-  s.x = s.da + a.batch * a.hidden;
-  s.y = s.x + a.batch * a.n_inputs;
-  s.fmean = s.y + a.batch;
-  s.dmean = s.fmean + a.batch;
-  s.scal = s.dmean + a.batch;
-
-  for (int p = tid; p < P; p += kThreads) {
-    s_theta[p] = a.theta[base + p];
-    if constexpr (kAux) s_v[p] = load_state(a.v, base + p, kVBf16);
-    if constexpr (kBurnin) {
-      s_tau[p] = a.tau[base + p];
-      s_g[p] = a.g[base + p];
-      s_vhat[p] = a.v_hat[base + p];
-    }
-    if constexpr (kMinv) s_minv[p] = load_state(a.minv, base + p, a.minv_bf16);
-  }
-  if constexpr (kRule == kSgnht) {
-    if (tid == 0) s.scal[2] = a.xi[c];
-  }
-  __syncthreads();
-
-  for (int t = 0; t < a.k_steps; ++t) {
-    const unsigned step = a.step0 + static_cast<unsigned>(t);
-    load_batch<kGathered>(a, t, step, s);
-    fwd_bwd(a, L, s_theta, s_grad, s);
-    const float* row = a.tab + static_cast<size_t>(t) * kCols;
-    const bool last = t == a.k_steps - 1;
-    const float prior_scale = a.prior_scale;
-    if constexpr (kRule == kSghmc) {
-      const float eps = row[0];
-      const float es = row[1];
-      const float es2 = es * es;
-      const float mdecay = a.coef;
-      for (int p = tid; p < P; p += kThreads) {
-        const float eta = noise_at(a, t, step, p);
-        const float th = s_theta[p];
-        const float vv = s_v[p];
-        const float gg = s_grad[p] + prior_scale * th;
-        float minv;
-        if constexpr (kBurnin) {
-          minv = adapt(s_tau, s_g, s_vhat, p, gg);
-          if (last) a.minv_out[base + p] = minv;
-        } else {
-          minv = s_minv[p];
-        }
-        const float sigma =
-            sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
-        float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
-        if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;
-        s_v[p] = kVBf16 ? round_bf16(vn) : vn;
-        s_theta[p] = th + vn;
-      }
-    } else if constexpr (kRule == kSgld) {
-      // JAX _sgld_rule (sampling) and _sgld_burnin_step_math (burn-in)
-      const float eps = row[0];
-      const float A = a.coef;
-      const float cdiv = a.cdiv;
-      for (int p = tid; p < P; p += kThreads) {
-        const float eta = noise_at(a, t, step, p);
-        const float th = s_theta[p];
-        const float gg = s_grad[p] + prior_scale * th;
-        if constexpr (kBurnin) {
-          const float minv = adapt(s_tau, s_g, s_vhat, p, gg);
-          if (last) a.minv_out[base + p] = minv;
-          const float sigma =
-              sqrtf(fmaxf(2.0f * eps * ((minv * A) / cdiv), 0.0f));
-          s_theta[p] = th + (-eps * minv * A * gg + sigma * eta);
-        } else {
-          const float minv = s_minv[p];
-          const float sigma = sqrtf(fmaxf(2.0f * eps * minv * cdiv, 0.0f));
-          float delta = -eps * minv * A * gg + sigma * eta;
-          if (!(minv > 0.0f)) delta = 0.0f;
-          s_theta[p] = th + delta;
-        }
-      }
-    } else if constexpr (kRule == kPsgld) {
-      // JAX _psgld_rule: the RMSprop accumulator adapts every step, then
-      // theta moves by the preconditioned Langevin step
-      const float eps = row[0];
-      const float alpha = a.coef, lambda = a.cdiv, inv_sg = a.c2;
-      for (int p = tid; p < P; p += kThreads) {
-        const float eta = noise_at(a, t, step, p);
-        const float th = s_theta[p];
-        const float gg = s_grad[p] + prior_scale * th;
-        const float vn = alpha * s_v[p] + (1.0f - alpha) * gg * gg;
-        const float precond = 1.0f / (lambda + sqrtf(fmaxf(vn, 0.0f)));
-        const float sigma = sqrtf(fmaxf(eps * precond * inv_sg, 0.0f));
-        s_v[p] = kVBf16 ? round_bf16(vn) : vn;
-        s_theta[p] = th + (-0.5f * eps * precond * gg + sigma * eta);
-      }
-    } else if constexpr (kRule == kRsghmc) {
-      // JAX _rsghmc_rule: the dynamics use the log-likelihood gradient, -gg;
-      // the velocity is eps p / m / sqrt(p^2 / (m^2 c^2) + 1)
-      const float eps = row[0];
-      const float noise_scale = row[1];
-      const float d = a.coef, inv_m = a.c2, inv_mc2 = a.c3;
-      for (int p = tid; p < P; p += kThreads) {
-        const float eta = noise_at(a, t, step, p);
-        const float th = s_theta[p];
-        const float gg = s_grad[p] + prior_scale * th;
-        const float pv = s_v[p];
-        const float vel = eps * pv * inv_m * rsqrtf(pv * pv * inv_mc2 + 1.0f);
-        const float pn = pv + eps * -gg + noise_scale * eta - d * vel;
-        s_v[p] = kVBf16 ? round_bf16(pn) : pn;
-        s_theta[p] = th + eps * pn * inv_m * rsqrtf(pn * pn * inv_mc2 + 1.0f);
-      }
-    } else {
-      // JAX _sgnht_rule, then the thermostat: every element reads the old
-      // xi, and xi moves once the block has summed p'^T p'
-      const float eps = row[0];
-      const float sigma = row[1];
-      const float xi = s.scal[2];
-      float kinetic = 0.0f;
-      for (int p = tid; p < P; p += kThreads) {
-        const float eta = noise_at(a, t, step, p);
-        const float th = s_theta[p];
-        const float gg = s_grad[p] + prior_scale * th;
-        const float pv = s_v[p];
-        const float pn = pv - xi * eps * pv - eps * gg + sigma * eta;
-        s_v[p] = kVBf16 ? round_bf16(pn) : pn;
-        s_theta[p] = th + eps * pn;
-        kinetic += pn * pn;
-      }
-      kinetic = warp_sum(kinetic);
-      if (tid % 32 == 0) s.scal[3 + tid / 32] = kinetic;
-      __syncthreads();
-      if (tid == 0) {
-        float total = 0.0f;
-        for (int w = 0; w < kWarps; ++w) total += s.scal[3 + w];
-        s.scal[2] = xi + eps * (total * a.c2 - 1.0f);
-        if (last) a.xi_out[c] = s.scal[2];
-      }
-    }
-    if (last && tid == 0) a.cost_out[c] = s.scal[0];
-    __syncthreads();
-  }
-
-  for (int p = tid; p < P; p += kThreads) {
-    a.theta_out[base + p] = s_theta[p];
-    if constexpr (kAux) {
-      if constexpr (kVBf16)
-        static_cast<__nv_bfloat16*>(a.v_out)[base + p] =
-            __float2bfloat16_rn(s_v[p]);
-      else
-        static_cast<float*>(a.v_out)[base + p] = s_v[p];
-    }
-    if constexpr (kBurnin) {
-      a.tau_out[base + p] = s_tau[p];
-      a.g_out[base + p] = s_g[p];
-      a.v_hat_out[base + p] = s_vhat[p];
-    }
-  }
-}
-
-// kMinBlocks: two blocks per SM (at most 128 registers a thread).  Without
-// that hint ptxas picked 32-64 registers per instantiation, and its choice
-// moved single kernels by up to 9 % with unrelated changes of the source
-// (H100: B5-rsghmc at 32 registers, 293 ms against 40 and 270 ms); with it the
-// resident kernels take 64-128 registers and none is slower than before,
-// and the sampling kernels with their state in device memory (80-128
-// registers) run twice as fast at H = 100.
-constexpr int kMinBlocks = 2;
-
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_kernel(Args a) {
-  fused_body<kRule, kBurnin, kGathered, kDevice, kVBf16>(a);
-}
-
-// The burn-in kernels with their state in device memory keep ptxas's own
-// choice (B2 106, B6 80 registers): the hint gave them 114 and 128 and made
-// them 11-27 % slower at H = 100 on an H100.
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-__global__ void __launch_bounds__(kThreads) fused_kernel_unhinted(Args a) {
-  fused_body<kRule, kBurnin, kGathered, kDevice, kVBf16>(a);
-}
-
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-constexpr auto kernel_of() {
-  if constexpr (kDevice && kBurnin)
-    return &fused_kernel_unhinted<kRule, kBurnin, kGathered, kDevice, kVBf16>;
-  else
-    return &fused_kernel<kRule, kBurnin, kGathered, kDevice, kVBf16>;
-}
-
-// Shared memory of one block: the scratch, plus the P-long arrays where they
-// are resident (no device-memory workspace).
-size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
-                  int hidden, int depth, int batch, bool resident) {
-  const size_t state =
-      resident ? static_cast<size_t>(state_arrays(rule, burnin)) * n_params
-               : 0;
-  const size_t scratch = static_cast<size_t>(depth + 2) * batch * hidden +
-                         static_cast<size_t>(batch) * n_inputs + 3 * batch +
-                         scalar_slots(rule);
-  return (state + scratch) * sizeof(float);
-}
-
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-int launch_placed(const Args& a, void* stream) {
-  const size_t bytes = smem_bytes(kRule, kBurnin, a.n_params, a.n_inputs,
-                                  a.hidden, a.depth, a.batch, !kDevice);
-  constexpr auto kernel =
-      kernel_of<kRule, kBurnin, kGathered, kDevice, kVBf16>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<a.n_chains, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kRule, bool kBurnin, bool kGathered, bool kDevice>
-int launch_typed(const Args& a, void* stream) {
-  if constexpr (kRule != kSgld) {  // SGLD has no v
-    if (a.v_bf16)
-      return launch_placed<kRule, kBurnin, kGathered, kDevice, true>(a,
-                                                                     stream);
-  }
-  return launch_placed<kRule, kBurnin, kGathered, kDevice, false>(a, stream);
-}
-
-// The wrapper chose the placement (a workspace or none) from
-// fused_step_smem_bytes and the storage of v; the launch follows them.
-template <int kRule, bool kBurnin, bool kGathered>
-int launch(const Args& a, void* stream) {
-  if (a.work != nullptr)
-    return launch_typed<kRule, kBurnin, kGathered, true>(a, stream);
-  return launch_typed<kRule, kBurnin, kGathered, false>(a, stream);
-}
-
-int rule_of(int kernel) {
-  switch (kernel) {
-    case kB1: case kB2: case kB3: return kSghmc;
-    case kB4Psgld: case kB5Psgld: return kPsgld;
-    case kB4Sgnht: case kB5Sgnht: return kSgnht;
-    case kB4Rsghmc: case kB5Rsghmc: return kRsghmc;
-    default: return kSgld;
-  }
-}
-
-bool burnin_of(int kernel) { return kernel == kB2 || kernel == kB6; }
-
-}  // namespace
+#define FUSED_STEP_VARIANT 0  // kBoxMuller
+#include "fused_body.cuh"
 
 extern "C" {
 
 // Shared memory one block of kernel `kernel` (a KernelId) needs with the
 // chain's state resident, in bytes: the placement rule.  Above a block's
-// limit the wrapper passes a device-memory workspace instead.
+// limit the wrapper passes a device-memory workspace instead.  The CLT and
+// paired variants need the same.
 unsigned long long fused_step_smem_bytes(int kernel, int n_params,
                                          int n_inputs, int hidden, int depth,
                                          int batch) {
@@ -734,37 +27,6 @@ unsigned long long fused_step_workspace_floats(int kernel, int n_params) {
 const char* fused_step_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// One entry per TPU kernel, all with the same arguments (the Args fields in
-// order, then the stream); a kernel reads only the operands of its rule and
-// phase, and the others may be NULL.  v_bf16 / minv_bf16 give the storage
-// of v and v_out / minv; work is NULL, or the device-memory workspace of
-// fused_step_workspace_floats per chain.  The one-step kernels (B3, B4-*)
-// take each chain's gathered rows as x/y (n_windows = n_chains, k_steps =
-// 1) and the noise of absolute step `step0`.
-#define FUSED_STEP_ENTRY(entry, rule, burnin, gathered)                      \
-  int entry(const float* theta, const void* v, const void* minv,            \
-            const float* tau, const float* g, const float* v_hat,           \
-            const float* xi, const float* x, const float* y,                \
-            const float* tab, const float* noise, const int* widx,          \
-            float* theta_out, void* v_out, float* tau_out, float* g_out,    \
-            float* v_hat_out, float* minv_out, float* xi_out,               \
-            float* cost_out, int n_chains, int n_inputs, int hidden,        \
-            int depth, int batch, int n_windows, int k_steps,               \
-            int n_params, unsigned long long seed, unsigned step0,          \
-            float coef, float cdiv, float c2, float c3, float prior_scale,  \
-            float inv_b, float inv_n, int v_bf16, int minv_bf16,            \
-            float* work, void* stream) {                                    \
-    const Args a = {theta,     v,         minv,      tau,       g,          \
-                    v_hat,     x,         y,         tab,       noise,      \
-                    widx,      theta_out, v_out,     tau_out,   g_out,      \
-                    v_hat_out, minv_out,  cost_out,  n_chains,  n_inputs,   \
-                    hidden,    depth,     batch,     n_windows, k_steps,    \
-                    n_params,  seed,      step0,     coef,      cdiv,       \
-                    prior_scale, inv_b,   inv_n,     c2,        c3,         \
-                    xi,        xi_out,    v_bf16,    minv_bf16, work};      \
-    return launch<rule, burnin, gathered>(a, stream);                       \
-  }
 
 // B1: k SGHMC sampling steps with a frozen minv.
 FUSED_STEP_ENTRY(fused_bnn_multistep_launch, kSghmc, false, false)

@@ -4,10 +4,11 @@
 // counter (chain, absolute step, element, purpose), so neither the block
 // shape nor the chunking of launches changes a trajectory.  The
 // bits-to-uniform map u = ((bits >> 8) + 1) * 2^-24 in (0, 1] is exact in f32;
-// a normal is Box-Muller on the first two words.  The plain PyTorch versions
-// implement the same stream in int64 arithmetic
-// (pysgmcmc_tpu_torch/ops/fused_step.py: philox4x32_10, philox_normals,
-// philox_windows).
+// a normal is Box-Muller on the first two words, or one of the MXU-CLT
+// generator's (fused_body.cuh), which takes all four words of a draw as
+// uniforms.  The plain PyTorch versions implement the same stream in int64
+// arithmetic (pysgmcmc_tpu_torch/ops/fused_step.py: philox4x32_10,
+// philox_normals, clt_normals, philox_windows).
 
 #pragma once
 
@@ -15,6 +16,7 @@
 
 constexpr unsigned kPurposeWindow = 0u;
 constexpr unsigned kPurposeNoise = 1u;
+constexpr unsigned kPurposeClt = 2u;
 constexpr float kTwoPi = 6.283185307179586f;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,

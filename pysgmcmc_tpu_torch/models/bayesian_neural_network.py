@@ -13,6 +13,10 @@ Two step implementations are ported:
   burn in on B2 or B6; pSGLD, SGNHT and relativistic SGHMC, which have no
   burn-in machinery, on discarded steps of the lanes driver (B8-psgld,
   B8-sgnht, B8-rsghmc), on the same likelihood with the prior folded.
+  The fused kernels draw their normals from the MXU-CLT generator unless
+  ``noise_impl="box_muller"`` (JAX's default on the chip);
+  ``pair_dots=True`` (3 hidden layers of at most 50) runs the paired
+  variants of B1, B2, B5-* and B6 with Box-Muller normals.
 - ``step_impl="lanes"`` (``network="reference"`` or ``"dense"``, or any
   ``get_net``): the gradient of the full cost, weight prior included, by
   autograd over every chain, then one slim elementwise kernel per step:
@@ -75,7 +79,6 @@ from pysgmcmc_tpu_torch.parallel.packed import (
     _draw_seed,
     burnin_chain_fused,
     burnin_chain_lanes,
-    resolve_noise_impl,
     sample_chain_fused,
     sample_chain_lanes,
 )
@@ -132,10 +135,16 @@ class BayesianNeuralNetwork(BaseModel):
     sampler (SGLD's
     ``A``, pSGLD's ``alpha``, relativistic SGHMC's ``D``, SVGD's
     ``kernel_impl``, ...), which
-    gets ``scale_grad`` = N by default where it has one; ``noise_impl`` is
-    ``"auto"`` / ``"box_muller"`` (the kernels' Philox stream) or
-    ``"zero"`` (the degenerate stream of the parity tests: zero noise,
-    window 0).  ``compute_dtype`` (``None``, ``torch.float32`` or
+    gets ``scale_grad`` = N by default where it has one.  ``noise_impl``
+    picks the fused kernels' generator on the Philox stream: ``"auto"``
+    (the default) is the MXU-CLT generator ``"hadamard_clt"`` on
+    ``step_impl="fused"`` and Box-Muller elsewhere and with ``pair_dots``,
+    as JAX's on the chip; ``"box_muller"``; or ``"zero"`` (the degenerate
+    stream of the parity tests: zero noise, window 0).  ``"hadamard_clt"``
+    needs ``step_impl="fused"`` and refuses ``pair_dots``; ``pair_dots=True``
+    runs the paired fused kernels (``step_impl="fused"``, three hidden
+    layers; the drivers refuse widths above 50), as JAX's.
+    ``compute_dtype`` (``None``, ``torch.float32`` or
     ``torch.bfloat16``) is JAX's mixed precision: set, the network passes of
     the cost run on the weights and inputs cast to it, and the sampling
     state is bf16: the fused path samples with bf16 momentum and minv
@@ -250,10 +259,20 @@ class BayesianNeuralNetwork(BaseModel):
                 raise ValueError(
                     "pair_dots supports the flagship 3-hidden-layer "
                     "topology only; got units={!r}".format(tuple(units)))
+        # noise_impl as JAX's: 'auto' is the fused kernels' MXU-CLT
+        # generator, resolved by the drivers (resolve_noise_impl), and
+        # Box-Muller elsewhere; the port adds the degenerate stream 'zero'
+        if noise_impl == "auto" and (step_impl != "fused" or pair_dots):
+            noise_impl = "box_muller"
         if noise_impl not in ("auto", "box_muller", "hadamard_clt", "zero"):
             raise ValueError(
                 "noise_impl must be 'box_muller' or 'hadamard_clt'; got "
                 + repr(noise_impl))
+        if noise_impl == "hadamard_clt" and step_impl != "fused":
+            raise ValueError("noise_impl requires step_impl='fused'")
+        if noise_impl == "hadamard_clt" and pair_dots:
+            raise ValueError(
+                "pair_dots kernels support noise_impl='box_muller' only")
         if compute_dtype is not None and compute_dtype not in STATE_DTYPES:
             raise ValueError(
                 "compute_dtype must be None, torch.float32 or "
@@ -264,11 +283,8 @@ class BayesianNeuralNetwork(BaseModel):
             raise _not_ported("step_impl='pytree'", "queue A item 6")
         if mesh is not None:
             raise _not_ported("mesh", "queue A item 15")
-        if pair_dots:
-            raise _not_ported("pair_dots=True", "queue B, B-pair")
         if dtype != torch.float32:
             raise _not_ported("dtype={}".format(dtype), "queue A item 6")
-        resolve_noise_impl(noise_impl)  # raises on hadamard_clt
 
         self.sampling_method = sampling_method
         self.get_net = get_net
@@ -529,7 +545,7 @@ class BayesianNeuralNetwork(BaseModel):
                 return burnin_chain_fused(
                     sampler, states, keys, n_steps, x_dev, y_dev,
                     batch_size=self.batch_size, state_dtype=torch.float32,
-                    noise_impl=self.noise_impl)
+                    pair_dots=self.pair_dots, noise_impl=self.noise_impl)
             return self._discarded_steps(sampler, states, keys, n_steps,
                                          select_batch, torch.float32)
 
@@ -538,7 +554,7 @@ class BayesianNeuralNetwork(BaseModel):
                 sampler, states, keys, n_keep, x_dev, y_dev,
                 batch_size=self.batch_size, keep_every=self.sample_steps,
                 state_dtype=self._state_dtype, multistep=True,
-                noise_impl=self.noise_impl)
+                pair_dots=self.pair_dots, noise_impl=self.noise_impl)
 
         return sampler, burn, sample
 
@@ -585,12 +601,13 @@ class BayesianNeuralNetwork(BaseModel):
         """The burn-in of pSGLD, SGNHT and relativistic SGHMC, which have no
         burn-in machinery: ``n_steps`` discarded steps of
         :func:`sample_chain_lanes` (JAX's ``make_burn``), network passes in
-        ``compute_dtype``."""
+        ``compute_dtype``, Box-Muller normals (that driver's only generator)
+        or the degenerate stream under ``noise_impl="zero"``."""
         return sample_chain_lanes(
             sampler, states, keys, 1, batch_fn=select_batch,
             keep_every=n_steps, compute_dtype=self.compute_dtype,
             state_dtype=state_dtype, collect_positions=False,
-            noise_impl=self.noise_impl)[0]
+            noise_impl="zero" if self.noise_impl == "zero" else "auto")[0]
 
     def _run_chains(self, states, burn, sample, apply_fn, x_dev, y_dev,
                     n_datapoints, n_chains, per_chain, start_time):

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Each source of ``csrc/`` (``fused_step.cu``, ``slim_update.cu``,
-``svgd_streaming.cu``) is compiled with ``nvcc`` at first use into a shared
+Each source of ``csrc/`` (``fused_step.cu``, ``fused_step_clt.cu``,
+``fused_step_paired.cu``, ``slim_update.cu``, ``svgd_streaming.cu``; the
+three fused sources share ``fused_body.cuh``) is compiled with ``nvcc`` at first use into a shared
 library with a plain C interface, under ``pysgmcmc_tpu_torch/_build/``, and
 loaded with ``ctypes``.  A library's name carries a hash of every source and
 header of ``csrc/`` and of the flags, so an edited header rebuilds them
@@ -23,7 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 # csrc/<name>.cu -> one library each
-SOURCES = ("fused_step", "slim_update", "svgd_streaming")
+SOURCES = ("fused_step", "fused_step_clt", "fused_step_paired",
+           "slim_update", "svgd_streaming")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 _U32 = ctypes.c_uint
-# every launch entry of csrc/fused_step.cu takes the same arguments
+# every launch entry of csrc/fused_step*.cu takes the same arguments
 # (FUSED_STEP_ENTRY): 7 state inputs, x, y, tab, noise, widx, 7 state
 # outputs and the cost; 8 ints, the seed, the step, 7 floats, the two bf16
 # flags, the workspace and the stream
@@ -46,25 +48,37 @@ _FUSED_LAUNCH = (_I, [_P] * 20 + [_I] * 8 + [_U64, _U32] + [_F] * 7
 # noise-index rows, the burning_in flag and the stream
 _SLIM_LAUNCH = (_I, [_P] * 16 + [_I] * 2 + [_U64, _U32] + [_F] * 7
                 + [_I] * 3 + [_P, _P, _I] + [_P])
+# the twelve fused kernels, by their wrappers' names; each has a Box-Muller
+# and a CLT entry, and the first eight a paired one
+_FUSED_KERNELS = (
+    "fused_bnn_multistep",                # B1
+    "fused_bnn_multistep_burnin",         # B2
+    "fused_bnn_step",                     # B3
+    "fused_bnn_multistep_sgld",           # B5-sgld
+    "fused_bnn_multistep_burnin_sgld",    # B6
+    "fused_bnn_multistep_psgld",          # B5-psgld
+    "fused_bnn_multistep_sgnht",          # B5-sgnht
+    "fused_bnn_multistep_rsghmc",         # B5-rsghmc
+    "fused_bnn_step_sgld",                # B4-sgld
+    "fused_bnn_step_psgld",               # B4-psgld
+    "fused_bnn_step_sgnht",               # B4-sgnht
+    "fused_bnn_step_rsghmc",              # B4-rsghmc
+)
 _SIGNATURES = {
+    "fused_step_clt": {
+        "fused_step_clt_error_string": (ctypes.c_char_p, [_I]),
+        **{name + "_clt_launch": _FUSED_LAUNCH for name in _FUSED_KERNELS},
+    },
+    "fused_step_paired": {
+        "fused_step_paired_error_string": (ctypes.c_char_p, [_I]),
+        **{name + "_paired_launch": _FUSED_LAUNCH
+           for name in _FUSED_KERNELS[:8]},
+    },
     "fused_step": {
         "fused_step_smem_bytes": (_U64, [_I, _I, _I, _I, _I, _I]),
         "fused_step_workspace_floats": (_U64, [_I, _I]),
         "fused_step_error_string": (ctypes.c_char_p, [_I]),
-        **{name + "_launch": _FUSED_LAUNCH for name in (
-            "fused_bnn_multistep",                # B1
-            "fused_bnn_multistep_burnin",         # B2
-            "fused_bnn_step",                     # B3
-            "fused_bnn_step_sgld",                # B4-sgld
-            "fused_bnn_multistep_sgld",           # B5-sgld
-            "fused_bnn_multistep_burnin_sgld",    # B6
-            "fused_bnn_step_psgld",               # B4-psgld
-            "fused_bnn_step_sgnht",               # B4-sgnht
-            "fused_bnn_step_rsghmc",              # B4-rsghmc
-            "fused_bnn_multistep_psgld",          # B5-psgld
-            "fused_bnn_multistep_sgnht",          # B5-sgnht
-            "fused_bnn_multistep_rsghmc",         # B5-rsghmc
-        )},
+        **{name + "_launch": _FUSED_LAUNCH for name in _FUSED_KERNELS},
     },
     "slim_update": {
         "slim_update_error_string": (ctypes.c_char_p, [_I]),

@@ -50,18 +50,36 @@ memory where they fit, by the library's own count (:func:`fused_placement`),
 and otherwise in a device-memory workspace the wrapper allocates, with the
 same kernel body; so every hidden width JAX's fused path takes (up to
 :data:`MAX_HIDDEN`) runs.  :data:`placements` counts the launches of each
-kernel by placement.
+kernel by C entry (one per variant: Box-Muller, CLT, paired) and
+placement; :func:`variant_launches` sums a variant's.
 
 Randomness: Philox4x32-10 keyed by a 64-bit seed, counter ``(chain,
-absolute step, element, purpose)``.  Normals are Box-Muller on two uniforms
-``u = ((bits >> 8) + 1) * 2**-24`` in (0, 1]; the window index is
-``min(floor(u * n_windows), n_windows - 1)``.  The plain versions implement
-the same stream with int64 arithmetic, so one launch of ``2k`` steps equals
-two launches of ``k``, and k one-step launches on the windows of
-:func:`philox_windows` equal one multi-step launch.  For tests, the kernels
-also take ``noise`` (``(k, n_chains, P)``; ``(n_chains, P)`` for the
-one-step kernels) and ``widx`` ``(k, n_chains)`` to read instead of
-drawing.
+absolute step, element, purpose)``, with uniforms ``u = ((bits >> 8) + 1) *
+2**-24`` in (0, 1]; the window index is ``min(floor(u * n_windows),
+n_windows - 1)``.  Normals come from one of JAX's two generators,
+``noise_impl``: ``"box_muller"`` (the kernels' default, as JAX's) on the
+first two words of each element's draw, or ``"hadamard_clt"``, the MXU-CLT
+generator (:func:`clt_normals`: ``bf16(u - 1/2) H_n sqrt(12 / n)`` over
+groups of n uniforms in the slot geometry of JAX's ``_block_etas``), the
+default of JAX's drivers on the chip; each kernel has one instantiation per
+generator (``csrc/fused_step.cu``, ``csrc/fused_step_clt.cu``).  The plain
+versions implement the same stream with int64 arithmetic, so one launch of
+``2k`` steps equals two launches of ``k``, and k one-step launches on the
+windows of :func:`philox_windows` equal one multi-step launch.  For tests,
+the Box-Muller kernels also take ``noise`` (``(k, n_chains, P)``;
+``(n_chains, P)`` for the one-step kernels) and ``widx`` ``(k, n_chains)``
+to read instead of drawing; as in JAX, injected noise does not combine with
+``"hadamard_clt"``.
+
+``pair_dots=True`` (B1, B2, B3, B5-*, B6; JAX's chain-pair kernels, whose
+block-diagonal pairs are an MXU layout): the paired instantiations
+(``csrc/fused_step_paired.cu``) draw every normal and window as the
+unpaired ones, and at bf16 state keep the momentum of the matrix slabs
+(``w2, b2, ..., wD, bD``) float32 for the whole launch, rounding it once at
+its end; the vector rows round every step.  At float32 state they equal the
+unpaired kernels bit for bit.  They take what JAX's take: Box-Muller, the
+64-slot layout (``h <= 50``), depth 3, an even number of chains, and for
+B3 one input and no injected noise.
 
 Examples
 --------
@@ -78,6 +96,7 @@ Examples
 """
 
 import collections
+import functools
 import math
 from typing import NamedTuple
 
@@ -93,7 +112,8 @@ MAX_HIDDEN = 114
 STATE_DTYPES = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
 
-PURPOSE_WINDOW, PURPOSE_NOISE = 0, 1
+PURPOSE_WINDOW, PURPOSE_NOISE, PURPOSE_CLT = 0, 1, 2
+NOISE_IMPLS = ("box_muller", "hadamard_clt")
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -290,6 +310,130 @@ def philox_normals(seed, step, n_chains, n_params, device, elements=None):
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
 
 
+#  The MXU-CLT generator (JAX's _normal_clt) ----------------------------------
+
+def clt_slot(hidden):
+    """``(s, bias_row)`` of JAX's slot layout for hidden width ``hidden``
+    (its ``fused_slot``): ``(64, 50)`` up to 50, ``(128, 114)`` above."""
+    check_hidden(hidden)
+    return (64, 50) if hidden <= 50 else (128, 114)
+
+
+def fwht(x):
+    """``x @ H_n`` along the last axis (n a power of two), ``H_n`` the
+    +-1 Sylvester-Hadamard matrix, as the CLT kernels compute it: a fast
+    Walsh-Hadamard transform with stages of stride 1, 2, 4, ... in that
+    order, each taking the pair ``(a, b)`` at ``(i, i + stride)`` to ``(a +
+    b, a - b)``.  The same float32 additions in the same order, so the card
+    and the CPU give the same bits."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    h = 1
+    while h < n:
+        y = x.reshape(*lead, n // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        x = torch.stack([a + b, a - b], dim=-2).reshape(*lead, n)
+        h *= 2
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _clt_sections(layout):
+    """The slot geometry of JAX's ``_block_etas`` for ``layout``: a list of
+    ``(first slot, element map)``, one per array it draws (each pair of
+    matrix slabs ``(s, 2s)``, an odd last matrix ``(s, s)``, the 8 vector
+    rows ``(8, s)``), in slot order.  The map gives each slot's element in
+    the flat vector, -1 where the slot is dead: in a matrix slab row ``r <
+    H`` is ``w[r, :]`` and the bias rides row ``bias_row``; the vector rows
+    are ``w1`` (one row per input), ``b1``, ``w_head``, then ``b_head`` and
+    ``log_variance_bias`` at lanes 0 and 1."""
+    s, bias_row = clt_slot(layout.hidden)
+    h, k = layout.hidden, layout.n_inputs
+    off = {name: o for name, (o, _) in layout.offsets().items()}
+    head = layout.depth + 1
+
+    def slab(layer):
+        m = torch.full((s, s), -1, dtype=torch.int64)
+        m[:h, :h] = off["w{}".format(layer)] + torch.arange(h * h).reshape(
+            h, h)
+        m[bias_row, :h] = off["b{}".format(layer)] + torch.arange(h)
+        return m
+
+    mats = [slab(layer) for layer in range(2, head)]
+    vec = torch.full((8, s), -1, dtype=torch.int64)
+    vec[:k, :h] = off["w1"] + torch.arange(k * h).reshape(k, h)
+    vec[k, :h] = off["b1"] + torch.arange(h)
+    vec[k + 1, :h] = off["w{}".format(head)] + torch.arange(h)
+    vec[k + 2, :2] = off["b{}".format(head)] + torch.arange(2)  # b_head, lvb
+    arrays = [torch.cat(mats[i:i + 2], dim=1)
+              for i in range(0, len(mats) - 1, 2)]
+    if len(mats) % 2:
+        arrays.append(mats[-1])
+    arrays.append(vec)
+    sections, slot = [], 0
+    for emap in arrays:
+        sections.append((slot, emap))
+        slot += emap.numel()
+    return sections
+
+
+def clt_slots(layout):
+    """Uniforms one chain draws per step in the CLT geometry (dead slots
+    included): ``(depth - 1) s^2 + 8 s``."""
+    return sum(emap.numel() for _, emap in _clt_sections(layout))
+
+
+def clt_normals(seed, step, n_chains, layout, device, uniforms=None):
+    """The ``(n_chains, P)`` MXU-CLT normals of absolute ``step`` (JAX's
+    ``_normal_clt`` in the geometry of ``_block_etas``, gathered into the
+    flat layout).
+
+    Each array of :func:`_clt_sections` is a set of rows, each a group of
+    ``n`` uniforms (its width: ``2s`` for a pair of matrix slabs, ``s``
+    otherwise), and each group gives ``n`` normals ``z = fwht(bf16(u -
+    1/2)) * sqrt(12 / n)`` (:func:`fwht`; the bf16 rounding to nearest
+    even).  The uniforms of a group whose first slot is ``q`` are the four
+    words of the ``n / 4`` Philox draws at counter ``(chain, step, q / 4 +
+    e, PURPOSE_CLT)``, word ``w`` giving lane ``w n / 4 + e``; the kernels
+    draw only the rows that hold values, and so does this.  ``uniforms``
+    ``(n_chains, clt_slots(layout))`` float32, in slot order, replaces the
+    draws (as JAX's uniforms, for tests)."""
+    out = torch.empty((n_chains, layout.n_params), dtype=torch.float32,
+                      device=device)
+    chain = torch.arange(n_chains, dtype=torch.int64, device=device)
+    for slot, emap in _clt_sections(layout):
+        rows_all, n = emap.shape
+        live = torch.nonzero((emap >= 0).any(dim=1))[:, 0]
+        emap = emap[live].to(device)
+        live = live.to(device)
+        if uniforms is None:
+            q = n // 4
+            ctr = ((slot + live[:, None] * n) // 4
+                   + torch.arange(q, dtype=torch.int64, device=device))
+            words = philox4x32_10(
+                (chain[:, None, None], step & _MASK32, ctr[None],
+                 PURPOSE_CLT), _seed_key(seed))
+            u = bits_to_uniform(torch.stack(words, dim=-2)).reshape(
+                n_chains, -1, n)
+        else:
+            u = uniforms[:, slot:slot + rows_all * n].reshape(
+                n_chains, rows_all, n)[:, live].to(device)
+        x = (u - 0.5).to(torch.bfloat16).to(torch.float32)
+        z = fwht(x) * torch.tensor(math.sqrt(12.0 / n), dtype=torch.float32,
+                                   device=device)
+        keep = emap >= 0
+        out[:, emap[keep]] = z[:, keep]
+    return out
+
+
+def _step_normals(noise_impl, seed, step, n_chains, layout, device):
+    """The ``(n_chains, P)`` normals of absolute ``step`` from the
+    generator ``noise_impl`` (:data:`NOISE_IMPLS`)."""
+    if noise_impl == "hadamard_clt":
+        return clt_normals(seed, step, n_chains, layout, device)
+    return philox_normals(seed, step, n_chains, layout.n_params, device)
+
+
 #  Plain versions ---------------------------------------------------------------
 
 def _fwd_bwd(theta, layout, xb, yb, inv_b, inv_n):
@@ -350,8 +494,10 @@ def _windows_3d(x_win):
     return x_win[:, :, None] if x_win.ndim == 2 else x_win
 
 
-def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device):
-    """Window rows and noise of step ``t`` (test inputs or the Philox stream)."""
+def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device,
+                 noise_impl):
+    """Window rows and noise of step ``t`` (test inputs or the Philox
+    stream, its normals from ``noise_impl``)."""
     if widx is not None:
         w = widx[t].to(torch.int64)
     else:
@@ -359,7 +505,7 @@ def _step_inputs(t, step, seed, n, layout, x_win, noise, widx, device):
     if noise is not None:
         eta = noise[t]
     else:
-        eta = philox_normals(seed, step, n, layout.n_params, device)
+        eta = _step_normals(noise_impl, seed, step, n, layout, device)
     return w, eta
 
 
@@ -432,12 +578,28 @@ def _masked(minv, x):
     return torch.where(minv > 0.0, x, torch.zeros_like(x))
 
 
-def _stored(x, state_dtype):
+def _stored(x, state_dtype, deferred=None):
     """``x`` as the kernels keep it between steps: rounded to bf16 (to
-    nearest even) under bf16 state, held in float32."""
+    nearest even) under bf16 state, held in float32; the columns of the
+    ``deferred`` range ``(lo, hi)`` (the paired kernels' matrix slabs,
+    :func:`_matrix_slabs`) stay unrounded until the launch ends."""
     if state_dtype == torch.float32:
         return x
-    return x.to(state_dtype).to(torch.float32)
+    rounded = x.to(state_dtype).to(torch.float32)
+    if deferred is None:
+        return rounded
+    lo, hi = deferred
+    return torch.cat([rounded[:, :lo], x[:, lo:hi], rounded[:, hi:]], dim=1)
+
+
+def _matrix_slabs(layout, pair_dots):
+    """The flat columns ``(lo, hi)`` of the matrix slabs (``w2, b2, ...,
+    wD, bD``) whose momentum the paired kernels round once per launch, or
+    ``None`` unpaired."""
+    if not pair_dots:
+        return None
+    off = layout.offsets()
+    return (off["w2"][0], off["w{}".format(layout.depth + 1)][0])
 
 
 def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
@@ -457,17 +619,18 @@ def fused_bnn_multistep_ref(theta, v, minv, x_win, y_win, eps, seed,
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    deferred = _matrix_slabs(layout, pair_dots)
     v, minv = v.float(), minv.float()
     cost = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
-                              widx, theta.device)
+                              widx, theta.device, noise_impl)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
         v_new = _masked(minv, _sghmc_velocity(v, minv, gg, eta, tab[t],
                                               mdecay))
         theta = theta + v_new
-        v = _stored(v_new, state_dtype)
+        v = _stored(v_new, state_dtype, deferred)
     return theta, v.to(state_dtype), cost
 
 
@@ -489,17 +652,18 @@ def fused_bnn_multistep_burnin_ref(theta, v, tau, g, v_hat, x_win, y_win,
     n = theta.shape[0]
     xw = _windows_3d(x_win)
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    deferred = _matrix_slabs(layout, pair_dots)
     v = v.float()
     cost = minv = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
-                              widx, theta.device)
+                              widx, theta.device, noise_impl)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
         minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
         v_new = _sghmc_velocity(v, minv, gg, eta, tab[t], mdecay)
         theta = theta + v_new
-        v = _stored(v_new, state_dtype)
+        v = _stored(v_new, state_dtype, deferred)
     return theta, v.to(state_dtype), tau, g, v_hat, minv, cost
 
 
@@ -510,7 +674,7 @@ def fused_bnn_step_ref(theta, v, minv, x_sel, y_sel, eps, seed,
                        h=50, noise_impl="box_muller", step=0, noise=None):
     """Plain PyTorch version of :func:`fused_bnn_step`."""
     if select_in_kernel:
-        _no_noise_with_selection("fused_bnn_step", noise)
+        _check_selection("fused_bnn_step", noise, pair_dots)
         return fused_bnn_multistep_ref(
             theta, v, minv, x_sel, y_sel, eps, seed, mdecay, scale_grad,
             prior_scale, batch_size, n_data, state_dtype, 1, h, pair_dots,
@@ -520,7 +684,7 @@ def fused_bnn_step_ref(theta, v, minv, x_sel, y_sel, eps, seed,
         {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
         x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, pair_dots,
         noise_impl, noise, None, n_inputs)
-    eta = _one_step_noise(theta, layout, seed, step, noise)
+    eta = _one_step_noise(theta, layout, seed, step, noise, noise_impl)
     cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
                           1.0 / batch_size, 1.0 / n_data)
     gg = grad + prior_scale * theta
@@ -540,7 +704,7 @@ def fused_bnn_step_sgld_ref(theta, minv, x_sel, y_sel, eps, seed,
         "fused_bnn_step_sgld", theta, {"minv": (minv, STATE_DTYPES)},
         x_sel, y_sel, eps, seed, batch_size, torch.float32, 1, h, False,
         noise_impl, noise, None, n_inputs)
-    eta = _one_step_noise(theta, layout, seed, step, noise)
+    eta = _one_step_noise(theta, layout, seed, step, noise, noise_impl)
     cost, grad = _fwd_bwd(theta, layout, _windows_3d(x_sel), y_sel,
                           1.0 / batch_size, 1.0 / n_data)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
@@ -568,7 +732,7 @@ def fused_bnn_multistep_sgld_ref(theta, minv, x_win, y_win, eps, seed,
     cost = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
-                              widx, theta.device)
+                              widx, theta.device, noise_impl)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
         theta = theta + _masked(minv, _sgld_delta(minv, gg, eta, eps_vec[t],
@@ -596,7 +760,7 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
     cost = minv = None
     for t in range(int(k_steps)):
         w, eta = _step_inputs(t, step0 + t, seed, n, layout, x_win, noise,
-                              widx, theta.device)
+                              widx, theta.device, noise_impl)
         cost, grad = _fwd_bwd(theta, layout, xw[w], y_win[w], inv_b, inv_n)
         gg = grad + prior_scale * theta
         minv, tau, g, v_hat = _adapt(tau, g, v_hat, gg)
@@ -607,7 +771,7 @@ def fused_bnn_multistep_burnin_sgld_ref(theta, tau, g, v_hat, x_win, y_win,
 
 def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
                 consts, prior_scale, batch_size, n_data,
-                state_dtype=torch.float32):
+                state_dtype=torch.float32, pair_dots=False):
     """``k_steps`` steps of pSGLD, SGNHT or relativistic SGHMC (``kind``
     ``"psgld"``, ``"sgnht"`` or ``"rsghmc"``), the samplers without a mass
     matrix.  Step ``t`` takes its minibatch rows and normals from
@@ -615,9 +779,11 @@ def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
     noise scale) from row ``t`` of ``tab``, and the rule's constants from
     ``consts``, the kernel's ``coef``/``cdiv``/``c2``/``c3``.  SGNHT's
     thermostat then moves by ``eps (p'^T p' / P - 1)`` of the unrounded
-    ``p'``; ``v`` is kept in ``state_dtype`` between steps.  Returns
+    ``p'``; ``v`` is kept in ``state_dtype`` between steps (the matrix
+    slabs' unrounded within the launch with ``pair_dots``).  Returns
     ``(theta', v' (in state_dtype), xi', cost)``."""
     inv_b, inv_n = 1.0 / batch_size, 1.0 / n_data
+    deferred = _matrix_slabs(layout, pair_dots)
     v = v.float()
     cost = None
     for t in range(int(k_steps)):
@@ -635,26 +801,28 @@ def _rule_steps(kind, theta, v, xi, layout, k_steps, step_inputs, tab,
         else:
             theta, v = _sgnht_update(theta, v, gg, eta, xi, eps, tab[t, 1])
             xi = xi + eps * (torch.sum(v * v, dim=1) * consts["c2"] - 1.0)
-        v = _stored(v, state_dtype)
+        v = _stored(v, state_dtype, deferred)
     return theta, v.to(state_dtype), xi, cost
 
 
-def _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta):
+def _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta,
+                   noise_impl):
     """``step_inputs`` of :func:`_rule_steps` on the shared window tables:
     the windows and normals of absolute step ``step0 + t``."""
     xw = _windows_3d(x_win)
 
     def step_inputs(t):
         w, eta = _step_inputs(t, step0 + t, seed, theta.shape[0], layout,
-                              x_win, noise, widx, theta.device)
+                              x_win, noise, widx, theta.device, noise_impl)
         return xw[w], y_win[w], eta
     return step_inputs
 
 
-def _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta):
+def _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta,
+                     noise_impl):
     """``step_inputs`` of :func:`_rule_steps` for one step on each chain's
     gathered rows."""
-    eta = _one_step_noise(theta, layout, seed, step, noise)
+    eta = _one_step_noise(theta, layout, seed, step, noise, noise_impl)
     return lambda t: (_windows_3d(x_sel), y_sel, eta)
 
 
@@ -670,7 +838,8 @@ def fused_bnn_step_psgld_ref(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
         noise_impl, noise, None, n_inputs)
     theta, v, _, cost = _rule_steps(
         "psgld", theta, v, None, layout, 1,
-        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta,
+                         noise_impl),
         _psgld_table(eps_vec), _psgld_constants(alpha, lambda_reg,
                                                 scale_grad),
         prior_scale, batch_size, n_data, state_dtype)
@@ -689,7 +858,8 @@ def fused_bnn_step_sgnht_ref(theta, v, xi, x_sel, y_sel, eps, seed,
         noise_impl, noise, None, n_inputs, xi=xi)
     return _rule_steps(
         "sgnht", theta, v, xi, layout, 1,
-        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta,
+                         noise_impl),
         _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
         prior_scale, batch_size, n_data, state_dtype)
 
@@ -706,7 +876,8 @@ def fused_bnn_step_rsghmc_ref(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
         noise_impl, noise, None, n_inputs)
     theta, v, _, cost = _rule_steps(
         "rsghmc", theta, v, None, layout, 1,
-        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta),
+        _gathered_inputs(seed, step, layout, x_sel, y_sel, noise, theta,
+                         noise_impl),
         _rsghmc_table(eps_vec, d_coef, b_hat),
         _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
         batch_size, n_data, state_dtype)
@@ -726,10 +897,11 @@ def fused_bnn_multistep_psgld_ref(theta, v, x_win, y_win, eps, seed,
         pair_dots, noise_impl, noise, widx)
     theta, v, _, cost = _rule_steps(
         "psgld", theta, v, None, layout, k_steps,
-        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta,
+                       noise_impl),
         _psgld_table(eps_vec), _psgld_constants(alpha, lambda_reg,
                                                 scale_grad),
-        prior_scale, batch_size, n_data)
+        prior_scale, batch_size, n_data, pair_dots=pair_dots)
     return theta, v, cost
 
 
@@ -747,9 +919,10 @@ def fused_bnn_multistep_sgnht_ref(theta, v, xi, x_win, y_win, eps, seed,
         pair_dots, noise_impl, noise, widx, xi=xi)
     return _rule_steps(
         "sgnht", theta, v, xi, layout, k_steps,
-        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta,
+                       noise_impl),
         _sgnht_table(eps_vec, a_diff, scale_grad), _sgnht_constants(layout),
-        prior_scale, batch_size, n_data, state_dtype)
+        prior_scale, batch_size, n_data, state_dtype, pair_dots)
 
 
 def fused_bnn_multistep_rsghmc_ref(theta, v, x_win, y_win, eps, seed,
@@ -766,25 +939,60 @@ def fused_bnn_multistep_rsghmc_ref(theta, v, x_win, y_win, eps, seed,
         pair_dots, noise_impl, noise, widx)
     theta, v, _, cost = _rule_steps(
         "rsghmc", theta, v, None, layout, k_steps,
-        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta),
+        _window_inputs(seed, step0, layout, x_win, y_win, noise, widx, theta,
+                       noise_impl),
         _rsghmc_table(eps_vec, d_coef, b_hat),
         _rsghmc_constants(mass, speed_of_light, d_coef), prior_scale,
-        batch_size, n_data, state_dtype)
+        batch_size, n_data, state_dtype, pair_dots)
     return theta, v, cost
 
 
-def _one_step_noise(theta, layout, seed, step, noise):
+def _one_step_noise(theta, layout, seed, step, noise, noise_impl):
     if noise is not None:
         return noise
-    return philox_normals(seed, step, theta.shape[0], layout.n_params,
-                          theta.device)
+    return _step_normals(noise_impl, seed, step, theta.shape[0], layout,
+                        theta.device)
 
 
-def _no_noise_with_selection(name, noise):
+def _check_selection(name, noise, pair_dots):
+    """``select_in_kernel`` (B1 at one step) refuses injected noise and,
+    as JAX's, ``pair_dots``."""
     if noise is not None:
         raise ValueError(
             "{}: select_in_kernel does not combine with injected noise".format(
                 name))
+    if pair_dots:
+        raise ValueError(
+            "pair_dots does not combine with noise injection or "
+            "select_in_kernel")
+
+
+def _check_pair_dots(layout, n_chains, noise_impl, one_step, noise):
+    """JAX's refusals of ``pair_dots`` (its ``_check_pair_dots`` and
+    ``fused_bnn_step``'s), in its order: the 64-slot layout only (``h <=
+    50``); the one-step kernel without injected noise; an even number of
+    chains (JAX's even ``block_chains``); the one-step kernel with one
+    input; depth 3; Box-Muller."""
+    if clt_slot(layout.hidden)[0] != 64:
+        raise ValueError("pair_dots supports the 64-slot layout only")
+    if one_step and noise is not None:
+        raise ValueError(
+            "pair_dots does not combine with noise injection or "
+            "select_in_kernel")
+    if n_chains % 2:
+        raise ValueError(
+            "pair_dots requires an even number of chains (JAX: an even "
+            "block_chains); got {}".format(n_chains))
+    if one_step and layout.n_inputs != 1:
+        raise ValueError("pair_dots supports n_inputs=1 only")
+    if layout.depth != 3:
+        raise ValueError(
+            "pair_dots supports the flagship 3-hidden-layer topology only "
+            "(got {} hidden layers); use pair_dots=False for other "
+            "depths".format(layout.depth))
+    if noise_impl != "box_muller":
+        raise ValueError(
+            "pair_dots kernels support noise_impl='box_muller' only")
 
 
 #  Validation and per-step tables, shared by the kernels and their plain versions
@@ -814,18 +1022,14 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
     float32 or bfloat16 (``STATE_DTYPES``, a frozen minv).
     """
     _seed_key(seed)
-    if pair_dots:
-        raise NotImplementedError(
-            "{}: pair_dots (block-diagonal chain pairs) is not ported yet "
-            "(ROADMAP.md queue B, B-pair)".format(name))
-    if noise_impl != "box_muller":
-        if noise_impl == "hadamard_clt":
-            raise NotImplementedError(
-                "{}: noise_impl='hadamard_clt' is not ported yet "
-                "(ROADMAP.md queue A item 6)".format(name))
+    if noise_impl not in NOISE_IMPLS:
         raise ValueError(
-            "{}: noise_impl must be 'box_muller'; got {!r}".format(
-                name, noise_impl))
+            "{}: noise_impl must be 'box_muller' or 'hadamard_clt'; got "
+            "{!r}".format(name, noise_impl))
+    if noise is not None and noise_impl != "box_muller":
+        raise ValueError(
+            "noise_impl selects the in-kernel PRNG generator; it does not "
+            "combine with injected noise arrays")
     if state_dtype not in STATE_DTYPES:
         raise ValueError(
             "{}: state_dtype must be torch.float32 or torch.bfloat16; got "
@@ -878,6 +1082,8 @@ def _validate(name, theta, state, x, y, eps, seed, batch_size, state_dtype,
                 name, batch_size, x.shape[1]))
     layout = layout_for(theta.shape[1], 1 if x.ndim == 2 else x.shape[2],
                         int(h))
+    if pair_dots:
+        _check_pair_dots(layout, n, noise_impl, gathered, noise)
     k_steps = int(k_steps)
     noise_shape = ((n, layout.n_params) if gathered
                    else (k_steps, n, layout.n_params))
@@ -1008,9 +1214,29 @@ def fused_placement(kernel_id, layout, batch_size):
     return "shared" if need <= MAX_SMEM_BYTES else "device"
 
 
-# launches of each fused kernel by placement: (C entry name, placement) ->
-# count; callers may clear it
+# launches of each fused kernel by placement: (C entry name without
+# "_launch", placement) -> count; callers may clear it
 placements = collections.Counter()
+
+# the library (csrc/<name>.cu) and C entry suffix of each variant of the
+# fused kernels: the noise generator, or the paired kernels
+_VARIANTS = {"box_muller": ("fused_step", ""),
+             "hadamard_clt": ("fused_step_clt", "_clt"),
+             "paired": ("fused_step_paired", "_paired")}
+
+
+def _variant(noise_impl, pair_dots=False):
+    return "paired" if pair_dots else noise_impl
+
+
+def variant_launches(wrapper, variant="box_muller"):
+    """The launches of the fused ``wrapper``'s ``variant``
+    (:data:`_VARIANTS`: ``"box_muller"``, ``"hadamard_clt"`` or
+    ``"paired"``) since :data:`placements` was cleared, in both
+    placements.  (``wrapper.launches`` counts all of its launches.)"""
+    entry = wrapper.__name__ + _VARIANTS[variant][1]
+    return sum(count for (name, _), count in placements.items()
+               if name == entry)
 
 
 def _ptr(t):
@@ -1029,9 +1255,11 @@ def _is_bf16(t):
 
 def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             k_steps, seed, step0, prior_scale, batch_size, n_data, coef=0.0,
-            cdiv=0.0, c2=0.0, c3=0.0):
-    """Launch kernel ``kernel_id`` through the C entry ``name + "_launch"``
-    of ``csrc/fused_step.cu``.
+            cdiv=0.0, c2=0.0, c3=0.0, variant="box_muller"):
+    """Launch kernel ``kernel_id`` through the C entry ``name + suffix +
+    "_launch"`` of the library of ``variant`` (:data:`_VARIANTS`:
+    ``csrc/fused_step.cu``, ``fused_step_clt.cu`` or
+    ``fused_step_paired.cu``).
 
     ``ins`` maps state names (``_STATE_IN``) to ``(n_chains, P)`` tensors
     (SGNHT's ``xi`` ``(n_chains,)``; ``v`` and ``minv`` float32 or
@@ -1045,7 +1273,7 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     device-memory workspace where it does not fit shared memory), counts
     the launch in :data:`placements`, raises on a failed launch, and
     returns the outputs in ``outs`` order, then the ``(n_chains, 1)``
-    cost.
+    cost.  The paired kernels keep their state in shared memory only.
     """
     from pysgmcmc_tpu_torch.ops import _build
 
@@ -1053,19 +1281,25 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
     for arr in (*ins.values(), x, y, tab, noise, widx):
         if arr is not None and not arr.is_contiguous():
             raise ValueError("{}: CUDA operands must be contiguous".format(name))
-    lib = _build.load("fused_step")
+    source, suffix = _VARIANTS[variant]
+    lib = _build.load(source)
     n = theta.shape[0]
     placement = fused_placement(kernel_id, layout, batch_size)
     work = None
     if placement == "device":
+        if variant == "paired":
+            raise ValueError("{}: the paired kernels keep their state in "
+                             "shared memory, and it does not fit".format(name))
         work = torch.empty(
-            (n, lib.fused_step_workspace_floats(kernel_id, layout.n_params)),
+            (n, _build.load("fused_step").fused_step_workspace_floats(
+                kernel_id, layout.n_params)),
             dtype=torch.float32, device=theta.device)
     # each output shaped as its input, in its type (burn-in's minv as theta)
     out = {key: torch.empty_like(ins.get(key, theta)) for key in outs}
     cost = torch.empty((n, 1), dtype=torch.float32, device=theta.device)
+    entry = name + suffix
     with torch.cuda.device(theta.device):  # the launch uses the current device
-        _build.check(getattr(lib, name + "_launch")(
+        _build.check(getattr(lib, entry + "_launch")(
             *[_ptr(ins.get(key)) for key in _STATE_IN], _ptr(x), _ptr(y),
             _ptr(tab), _ptr(noise), _ptr(widx),
             *[_ptr(out.get(key)) for key in _STATE_OUT], _ptr(cost),
@@ -1074,8 +1308,8 @@ def _launch(name, kernel_id, layout, ins, outs, x, y, tab, noise, widx,
             int(step0) & _MASK32, float(coef), float(cdiv), float(c2),
             float(c3), float(prior_scale), 1.0 / batch_size, 1.0 / n_data,
             _is_bf16(ins.get("v")), _is_bf16(ins.get("minv")), _ptr(work),
-            torch.cuda.current_stream().cuda_stream), "fused_step")
-    placements[(name, placement)] += 1
+            torch.cuda.current_stream().cuda_stream), source)
+    placements[(entry, placement)] += 1
     return (*[out[key] for key in outs], cost)
 
 
@@ -1102,7 +1336,12 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
     ``(k_steps,)`` vector of per-step stepsizes; ``seed`` the 64-bit Philox
     key and ``step0`` the absolute step of the first step.  Returns
     ``(theta', v', cost)`` with ``cost`` ``(n_chains, 1)``, the final
-    step's.  CUDA tensors launch the kernel; CPU tensors run
+    step's.  ``noise_impl`` picks the normals' generator (``"box_muller"``
+    or ``"hadamard_clt"``, each its own instantiation); ``pair_dots=True``
+    launches the paired instantiation (module docstring).
+    ``fused_bnn_multistep.launches`` counts every launch,
+    :func:`variant_launches` each variant's.  CUDA
+    tensors launch the kernel; CPU tensors run
     :func:`fused_bnn_multistep_ref`.
     """
     name = "fused_bnn_multistep"
@@ -1115,10 +1354,12 @@ def fused_bnn_multistep(theta, v, minv, x_win, y_win, eps, seed,
         name, theta, {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
         x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
         pair_dots, noise_impl, noise, widx)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B1, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_win, y_win,
                   _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
-                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay)
+                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay,
+                  variant=variant)
     fused_bnn_multistep.launches += 1
     return out
 
@@ -1150,11 +1391,13 @@ def fused_bnn_multistep_burnin(theta, v, tau, g, v_hat, x_win, y_win, eps,
          "v_hat": (v_hat, F32)},
         x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
         pair_dots, noise_impl, noise, widx)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B2, layout,
                   dict(theta=theta, v=v, tau=tau, g=g, v_hat=v_hat),
                   ("theta", "v", "tau", "g", "v_hat", "minv"), x_win, y_win,
                   _sghmc_table(eps_vec, scale_grad), noise, widx, k_steps,
-                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay)
+                  seed, step0, prior_scale, batch_size, n_data, coef=mdecay,
+                  variant=variant)
     fused_bnn_multistep_burnin.launches += 1
     return out
 
@@ -1177,11 +1420,14 @@ def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
     Other arguments as :func:`fused_bnn_multistep`; returns ``(theta', v',
     cost)``.  ``select_in_kernel=True`` takes the shared window tables
     instead and is B1 at ``k_steps=1``: it calls :func:`fused_bnn_multistep`
-    and counts as a B1 launch.  CPU tensors run :func:`fused_bnn_step_ref`.
+    and counts as a B1 launch.  ``pair_dots=True`` launches B3 paired
+    (JAX's ``_make_kernel_paired``), which at one step is B3's arithmetic
+    and rounding; like JAX's it draws its own noise and takes one input.
+    CPU tensors run :func:`fused_bnn_step_ref`.
     """
     name = "fused_bnn_step"
     if select_in_kernel:
-        _no_noise_with_selection(name, noise)
+        _check_selection(name, noise, pair_dots)
         return fused_bnn_multistep(
             theta, v, minv, x_sel, y_sel, eps, seed, mdecay, scale_grad,
             prior_scale, batch_size, n_data, state_dtype, 1, h, pair_dots,
@@ -1195,10 +1441,12 @@ def fused_bnn_step(theta, v, minv, x_sel, y_sel, eps, seed, mdecay=0.05,
         name, theta, {"v": (v, (state_dtype,)), "minv": (minv, STATE_DTYPES)},
         x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, pair_dots,
         noise_impl, noise, None, n_inputs)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B3, layout, dict(theta=theta, v=v, minv=minv),
                   ("theta", "v"), x_sel, y_sel,
                   _sghmc_table(eps_vec, scale_grad), noise, None, 1, seed,
-                  step, prior_scale, batch_size, n_data, coef=mdecay)
+                  step, prior_scale, batch_size, n_data, coef=mdecay,
+                  variant=variant)
     fused_bnn_step.launches += 1
     return out
 
@@ -1227,10 +1475,12 @@ def fused_bnn_step_sgld(theta, minv, x_sel, y_sel, eps, seed, a_coef=1.0,
         x_sel, y_sel, eps, seed, batch_size, torch.float32, 1, h, False,
         noise_impl, noise, None, n_inputs)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
+    variant = _variant(noise_impl)
     out = _launch(name, B4_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_sel, y_sel, eps_vec.contiguous(), noise, None,
                   1, seed, step, prior_scale, batch_size, n_data,
-                  coef=a_coef, cdiv=c)
+                  coef=a_coef, cdiv=c,
+                  variant=variant)
     fused_bnn_step_sgld.launches += 1
     return out
 
@@ -1258,10 +1508,12 @@ def fused_bnn_multistep_sgld(theta, minv, x_win, y_win, eps, seed,
         x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
         pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, False)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B5_SGLD, layout, dict(theta=theta, minv=minv),
                   ("theta",), x_win, y_win, eps_vec.contiguous(), noise, widx,
                   k_steps, seed, step0, prior_scale, batch_size, n_data,
-                  coef=a_coef, cdiv=c)
+                  coef=a_coef, cdiv=c,
+                  variant=variant)
     fused_bnn_multistep_sgld.launches += 1
     return out
 
@@ -1292,11 +1544,13 @@ def fused_bnn_multistep_burnin_sgld(theta, tau, g, v_hat, x_win, y_win, eps,
         x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
         pair_dots, noise_impl, noise, widx)
     a_coef, c = _sgld_constants(a_coef, scale_grad, True)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B6, layout,
                   dict(theta=theta, tau=tau, g=g, v_hat=v_hat),
                   ("theta", "tau", "g", "v_hat", "minv"), x_win, y_win,
                   eps_vec.contiguous(), noise, widx, k_steps, seed, step0,
-                  prior_scale, batch_size, n_data, coef=a_coef, cdiv=c)
+                  prior_scale, batch_size, n_data, coef=a_coef, cdiv=c,
+                  variant=variant)
     fused_bnn_multistep_burnin_sgld.launches += 1
     return out
 
@@ -1327,10 +1581,12 @@ def fused_bnn_step_psgld(theta, v, x_sel, y_sel, eps, seed, alpha=0.99,
         name, theta, {"v": (v, (state_dtype,))},
         x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
         noise_impl, noise, None, n_inputs)
+    variant = _variant(noise_impl)
     out = _launch(name, B4_PSGLD, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_sel, y_sel, _psgld_table(eps_vec), noise,
                   None, 1, seed, step, prior_scale, batch_size, n_data,
-                  **_psgld_constants(alpha, lambda_reg, scale_grad))
+                  **_psgld_constants(alpha, lambda_reg, scale_grad),
+                  variant=variant)
     fused_bnn_step_psgld.launches += 1
     return out
 
@@ -1359,11 +1615,13 @@ def fused_bnn_step_sgnht(theta, v, xi, x_sel, y_sel, eps, seed, a_diff=1.0,
         name, theta, {"v": (v, (state_dtype,))},
         x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
         noise_impl, noise, None, n_inputs, xi=xi)
+    variant = _variant(noise_impl)
     out = _launch(name, B4_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
                   ("theta", "v", "xi"), x_sel, y_sel,
                   _sgnht_table(eps_vec, a_diff, scale_grad), noise, None, 1,
                   seed, step, prior_scale, batch_size, n_data,
-                  **_sgnht_constants(layout))
+                  **_sgnht_constants(layout),
+                  variant=variant)
     fused_bnn_step_sgnht.launches += 1
     return out
 
@@ -1394,11 +1652,13 @@ def fused_bnn_step_rsghmc(theta, v, x_sel, y_sel, eps, seed, mass=1.0,
         name, theta, {"v": (v, (state_dtype,))},
         x_sel, y_sel, eps, seed, batch_size, state_dtype, 1, h, False,
         noise_impl, noise, None, n_inputs)
+    variant = _variant(noise_impl)
     out = _launch(name, B4_RSGHMC, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_sel, y_sel,
                   _rsghmc_table(eps_vec, d_coef, b_hat), noise, None, 1, seed,
                   step, prior_scale, batch_size, n_data,
-                  **_rsghmc_constants(mass, speed_of_light, d_coef))
+                  **_rsghmc_constants(mass, speed_of_light, d_coef),
+                  variant=variant)
     fused_bnn_step_rsghmc.launches += 1
     return out
 
@@ -1427,10 +1687,12 @@ def fused_bnn_multistep_psgld(theta, v, x_win, y_win, eps, seed, alpha=0.99,
         name, theta, {"v": (v, F32)},
         x_win, y_win, eps, seed, batch_size, torch.float32, k_steps, h,
         pair_dots, noise_impl, noise, widx)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B5_PSGLD, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_win, y_win, _psgld_table(eps_vec), noise,
                   widx, k_steps, seed, step0, prior_scale, batch_size, n_data,
-                  **_psgld_constants(alpha, lambda_reg, scale_grad))
+                  **_psgld_constants(alpha, lambda_reg, scale_grad),
+                  variant=variant)
     fused_bnn_multistep_psgld.launches += 1
     return out
 
@@ -1459,11 +1721,13 @@ def fused_bnn_multistep_sgnht(theta, v, xi, x_win, y_win, eps, seed,
         name, theta, {"v": (v, (state_dtype,))},
         x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
         pair_dots, noise_impl, noise, widx, xi=xi)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B5_SGNHT, layout, dict(theta=theta, v=v, xi=xi),
                   ("theta", "v", "xi"), x_win, y_win,
                   _sgnht_table(eps_vec, a_diff, scale_grad), noise, widx,
                   k_steps, seed, step0, prior_scale, batch_size, n_data,
-                  **_sgnht_constants(layout))
+                  **_sgnht_constants(layout),
+                  variant=variant)
     fused_bnn_multistep_sgnht.launches += 1
     return out
 
@@ -1491,11 +1755,13 @@ def fused_bnn_multistep_rsghmc(theta, v, x_win, y_win, eps, seed, mass=1.0,
         name, theta, {"v": (v, (state_dtype,))},
         x_win, y_win, eps, seed, batch_size, state_dtype, k_steps, h,
         pair_dots, noise_impl, noise, widx)
+    variant = _variant(noise_impl, pair_dots)
     out = _launch(name, B5_RSGHMC, layout, dict(theta=theta, v=v),
                   ("theta", "v"), x_win, y_win,
                   _rsghmc_table(eps_vec, d_coef, b_hat), noise, widx,
                   k_steps, seed, step0, prior_scale, batch_size, n_data,
-                  **_rsghmc_constants(mass, speed_of_light, d_coef))
+                  **_rsghmc_constants(mass, speed_of_light, d_coef),
+                  variant=variant)
     fused_bnn_multistep_rsghmc.launches += 1
     return out
 

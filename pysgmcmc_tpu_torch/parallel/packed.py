@@ -16,8 +16,11 @@ gathered with ``gather_batch``.  The drivers evaluate
 the stepsize schedule at the absolute steps ``step0 + t`` and ship a per-step
 table, and draw one 64-bit Philox seed per call from the caller's
 ``torch.Generator``; the kernels key their streams on (chain, absolute
-step), so no launch-length bound or re-seeding is needed, and the two
-sampling granularities give the same chains from the same seed.
+step), so no re-seeding is needed, and the two sampling granularities give
+the same chains from the same seed.  ``pair_dots=True`` runs the paired
+kernels (B1, B2, B5-*, B6 paired; multi-step only) in launches of at most
+:data:`MAX_STEPS_PER_LAUNCH` steps, where JAX's drivers cut theirs: at bf16
+state a paired launch rounds the matrix slabs' momentum once, at its end.
 
 Chains on lanes: :func:`burnin_chain_lanes` and :func:`sample_chain_lanes`
 take any network and cost function.  Each step unpacks the ``(n_chains,
@@ -55,10 +58,14 @@ network passes in ``compute_dtype``, ``torch.bfloat16`` by default, and
 keep their state in ``state_dtype``, ``torch.float32`` by default.  States
 come back float32.
 
-``noise_impl``: ``'auto'`` and ``'box_muller'`` are the Philox Box-Muller
-stream; ``'zero'`` is the degenerate stream (zero noise, window 0 every
-step) that reproduces the JAX kernels' interpret-mode stream for parity
-tests; ``'hadamard_clt'`` is not ported yet.
+``noise_impl``: the fused drivers resolve ``'auto'`` as JAX's do on the
+chip (:func:`resolve_noise_impl`): the MXU-CLT generator
+(``'hadamard_clt'``), or Box-Muller (``'box_muller'``) with ``pair_dots``;
+the lanes, packed and stacked drivers (and ``FusedSGHMC``) have Box-Muller
+only, as JAX's, and refuse ``'hadamard_clt'``.  ``'zero'`` is the
+degenerate stream (zero noise, window 0 every step) that reproduces the JAX
+kernels' interpret-mode Box-Muller stream for parity tests, on every
+driver.
 """
 
 import math
@@ -110,20 +117,42 @@ from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
 from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler
 
 
-def resolve_noise_impl(noise_impl):
-    """``'auto'`` -> ``'box_muller'`` (the port's only in-kernel generator);
-    ``'zero'`` and ``'box_muller'`` pass through; others raise."""
-    if noise_impl in ("auto", "box_muller"):
-        return "box_muller"
-    if noise_impl == "zero":
-        return noise_impl
-    if noise_impl == "hadamard_clt":
-        raise NotImplementedError(
-            "noise_impl='hadamard_clt' (the MXU-CLT generator) is not ported "
-            "yet (ROADMAP.md queue A item 6)")
-    raise ValueError(
-        "noise_impl must be 'auto', 'box_muller', 'hadamard_clt' or 'zero'; "
-        "got {!r}".format(noise_impl))
+# The most steps one launch of a paired kernel advances: JAX's drivers cut
+# every launch there, and at bf16 state the paired kernels round the matrix
+# slabs' momentum at each launch's end.
+MAX_STEPS_PER_LAUNCH = 512
+
+_NOISE_IMPLS = ("auto", "box_muller", "hadamard_clt", "zero")
+
+
+def resolve_noise_impl(noise_impl, pair_dots=False):
+    """The generator a fused driver uses for ``noise_impl``: ``'auto'`` ->
+    ``'hadamard_clt'`` (the MXU-CLT generator), or ``'box_muller'`` with
+    ``pair_dots`` (the paired kernels have Box-Muller only), as JAX's
+    ``resolve_noise_impl`` on the chip; the port's CPU path draws the same
+    stream as its kernels, so the resolution does not depend on the device.
+    ``'box_muller'``, ``'hadamard_clt'`` and ``'zero'`` (the degenerate
+    stream) pass through; others raise."""
+    if noise_impl not in _NOISE_IMPLS:
+        raise ValueError(
+            "noise_impl must be 'auto', 'box_muller', 'hadamard_clt' or "
+            "'zero'; got {!r}".format(noise_impl))
+    if noise_impl == "auto":
+        return "box_muller" if pair_dots else "hadamard_clt"
+    return noise_impl
+
+
+def box_muller_noise(name, noise_impl):
+    """The generator of a driver that has Box-Muller only (the lanes,
+    packed and stacked drivers, ``FusedSGHMC``; JAX's have no other):
+    ``'auto'`` -> ``'box_muller'``, ``'zero'`` passes, ``'hadamard_clt'``
+    raises."""
+    if noise_impl not in ("auto", "box_muller", "zero"):
+        raise ValueError(
+            "{}: this driver draws Box-Muller normals only (noise_impl "
+            "'auto', 'box_muller' or 'zero'; 'hadamard_clt' is the fused "
+            "kernels' generator); got {!r}".format(name, noise_impl))
+    return "box_muller" if noise_impl == "auto" else noise_impl
 
 
 _KINDS = ((SGHMCSampler, "sghmc"), (SGLDSampler, "sgld"),
@@ -145,7 +174,7 @@ def _sampler_kind(name, sampler):
             name, type(sampler).__name__))
 
 
-def _check_driver(name, sampler, mesh, pair_dots):
+def _check_driver(name, sampler, mesh):
     """Raises on what the port's drivers do not take; returns the sampler's
     kind (:func:`_sampler_kind`)."""
     kind = _sampler_kind(name, sampler)
@@ -153,10 +182,6 @@ def _check_driver(name, sampler, mesh, pair_dots):
         raise NotImplementedError(
             "{}: mesh sharding is not ported yet (ROADMAP.md queue A item "
             "15)".format(name))
-    if pair_dots:
-        raise NotImplementedError(
-            "{}: pair_dots is not ported yet (ROADMAP.md queue B, "
-            "B-pair)".format(name))
     return kind
 
 
@@ -187,13 +212,29 @@ def _eps_table(sampler, schedule_state, step0, k_steps):
 
 
 def _stream_inputs(noise_impl, k_steps, n_chains, n_params, device):
-    """``(noise, widx)`` test inputs for ``noise_impl='zero'``, else Nones."""
+    """The keywords of a fused launch for the generator ``noise_impl``:
+    ``noise_impl``, and the zero ``noise`` and ``widx`` test inputs for
+    ``'zero'`` (with Box-Muller, which reads them)."""
     if noise_impl != "zero":
-        return None, None
-    return (torch.zeros((k_steps, n_chains, n_params), dtype=torch.float32,
-                        device=device),
-            torch.zeros((k_steps, n_chains), dtype=torch.int32,
-                        device=device))
+        return dict(noise_impl=noise_impl)
+    return dict(
+        noise_impl="box_muller",
+        noise=torch.zeros((k_steps, n_chains, n_params), dtype=torch.float32,
+                          device=device),
+        widx=torch.zeros((k_steps, n_chains), dtype=torch.int32,
+                         device=device))
+
+
+def _launch_segments(n_steps, pair_dots):
+    """The step counts of the launches that advance ``n_steps`` steps: one
+    launch, or with ``pair_dots`` launches of at most
+    :data:`MAX_STEPS_PER_LAUNCH` steps, as JAX's drivers cut them."""
+    n_steps = int(n_steps)
+    if not pair_dots:
+        return [n_steps]
+    return ([MAX_STEPS_PER_LAUNCH] * (n_steps // MAX_STEPS_PER_LAUNCH)
+            + ([n_steps % MAX_STEPS_PER_LAUNCH]
+               if n_steps % MAX_STEPS_PER_LAUNCH else []))
 
 
 def _data(x, y, batch_size, device):
@@ -207,7 +248,8 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
                        state_dtype=torch.bfloat16, mesh=None, pair_dots=False,
                        noise_impl="auto"):
     """Run ``n_steps`` burn-in steps of every chain in one B2 (SGHMC) or B6
-    (SGLD) launch.
+    (SGLD) launch (with ``pair_dots``, launches of B2 or B6 paired of at
+    most :data:`MAX_STEPS_PER_LAUNCH` steps each).
 
     ``states`` is a stacked :class:`SGHMCState` or :class:`SGLDState`
     (leaves ``(n_chains, ...)``) of dense-network positions, ``key`` a
@@ -221,38 +263,43 @@ def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
     momentum is rounded to it before the launch and after every step, and
     comes back float32; tau, g, v_hat and minv stay float32 (SGLD has no
     momentum).  ``BayesianNeuralNetwork`` burns in with ``torch.float32``,
-    as JAX's does.
+    as JAX's does.  ``noise_impl`` as :func:`resolve_noise_impl`.
     """
     name = "burnin_chain_fused"
     _check_burn_in(name, sampler)
-    sghmc = _check_driver(name, sampler, mesh, pair_dots) == "sghmc"
+    sghmc = _check_driver(name, sampler, mesh) == "sghmc"
+    noise_impl = resolve_noise_impl(noise_impl, pair_dots)
     if int(n_steps) < 1:
         return states
-    noise_impl = resolve_noise_impl(noise_impl)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
     device = theta.device
     x_win, y_win, n_data = _data(x, y, batch_size, device)
     step0 = int(torch.max(states.step))
     n_steps = int(n_steps)
-    noise, widx = _stream_inputs(noise_impl, n_steps, theta.shape[0],
-                                 layout.n_params, device)
     stats = [pack(leaf, layout) for leaf in states.stats[:3]]  # tau, g, v_hat
-    common = dict(
-        scale_grad=sampler.scale_grad,
-        prior_scale=sampler.gaussian_prior_scale, batch_size=batch_size,
-        n_data=n_data, k_steps=n_steps, h=layout.hidden, step0=step0,
-        noise=noise, widx=widx)
+    v = pack(states.momentum, layout).to(state_dtype) if sghmc else None
+    seed = _draw_seed(key)
     eps = _eps_table(sampler, states.schedule_state, step0, n_steps)
-    if sghmc:
-        theta, v, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin(
-            theta, pack(states.momentum, layout).to(state_dtype), *stats,
-            x_win, y_win, eps, _draw_seed(key), mdecay=sampler.mdecay,
-            state_dtype=state_dtype, **common)
-    else:
-        theta, tau, g, v_hat, minv, _ = fused_bnn_multistep_burnin_sgld(
-            theta, *stats, x_win, y_win, eps, _draw_seed(key),
-            a_coef=sampler.A, **common)
+    done = 0
+    for seg in _launch_segments(n_steps, pair_dots):
+        common = dict(
+            scale_grad=sampler.scale_grad,
+            prior_scale=sampler.gaussian_prior_scale, batch_size=batch_size,
+            n_data=n_data, k_steps=seg, h=layout.hidden, step0=step0 + done,
+            pair_dots=pair_dots, **_stream_inputs(
+                noise_impl, seg, theta.shape[0], layout.n_params, device))
+        seg_eps = eps[done:done + seg]
+        if sghmc:
+            theta, v, *stats, minv, _ = fused_bnn_multistep_burnin(
+                theta, v, *stats, x_win, y_win, seg_eps, seed,
+                mdecay=sampler.mdecay, state_dtype=state_dtype, **common)
+        else:
+            theta, *stats, minv, _ = fused_bnn_multistep_burnin_sgld(
+                theta, *stats, x_win, y_win, seg_eps, seed,
+                a_coef=sampler.A, **common)
+        done += seg
+    tau, g, v_hat = stats
     fields = dict(
         position=unpack(theta, layout),
         stats=AdaptiveStats(
@@ -298,7 +345,9 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     momenta move with the chains).
 
     ``multistep=True`` advances the ``keep_every`` steps in one launch of B1
-    (SGHMC), B5-sgld, B5-psgld, B5-sgnht or B5-rsghmc; ``multistep=False``
+    (SGHMC), B5-sgld, B5-psgld, B5-sgnht or B5-rsghmc (with ``pair_dots``,
+    launches of their paired variants of at most
+    :data:`MAX_STEPS_PER_LAUNCH` steps each); ``multistep=False``
     launches B3 / B4-sgld / B4-psgld / B4-sgnht / B4-rsghmc once per step on
     the windows :func:`philox_windows` draws for that step (window 0 under
     ``noise_impl='zero'``), which gives the multi-step kernels' chains.  An
@@ -314,10 +363,14 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
     they are rounded to it before the first launch, the momentum again
     after every step, and the momentum comes back float32.  pSGLD's
     accumulator stays float32 whatever ``state_dtype`` says, as in JAX.
+    ``noise_impl`` as :func:`resolve_noise_impl`.
     """
     name = "sample_chain_fused"
-    kind = _check_driver(name, sampler, mesh, pair_dots)
-    noise_impl = resolve_noise_impl(noise_impl)
+    kind = _check_driver(name, sampler, mesh)
+    if pair_dots and not multistep:
+        raise ValueError(
+            "pair_dots is a multi-step kernel variant; pass multistep=True")
+    noise_impl = resolve_noise_impl(noise_impl, pair_dots)
     layout = fused_layout(states.position)
     theta = pack(states.position, layout)
     device = theta.device
@@ -349,32 +402,32 @@ def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
         xi = None if xi is None else out.pop(0)
         return theta, v, xi, out[0]
 
-    def multistep_launch(theta, v, xi, step):
-        noise, widx = _stream_inputs(noise_impl, keep_every, n,
-                                     layout.n_params, device)
+    def multistep_launch(theta, v, xi, step, k):
         return launch(multi_kernel, theta, v, xi, x_win, y_win,
-                      _eps_table(sampler, states.schedule_state, step,
-                                 keep_every),
-                      k_steps=keep_every, step0=step, noise=noise, widx=widx)
+                      _eps_table(sampler, states.schedule_state, step, k),
+                      k_steps=k, step0=step, pair_dots=pair_dots,
+                      **_stream_inputs(noise_impl, k, n, layout.n_params,
+                                       device))
 
     def one_step_launch(theta, v, xi, step):
         if noise_impl == "zero":
             widx = torch.zeros(n, dtype=torch.int64, device=device)
-            noise = torch.zeros((n, layout.n_params), dtype=torch.float32,
-                                device=device)
+            stream = dict(noise=torch.zeros(
+                (n, layout.n_params), dtype=torch.float32, device=device))
         else:
             widx = philox_windows(seed, step, n, x_win.shape[0], device)
-            noise = None
+            stream = dict(noise_impl=noise_impl)
         return launch(one_kernel, theta, v, xi,
                       *gather_batch(x_win, y_win, widx),
                       _eps_table(sampler, states.schedule_state, step, 1),
-                      n_inputs=layout.n_inputs, step=step, noise=noise)
+                      n_inputs=layout.n_inputs, step=step, **stream)
 
     positions, costs = [], []
     for _ in range(int(n_samples)):
         if multistep:
-            theta, v, xi, cost = multistep_launch(theta, v, xi, step)
-            step += keep_every
+            for seg in _launch_segments(keep_every, pair_dots):
+                theta, v, xi, cost = multistep_launch(theta, v, xi, step, seg)
+                step += seg
         else:
             for _ in range(keep_every):
                 theta, v, xi, cost = one_step_launch(theta, v, xi, step)
@@ -485,7 +538,7 @@ def _lanes_eps_fn(sampler, states, n_chains):
 def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
     """Raises on what the lanes drivers do not take; returns the sampler's
     kind (:func:`_sampler_kind`)."""
-    kind = _check_driver(name, sampler, mesh, False)
+    kind = _check_driver(name, sampler, mesh)
     if compute_dtype is not None and compute_dtype not in STATE_DTYPES:
         raise ValueError(
             "{}: compute_dtype must be None, torch.float32 or "
@@ -564,7 +617,7 @@ def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
     momentum (SGHMC, RSGHMC, SGNHT) or accumulator (pSGLD) in
     ``state_dtype``, ``None`` for SGLD."""
     kind = _check_lanes(name, sampler, mesh, compute_dtype, state_dtype)
-    zero = resolve_noise_impl(noise_impl) == "zero"
+    zero = box_muller_noise(name, noise_impl) == "zero"
     spec = make_lanes_spec({k: leaf[0] for k, leaf in states.position.items()})
     theta = pack_lanes(spec, states.position)
     if kind == "sgld":
@@ -818,7 +871,7 @@ def _sghmc_start(name, sampler, states, key, backend, noise_impl, interpret):
                 name, type(sampler).__name__))
     if backend not in ("pallas", "xla"):
         raise ValueError("backend must be 'pallas' or 'xla'")
-    zero = resolve_noise_impl(noise_impl) == "zero"
+    zero = box_muller_noise(name, noise_impl) == "zero"
     first = next(iter(states.position.values()))
     if interpret and first.device.type != "cpu":
         raise ValueError(

@@ -66,7 +66,8 @@ class FusedSGHMC:
     ``compute_dtype`` runs the network on leaves cast to it (the gradient
     lands float32 through the cast, as in JAX); ``noise_impl`` is
     ``"auto"`` or ``"box_muller"`` (the Philox stream) or ``"zero"`` (the
-    test mode above), as the port's drivers take it.
+    test mode above), as the port's lanes drivers take it; JAX's has no
+    other generator, so ``"hadamard_clt"`` raises ``ValueError``.
     """
 
     def __init__(self, cost_fn, template_params, stepsize=0.01,
@@ -90,9 +91,9 @@ class FusedSGHMC:
             raise ValueError("FusedSGHMC: backend must be 'pallas' or 'xla'")
         self.backend = backend
         self.compute_dtype = compute_dtype
-        from pysgmcmc_tpu_torch.parallel.packed import resolve_noise_impl
+        from pysgmcmc_tpu_torch.parallel.packed import box_muller_noise
 
-        self.noise_impl = resolve_noise_impl(noise_impl)
+        self.noise_impl = box_muller_noise("FusedSGHMC", noise_impl)
 
     #  State --------------------------------------------------------------------
 

@@ -18,7 +18,12 @@ rounding boundary rounds one ulp apart) and the share of differing bf16
 values beside a CPU witness (``chip_smoke._compare``), and under bf16
 state two launches of k steps must equal one of 2k bit for bit; B1, B2,
 B5-sgld and B6 are also held at hidden width 100 (depth 3), whose state
-lives in device memory.
+lives in device memory.  Every fused kernel's MXU-CLT instantiation
+(``noise_impl="hadamard_clt"``) is held the same way on the Philox stream,
+at f32 and bf16 state and at width 100, and must draw another stream than
+Box-Muller's; every paired instantiation (``pair_dots=True``) against its
+plain version at f32 and bf16 state, and against the unpaired kernel bit
+for bit at f32 state.
 """
 
 import numpy as np
@@ -135,9 +140,15 @@ KERNELS = {
 }
 
 
+def _launches(fn, stream):
+    """The launches of the instantiation a stream launches."""
+    return fs.variant_launches(
+        fn, "hadamard_clt" if stream == "clt" else "box_muller")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("stream", ["injected", "philox"])
+@pytest.mark.parametrize("stream", ["injected", "philox", "clt"])
 def test_kernel_matches_plain_version(kernel, stream, cuda_device):
     n, k = 64, 8
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -164,12 +175,14 @@ def test_kernel_matches_plain_version(kernel, stream, cuda_device):
             extra["widx"] = torch.randint(
                 0, x_win.shape[0], (k, n), generator=gen, device=cuda_device,
                 dtype=torch.int32)
+    if stream == "clt":
+        extra["noise_impl"] = "hadamard_clt"
     args = [st[name] for name in names] + [x_win, y_win, eps, 2**63 + 5]
     common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
                   **extra)
-    before = fn.launches
+    before = _launches(fn, stream)
     got = fn(*args, **common)
-    assert fn.launches == before + 1
+    assert _launches(fn, stream) == before + 1
     want = ref(*args, **common)
     torch.cuda.synchronize()
     assert len(got) == len(want)
@@ -308,7 +321,7 @@ FUSED_NEW = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(FUSED_NEW))
-@pytest.mark.parametrize("stream", ["injected", "philox"])
+@pytest.mark.parametrize("stream", ["injected", "philox", "clt"])
 def test_fused_kernel_without_mass_matches_plain_version(kernel, stream,
                                                          cuda_device):
     n, k = 64, 8
@@ -345,11 +358,13 @@ def test_fused_kernel_without_mass_matches_plain_version(kernel, stream,
             extra["widx"] = torch.randint(
                 0, x_win.shape[0], (k, n), generator=gen, device=cuda_device,
                 dtype=torch.int32)
+    if stream == "clt":
+        extra["noise_impl"] = "hadamard_clt"
     args += [x_win, y_win, eps, 2**63 + 5]
     common = dict(prior_scale=1.0 / (lay.n_params * 100), **rule, **extra)
-    before = fn.launches
+    before = _launches(fn, stream)
     got = fn(*args, **common)
-    assert fn.launches == before + 1
+    assert _launches(fn, stream) == before + 1
     want = ref(*args, **common)
     torch.cuda.synchronize()
     assert len(got) == len(want)
@@ -442,14 +457,15 @@ def test_bnn_trains_on_the_card(method, cuda_device):
     else:
         burnin = fs.fused_bnn_multistep_burnin_sgld
         sampling = fs.fused_bnn_multistep_sgld
-    burnin.launches = sampling.launches = 0
+    # the fused path's default generator is the CLT's
+    fs.placements.clear()
     bnn = BayesianNeuralNetwork(
         sampling_method=Sampler[method], network="dense", step_impl="fused",
         n_chains=256, n_nets=512, burn_in_steps=1500, sample_steps=50,
         n_iters=1600)  # on the card by default
     bnn.train(x, y)
-    assert burnin.launches == 3  # log_every = 512
-    assert sampling.launches == 2
+    assert fs.variant_launches(burnin, "hadamard_clt") == 3  # log_every 512
+    assert fs.variant_launches(sampling, "hadamard_clt") == 2
     assert bnn.samples["w2"].is_cuda and bnn.samples["w2"].shape[0] == 512
     mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
     assert np.isfinite(mean).all() and np.isfinite(var).all()
@@ -544,18 +560,18 @@ def test_fused_bnn_wide_trains_on_the_card(cuda_device):
     path takes: burn-in and sampling run on the device-memory placement."""
     rng = np.random.RandomState(0)
     x = rng.uniform(0.0, 1.0, (100, 1))
-    fs.fused_bnn_multistep_burnin.launches = 0
-    fs.fused_bnn_multistep.launches = 0
     fs.placements.clear()
     bnn = BayesianNeuralNetwork(network="dense", step_impl="fused",
                                 units=(100,) * 3, n_chains=64, n_nets=128,
                                 burn_in_steps=300, sample_steps=50,
                                 n_iters=400, log_every=None)
     bnn.train(x, np.sinc(x[:, 0] * 10 - 5))
-    assert fs.fused_bnn_multistep_burnin.launches == 1
-    assert fs.fused_bnn_multistep.launches == 2
-    assert set(fs.placements) == {("fused_bnn_multistep_burnin", "device"),
-                                  ("fused_bnn_multistep", "device")}
+    assert fs.placements == {
+        ("fused_bnn_multistep_burnin_clt", "device"): 1,
+        ("fused_bnn_multistep_clt", "device"): 2}
+    assert set(fs.placements) == {
+        ("fused_bnn_multistep_burnin_clt", "device"),
+        ("fused_bnn_multistep_clt", "device")}
     mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
     assert np.isfinite(mean).all() and np.isfinite(var).all()
 
@@ -751,6 +767,162 @@ def test_wide_kernel_matches_plain_version(kernel, cuda_device):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _row_rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(BF16_KERNELS))
+def test_clt_bf16_kernel_matches_plain_version(kernel, cuda_device):
+    """Each CLT instantiation at bf16 state against its plain version, as
+    the Box-Muller ones (3 steps, one bf16 ulp per step)."""
+    n, k = 64, 3
+    fn, ref, _, _, _, _, one_step = BF16_KERNELS[kernel]
+    state, (x_win, y_win), eps, common = _bf16_state(kernel, cuda_device, n)
+    common["noise_impl"] = "hadamard_clt"
+    if one_step:
+        steps = 1
+        widx = fs.philox_windows(9, 77, n, x_win.shape[0], cuda_device)
+        args = state + [*fs.gather_batch(x_win, y_win, widx), eps, 9]
+        common["step"] = 77
+    else:
+        steps = k
+        args = state + [x_win, y_win, eps, 9]
+        common.update(k_steps=k, step0=77)
+    before = fs.variant_launches(fn, "hadamard_clt")
+    got = fn(*args, **common)
+    assert fs.variant_launches(fn, "hadamard_clt") == before + 1
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    _bf16_check(kernel + " clt", ref, args, common, got, want, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(WIDE))
+def test_clt_wide_kernel_matches_plain_version(kernel, cuda_device):
+    """The CLT instantiations at H = 100 (state in device memory; the
+    generator's 256-lane groups)."""
+    n, k = 32, 4
+    fn, ref, _, names, eps = WIDE[kernel]
+    lay, st, x_win, y_win, _ = _state(cuda_device, n, h=100, depth=3)
+    args = [st[name] for name in names] + [x_win, y_win, eps, 2**40 + 1]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  h=100, k_steps=k, step0=5, noise_impl="hadamard_clt")
+    fs.placements.clear()
+    got = fn(*args, **common)
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    assert {where for _, where in fs.placements} == {"device"}
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.cuda
+def test_clt_knob_reaches_the_kernel(cuda_device):
+    """A CLT and a Box-Muller launch from one state differ; each equals its
+    own plain version."""
+    lay, st, x_win, y_win, _ = _state(cuda_device, 16)
+    args = [st["theta"], st["v"], st["minv"], x_win, y_win, 0.01, 3]
+    out = {impl: fs.fused_bnn_multistep(*args, k_steps=2, noise_impl=impl)
+           for impl in fs.NOISE_IMPLS}
+    assert not torch.equal(out["box_muller"][0], out["hadamard_clt"][0])
+    for impl, got in out.items():
+        want = fs.fused_bnn_multistep_ref(*args, k_steps=2, noise_impl=impl)
+        assert _row_rel_err(got[0], want[0]) <= REL_TOL, impl
+
+
+# paired instantiation -> its BF16_KERNELS entry (B5-psgld from B1's state,
+# its accumulator f32) and whether it has a bf16 state
+PAIRED = {"B1": "B1", "B2": "B2", "B3": "B3", "B5-sgld": "B5-sgld",
+          "B5-sgnht": "B5-sgnht", "B5-rsghmc": "B5-rsghmc", "B6": "B6",
+          "B5-psgld": "B5-psgld"}
+
+
+def _paired_args(kernel, device, n, bf16):
+    """The paired test's wrapper, plain version, arguments and keywords:
+    the bf16 test's state (float32 unless ``bf16``), 3 steps from step 77
+    (one for B3)."""
+    if kernel in ("B6", "B5-psgld"):
+        fn, ref = {"B6": (fs.fused_bnn_multistep_burnin_sgld,
+                          fs.fused_bnn_multistep_burnin_sgld_ref),
+                   "B5-psgld": (fs.fused_bnn_multistep_psgld,
+                                fs.fused_bnn_multistep_psgld_ref)}[kernel]
+        state, (x_win, y_win), eps, common = _bf16_state("B2", device, n)
+        theta, tau, g, v_hat = state[0], *state[2:]
+        state = ([theta, tau, g, v_hat] if kernel == "B6"
+                 else [theta, v_hat * 1e-3])
+        common = dict(prior_scale=common["prior_scale"], scale_grad=100.0)
+        eps, one_step = 1e-3, False
+    else:
+        fn, ref, _, _, _, _, one_step = BF16_KERNELS[kernel]
+        state, (x_win, y_win), eps, common = _bf16_state(kernel, device, n)
+        if not bf16:
+            state = [t.float() for t in state]
+            common.pop("state_dtype", None)
+    common["pair_dots"] = True
+    if one_step:
+        widx = fs.philox_windows(9, 77, n, x_win.shape[0], device)
+        args = state + [*fs.gather_batch(x_win, y_win, widx), eps, 9]
+        common["step"] = 77
+    else:
+        args = state + [x_win, y_win, eps, 9]
+        common.update(k_steps=3, step0=77)
+    return fn, ref, args, common, 1 if one_step else 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(PAIRED))
+@pytest.mark.parametrize("bf16", [False, True])
+def test_paired_kernel_matches_plain_version(kernel, bf16, cuda_device):
+    n = 64
+    fn, ref, args, common, steps = _paired_args(kernel, cuda_device, n, bf16)
+    before = fs.variant_launches(fn, "paired")
+    got = fn(*args, **common)
+    assert fs.variant_launches(fn, "paired") == before + 1
+    want = ref(*args, **common)
+    torch.cuda.synchronize()
+    if any(t.dtype == torch.bfloat16 for t in got):
+        _bf16_check(kernel + " paired", ref, args, common, got, want, steps)
+        return
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a.reshape(len(a), -1),
+                            b.reshape(len(b), -1)) <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(PAIRED))
+def test_paired_kernel_equals_unpaired_at_f32(kernel, cuda_device):
+    """At f32 state each paired kernel gives its unpaired kernel's outputs
+    bit for bit (the same normals, windows and arithmetic) over 16 steps
+    at 8192 chains (one step for B3)."""
+    fn, _, args, common, _ = _paired_args(kernel, cuda_device, 8192, False)
+    if "k_steps" in common:
+        common["k_steps"] = 16
+    paired = fn(*args, **common)
+    unpaired = fn(*args, **dict(common, pair_dots=False))
+    torch.cuda.synchronize()
+    for a, b in zip(paired, unpaired):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paired_bnn_trains_on_the_card(cuda_device):
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0.0, 1.0, (100, 1))
+    y = np.sinc(x[:, 0] * 10 - 5)
+    fs.placements.clear()
+    bnn = BayesianNeuralNetwork(
+        network="dense", step_impl="fused", pair_dots=True, n_chains=256,
+        n_nets=512, burn_in_steps=1500, sample_steps=50, n_iters=1600,
+        compute_dtype=torch.bfloat16)
+    bnn.train(x, y)
+    # log_every = 512 cuts the burn-in into 512 + 512 + 476 steps
+    assert fs.variant_launches(fs.fused_bnn_multistep_burnin, "paired") == 3
+    assert fs.variant_launches(fs.fused_bnn_multistep, "paired") == 2
+    mean, var = bnn.predict(np.linspace(0.0, 1.0, 50)[:, None])
+    assert np.isfinite(mean).all() and np.isfinite(var).all()
+    truth = np.sinc(np.linspace(0.0, 1.0, 50) * 10 - 5)
+    assert np.mean((mean - truth) ** 2) < 0.1
 
 
 def _svgd_inputs(device, n, d, seed=0):

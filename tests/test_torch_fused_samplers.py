@@ -389,12 +389,14 @@ def test_wrappers_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="match theta"):
         fs.fused_bnn_multistep_rsghmc(theta, v, xw, yw, 1e-3, 0,
                                       state_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B-pair"):
+    with pytest.raises(ValueError, match="box_muller"):
         fs.fused_bnn_multistep_psgld(theta, v, xw, yw, 1e-3, 0,
-                                     pair_dots=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+                                     pair_dots=True,
+                                     noise_impl="hadamard_clt")
+    with pytest.raises(ValueError, match="injected noise"):
         fs.fused_bnn_step_psgld(theta, v, x_sel, y_sel, 1e-3, 0,
-                                noise_impl="hadamard_clt")
+                                noise_impl="hadamard_clt",
+                                noise=torch.zeros_like(theta))
     with pytest.raises(ValueError, match="match theta"):
         fs.fused_bnn_step_rsghmc(theta, v[:, :3], x_sel, y_sel, 1e-3, 0)
 

@@ -323,8 +323,11 @@ def test_wrappers_run_plain_versions_on_cpu():
     # bf16 state wants v in bf16, as JAX's aliased v must be
     (dict(state_dtype=torch.bfloat16), ValueError),
     (dict(state_dtype=torch.float16), ValueError),
-    (dict(pair_dots=True), NotImplementedError),
-    (dict(noise_impl="hadamard_clt"), NotImplementedError),
+    # the paired kernels have Box-Muller only, and the CLT generator no
+    # injected noise, as JAX's
+    (dict(pair_dots=True, noise_impl="hadamard_clt"), ValueError),
+    (dict(noise_impl="hadamard_clt", noise=torch.zeros((1, 2, P))),
+     ValueError),
     (dict(noise_impl="clt"), ValueError),
     (dict(k_steps=0), ValueError),
     (dict(batch_size=10), ValueError),

@@ -334,7 +334,7 @@ def test_fused_sghmc_refuses_what_it_cannot_take():
     template = {"x": torch.zeros(2)}
     with pytest.raises(ValueError, match="backend"):
         FusedSGHMC(_port_quadratic, template, backend="triton")
-    with pytest.raises(NotImplementedError, match="hadamard_clt"):
+    with pytest.raises(ValueError, match="hadamard_clt"):
         FusedSGHMC(_port_quadratic, template, noise_impl="hadamard_clt")
     fused = FusedSGHMC(lambda p: torch.sum(p["x"] ** 2), template,
                        backend="xla")

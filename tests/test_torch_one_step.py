@@ -242,7 +242,7 @@ def test_one_step_driver_shapes_and_bookkeeping(sampler_cls):
     _, none, _ = sample_chain_fused(sampler, states, torch.Generator(), 1, x,
                                     y, collect_positions=False)
     assert none is None
-    with pytest.raises(NotImplementedError, match="B-pair"):
+    with pytest.raises(ValueError, match="multistep=True"):
         sample_chain_fused(sampler, states, torch.Generator(), 1, x, y,
                            pair_dots=True)
     with pytest.raises(NotImplementedError, match="item 15"):
@@ -304,7 +304,8 @@ def test_gather_batch_matches_jax(n_inputs, batch):
     (dict(n_inputs=2), ValueError),
     (dict(noise=torch.zeros((1, 4, P))), ValueError),
     (dict(batch_size=10), ValueError),
-    (dict(noise_impl="hadamard_clt"), NotImplementedError),
+    (dict(noise_impl="hadamard_clt", noise=torch.zeros((WIDX.size, P))),
+     ValueError),
     (dict(seed=-1), ValueError),
     (dict(x_sel=torch.zeros((3, BATCH))), ValueError),
 ])
@@ -327,8 +328,10 @@ def test_one_step_wrapper_validation(name, bad, error):
 def test_one_step_refuses_what_jax_refuses():
     _, _, st, x_sel, y_sel, noise = _inputs(seed=25)
     state = [to_flat(st[k]) for k in ("theta", "v", "minv")]
-    with pytest.raises(NotImplementedError, match="B-pair"):
-        fs.fused_bnn_step(*state, x_sel, y_sel, 0.01, 1, pair_dots=True)
+    # JAX's one-step paired kernel draws its own noise
+    with pytest.raises(ValueError, match="noise injection"):
+        fs.fused_bnn_step(*state, x_sel, y_sel, 0.01, 1, pair_dots=True,
+                          noise=torch.tensor(noise))
     # bf16 state wants a bf16 v (JAX refuses an f32 v for its bf16 ref)
     with pytest.raises(ValueError, match="match theta"):
         fs.fused_bnn_step(*state, x_sel, y_sel, 0.01, 1,

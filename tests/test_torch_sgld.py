@@ -320,8 +320,9 @@ def test_sgld_chunked_launches_equal_one_launch(kernel):
 
 
 @pytest.mark.parametrize("bad,error", [
-    (dict(pair_dots=True), NotImplementedError),
-    (dict(noise_impl="hadamard_clt"), NotImplementedError),
+    (dict(pair_dots=True, noise_impl="hadamard_clt"), ValueError),
+    (dict(noise_impl="hadamard_clt", noise=torch.zeros((1, 2, P))),
+     ValueError),
     (dict(k_steps=0), ValueError),
     (dict(batch_size=10), ValueError),
     (dict(noise=torch.zeros((1, 2, 7))), ValueError),
