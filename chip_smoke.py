@@ -23,9 +23,14 @@ differing bf16 values beside a witness (the plain version on the CPU);
 the slim ones at the flagship shape on the same three streams as at f32;
 and
 B1, B2, B5-sgld and B6 at hidden width 100, whose state lives in device
-memory.  It times every kernel and variant at the main path's shape (a
-multi-step kernel as the median of 5 launches; B11 beside the dense path's
-phi and the median bandwidth), checks the one-step driver against the
+memory (B6's theta and gradient in shared memory: the burn-in EMAs stay in
+device memory in both placements; every launch's placement is held to the
+library's own count), and B6 at width 114, its state in device memory
+(also two launches of k steps against one of 2k, bit for bit).  It times
+every kernel and variant at the main path's shape (a multi-step kernel as
+the median of 5 launches; B11 beside the dense path's phi and the median
+bandwidth, with its f32 and tensor-core bounds and the clusters of 2
+blocks the card holds), checks the one-step driver against the
 multi-step driver at f32 and at bf16 state and the chains-on-lanes
 drivers against the fused drivers on the dense network for all five
 samplers, and the small main paths on the card against the CPU, then trains
@@ -36,7 +41,8 @@ burn in on the lanes driver) and all five on the lanes path
 (``network="reference"``), SGHMC under ``compute_dtype=torch.bfloat16`` on
 both paths (with predict's serving rate in f32 and bf16 at 10,000 points),
 short bf16 lanes runs of the other four samplers, the 3x100 network on the
-fused path (SGHMC, and a short SGLD run) at 8192 chains, FusedSGHMC
+fused path (SGHMC, and a short SGLD run) and a short SGLD run of the
+3x114 network at 8192 chains, FusedSGHMC
 over the reference network (8192 chains, 3000 + 200 steps on B10; B10, B7
 mask and B7' checked and timed from its state) and from its state 200
 sampling steps each of ``sample_chain_packed`` (B7 mask, bf16 passes and
@@ -56,8 +62,8 @@ and B8-sgnht, the SVGD flagship for B11, the FusedSGHMC flagship for B10,
 the packed flagships for B7 mask (bf16 passes at the default
 ``compute_dtype``, f32 passes at ``compute_dtype=None``), the stacked
 flagships for B7' (f32 and bf16); the bf16 flagships
-and the bf16 drivers for the bf16 instantiations, the 3x100 runs for the
-wide records).
+and the bf16 drivers for the bf16 instantiations, the 3x100 and 3x114
+runs for the wide records).
 It prints each fused launch's placement (shared or device memory) and its
 own wall time;
 the second-to-last line is the kernels' JSON record, the last line
@@ -136,6 +142,9 @@ for _method in B8_EPS:
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # f32 outside the tensor cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# and the dense TF32 tensor-core peak (3xTF32: three passes of split
+# operands)
+TF32_FLOPS = 495e12
 # ptxas names the instantiations fused_kernel<rule, burn-in, gathered,
 # device, bf16 v> and slim_kernel<rule, burn-in, bf16 operands>
 INSTANCES = {(0, 0, 0): "B1", (0, 1, 0): "B2", (0, 0, 1): "B3",
@@ -176,11 +185,27 @@ MULTI_TIMED = 5  # launches of each multi-step kernel timed (median)
 # to BF16_WITNESS * BF16_FLOOR where the witness flips fewer.
 BF16_STEPS, BF16_WITNESS, BF16_FLOOR = 3, 4.0, 1e-4
 # the wide fused kernels (JAX's 128-slot layout takes H <= 114): hidden
-# width 100 at depth 3 (P = 20,502), whose state does not fit a block's
-# shared memory and lives in device memory; their flagship runs
-# WIDE_CHAINS chains, and they are timed there per launch of WIDE_STEPS
-# steps (the plain version at width 100 takes seconds per step)
+# width 100 at depth 3 (P = 20,502), where the state of B1, B2 and B5-sgld
+# does not fit a block's shared memory and lives in device memory (B6's
+# theta and gradient fit: the burn-in EMAs stay in device memory in both
+# placements); and B6 again at DEVICE_H, the widest the fused path takes
+# (fused_step.MAX_HIDDEN; P = 26,564), where its state lives in device
+# memory too.  Their flagships run WIDE_CHAINS chains, and they are timed
+# there per launch of WIDE_STEPS steps (the plain version at width 100
+# takes seconds per step)
 WIDE_H, WIDE_CHAINS, WIDE_STEPS = 100, 8192, 20
+DEVICE_H = 114
+# The wide SGLD check states, burned in by B6, amplify a 1e-7 nudge of
+# theta beyond REL_TOL / 4 over CHECK_STEPS steps at EPS_SGLD (on the
+# H100: at width 100 B6 9.6e-3 on injected noise and 4.6e-2 on Philox,
+# still 4.5e-2 over 8 steps, B5-sgld 2.9e-2 and 7.1e-3; at width 114 B6
+# 7.3e-4 and 2.7e-2, still 9.1e-5 on injected noise over 2 steps), so
+# over that many steps the check cannot tell rounding from disagreement.
+# These entries are checked over the steps below at EPS_SGLD; their
+# CHECK_STEPS floors are printed, unchecked (PERF.md section 6).  (B6 at
+# width 114 is also held to k + k == 2k steps, bit for bit.)
+WIDE_SGLD_STEPS = {("B6", WIDE_H): 4, ("B5-sgld", WIDE_H): 8,
+                   ("B6", DEVICE_H): 1}
 # predict's serving rate: queries at 8192 members x PREDICT_POINTS points
 PREDICT_POINTS, PREDICT_TIMED = 10_000, 3
 PROFILED_STEPS = 20  # lanes burn-in steps in the profiler trace
@@ -406,12 +431,15 @@ def _ptxas_report(log_text, kernel="fused_kernel", instances=INSTANCES,
     return out
 
 
-def _ptxas_svgd(log_text):
-    """``{"B11 ...": "N registers, ..."}`` of csrc/svgd_streaming.cu's three
-    kernels (the two pre-passes and the transport) from ptxas -v; raises
-    where one is missing."""
+def _ptxas_svgd(log_text, complete=True):
+    """``{"B11 ...": "N registers, ..."}`` of csrc/svgd_streaming.cu's
+    kernels (the two pre-passes, and the transport with 16-byte and with
+    4-byte copies, ``svgd_transport<4>`` and ``<1>``) from ptxas -v; raises
+    where ``complete`` and one is missing (an older tree's transport is
+    not a template)."""
     out = {}
-    for kernel, name in (("svgd_transport", "B11"),
+    for kernel, name in ((r"svgd_transportILi4E", "B11"),
+                         (r"svgd_transportILi1E", "B11 (4-byte copies)"),
                          ("squared_norms", "B11 norms pre-pass"),
                          ("fold_rhs", "B11 rhs pre-pass")):
         m = re.search(
@@ -419,7 +447,9 @@ def _ptxas_svgd(log_text):
             r"stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
             log_text, re.S)
         if m is None:
-            raise AssertionError("ptxas report lacks {}".format(kernel))
+            if complete:
+                raise AssertionError("ptxas report lacks {}".format(kernel))
+            continue
         out[name] = "{} registers, {} bytes spill stores, {} bytes spill " \
                     "loads".format(m.group(4), m.group(2), m.group(3))
     return out
@@ -1285,12 +1315,21 @@ def _svgd_bound(n, d):
     """(bound_ms, bound_by) of one B11 call: the symmetric Gram matrix (n^2
     d f32 operations) and one n x n x d product K (-G - X / h^2) (2 n^2 d;
     the n^2 exponentials not counted), against x and g read and phi written
-    once."""
+    once.  B11's time is set against this f32 bound; :func:`_svgd_tf32_bound`
+    stands beside it."""
     compute_ms = 3.0 * n * n * d / F32_FLOPS * 1e3
     memory_ms = 3.0 * 4 * n * d / HBM_BYTES_PER_S * 1e3
     if compute_ms >= memory_ms:
         return compute_ms, "operations"
     return memory_ms, "bytes"
+
+
+def _svgd_tf32_bound(n, d):
+    """ms of the function's work at f32 accuracy on the tensor cores: the
+    symmetric Gram (n^2 d) and K V (2 n^2 d), each as three TF32 passes
+    (3xTF32), at the TF32 peak.  (B11 computes the whole Gram, 4 n^2 d in
+    all: its own work is 4/3 of this.)"""
+    return 3.0 * 3.0 * n * n * d / TF32_FLOPS * 1e3
 
 
 def _svgd_checks(torch, ss, cases):
@@ -1320,7 +1359,7 @@ def _svgd_times(torch, ss, x, g, h, card):
     ``kernel_impl="dense"``: ``svgd_kernel`` and a product, three cuBLAS
     calls with its own bandwidth) and the median bandwidth alone (median
     of 5 each).  Returns ``{name: ms}`` and B11's bound."""
-    from pysgmcmc_tpu_torch.ops import pairwise
+    from pysgmcmc_tpu_torch.ops import _build, pairwise
 
     n, d = x.shape
 
@@ -1338,12 +1377,19 @@ def _svgd_times(torch, ss, x, g, h, card):
         fn()  # warm-up
         ms[name] = _median_ms(torch, fn, repeats)
     bound = _svgd_bound(n, d)
+    lib = _build.load("svgd_streaming")
     print("time B11 at {} particles x {} parameters: kernel {:.3f} ms (median "
           "of {}), plain {:.3f} ms, dense path (svgd_kernel + matmul, three "
           "cuBLAS calls) {:.3f} ms, median bandwidth {:.3f} ms (medians of "
-          "5), bound {:.3f} ms ({}) ({})".format(
+          "5), bound {:.3f} ms ({}, f32), tensor-core bound of the "
+          "function's work as 3xTF32 {:.3f} ms; {} bytes of shared memory "
+          "a block, {} clusters "
+          "of 2 resident ({})".format(
               n, d, ms["B11"], SVGD_TIMED, ms["B11 plain"], ms["B11 dense"],
-              ms["B11 bandwidth"], bound[0], bound[1], card))
+              ms["B11 bandwidth"], bound[0], bound[1], _svgd_tf32_bound(n, d),
+              lib.svgd_streaming_smem_bytes(),
+              lib.svgd_streaming_active_clusters(), card))
+    print("time B11 / dense path: {:.3f}".format(ms["B11"] / ms["B11 dense"]))
     return ms, bound
 
 
@@ -2167,26 +2213,129 @@ def _predict_rates(torch, bnn, card):
                              "not finite or {:.3e} from f32's".format(gap))
 
 
-def _wide_states(torch, fs, x, y, device):
-    """The SGHMC and SGLD check states of the WIDE_H network after
+def _placed_as_counted(fs, lay, what):
+    """Raises unless every fused launch counted in ``fs.placements`` took
+    the placement the library's own count gives at layout ``lay`` (batch
+    BATCH), and unless some took device memory.  (The burn-in's EMAs live
+    in device memory in both placements, so at H = WIDE_H B6's theta and
+    gradient fit shared memory, and the others' state does not.)"""
+    ids = {"fused_bnn_multistep": fs.B1, "fused_bnn_multistep_burnin": fs.B2,
+           "fused_bnn_multistep_sgld": fs.B5_SGLD,
+           "fused_bnn_multistep_burnin_sgld": fs.B6}
+    wrong = {}
+    for (entry, where), count in fs.placements.items():
+        base = re.sub(r"_(clt|paired)$", "", entry)
+        if where != fs.fused_placement(ids[base], lay, BATCH):
+            wrong[(entry, where)] = count
+    if wrong or "device" not in {where for _, where in fs.placements}:
+        raise AssertionError(
+            "{}: fused launches against the library's placement (or none "
+            "in device memory): {}; all: {}".format(
+                what, wrong, dict(fs.placements)))
+
+
+def _wide_states(torch, fs, x, y, h, rules=("SGHMC", "SGLD")):
+    """The check states of ``rules`` on the ``h``-wide network after
     BURNED_IN burn-in steps (CHECK_CHAINS chains) on Box-Muller normals,
-    packed as in main.  (After the CLT burn-in the wide SGLD state moves
-    its plain version by 2.955e-4 of a row's scale from a 1e-7 nudge over
-    16 steps at EPS_SGLD, beyond what the check can resolve; after
-    Box-Muller's, by less than REL_TOL / 4.)"""
-    lay = fs.FusedLayout(1, WIDE_H, 3)
-    state = {}
+    packed as in main; returns the layout and ``{rule: {name: tensor}}``.
+    (Their SGLD states amplify a 1e-7 nudge of theta beyond what a
+    CHECK_STEPS check resolves: WIDE_SGLD_STEPS.)"""
     from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
-    for sampler_cls in (SGHMCSampler, SGLDSampler):
-        burned = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, device,
-                            h=WIDE_H, noise_impl="box_muller")[1]
-        rule = sampler_cls.__name__[:-7]
+
+    lay = fs.FusedLayout(1, h, 3)
+    state = {}
+    for rule in rules:
+        sampler_cls = {"SGHMC": SGHMCSampler, "SGLD": SGLDSampler}[rule]
+        burned = _burned_in(torch, x, y, sampler_cls, CHECK_CHAINS, x.device,
+                            h=h, noise_impl="box_muller")[1]
         state[rule] = {"theta": fs.pack(burned.position, lay)}
         state[rule].update(zip(("tau", "g", "v_hat", "minv"), (
             fs.pack(leaf, lay) for leaf in burned.stats)))
         if rule == "SGHMC":
             state[rule]["v"] = fs.pack(burned.momentum, lay)
     return lay, state
+
+
+def _variant_plan(plan, stream):
+    """A variant's plan: the checked entries of Box-Muller's ``plan`` on
+    ``stream`` alone (the floors of the unchecked ones are Box-Muller's,
+    printed with them)."""
+    return [(eps, k, True, (stream,)) for eps, k, checked, *_ in plan
+            if checked]
+
+
+def _chunked_equal(torch, what, fn, state, x_win, y_win, eps, kw, k):
+    """Raises unless two launches of ``k`` steps of the multi-step wrapper
+    ``fn`` from ``state`` (its leading inputs, continued from the first
+    launch's outputs) equal one launch of 2k steps bit for bit."""
+    seed = 2**40 + 1
+    once = fn(*state, x_win, y_win, eps, seed, k_steps=2 * k, step0=5, **kw)
+    first = fn(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **kw)
+    twice = fn(*first[:len(state)], x_win, y_win, eps, seed, k_steps=k,
+               step0=5 + k, **kw)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(once, twice)]
+    print("  {}: {} + {} steps equal {} bit for bit: {}".format(
+        what, k, k, 2 * k, same))
+    if not all(same):
+        raise AssertionError("{}: two launches of {} steps differ from one "
+                             "of {}".format(what, k, 2 * k))
+
+
+def _wide_checks(torch, fs, checks, x, y, x_win, y_win, base, gen):
+    """The wide kernels against their plain versions: B1, B2, B5-sgld and
+    B6 at WIDE_H and B6 at DEVICE_H, each from the check states of its
+    width (:func:`_wide_states`) with its ``checks`` entry's plan (the SGLD
+    entries' at EPS_SGLD over WIDE_SGLD_STEPS), Box-Muller on injected
+    noise and Philox, the CLT on its stream; at DEVICE_H also two launches
+    of B6 equal to one bit for bit on both generators.  Raises unless every
+    fused launch took the placement the library's count gives (at DEVICE_H
+    device memory).  Returns ``{record: max abs error}``."""
+    err = {}
+    for h, kernels in ((WIDE_H, ("B1", "B2", "B5-sgld", "B6")),
+                       (DEVICE_H, ("B6",))):
+        entries = [entry for entry in checks if entry[0] in kernels]
+        lay, state = _wide_states(torch, fs, x, y, h,
+                                  rules=sorted({e[3] for e in entries}))
+        kw = dict(base, h=h, prior_scale=1.0 / (lay.n_params * N_DATA))
+        kw = {"SGHMC": dict(kw, mdecay=0.05), "SGLD": dict(kw, a_coef=1.0)}
+        noise = torch.randn((CHECK_STEPS, CHECK_CHAINS, lay.n_params),
+                            generator=gen, device=x.device)
+        widx = torch.randint(0, x_win.shape[0], (CHECK_STEPS, CHECK_CHAINS),
+                             generator=gen, device=x.device,
+                             dtype=torch.int32)
+        plans = {}
+        for name, _, _, _, _, _, _, plan in entries:
+            steps = WIDE_SGLD_STEPS.get((name, h))
+            plans[name] = plan if steps is None else [
+                (EPS_SGLD, CHECK_STEPS, False), (EPS_SGLD, steps, True),
+                *plan[1:]]
+        fs.placements.clear()
+        err.update(_kernel_checks(torch, fs, [
+            (_record("{} (H={})".format(name, h), variant), fn, ref,
+             tuple(state[rule][k] for k in inputs), kw[rule], labels, False,
+             _variant_plan(plans[name], "clt") if variant else plans[name])
+            for name, fn, ref, rule, inputs, labels, _, _ in entries
+            for variant in ("", "clt")], x_win, y_win,
+            [("injected", dict(noise=noise, widx=widx)),
+             ("philox", dict(step0=12345)),
+             ("clt", dict(step0=12345, **VARIANT_KW["clt"]))]))
+        if h == DEVICE_H:
+            for name, fn, _, rule, inputs, _, _, _ in entries:
+                for variant in ("", "clt"):
+                    _chunked_equal(
+                        torch, _record("{} (H={})".format(name, h), variant),
+                        fn, tuple(state[rule][k] for k in inputs), x_win,
+                        y_win, EPS_SGLD, dict(kw[rule], **VARIANT_KW[variant]),
+                        CHECK_STEPS // 2)
+        print("wide kernel checks (H={}, P={}): fused launches by placement "
+              "{}".format(h, lay.n_params, dict(fs.placements)))
+        _placed_as_counted(fs, lay, "the H={} kernel checks".format(h))
+        if h == DEVICE_H and {w for _, w in fs.placements} != {"device"}:
+            raise AssertionError("the H={} checks did not all run in device "
+                                 "memory: {}".format(h, dict(fs.placements)))
+        del noise, widx, state
+    return err
 
 
 def main():
@@ -2326,19 +2475,13 @@ def main():
     # the paired ones on the Philox stream, each plan as Box-Muller's
     streams.append(("clt", dict(step0=12345, **VARIANT_KW["clt"])))
 
-    def variant_plan(plan, stream):
-        # the checked entries (the floors of the unchecked ones are
-        # Box-Muller's, printed above)
-        return [(eps, k, True, (stream,)) for eps, k, checked, *_ in plan
-                if checked]
-
     err = _kernel_checks(torch, fs, [
         (_record(name, variant), fn, ref,
          tuple(state[rule][k] for k in inputs),
          dict(sghmc if rule == "SGHMC" else sgld,
               **({} if variant == "clt" else VARIANT_KW[variant])),
          labels, one_step,
-         plan if not variant else variant_plan(
+         plan if not variant else _variant_plan(
              plan, "clt" if variant == "clt" else "philox"))
         for name, fn, ref, rule, inputs, labels, one_step, plan in checks
         for variant in ("", "clt", "paired")
@@ -2393,34 +2536,9 @@ def main():
                         dict(fused_kw, SGHMC=sghmc, SGLD=sgld), x_win, y_win)
     lanes_states = {method: state[method] for method in B8_EPS}
     del noise, widx, state
-    # the wide kernels at H = WIDE_H, their state in device memory
-    wide_lay, wide_state = _wide_states(torch, fs, x, y, device)
-    wide_base = dict(base, h=WIDE_H,
-                     prior_scale=1.0 / (wide_lay.n_params * N_DATA))
-    noise = torch.randn((CHECK_STEPS, CHECK_CHAINS, wide_lay.n_params),
-                        generator=gen, device=device)
-    widx = torch.randint(0, n_windows, (CHECK_STEPS, CHECK_CHAINS),
-                         generator=gen, device=device, dtype=torch.int32)
-    fs.placements.clear()
-    wide_err = _kernel_checks(torch, fs, [
-        (_record(name + " (H={})".format(WIDE_H), variant), fn, ref,
-         tuple(wide_state[rule][k] for k in inputs),
-         dict(wide_base, mdecay=0.05) if rule == "SGHMC"
-         else dict(wide_base, a_coef=1.0), labels, False,
-         plan if not variant else variant_plan(plan, "clt"))
-        for name, fn, ref, rule, inputs, labels, one_step, plan in checks
-        if name in ("B1", "B2", "B5-sgld", "B6")
-        for variant in ("", "clt")], x_win, y_win,
-        [("injected", dict(noise=noise, widx=widx)),
-         ("philox", dict(step0=12345)),
-         ("clt", dict(step0=12345, **VARIANT_KW["clt"]))])
-    print("wide kernel checks (H={}, P={}): fused launches by placement "
-          "{}".format(WIDE_H, wide_lay.n_params, dict(fs.placements)))
-    if {where for _, where in fs.placements} != {"device"}:
-        raise AssertionError("the H={} kernels did not all run in device "
-                             "memory: {}".format(WIDE_H, fs.placements))
-    err.update(wide_err)
-    del noise, widx, wide_state
+    # the wide kernels at H = WIDE_H (B6 again at DEVICE_H), state in device
+    # memory (B6's theta and gradient at WIDE_H in shared memory)
+    err.update(_wide_checks(torch, fs, checks, x, y, x_win, y_win, base, gen))
     # the fused kernels without a mass matrix, from the lanes check states
     # tiled to the flagship's chains
     n = MAIN_CHAINS
@@ -2631,11 +2749,15 @@ def main():
     del theta, zeros, ones, out, minv_big, sel, slim_states, big, outs
     torch.cuda.empty_cache()
     # the wide kernels at WIDE_CHAINS chains x WIDE_STEPS steps, state in
-    # device memory
+    # device memory (B6's theta and gradient at WIDE_H in shared memory);
+    # B6 at DEVICE_H, its state in device memory
+    wide_lay = fs.FusedLayout(1, WIDE_H, 3)
     wide_theta = fs.pack(dense_network(1, units=(WIDE_H,) * 3, device=device)[
         0](gen, (WIDE_CHAINS,)), wide_lay)
     wz, wo = torch.zeros_like(wide_theta), torch.ones_like(wide_theta)
     wide_kw = dict(layout=wide_lay, chains=WIDE_CHAINS, steps=WIDE_STEPS)
+    wide_base = dict(base, h=WIDE_H,
+                     prior_scale=1.0 / (wide_lay.n_params * N_DATA))
     wide_sghmc = dict(wide_base, mdecay=0.05)
     wide_sgld = dict(wide_base, a_coef=1.0)
     tag = " (H={})".format(WIDE_H)
@@ -2658,15 +2780,36 @@ def main():
         fn, ref, args, kw, step0, _, _ = timed_args[name + tag]
         time_multi(_record(name + tag, "clt"), fn, ref, args,
                    dict(kw, **VARIANT_KW["clt"]), step0=step0, **wide_kw)
-    for name in ("B2", "B1", "B6", "B5-sgld"):
-        for record in (name + tag, _record(name + tag, "clt")):
-            print("time {} at {} chains x {} steps (P = {}, state in device "
+    del wide_theta, wz, wo, out
+    dev_lay = fs.FusedLayout(1, DEVICE_H, 3)
+    dev_theta = fs.pack(dense_network(1, units=(DEVICE_H,) * 3,
+                                      device=device)[0](gen, (WIDE_CHAINS,)),
+                        dev_lay)
+    do = torch.ones_like(dev_theta)
+    dev_tag = " (H={})".format(DEVICE_H)
+    for variant in ("", "clt"):
+        time_multi(_record("B6" + dev_tag, variant),
+                   fs.fused_bnn_multistep_burnin_sgld,
+                   fs.fused_bnn_multistep_burnin_sgld_ref,
+                   (dev_theta, do, do, do, x_win, y_win, EPS_SGLD, 44),
+                   dict(base, h=DEVICE_H, a_coef=1.0, prior_scale=1.0 / (
+                       dev_lay.n_params * N_DATA), **VARIANT_KW[variant]),
+                   layout=dev_lay, chains=WIDE_CHAINS, steps=WIDE_STEPS)
+    del dev_theta, do
+    for name, kernel_id, w_lay in (
+            ("B2" + tag, fs.B2, wide_lay), ("B1" + tag, fs.B1, wide_lay),
+            ("B6" + tag, fs.B6, wide_lay),
+            ("B5-sgld" + tag, fs.B5_SGLD, wide_lay),
+            ("B6" + dev_tag, fs.B6, dev_lay)):
+        for record in (name, _record(name, "clt")):
+            print("time {} at {} chains x {} steps (P = {}, state in {} "
                   "memory): kernel {:.2f} ms (median of {}), plain {:.2f} ms "
                   "(one launch), bound {:.2f} ms ({}) ({})".format(
-                      record, WIDE_CHAINS, WIDE_STEPS, wide_lay.n_params,
+                      record, WIDE_CHAINS, WIDE_STEPS, w_lay.n_params,
+                      fs.fused_placement(kernel_id, w_lay, BATCH),
                       timed[record], MULTI_TIMED, timed[record + " plain"],
                       bounds[record][0], bounds[record][1], card))
-    del wide_theta, wz, wo, out, timed_args
+    del timed_args
     torch.cuda.empty_cache()
 
     # ---- the one-step driver vs the multi-step driver on the card ----
@@ -2915,34 +3058,35 @@ def main():
             step_impl="lanes", network="reference", burn_in=50,
             sample_steps=20, gate=False, tag=" bf16 short",
             stepsize=B8_EPS.get(method), compute_dtype=bf)[0])
-    # the wide network JAX's fused path takes: units=(WIDE_H,) * 3, SGHMC
-    # (gated) and SGLD (a short run), their state in device memory
+    # the wide networks JAX's fused path takes: units=(WIDE_H,) * 3, SGHMC
+    # (gated) and SGLD (a short run), their state in device memory (B6's
+    # theta and gradient in shared memory); and SGLD (a short run) at
+    # units=(DEVICE_H,) * 3, B6's state in device memory
     # (the CLT, the default; and Box-Muller, 200 + 200 steps)
-    for method, kernels, burn_in, sample_steps, gate, variant in (
-            ("SGHMC", {"B1": fs.fused_bnn_multistep,
-                       "B2": fs.fused_bnn_multistep_burnin},
-             BURN_IN, SAMPLE_STEPS, True, "clt"),
-            ("SGLD", {"B5-sgld": fs.fused_bnn_multistep_sgld,
-                      "B6": fs.fused_bnn_multistep_burnin_sgld}, 200, 200,
-             False, "clt"),
-            ("SGHMC", {"B1": fs.fused_bnn_multistep,
-                       "B2": fs.fused_bnn_multistep_burnin},
-             200, 200, False, ""),
-            ("SGLD", {"B5-sgld": fs.fused_bnn_multistep_sgld,
-                      "B6": fs.fused_bnn_multistep_burnin_sgld}, 200, 200,
-             False, "")):
+    sghmc_fns = {"B1": fs.fused_bnn_multistep,
+                 "B2": fs.fused_bnn_multistep_burnin}
+    sgld_fns = {"B5-sgld": fs.fused_bnn_multistep_sgld,
+                "B6": fs.fused_bnn_multistep_burnin_sgld}
+    for method, kernels, burn_in, sample_steps, gate, variant, h in (
+            ("SGHMC", sghmc_fns, BURN_IN, SAMPLE_STEPS, True, "clt", WIDE_H),
+            ("SGLD", sgld_fns, 200, 200, False, "clt", WIDE_H),
+            ("SGHMC", sghmc_fns, 200, 200, False, "", WIDE_H),
+            ("SGLD", sgld_fns, 200, 200, False, "", WIDE_H),
+            ("SGLD", {"B6": sgld_fns["B6"]}, 200, 200, False, "clt",
+             DEVICE_H),
+            ("SGLD", {"B6": sgld_fns["B6"]}, 200, 200, False, "",
+             DEVICE_H)):
+        tag = " (H={})".format(h)
         more, _ = _flagship(
             torch, x_np, y_np, Sampler[method],
             {_record(name + tag, variant): fn
              for name, fn in kernels.items()}, card, rates,
             chains=WIDE_CHAINS, burn_in=burn_in, sample_steps=sample_steps,
             gate=gate, tag=tag + (" " + variant if variant else
-                                  " box_muller"), units=(WIDE_H,) * 3,
+                                  " box_muller"), units=(h,) * 3,
             **({} if variant else dict(noise_impl="box_muller")))
-        if {where for _, where in fs.placements} != {"device"}:
-            raise AssertionError("the H={} flagship's fused launches did not "
-                                 "all run in device memory: {}".format(
-                                     WIDE_H, dict(fs.placements)))
+        _placed_as_counted(fs, fs.FusedLayout(1, h, 3),
+                           "the H={} flagship".format(h))
         count(more)
     # FusedSGHMC (B10) at the flagship's size, its kernel checks and times
     # from its burned-in state, then the packed (B7 mask) and stacked (B7')
@@ -3035,7 +3179,9 @@ def main():
     variants = [name + " (bf16)" for name in (
         "B2", "B1", "B3", "B4-sgld", "B5-sgld", "B4-sgnht", "B4-rsghmc",
         "B5-sgnht", "B5-rsghmc", *SLIM)]
-    variants += [name + tag for name in ("B2", "B1", "B6", "B5-sgld")]
+    variants += [name + " (H={})".format(WIDE_H)
+                 for name in ("B2", "B1", "B6", "B5-sgld")]
+    variants += ["B6 (H={})".format(DEVICE_H)]
     variants += ["B7-mask (bf16)", "B7' (bf16)"]
     # every fused record again as the CLT instantiation, and those of the
     # paired kernels (f32, and bf16 where the kernel has a momentum) as the
@@ -3068,6 +3214,9 @@ def main():
         for name in [*replaces, *variants]
         for fn_name, module, line in [replaces[name.split(" ")[0]]]
         for src, tpu_module, tpu_line in [source(name, module)]]
+    for r in records:  # B11's tensor-core bound beside its f32 one
+        if r["name"] == replaces["B11"][0]:
+            r["bound_tf32_ms"] = _svgd_tf32_bound(SVGD_PARTICLES, P)
     idle = [r["name"] for r in records if r["launches"] < 1]
     if idle:
         raise AssertionError("kernels not launched on a main path: "

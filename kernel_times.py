@@ -28,8 +28,12 @@ has the MXU-CLT and paired instantiations, each of these multi-step and
 one-step records again with ``noise_impl="hadamard_clt"`` ("B1 (clt)",
 "B1 (bf16, clt)", "B1 (H=100, clt)", ...) and, for B1, B2, B3, B5-* and B6,
 with ``pair_dots=True`` ("B1 (paired)", ...), with their ``ptxas``
-reports.  The constants, the data, the register report and
-the timing (CUDA events on a spinning stream) are ``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
+reports; B2 at width 100 also at bf16 state ("B2 (H=100, bf16)"); and
+the SVGD transport B11 at the flagship's 4096 particles x 5,252 parameters
+(median of 20 launches, on particles 0.3 N(0, 1), gradients N(0, 1) and
+their median bandwidth), with its ``ptxas`` report.  The constants, the
+data, the register report and the timing (CUDA events on a spinning
+stream) are ``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
 call (A, B, B, A): a card's times move between calls more than within one.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -284,11 +288,32 @@ def main(argv=None):
                     dict(kw, a_coef=1.0), steps)
         timed("B5-sgld" + tag, fs.fused_bnn_multistep_sgld,
               (out[0], out[4]), cs.EPS_SGLD, dict(kw, a_coef=1.0), steps)
+        wide_names = ["B2", "B1", "B6", "B5-sgld"]
+        if hasattr(fs, "STATE_DTYPES"):
+            wide_names.append("B2 (H={}, bf16)".format(cs.WIDE_H))
+            timed(wide_names[-1], fs.fused_bnn_multistep_burnin,
+                  (theta, torch.zeros_like(theta).to(torch.bfloat16), ones,
+                   ones, ones), cs.EPS,
+                  dict(kw, mdecay=0.05, state_dtype=torch.bfloat16), steps)
         if variants:
-            time_variants([name + tag for name in ("B2", "B1", "B6",
-                                                   "B5-sgld")])
+            time_variants([name if "H=" in name else name + tag
+                           for name in wide_names])
+        del theta, ones, out
+    # the SVGD transport at the flagship's shape
+    from pysgmcmc_tpu_torch.ops import pairwise
+    from pysgmcmc_tpu_torch.ops import svgd_streaming as ss
+
+    with open(_build.log_path("svgd_streaming")) as f:
+        registers.update(cs._ptxas_svgd(f.read(), complete=False))
+    sx = 0.3 * torch.randn((cs.SVGD_PARTICLES, lay.n_params), generator=gen,
+                           device=device)
+    sg = torch.randn(sx.shape, generator=gen, device=device)
+    sh = pairwise.median_bandwidth(pairwise.squared_distance_matrix(sx),
+                                   cs.SVGD_PARTICLES)
+    timed_one("B11", ss.svgd_phi_streaming, (sx, sg, sh), {})
     print(json.dumps({"root": root, "ptxas": registers, "ms": ms,
-                      "chains": n, "steps": k, "repeats": REPEATS}))
+                      "chains": n, "steps": k, "repeats": REPEATS,
+                      "svgd_shape": list(sx.shape)}))
     return 0
 
 

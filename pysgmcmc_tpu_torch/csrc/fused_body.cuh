@@ -34,23 +34,42 @@
 //
 // Design.  One kernel body, templated on the rule, the phase (sampling /
 // burn-in) and the minibatch source (window table / gathered rows), as JAX's
-// KernelRule.  One thread block owns one chain.  At launch it loads the
-// chain's whole state (theta, then v for SGHMC, the accumulator or momentum
-// for pSGLD, SGNHT and relativistic SGHMC, then minv or tau, g, v_hat) plus a
+// KernelRule.  One thread block of 256 threads owns one chain.  At launch it
+// loads the chain's theta, then v for SGHMC, the accumulator or momentum
+// for pSGLD, SGNHT and relativistic SGHMC, then minv (sampling) plus a
 // gradient buffer into dynamic shared memory, runs the k steps there and
 // writes the state back once: the counterpart of the TPU kernel's VMEM
-// residency.  SGNHT's thermostat lives in shared memory too; its p'^T p' is
-// a block reduction each step (warp shuffles, then one partial sum per warp),
-// summed in another order than torch.sum.  Device memory then sees only the
-// state's load and store per launch and the small window reads per step, so
-// once the state is resident a multi-step kernel is bound by FP32 FMA issue
-// and shared-memory bandwidth in the six batch x H x H products of each step,
-// not by HBM; the update rules, the reduction and relativistic SGHMC's two
-// rsqrtf per element are small beside them.  The one-step kernels (B3,
-// B4-*) load and store the whole state every step: at the flagship (8192
-// chains x 5,252 parameters) B4-psgld, B4-sgnht and B4-rsghmc read theta
-// and one state array and write both, 0.69 GB, 0.205 ms at 3.35 TB/s.
-// All arithmetic is f32 on the CUDA cores (no tensor cores yet).
+// residency.  The burn-in's tau, g and v_hat are touched once a step, by
+// the update alone, element by element: they stay in the caller's output
+// arrays in device memory (copied there from the inputs at launch; the
+// chains in flight keep their working set in L2), so that B2 needs 83,752
+// bytes of shared memory at the flagship (3x50, batch 20) instead of 146
+// KB, and two blocks of 8 warps fit an SM, as B1's 104,760.  SGNHT's
+// thermostat lives in shared memory too; its p'^T p' is a block reduction
+// each step (warp shuffles, then one partial sum per warp), summed in
+// another order than torch.sum.
+//
+// The six batch x H x H products of a step (two forward layers, two weight
+// gradients and two backward products at depth 3) are register-tiled
+// (tiled_product): a thread computes 2 x 2 outputs of a batch x H product
+// and 3 x 4 of a weight gradient, so each operand it loads from shared
+// memory feeds two to four FMAs, and its sums are independent chains.  Each
+// activation row carries a trailing 1, so a layer's bias is one more row
+// of its weight matrix (the flat layout stores b_l right after w_l): the
+// forward product adds the bias and the weight-gradient product yields the
+// bias gradient, in the same pass.  The head and the likelihood run on one
+// warp, each backward layer's weight gradient beside the previous layer's
+// pre-activation gradient (two buffers in turn), and every thread that
+// copies the minibatch finds its window itself: nine barriers a step at
+// depth 3 instead of fourteen.  All arithmetic is f32 FMA on the CUDA
+// cores, summed in order of k as before: at a batch of 20 and H = 50 an
+// m16n8k8 tile pads M to 32, and 3xTF32 (f32 accuracy on the tensor cores)
+// triples the products, for a step whose products are no longer most of
+// its time (the update rules' Philox, Box-Muller and divisions are).  The
+// one-step kernels (B3, B4-*) load and store the whole state every step: at
+// the flagship (8192 chains x 5,252 parameters) B4-psgld, B4-sgnht and
+// B4-rsghmc read theta and one state array and write both, 0.69 GB, 0.205
+// ms at 3.35 TB/s.
 //
 // bf16 state (JAX's state_dtype=jnp.bfloat16).  The momentum (SGHMC,
 // SGNHT, relativistic SGHMC) or accumulator (pSGLD) may be stored as bf16,
@@ -66,7 +85,7 @@
 // 2k.  minv is read once (its bf16 values are exact in f32).
 //
 // Placement.  A chain's P-long arrays (theta, the aux state, the gradient,
-// minv or tau, g, v_hat) live in the block's shared memory when they fit
+// minv) live in the block's shared memory when they fit
 // (fused_step_smem_bytes <= 232,448 bytes).  A wider network (JAX's fused
 // path takes hidden widths up to 114, where theta alone is 104 KB at depth
 // 3) runs the same body, instantiated with kDevice, with those arrays in a
@@ -247,177 +266,194 @@ __device__ Layout make_layout(int n_inputs, int hidden, int depth) {
   return L;
 }
 
-// Shared-memory scratch besides the state arrays.
+// Shared-memory scratch besides the state arrays.  Every activation row
+// carries a trailing 1 (column hidden, or n_inputs for x), so that a layer's
+// bias is one more row of its weight matrix: in the flat layout w_l (in x
+// out) is followed by b_l, and the products below run over in + 1 rows.
+// Row strides of hidden + 1 words (odd) keep a warp's column reads on
+// distinct banks.
 struct Scratch {
-  float* act;    // depth x (batch x hidden): post-tanh activations
-  float* dz;     // batch x hidden
-  float* da;     // batch x hidden
-  float* x;      // batch x n_inputs
+  float* act;    // depth x batch x (hidden + 1): post-tanh activations, 1
+  float* dz0;    // batch x (hidden + 1): a layer's pre-activation gradient,
+  float* dz1;    // and the next one's (the backward pass alternates them)
+  float* x;      // batch x (n_inputs + 1): the minibatch's inputs, 1
   float* y;      // batch
-  float* fmean;  // batch
   float* dmean;  // batch
-  float* scal;   // [0]: cost; [1]: window index (as int bits); SGNHT: [2] xi
-                 // and [3 .. 3 + kWarps) the per-warp partial sums of p'^T p'
+  float* scal;   // [0]: cost; SGNHT: [2] xi and [3 .. 3 + kWarps) the
+                 // per-warp partial sums of p'^T p'
 };
+
+// out(m, n) = sum_k A(m, k) B(k, n) for m < M, n < N, summed in order of k
+// by fmaf and handed to epi(m, n, out); A(m, k) = a[m * a_m + k * a_k],
+// B(k, n) = b[k * b_k + n * b_n].  Register-tiled: a thread computes kTM
+// consecutive rows by kTN columns ceil(N / kTN) apart (neighbouring threads
+// on neighbouring columns), so each value it loads feeds kTN or kTM FMAs
+// and its kTM x kTN sums are independent.
+template <int kTM, int kTN, class Epi>
+__device__ __forceinline__ void tiled_product(int M, int N, int Kd,
+                                              const float* a, int a_m,
+                                              int a_k, const float* b,
+                                              int b_k, int b_n, Epi&& epi) {
+  const int cols = (N + kTN - 1) / kTN;
+  const int tiles = cols * ((M + kTM - 1) / kTM);
+  for (int u = threadIdx.x; u < tiles; u += kThreads) {
+    const int m0 = (u / cols) * kTM, n0 = u - (u / cols) * cols;
+    int ao[kTM], bo[kTN];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r) ao[r] = min(m0 + r, M - 1) * a_m;
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) bo[c] = min(n0 + c * cols, N - 1) * b_n;
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r)
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < Kd; ++k) {
+      float av[kTM], bv[kTN];
+#pragma unroll
+      for (int r = 0; r < kTM; ++r) av[r] = a[ao[r] + k * a_k];
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) bv[c] = b[bo[c] + k * b_k];
+#pragma unroll
+      for (int r = 0; r < kTM; ++r)
+#pragma unroll
+        for (int c = 0; c < kTN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTM; ++r)
+#pragma unroll
+      for (int c = 0; c < kTN; ++c)
+        if (m0 + r < M && n0 + c * cols < N) epi(m0 + r, n0 + c * cols, acc[r][c]);
+  }
+}
 
 // Forward, likelihood and backward for the chain whose parameters are in
 // `th`; writes the likelihood gradient (without the weight prior) to `grad`
-// and the cost to s.scal[0].  Ends with a barrier.
+// and the cost to s.scal[0].  Ends with a barrier.  Eight barriers at depth
+// 3: one after each layer, after the head and likelihood (warp 0), after
+// the head's gradient, after each hidden layer's backward phase (its weight
+// and bias gradient beside the previous layer's pre-activation gradient)
+// and after layer 1's gradient.
 __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
                         float* grad, const Scratch& s) {
   const int tid = threadIdx.x;
   const int H = a.hidden, K = a.n_inputs, B = a.batch, D = a.depth;
-  const int BH = B * H;
+  const int SA = H + 1, SX = K + 1;  // row strides, with the 1 column
+  const int BA = B * SA;
 
-  // layer 1
-  for (int o = tid; o < BH; o += kThreads) {
-    const int b = o / H, j = o - b * H;
-    float z = 0.0f;
-    for (int i = 0; i < K; ++i) z += s.x[b * K + i] * th[L.w1 + i * H + j];
-    s.act[o] = tanhf(z + th[L.b1 + j]);
-  }
+  // layer 1: tanh([x 1] [w1; b1])
+  tiled_product<2, 2>(B, H, K + 1, s.x, SX, 1, th + L.w1, H, 1,
+                      [&](int b, int j, float z) {
+                        s.act[b * SA + j] = tanhf(z);
+                      });
   __syncthreads();
   // hidden layers 2..D
   for (int l = 2; l <= D; ++l) {
-    const float* w = th + L.w(l, H, K);
-    const float* bias = th + L.b(l, H, K);
-    const float* a_in = s.act + (l - 2) * BH;
-    float* a_out = s.act + (l - 1) * BH;
-    for (int o = tid; o < BH; o += kThreads) {
-      const int b = o / H, j = o - b * H;
-      const float* row = a_in + b * H;
-      float z = 0.0f;
-      for (int i = 0; i < H; ++i) z += row[i] * w[i * H + j];
-      a_out[o] = tanhf(z + bias[j]);
-    }
+    const float* a_in = s.act + (l - 2) * BA;
+    float* a_out = s.act + (l - 1) * BA;
+    tiled_product<2, 2>(B, H, H + 1, a_in, SA, 1, th + L.w(l, H, K), H, 1,
+                        [&](int b, int j, float z) {
+                          a_out[b * SA + j] = tanhf(z);
+                        });
     __syncthreads();
   }
-  const float* a_last = s.act + (D - 1) * BH;
-  // mean head: one warp per batch row
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int b = warp; b < B; b += kWarps) {
-      float acc = 0.0f;
-      for (int j = lane; j < H; j += 32) acc += a_last[b * H + j] * th[L.head_w + j];
-      acc = warp_sum(acc);
-      if (lane == 0) s.fmean[b] = acc + th[L.head_b];
-    }
-  }
-  __syncthreads();
-  // heteroscedastic likelihood + log-variance prior (warp 0)
+  const float* a_last = s.act + (D - 1) * BA;
+  // mean head ([a 1] [w_head; b_head]), heteroscedastic likelihood and
+  // log-variance prior: warp 0, a lane per batch row
   if (tid < 32) {
     const float lvb = th[L.lvb];
     const float e_lv = expf(lvb);
     const float var_inv = 1.0f / (e_lv + kSmall);
-    float ll = 0.0f, dl = 0.0f, gb = 0.0f;
+    float ll = 0.0f, dl = 0.0f;
     for (int b = tid; b < B; b += 32) {
-      const float diff = s.fmean[b] - s.y[b];
+      float f = 0.0f;
+      for (int j = 0; j <= H; ++j)
+        f = fmaf(a_last[b * SA + j], th[L.head_w + j], f);
+      const float diff = f - s.y[b];
       const float mse = diff * diff;
       ll += -mse * (0.5f * var_inv) - 0.5f * lvb;
       dl += mse * (0.5f * e_lv) * (var_inv * var_inv) - 0.5f;
-      const float dm = diff * var_inv * a.inv_b;
-      s.dmean[b] = dm;
-      gb += dm;
+      s.dmean[b] = diff * var_inv * a.inv_b;
     }
     ll = warp_sum(ll);
     dl = warp_sum(dl);
-    gb = warp_sum(gb);
     if (tid == 0) {
       const float dev = lvb - kLogMeanPrior;
       const float p_term = -(dev * dev) / (2.0f * kVarPrior) - kHalfLogVarPrior;
       s.scal[0] = -(ll * a.inv_b + p_term * a.inv_n);
       grad[L.lvb] = -dl * a.inv_b + dev / kVarPrior * a.inv_n;
-      grad[L.head_b] = gb;
     }
   }
   __syncthreads();
-  // head weight gradient and the last layer's pre-activation gradient
-  for (int j = tid; j < H; j += kThreads) {
+  // the head's weight and bias gradient (j = H: the 1 column), and the last
+  // layer's pre-activation gradient
+  for (int j = tid; j <= H; j += kThreads) {
     float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += a_last[b * H + j] * s.dmean[b];
+    for (int b = 0; b < B; ++b) acc = fmaf(a_last[b * SA + j], s.dmean[b], acc);
     grad[L.head_w + j] = acc;
   }
-  for (int o = tid; o < BH; o += kThreads) {
+  for (int o = tid; o < B * H; o += kThreads) {
     const int b = o / H, j = o - b * H;
-    const float act = a_last[o];
-    s.dz[o] = (s.dmean[b] * th[L.head_w + j]) * (1.0f - act * act);
+    const float act = a_last[b * SA + j];
+    s.dz0[b * SA + j] = (s.dmean[b] * th[L.head_w + j]) * (1.0f - act * act);
   }
   __syncthreads();
-  // hidden layers D..2: weight/bias gradients and the backward product
+  // hidden layers D..2: the weight and bias gradient ([a 1]^T dz, the bias
+  // row after the matrix as in the layout) beside the backward product
+  float* dz = s.dz0;
+  float* dz_prev = s.dz1;
   for (int l = D; l >= 2; --l) {
+    const float* a_in = s.act + (l - 2) * BA;
     const float* w = th + L.w(l, H, K);
-    const float* a_in = s.act + (l - 2) * BH;
     float* gw = grad + L.w(l, H, K);
-    float* gbias = grad + L.b(l, H, K);
-    for (int o = tid; o < H * H; o += kThreads) {
-      const int i = o / H, j = o - i * H;
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += a_in[b * H + i] * s.dz[b * H + j];
-      gw[o] = acc;
-    }
-    for (int j = tid; j < H; j += kThreads) {
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += s.dz[b * H + j];
-      gbias[j] = acc;
-    }
-    for (int o = tid; o < BH; o += kThreads) {
-      const int b = o / H, i = o - b * H;
-      const float* dz_row = s.dz + b * H;
-      const float* w_row = w + i * H;
-      float acc = 0.0f;
-      for (int j = 0; j < H; ++j) acc += dz_row[j] * w_row[j];
-      s.da[o] = acc;
-    }
+    tiled_product<3, 4>(H + 1, H, B, a_in, 1, SA, dz, SA, 1,
+                        [&](int i, int j, float acc) { gw[i * H + j] = acc; });
+    tiled_product<2, 2>(B, H, H, dz, SA, 1, w, 1, H,
+                        [&](int b, int i, float acc) {
+                          const float act = a_in[b * SA + i];
+                          dz_prev[b * SA + i] = acc * (1.0f - act * act);
+                        });
     __syncthreads();
-    for (int o = tid; o < BH; o += kThreads) {
-      const float act = a_in[o];
-      s.dz[o] = s.da[o] * (1.0f - act * act);
-    }
-    __syncthreads();
+    float* done = dz;
+    dz = dz_prev;
+    dz_prev = done;
   }
-  // layer 1
-  for (int o = tid; o < K * H; o += kThreads) {
-    const int i = o / H, j = o - i * H;
-    float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += s.x[b * K + i] * s.dz[b * H + j];
-    grad[L.w1 + o] = acc;
-  }
-  for (int j = tid; j < H; j += kThreads) {
-    float acc = 0.0f;
-    for (int b = 0; b < B; ++b) acc += s.dz[b * H + j];
-    grad[L.b1 + j] = acc;
-  }
+  // layer 1's weight and bias gradient
+  tiled_product<3, 4>(K + 1, H, B, s.x, 1, SX, dz, SA, 1,
+                      [&](int i, int j, float acc) {
+                        grad[L.w1 + i * H + j] = acc;
+                      });
   __syncthreads();
 }
 
 // Stages this step's minibatch rows in shared memory: the chain's own
 // gathered rows, or a window drawn (or read from widx) from the shared table.
+// Each thread that copies finds the window itself, so one barrier suffices;
+// the previous step read x last before fwd_bwd's closing barrier.
 template <bool kGathered>
 __device__ void load_batch(const Args& a, int t, unsigned step,
                            const Scratch& s) {
   const int c = blockIdx.x;
-  int row = c;
-  if constexpr (!kGathered) {
-    if (threadIdx.x == 0) {
-      int w;
+  const int K = a.n_inputs, bk = a.batch * K;
+  if (threadIdx.x < max(bk, a.batch)) {
+    int row = c;
+    if constexpr (!kGathered) {
       if (a.widx != nullptr) {
-        w = a.widx[static_cast<size_t>(t) * a.n_chains + c];
+        row = a.widx[static_cast<size_t>(t) * a.n_chains + c];
       } else {
         const float u = bits_to_uniform(
             philox_draw(a.seed, c, step, 0u, kPurposeWindow).x);
-        w = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
-                a.n_windows - 1);
+        row = min(static_cast<int>(u * static_cast<float>(a.n_windows)),
+                  a.n_windows - 1);
       }
-      reinterpret_cast<int*>(s.scal)[1] = w;
     }
-    __syncthreads();
-    row = reinterpret_cast<const int*>(s.scal)[1];
+    for (int i = threadIdx.x; i < bk; i += kThreads)
+      s.x[(i / K) * (K + 1) + i % K] =
+          a.x_win[static_cast<size_t>(row) * bk + i];
+    for (int i = threadIdx.x; i < a.batch; i += kThreads)
+      s.y[i] = a.y_win[static_cast<size_t>(row) * a.batch + i];
   }
-  const int bk = a.batch * a.n_inputs;
-  for (int i = threadIdx.x; i < bk; i += kThreads)
-    s.x[i] = a.x_win[static_cast<size_t>(row) * bk + i];
-  for (int i = threadIdx.x; i < a.batch; i += kThreads)
-    s.y[i] = a.y_win[static_cast<size_t>(row) * a.batch + i];
   __syncthreads();
 }
 
@@ -607,12 +643,16 @@ __device__ __forceinline__ float adapt(float* s_tau, float* s_g, float* s_vhat,
   return minv;
 }
 
-// Number of P-long arrays a block keeps in shared memory: theta, v (all
-// rules but SGLD), the gradient, then minv (SGHMC and SGLD sampling) or tau,
-// g, v_hat (burn-in).
+// Number of P-long arrays a block keeps in shared memory (or its
+// workspace): theta, v (all rules but SGLD), the gradient, then minv (SGHMC
+// and SGLD sampling).  The burn-in's tau, g and v_hat are read and written
+// once a step, element by element, by the update alone: they stay in the
+// caller's output arrays in device memory (L2 holds the working set of the
+// chains in flight), which halves B2's shared memory so that two blocks fit
+// an SM.
 __host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
   return 1 + (rule == kSgld ? 0 : 1) + 1 +
-         (burnin ? 3 : (rule == kSghmc || rule == kSgld ? 1 : 0));
+         (!burnin && (rule == kSghmc || rule == kSgld) ? 1 : 0);
 }
 
 // Floats of Scratch::scal.
@@ -656,17 +696,18 @@ __device__ __forceinline__ void fused_body(const Args& a) {
   float* s_v = s_theta + P;                       // kAux
   float* s_grad = s_theta + (kAux ? 2 : 1) * P;
   float* s_minv = s_grad + P;                     // kMinv
-  float* s_tau = s_grad + P;                      // burn-in
-  float* s_g = s_tau + P;                         // burn-in
-  float* s_vhat = s_g + P;                        // burn-in
+  // burn-in: the EMAs in the output arrays (device memory), updated in place
+  float* s_tau = a.tau_out + base;
+  float* s_g = a.g_out + base;
+  float* s_vhat = a.v_hat_out + base;
+  const int SA = a.hidden + 1, SX = a.n_inputs + 1;
   Scratch s;
   s.act = rest;
-  s.dz = s.act + a.depth * a.batch * a.hidden;
-  s.da = s.dz + a.batch * a.hidden;
-  s.x = s.da + a.batch * a.hidden;
-  s.y = s.x + a.batch * a.n_inputs;
-  s.fmean = s.y + a.batch;
-  s.dmean = s.fmean + a.batch;
+  s.dz0 = s.act + a.depth * a.batch * SA;
+  s.dz1 = s.dz0 + a.batch * SA;
+  s.x = s.dz1 + a.batch * SA;
+  s.y = s.x + a.batch * SX;
+  s.dmean = s.y + a.batch;
   s.scal = s.dmean + a.batch;
 
   for (int p = tid; p < P; p += kThreads) {
@@ -679,6 +720,11 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     }
     if constexpr (kMinv) s_minv[p] = load_state(a.minv, base + p, a.minv_bf16);
   }
+  // the 1 columns of the activations and inputs (the products never write
+  // them)
+  for (int r = tid; r < a.depth * a.batch; r += kThreads)
+    s.act[r * SA + a.hidden] = 1.0f;
+  for (int b = tid; b < a.batch; b += kThreads) s.x[b * SX + a.n_inputs] = 1.0f;
   if constexpr (kRule == kSgnht) {
     if (tid == 0) s.scal[2] = a.xi[c];
   }
@@ -817,8 +863,10 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     }
 #undef FUSED_FOR_EACH_ELEMENT
     if (last && tid == 0) a.cost_out[c] = s.scal[0];
-    __syncthreads();
+    // no barrier: the next step's load_batch ends with one before any
+    // thread reads theta, and this step read x and y last in fwd_bwd
   }
+  __syncthreads();
 
   for (int p = tid; p < P; p += kThreads) {
     a.theta_out[base + p] = s_theta[p];
@@ -828,11 +876,6 @@ __device__ __forceinline__ void fused_body(const Args& a) {
             __float2bfloat16_rn(s_v[p]);
       else
         static_cast<float*>(a.v_out)[base + p] = s_v[p];
-    }
-    if constexpr (kBurnin) {
-      a.tau_out[base + p] = s_tau[p];
-      a.g_out[base + p] = s_g[p];
-      a.v_hat_out[base + p] = s_vhat[p];
     }
   }
 }
@@ -853,8 +896,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_kernel(Args a) {
 }
 
 // The burn-in kernels with their state in device memory keep ptxas's own
-// choice (B2 106, B6 80 registers): the hint gave them 114 and 128 and made
-// them 11-27 % slower at H = 100 on an H100.
+// choice (64 registers on Box-Muller, 100-128 under the CLT): the hint gave
+// the earlier, untiled body's 114 and 128 and made them 11-27 % slower at
+// H = 100 on an H100.
 template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
           bool kVBf16>
 __global__ void __launch_bounds__(kThreads) fused_kernel_unhinted(Args a) {
@@ -877,9 +921,10 @@ size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
   const size_t state =
       resident ? static_cast<size_t>(state_arrays(rule, burnin)) * n_params
                : 0;
-  const size_t scratch = static_cast<size_t>(depth + 2) * batch * hidden +
-                         static_cast<size_t>(batch) * n_inputs + 3 * batch +
-                         scalar_slots(rule);
+  const size_t scratch =
+      static_cast<size_t>(depth + 2) * batch * (hidden + 1) +
+      static_cast<size_t>(batch) * (n_inputs + 1) + 2 * batch +
+      scalar_slots(rule);
   return (state + scratch) * sizeof(float);
 }
 

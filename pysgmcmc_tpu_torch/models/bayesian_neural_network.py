@@ -54,6 +54,7 @@ Examples
 2.303
 """
 
+import functools
 import logging
 import time
 
@@ -418,16 +419,19 @@ class BayesianNeuralNetwork(BaseModel):
         y_dev = torch.as_tensor(y_train, dtype=self.dtype, device=self.device)
 
         # the architecture is fixed here, at train time: predict() serves
-        # what was trained even if self.units is changed afterwards
+        # what was trained, at any compute_dtype, even if self.network,
+        # self.units or self.get_net is changed afterwards.  The builder of a
+        # built-in network and its arguments are kept for predict's other
+        # precisions; a custom get_net has none (None).
         if self.get_net is not None:
             init_fn, apply_fn = self.get_net
+            self._builder = None
         else:
-            network = dense_network if self.network == "dense" \
-                else default_network
-            init_fn, apply_fn = network(n_inputs, units=self.units,
-                                        dtype=self.dtype, device=self.device)
+            self._builder = functools.partial(
+                dense_network if self.network == "dense" else default_network,
+                n_inputs, units=tuple(self.units), device=self.device)
+            init_fn, apply_fn = self._builder(dtype=self.dtype)
         self._apply_fn = apply_fn
-        self._n_inputs = n_inputs
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         # the kernels' Philox keys (and SVGD's bandwidth subsample) come
         # from a CPU generator, so that one seed draws the same streams on
@@ -688,17 +692,15 @@ class BayesianNeuralNetwork(BaseModel):
 
     def _serving_fn(self, compute_dtype):
         """The ensemble forward at ``compute_dtype``: the trained built-in
-        network rebuilt at that precision over copies of the samples cast to
-        it, the outputs widened to float32 (JAX's ``_serving_fn``)."""
-        if self.get_net is not None:
+        network rebuilt at that precision, by the builder ``train`` kept,
+        over copies of the samples cast to it, the outputs widened to
+        float32 (JAX's ``_serving_fn``)."""
+        if self._builder is None:
             raise ValueError(
                 "predict(compute_dtype=...) supports the built-in "
                 "architectures only (get_net is custom; its apply closes "
                 "over its own precision)")
-        network = dense_network if self.network == "dense" \
-            else default_network
-        _, apply_cd = network(self._n_inputs, units=self.units,
-                              dtype=compute_dtype, device=self.device)
+        _, apply_cd = self._builder(dtype=compute_dtype)
 
         def ensemble(samples, x):
             cast = {name: leaf.to(compute_dtype)

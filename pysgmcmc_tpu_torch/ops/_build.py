@@ -101,6 +101,7 @@ _SIGNATURES = {
     "svgd_streaming": {
         "svgd_streaming_error_string": (ctypes.c_char_p, [_I]),
         "svgd_streaming_smem_bytes": (_U64, []),
+        "svgd_streaming_active_clusters": (_I, []),
         # B11: x, g, h, phi, 2 scratch buffers; n, d; the stream
         "svgd_phi_streaming_launch": (_I, [_P] * 6 + [_I, _I, _P]),
     },

@@ -48,7 +48,8 @@ multi-step accumulator and everything of B6 stay float32.
 Placement: a launch keeps each chain's P-long arrays in its block's shared
 memory where they fit, by the library's own count (:func:`fused_placement`),
 and otherwise in a device-memory workspace the wrapper allocates, with the
-same kernel body; so every hidden width JAX's fused path takes (up to
+same kernel body (the burn-in's tau, g and v_hat stay in the output arrays
+in device memory in both); so every hidden width JAX's fused path takes (up to
 :data:`MAX_HIDDEN`) runs.  :data:`placements` counts the launches of each
 kernel by C entry (one per variant: Box-Muller, CLT, paired) and
 placement; :func:`variant_launches` sums a variant's.

@@ -176,3 +176,54 @@ def test_predict_compute_dtype_matches_jax_serving(network):
         rtol=0, atol=SERVE_ATOL)
 
 
+
+
+# what changes after training: (attribute, its new value given the trained
+# network and the other built-in one)
+_CHANGES = {
+    "network": lambda trained, other: other,
+    "units": lambda trained, other: (13, 13),
+    "get_net": lambda trained, other: (
+        default_network if other == "reference" else dense_network)(
+            1, units=(13, 13), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("change", sorted(_CHANGES))
+@pytest.mark.parametrize("trained,other", [("dense", "reference"),
+                                           ("reference", "dense")])
+def test_predict_compute_dtype_serves_the_trained_network(change, trained,
+                                                          other):
+    """``predict(compute_dtype=bfloat16)`` serves the network ``train``
+    fixed, whatever ``network``, ``units`` or ``get_net`` say afterwards
+    (ROADMAP C7; the JAX package rebuilds from them at call time, so the
+    oracle is the bf16 predict taken before the change): equal bit for bit,
+    and the f32 predict unchanged."""
+    x, y = _data()
+    bnn = BayesianNeuralNetwork(
+        device="cpu", network=trained, step_impl="lanes", n_chains=2,
+        n_nets=4, burn_in_steps=4, sample_steps=2, n_iters=8,
+        log_every=None, units=(8, 8))
+    bnn.train(x, y)
+    grid = np.linspace(0.0, 1.0, 9)[:, None]
+    before = (bnn.predict(grid, compute_dtype=BF16), bnn.predict(grid))
+    setattr(bnn, change, _CHANGES[change](trained, other))
+    after = (bnn.predict(grid, compute_dtype=BF16), bnn.predict(grid))
+    for got, want in zip(after, before):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_predict_compute_dtype_refuses_a_custom_network():
+    """A network trained through ``get_net`` has no built-in builder to
+    serve at another precision: ``predict(compute_dtype=...)`` raises."""
+    x, y = _data()
+    bnn = BayesianNeuralNetwork(
+        device="cpu", step_impl="lanes", n_chains=2, n_nets=4,
+        burn_in_steps=4, sample_steps=2, n_iters=8, log_every=None,
+        get_net=default_network(1, units=(8, 8), device="cpu"))
+    bnn.train(x, y)
+    grid = np.linspace(0.0, 1.0, 9)[:, None]
+    assert np.isfinite(bnn.predict(grid)[0]).all()
+    with pytest.raises(ValueError, match="built-in"):
+        bnn.predict(grid, compute_dtype=BF16)

@@ -741,20 +741,30 @@ WIDE = {
     "B1": KERNELS["B1"], "B2": KERNELS["B2"], "B5-sgld": KERNELS["B5-sgld"],
     "B6": KERNELS["B6"],
 }
+WIDE_IDS = {"B1": fs.B1, "B2": fs.B2, "B5-sgld": fs.B5_SGLD, "B6": fs.B6}
+
+
+def _placed(kernel, lay):
+    """The placements the launches since ``fs.placements.clear()`` took,
+    against the one the library's count gives (at H = 100 device memory,
+    but B6's: its EMAs live in the output arrays, and its theta and
+    gradient fit shared memory)."""
+    return ({where for _, where in fs.placements},
+            {fs.fused_placement(WIDE_IDS[kernel], lay, 20)})
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(WIDE))
 def test_wide_kernel_matches_plain_version(kernel, cuda_device):
-    """H = 100, depth 3 (P = 20,502): the state lives in device memory; the
-    kernel against its plain version over 4 steps on the Philox stream,
-    from the uniform test state (minv in [0.2, 1.2])."""
+    """H = 100, depth 3 (P = 20,502): the state lives in device memory
+    (B6's theta and gradient in shared memory); the kernel against its
+    plain version over 4 steps on the Philox stream, from the uniform test
+    state (minv in [0.2, 1.2])."""
     n, k = 32, 4
     fn, ref, _, names, eps = WIDE[kernel]
     lay, st, x_win, y_win, _ = _state(cuda_device, n, h=100, depth=3)
-    assert fs.fused_placement({"B1": fs.B1, "B2": fs.B2,
-                               "B5-sgld": fs.B5_SGLD, "B6": fs.B6}[kernel],
-                              lay, 20) == "device"
+    assert fs.fused_placement(WIDE_IDS[kernel], lay, 20) == (
+        "shared" if kernel == "B6" else "device")
     args = [st[name] for name in names] + [x_win, y_win, eps, 2**40 + 1]
     common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
                   h=100, k_steps=k, step0=5)
@@ -763,10 +773,114 @@ def test_wide_kernel_matches_plain_version(kernel, cuda_device):
     want = ref(*args, **common)
     torch.cuda.synchronize()
     assert sum(fs.placements.values()) == 1
-    assert next(iter(fs.placements))[1] == "device"
+    taken, counted = _placed(kernel, lay)
+    assert taken == counted
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _row_rel_err(a, b) <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B2", "B6"])
+@pytest.mark.parametrize("h,depth", [(13, 2), (13, 3), (50, 2), (50, 3)])
+@pytest.mark.parametrize("stream", ["philox", "clt"])
+def test_burnin_kernel_across_widths_and_depths(kernel, h, depth, stream,
+                                                cuda_device):
+    """The burn-in kernels at hidden widths that cut the products' register
+    tiles (13 and 50 over 2 x 2 and 3 x 4 outputs a thread) at depths 2 and
+    3: against the plain version over 4 steps from the uniform test state,
+    and two launches of 2 steps equal one of 4 bit for bit (the EMAs carried
+    in the output arrays)."""
+    n, k = 32, 4
+    fn, ref, _, names, eps = KERNELS[kernel]
+    lay, st, x_win, y_win, _ = _state(cuda_device, n, h=h, depth=depth)
+    state = [st[name] for name in names]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  h=h)
+    if stream == "clt":
+        common["noise_impl"] = "hadamard_clt"
+    seed = 2**40 + 1
+    got = fn(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **common)
+    want = ref(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **common)
+    first = fn(*state, x_win, y_win, eps, seed, k_steps=k // 2, step0=5,
+               **common)
+    second = fn(*first[:len(names)], x_win, y_win, eps, seed, k_steps=k // 2,
+                step0=5 + k // 2, **common)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(second)
+    for a, b, c in zip(got, want, second):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,bf16", [("B2", False), ("B2", True),
+                                         ("B6", False)])
+def test_wide_burnin_chunked_launches_equal_one_launch(kernel, bf16,
+                                                       cuda_device):
+    """H = 100 (the state in device memory, the EMAs in the output
+    arrays): two launches of k steps equal one of 2k bit for bit, at f32
+    and bf16 state; at bf16 state the kernel is also held against its
+    plain version (one bf16 ulp a step)."""
+    n, k = 16, 2
+    fn, ref, _, names, eps = WIDE[kernel]
+    lay, st, x_win, y_win, _ = _state(cuda_device, n, h=100, depth=3)
+    state = [st[name] for name in names]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  h=100)
+    if bf16:
+        state[1] = state[1].to(torch.bfloat16)
+        common["state_dtype"] = torch.bfloat16
+    seed = 2**40 + 1
+    fs.placements.clear()
+    whole = fn(*state, x_win, y_win, eps, seed, k_steps=2 * k, step0=5,
+               **common)
+    first = fn(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **common)
+    second = fn(*first[:len(names)], x_win, y_win, eps, seed, k_steps=k,
+                step0=5 + k, **common)
+    torch.cuda.synchronize()
+    taken, counted = _placed(kernel, lay)
+    assert taken == counted
+    for a, b in zip(whole, second):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if bf16:
+        assert whole[1].dtype == torch.bfloat16
+        args = state + [x_win, y_win, eps, seed]
+        kw = dict(common, k_steps=2 * k, step0=5)
+        _bf16_check(kernel + " H=100", ref, args, kw, whole, ref(*args, **kw),
+                    2 * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["philox", "clt"])
+def test_sgld_burnin_kernel_in_device_memory(stream, cuda_device):
+    """B6 with its theta and gradient in device memory (H = 114, depth 3:
+    P = 26,564): against its plain version over 4 steps, and two launches
+    of 2 steps equal one of 4 bit for bit."""
+    n, k = 16, 4
+    fn, ref, _, names, eps = WIDE["B6"]
+    lay, st, x_win, y_win, _ = _state(cuda_device, n, h=114, depth=3)
+    assert fs.fused_placement(fs.B6, lay, 20) == "device"
+    state = [st[name] for name in names]
+    common = dict(scale_grad=100.0, prior_scale=1.0 / (lay.n_params * 100),
+                  h=114)
+    if stream == "clt":
+        common["noise_impl"] = "hadamard_clt"
+    seed = 2**40 + 1
+    fs.placements.clear()
+    got = fn(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **common)
+    want = ref(*state, x_win, y_win, eps, seed, k_steps=k, step0=5, **common)
+    first = fn(*state, x_win, y_win, eps, seed, k_steps=k // 2, step0=5,
+               **common)
+    second = fn(*first[:len(names)], x_win, y_win, eps, seed, k_steps=k // 2,
+                step0=5 + k // 2, **common)
+    torch.cuda.synchronize()
+    assert {where for _, where in fs.placements} == {"device"}
+    for a, b, c in zip(got, want, second):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b) <= REL_TOL
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
@@ -810,7 +924,8 @@ def test_clt_wide_kernel_matches_plain_version(kernel, cuda_device):
     got = fn(*args, **common)
     want = ref(*args, **common)
     torch.cuda.synchronize()
-    assert {where for _, where in fs.placements} == {"device"}
+    taken, counted = _placed(kernel, lay)
+    assert taken == counted
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _row_rel_err(a, b) <= REL_TOL
@@ -933,13 +1048,10 @@ def _svgd_inputs(device, n, d, seed=0):
         pairwise.squared_distance_matrix(x), n)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(256, 3), (128, 130), (100, 2), (97, 5),
-                                 (130, 3), (4096, 5252)])
-def test_svgd_kernel_matches_plain_version(n, d, cuda_device):
+def _check_svgd(x, g, h):
     """B11 against its plain version, per particle row: within REL_TOL of
     the row's largest |phi|; two launches agree bit for bit."""
-    x, g, h = _svgd_inputs(cuda_device, n, d)
+    n, d = x.shape
     ss.svgd_phi_streaming.launches = 0
     got = ss.svgd_phi_streaming(x, g, h)
     again = ss.svgd_phi_streaming(x, g, h)
@@ -950,6 +1062,37 @@ def test_svgd_kernel_matches_plain_version(n, d, cuda_device):
     assert torch.equal(got, again)
     err = (got - want).abs().amax(1) / want.abs().amax(1)
     assert float(err.max()) <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", list(cs.SVGD_SHAPES) + [(4096, 5252)])
+def test_svgd_kernel_matches_plain_version(n, d, cuda_device):
+    """B11 on the JAX package's streaming shapes and the flagship's."""
+    _check_svgd(*_svgd_inputs(cuda_device, n, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(2, 3), (70, 5), (65, 9), (300, 20),
+                                 (257, 68), (257, 1321), (513, 4100)])
+def test_svgd_kernel_on_shapes_that_cut_its_tiles(n, d, cuda_device):
+    """B11's row tiles (64 particles), column tiles (256), the feature
+    halves of a cluster of 2 (d / 2 rounded up to 4: the second block owns
+    none of 3 features, one of 5 or 9, and 32 of 68, where the first
+    block's 36 cut a 32-deep stage), its 32-deep stages and its 16-byte
+    copies (d a multiple of 4) cut off their edges: n not a multiple of 64
+    or 256, d not a multiple of 8 or 32, with 4-byte copies (3, 5, 9,
+    1321) and 16-byte ones (20, 68, 4100)."""
+    _check_svgd(*_svgd_inputs(cuda_device, n, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 1), (1, 6), (3, 1)])
+def test_svgd_kernel_at_one_particle_or_one_feature(n, d, cuda_device):
+    """B11 where the cluster's second block owns no feature (d = 1)
+    and where one particle is its own only neighbour (h = 1: the median
+    bandwidth of one particle is 0)."""
+    x, g, h = _svgd_inputs(cuda_device, n, d)
+    _check_svgd(x, g, 1.0 if n == 1 else h)
 
 
 @pytest.mark.cuda
