@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pysgmcmc_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel) and prints their ``ptxas`` registers and
+``nvcc`` per source, three per fused source, in parallel) and prints their ``ptxas`` registers and
 spills, holds each of the twenty-three kernels against its plain PyTorch
 version on the card (flagship shapes, from burned-in states, injected noise
 and the Philox stream, each check beside the plain version's own floor):
@@ -92,8 +92,10 @@ BURNED_IN = 200  # burn-in steps at EPS before the kernel checks and drivers
 # kernel vs plain version, per output: |kernel - plain| <= REL_TOL * the
 # largest |plain| in the same chain's row (one row for costs and vectors), so
 # no chain sets the limit for another.  The two sum the 20x50 dot products in
-# different orders (sequential f32 loops vs cuBLAS bmm) and use different
-# libm builds (tanhf/logf/cosf within 2 ulp).  Every check starts from the
+# different orders and precisions (the fused kernels' 3xTF32 tensor-core
+# sums vs cuBLAS bmm in f32) and use different libm builds (tanhf/logf/cosf
+# within 2 ulp; the fused kernels' fast cosine and root within 2.4e-6 of a
+# normal).  Every check starts from the
 # state a BURNED_IN-step burn-in at EPS leaves (as the main path hands it to
 # the kernels, with minv in [1e-3, 1e4]), and also runs the plain
 # version from theta * (1 + 1e-7 xi): that moves the outputs by the floor,
@@ -455,15 +457,67 @@ def _ptxas_svgd(log_text, complete=True):
     return out
 
 
-def _flops_per_chain_step(lay, batch, rule_flops):
-    """f32 operations of one chain-step: the forward and backward products
-    of ``_fwd_bwd`` (2 per multiply-add) plus the update rule's elementwise
-    arithmetic on every parameter.  Philox's integer rounds and the
-    transcendentals (tanh, log, cos, sqrt) are not counted."""
+def _product_flops(lay, batch):
+    """f32 operations of one chain-step's forward and backward products of
+    ``_fwd_bwd`` (2 per multiply-add): the layers, the head, the weight
+    gradients and the backward products."""
     b, h, k, d = batch, lay.hidden, lay.n_inputs, lay.depth
     fwd = 2 * b * k * h + (d - 1) * 2 * b * h * h + 2 * b * h
     bwd = 2 * b * h + (d - 1) * 2 * (2 * b * h * h) + 2 * b * k * h
-    return fwd + bwd + rule_flops * lay.n_params
+    return fwd + bwd
+
+
+def _noise_ops(lay, variant):
+    """Operations of one chain-step's normals, one per parameter, from the
+    fused kernels' generator ``variant`` (:func:`_variant_of`), counted
+    from ``csrc/philox.cuh`` and ``csrc/fused_body.cuh`` as the slim
+    kernels' NOISE_OPS: Box-Muller (and the paired kernels) NOISE_OPS a
+    parameter; the CLT per group of n uniforms that holds values (the
+    plain version's geometry, ``fused_step._clt_sections``) the n / 4
+    Philox draws it needs (PHILOX_OPS each), 7 per uniform (its
+    bits-to-uniform map 4, the - 1/2 and the bf16 rounding's two
+    conversions), n log2 n adds of the Walsh-Hadamard transform, and one
+    scaling multiply per value it hands on.  Its dead lanes count: the
+    transform mixes them into every normal."""
+    if variant != "hadamard_clt":
+        return NOISE_OPS * lay.n_params
+    from pysgmcmc_tpu_torch.ops import fused_step as fs
+
+    ops = 0
+    for _, emap in fs._clt_sections(lay):
+        rows, n = emap.shape
+        live = int((emap >= 0).any(dim=1).sum())
+        per_group = PHILOX_OPS * n // 4 + 7 * n + n * (n.bit_length() - 1)
+        ops += live * per_group + int((emap >= 0).sum())
+    return ops
+
+
+def _tc_product_flops(lay, batch):
+    """The part of :func:`_product_flops` that runs on the tensor cores:
+    the hidden layers' forward products, weight gradients and backward
+    products, 6 (depth - 1) batch H^2 (their biases ride along as one more
+    row of each weight matrix and are not counted)."""
+    return 6 * (lay.depth - 1) * batch * lay.hidden ** 2
+
+
+def _flops_per_chain_step(lay, batch, rule_flops, variant="box_muller"):
+    """(tensor-core flops, f32 operations) of one chain-step: the hidden
+    layers' products (:func:`_tc_product_flops`) on the tensor cores; the
+    rest of the products (layer 1's and the head's), the update rule's
+    elementwise arithmetic on every parameter, and the normals of
+    ``variant`` (:func:`_noise_ops`) on the CUDA cores.  tanh and the
+    likelihood's exp are not counted."""
+    tc = _tc_product_flops(lay, batch)
+    return tc, (_product_flops(lay, batch) - tc
+                + rule_flops * lay.n_params + _noise_ops(lay, variant))
+
+
+def _variant_of(record):
+    """The fused generator a record names (its tags, as :func:`_record`
+    writes them): ``"hadamard_clt"``, ``"paired"`` or ``"box_muller"``."""
+    words = set(re.split(r"[ (),]+", record))
+    return ("hadamard_clt" if "clt" in words else
+            "paired" if "paired" in words else "box_muller")
 
 
 # elementwise f32 operations per parameter of each update rule, counted from
@@ -478,7 +532,8 @@ RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
 # The slim kernels apply the same rules without the mask, and draw every
 # normal in the kernel: one Philox4x32-10 (10 rounds of 2 mulhi, 2 mul, 4
 # xor, and 2 key adds in 9 of them: 98), two bits-to-uniform maps (8) and
-# Box-Muller's log, sqrt, cos and 3 multiplies (6), 112 operations.  All are
+# Box-Muller's log, sqrt, cos and 3 multiplies (6), 112 operations; the
+# fused kernels draw theirs the same way (:func:`_noise_ops`).  All are
 # counted against the f32 peak, an optimistic rate for the integer and
 # special-function units, so the bound stays a lower bound.
 # The rules without a mass matrix, counted the same way (per-chain constants
@@ -486,7 +541,8 @@ RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
 # 4, the noise scale 4 and the update 6; RSGHMC the fold and its sign 3, two
 # velocities of 7, the momentum 6 and the position add 1; SGNHT the fold 2,
 # the momentum 7 and the position 2.
-NOISE_OPS = 112
+PHILOX_OPS = 98
+NOISE_OPS = PHILOX_OPS + 8 + 6
 SLIM_OPS = {"B7": NOISE_OPS + 18, "B8-sgld": NOISE_OPS + 14,
             "B8-psgld": NOISE_OPS + 21, "B8-rsghmc": NOISE_OPS + 24,
             "B8-sgnht": NOISE_OPS + 11, "B9-sghmc": NOISE_OPS + 48,
@@ -494,9 +550,15 @@ SLIM_OPS = {"B7": NOISE_OPS + 18, "B8-sgld": NOISE_OPS + 14,
 
 
 def _bound(n_chains, steps, flops_per_chain_step, n_bytes):
-    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
-    the f32 operations over the f32 peak."""
-    compute_ms = n_chains * steps * flops_per_chain_step / F32_FLOPS * 1e3
+    """(bound_ms, bound_by) of a fused launch: the larger of the bytes over
+    HBM bandwidth and the operations' time, where ``flops_per_chain_step``
+    is :func:`_flops_per_chain_step`'s pair.  The tensor-core flops count
+    as 3xTF32 (three passes of split operands) at TF32_FLOPS and the f32
+    operations at F32_FLOPS; the two pipes issue side by side, so the
+    operations take the longer of the two."""
+    tc, f32 = flops_per_chain_step
+    compute_ms = n_chains * steps * max(
+        3.0 * tc / TF32_FLOPS, f32 / F32_FLOPS) * 1e3
     memory_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     if compute_ms >= memory_ms:
         return compute_ms, "operations"
@@ -1633,10 +1695,7 @@ def _launches(fn, record):
 
     if fn.__module__ != fs.__name__:
         return fn.launches
-    words = set(re.split(r"[ (),]+", record))
-    variant = ("hadamard_clt" if "clt" in words else
-               "paired" if "paired" in words else "box_muller")
-    return fs.variant_launches(fn, variant)
+    return fs.variant_launches(fn, _variant_of(record))
 
 
 # ---- FusedSGHMC (B10) and the packed (B7 mask) and stacked (B7') drivers:
@@ -2366,8 +2425,8 @@ def main():
     paths, seconds = _build.build()
     for source in _build.SOURCES:
         _build.load(source)
-    print("build: {} in {:.1f} s, one nvcc per source in parallel (0.0 = "
-          "already built)".format(", ".join(
+    print("build: {} in {:.1f} s, one nvcc per source (three per fused "
+          "source) in parallel (0.0 = already built)".format(", ".join(
               os.path.relpath(path, HERE) for path in paths.values()),
               seconds))
     reports = {}
@@ -2590,7 +2649,8 @@ def main():
         timed[name + " plain"], _ = _time_ms(
             torch, lambda: ref(*args, k_steps=steps, step0=step0, **kw))
         flops = _flops_per_chain_step(layout, BATCH,
-                                      RULE_FLOPS[name.split(" ")[0]])
+                                      RULE_FLOPS[name.split(" ")[0]],
+                                      _variant_of(name))
         bounds[name] = _bound(chains or n, steps, flops,
                               nbytes(args) + nbytes(out))
         return out
@@ -2706,7 +2766,8 @@ def main():
         plain()
         timed[name + " plain"] = _median_ms(torch, plain, 5)
         flops = _flops_per_chain_step(lay, BATCH,
-                                      RULE_FLOPS[name.split(" ")[0]])
+                                      RULE_FLOPS[name.split(" ")[0]],
+                                      _variant_of(name))
         # the state and the gathered rows read once, the outputs written once
         bounds[name] = _bound(n, 1, flops,
                               nbytes(state) + nbytes(sel) + nbytes(out))

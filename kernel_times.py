@@ -35,6 +35,11 @@ their median bandwidth), with its ``ptxas`` report.  The constants, the
 data, the register report and the timing (CUDA events on a spinning
 stream) are ``chip_smoke.py``'s.  To compare two trees, run it on both in turns in one
 call (A, B, B, A): a card's times move between calls more than within one.
+``--only B1,B5-sgld`` times only the records of those kernels (every
+variant of each, at both widths; the states the others would hand on are
+still computed, untimed): for stub breakdowns and trial variants of a few
+kernels.  The A/B that compares a change with its parent times every
+record, without it.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -52,7 +57,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=cs.HERE,
                         help="the checkout whose package is timed")
-    root = os.path.abspath(parser.parse_args(argv).root)
+    parser.add_argument("--only", default=None,
+                        help="comma-separated kernels (B1, B5-sgld, ...) "
+                             "whose records alone are timed")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    only = None if args.only is None else set(args.only.split(","))
+
+    def selected(name):
+        return only is None or name.split(" ")[0] in only
 
     import torch
 
@@ -104,6 +117,8 @@ def main(argv=None):
         def run(steps=k):
             return fn(*state, x_win, y_win, eps, 7, k_steps=steps, **kw)
 
+        if not selected(name):  # only the state it hands on
+            return run()
         run(2)  # warm-up
         runs = sorted((cs._time_ms(torch, run) for _ in range(REPEATS)),
                       key=lambda r: r[0])
@@ -151,6 +166,8 @@ def main(argv=None):
         """Each multi-step record of ``names`` again as its CLT and, where
         the kernel has one, paired instantiation."""
         for name in names:
+            if not selected(name):
+                continue
             fn, state, eps, kw, steps = inputs[name]
             for variant, extra in cs.VARIANT_KW.items():
                 if not variant or (variant == "paired" and (
@@ -165,6 +182,8 @@ def main(argv=None):
 
     def timed_one(name, fn, args, kw):
         """Median ms of cs.ONE_STEP_TIMED launches of one step."""
+        if not selected(name):
+            return
         fn(*args, **kw)  # warm-up
         ms[name] = cs._median_ms(torch, lambda: fn(*args, **kw),
                                  cs.ONE_STEP_TIMED)

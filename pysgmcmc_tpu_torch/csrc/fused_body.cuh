@@ -50,22 +50,45 @@
 // another order than torch.sum.
 //
 // The six batch x H x H products of a step (two forward layers, two weight
-// gradients and two backward products at depth 3) are register-tiled
-// (tiled_product): a thread computes 2 x 2 outputs of a batch x H product
-// and 3 x 4 of a weight gradient, so each operand it loads from shared
-// memory feeds two to four FMAs, and its sums are independent chains.  Each
-// activation row carries a trailing 1, so a layer's bias is one more row
-// of its weight matrix (the flat layout stores b_l right after w_l): the
-// forward product adds the bias and the weight-gradient product yields the
-// bias gradient, in the same pass.  The head and the likelihood run on one
-// warp, each backward layer's weight gradient beside the previous layer's
-// pre-activation gradient (two buffers in turn), and every thread that
-// copies the minibatch finds its window itself: nine barriers a step at
-// depth 3 instead of fourteen.  All arithmetic is f32 FMA on the CUDA
-// cores, summed in order of k as before: at a batch of 20 and H = 50 an
-// m16n8k8 tile pads M to 32, and 3xTF32 (f32 accuracy on the tensor cores)
-// triples the products, for a step whose products are no longer most of
-// its time (the update rules' Philox, Box-Muller and divisions are).  The
+// gradients and two backward products at depth 3) run on the tensor cores
+// (tc_product: 3xTF32 mma.sync m16n8k8 through tf32.cuh, as the SVGD
+// transport's).  Register tiles on the CUDA cores were bound by shared
+// memory (each operand loaded fed one FMA, and an SM reads 32 words a clock
+// but issues 128 FMAs): the products were 44 % of B1 and B5-sgld.  What
+// bounds the tensor-core products instead is the instructions around each
+// mma (the loads, the hi / lo split of every operand, the addresses), so
+// the design spends as few as it can: operand order pads least (the
+// forward and backward products run transposed, an (H, batch) output, so
+// that the batch sits on the 8-wide side of a tile: 20 -> 24, H = 50 ->
+// 64 rows; the weight gradients are (H + 1) x H with the batch as their
+// depth); a warp owns 16 x 24 outputs of a forward or backward product (4
+// warps at H = 50, batch 20) and 32 x 16 of a weight gradient (the other
+// 4 warps first), so each operand it splits feeds 2 or 3 tiles; the split
+// is integer arithmetic (split_finite, 3 instructions); the depth pads with
+// the zeros the activations and gradients keep past their last column and
+// row, so only the last k-step of a product clamps an index and no branch
+// guards an mma; and every k-step's three passes form one chain of
+// tensor-core sums from 0, added to f32 running sums by FADDs (chained
+// over k-steps, the tensor core's truncating sums flipped bf16 roundings
+// of the momentum several times as often as the plain version's: PERF.md
+// §6).  The rows of the activations and gradients are act_stride(H)
+// words apart (56 at H = 50), which puts a warp's fragment loads of them
+// on 32 banks.  The layers whose depth is the input width (layer 1's
+// forward product and weight gradient, the latter one output a thread) and
+// the head stay on the CUDA cores.  Each activation row carries a trailing
+// 1, so a layer's bias is one more row of its weight matrix (the flat
+// layout stores b_l right after w_l): the forward product adds the bias and
+// the weight-gradient product yields the bias gradient, in the same pass.
+// The head and the likelihood run on one warp, each backward layer's weight
+// gradient beside the previous layer's pre-activation gradient (two
+// buffers in turn), and every thread that copies the minibatch finds its
+// window itself: nine barriers a step at depth 3.  The update is
+// elementwise f32 on the CUDA cores, with cheaper forms where no check
+// resolves a difference: Box-Muller's cosine by the fast cosine of an
+// argument in (-pi, pi] (noise_at), its root and the sampling rules'
+// noise scales by sqrt_approx; and the CLT's groups run two at a time
+// where both are pairs of matrix slabs (for_each_clt_eta, multi-step
+// sampling kernels).  The
 // one-step kernels (B3, B4-*) load and store the whole state every step: at
 // the flagship (8192 chains x 5,252 parameters) B4-psgld, B4-sgnht and
 // B4-rsghmc read theta and one state array and write both, 0.69 GB, 0.205
@@ -137,6 +160,11 @@
 //                         so at f32 state the paired kernels equal the
 //                         unpaired ones bit for bit.  State in shared memory
 //                         only (JAX's pairing takes H <= 50 at depth 3).
+// Each source compiles in three parts at once (FUSED_PART, set by the
+// build: 0 the SGHMC entries, 1 SGLD's and pSGLD's, 2 SGNHT's and
+// relativistic SGHMC's), linked into one library: ptxas on the tensor-core
+// body takes most of a build, and one nvcc for a whole source took 110 s.
+// Unset, one compile holds every entry.
 
 #pragma once
 
@@ -145,10 +173,16 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "tf32.cuh"
 
 #ifndef FUSED_STEP_VARIANT
 #define FUSED_STEP_VARIANT 0
 #endif
+#ifndef FUSED_PART
+#define FUSED_PART -1
+#endif
+// whether this compile holds the entries of part i
+#define FUSED_PART_HAS(i) (FUSED_PART < 0 || FUSED_PART == (i))
 
 namespace {
 
@@ -161,6 +195,7 @@ constexpr float kLogMeanPrior = -13.815510557964274f;  // log(1e-6)
 constexpr float kVarPrior = 0.01f;
 constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
 constexpr float kSmall = 1e-16f;
+constexpr float kPi = 3.14159265358979f;
 
 // The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
 enum KernelId {
@@ -222,6 +257,19 @@ struct Args {
                 // state_arrays, P) f32 in device memory
 };
 
+// The square root on the special-function unit (sqrt.approx.f32, within
+// about an ulp of the correctly rounded root that sqrtf spends some eight
+// instructions on) for the sampling rules' noise scales and Box-Muller's
+// root: elementwise, once a step, no check resolves the difference.  The
+// burn-in's own roots (minv and the noise scale) keep sqrtf: there a bf16
+// momentum check resolved it, and the burned-in states (the checks'
+// starting points) move with every rounding.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // bf16 storage of the aux state: values rounded to nearest even, arithmetic
 // in f32
 __device__ __forceinline__ float round_bf16(float x) {
@@ -243,6 +291,22 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// Row stride (words) of the activation and pre-activation-gradient rows in
+// shared memory: hidden + 1 (the trailing 1 column) rounded up to a
+// multiple of 8, so that the products' depth pads to whole k-steps inside
+// the row (tc_product), and 8 or 24 modulo 32, so that a warp's fragment
+// loads hit 32 distinct banks: 4 words of each of 8 rows, or a float2 of
+// each of 4 rows per half-warp.
+__host__ __device__ constexpr int act_stride(int hidden) {
+  return (hidden + 8) / 8 * 8 + ((hidden + 8) / 8 % 2 == 0 ? 8 : 0);
+}
+
+// Rows of a pre-activation gradient in shared memory: the batch rounded up
+// to a multiple of 8 (zero rows past it pad the weight gradients' depth).
+__host__ __device__ constexpr int grad_rows(int batch) {
+  return (batch + 7) / 8 * 8;
 }
 
 // Offsets of the parameter groups in the flat per-chain vector.
@@ -270,11 +334,14 @@ __device__ Layout make_layout(int n_inputs, int hidden, int depth) {
 // carries a trailing 1 (column hidden, or n_inputs for x), so that a layer's
 // bias is one more row of its weight matrix: in the flat layout w_l (in x
 // out) is followed by b_l, and the products below run over in + 1 rows.
-// Row strides of hidden + 1 words (odd) keep a warp's column reads on
-// distinct banks.
+// The activation and gradient rows are act_stride(hidden) words apart,
+// with zeros past the 1 (and past the last column of a gradient), and a
+// gradient has grad_rows(batch) rows, zeros past the batch: the
+// tensor-core products pad their depth with them.  x's rows are n_inputs +
+// 1 apart.
 struct Scratch {
-  float* act;    // depth x batch x (hidden + 1): post-tanh activations, 1
-  float* dz0;    // batch x (hidden + 1): a layer's pre-activation gradient,
+  float* act;    // depth x batch x act_stride: post-tanh activations, 1
+  float* dz0;    // grad_rows x act_stride: a layer's pre-activation gradient,
   float* dz1;    // and the next one's (the backward pass alternates them)
   float* x;      // batch x (n_inputs + 1): the minibatch's inputs, 1
   float* y;      // batch
@@ -328,18 +395,164 @@ __device__ __forceinline__ void tiled_product(int M, int N, int Kd,
   }
 }
 
+// Jobs of tc_product<kMT, kNT> for an M x N output.
+__host__ __device__ constexpr int tc_jobs(int kMT, int kNT, int M, int N) {
+  return ((M + 16 * kMT - 1) / (16 * kMT)) * ((N + 8 * kNT - 1) / (8 * kNT));
+}
+
+// One k-step of 8 of a tc_product job, added to run: the fragments' slots
+// t and t + 4 hold k = kk + t and kk + t + 4, or with kPairK kk + 2 t and
+// kk + 2 t + 1 (a bijection all the same, taken by both operands; B's two
+// then lie side by side and load as one float2 where kBUnit).  The three
+// passes (a_lo b_hi, a_hi b_lo, then a_hi b_hi) form one chain of sums from
+// 0 in the tensor core, which aligns its terms to the largest and drops the
+// bits below it; the chain's sum goes into the f32 running sums by FADDs,
+// rounded to nearest.  kTail: the k-step reaches past Kd; A's k is clamped
+// to Kd - 1 there, and B's values past Kd are the zeros of its padding.
+// kAUnit / kBUnit: a_k / b_k is 1.
+template <int kMT, int kNT, bool kPairK, bool kTail, bool kAUnit,
+          bool kBUnit>
+__device__ __forceinline__ void tc_kstep(float (&run)[kMT][kNT][4],
+                                         const float* (&a_row)[kMT][2],
+                                         const float* (&b_col)[kNT], int a_k,
+                                         int b_k, int kk, int Kd) {
+  const int t = threadIdx.x & 3;
+  const int s0 = kk + (kPairK ? 2 * t : t);
+  const int s1 = kk + (kPairK ? 2 * t + 1 : t + 4);
+  const int ao0 = (kTail ? min(s0, Kd - 1) : s0) * (kAUnit ? 1 : a_k);
+  const int ao1 = (kTail ? min(s1, Kd - 1) : s1) * (kAUnit ? 1 : a_k);
+  uint32_t ah[kMT][4], al[kMT][4], bh[kNT][2], bl[kNT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    split_finite(a_row[i][0][ao0], ah[i][0], al[i][0]);
+    split_finite(a_row[i][1][ao0], ah[i][1], al[i][1]);
+    split_finite(a_row[i][0][ao1], ah[i][2], al[i][2]);
+    split_finite(a_row[i][1][ao1], ah[i][3], al[i][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    float b0, b1;
+    if constexpr (kPairK && kBUnit) {
+      const float2 v = *reinterpret_cast<const float2*>(b_col[j] + s0);
+      b0 = v.x;
+      b1 = v.y;
+    } else {
+      b0 = b_col[j][s0 * (kBUnit ? 1 : b_k)];
+      b1 = b_col[j][s1 * (kBUnit ? 1 : b_k)];
+    }
+    split_finite(b0, bh[j][0], bl[j][0]);
+    split_finite(b1, bh[j][1], bl[j][1]);
+  }
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma(acc[i][j], al[i], bh[j]);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma(acc[i][j], ah[i], bh[j]);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[i][j][e] += acc[i][j][e];
+}
+
+// out(m, n) = sum_k A(m, k) B(k, n) for m < M, n < N, at f32 accuracy on
+// the tensor cores (3xTF32 mma.sync m16n8k8, tf32.cuh), handed to epi(m, n,
+// out); A(m, k) = a[m * a_m + k * a_k], B(k, n) = b[k * b_k + n * b_n].  A
+// job is kMT 16-row tiles by kNT 8-column tiles; the jobs are dealt to the
+// warps in turn, job j to warp (j + first) % kWarps (so that two products
+// between the same barriers share the warps out).  Every tile of a job is
+// computed, and no branch stands between a warp and its mma: rows past M
+// read on past the operand (the rows that follow it in the chain's arrays
+// or the scratch: A's row stride is H or 1, and its rows end within 16 H
+// of the last real one), columns past N read column N - 1, and neither is
+// handed on.
+// The depth is padded to a multiple of 8 by B's own zeros: B(k, n) for Kd
+// <= k < Kd rounded up to 8 must read 0 (the activations and gradients
+// keep zeroed padding for it), while A's k is clamped to Kd - 1 (a value
+// of the operand itself, so nothing past it is read).  No chain of
+// tensor-core sums is longer than one k-step's three passes (tc_kstep):
+// chained over k-steps, the tensor core's truncating sums flip bf16
+// roundings of the momentum several times as often as f32 sums do.
+template <int kMT, int kNT, bool kPairK, bool kAUnit, bool kBUnit,
+          class Epi>
+__device__ __forceinline__ void tc_product(int M, int N, int Kd,
+                                           const float* a, int a_m, int a_k,
+                                           const float* b, int b_k, int b_n,
+                                           int first, Epi&& epi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_groups = (N + 8 * kNT - 1) / (8 * kNT);
+  const int jobs = tc_jobs(kMT, kNT, M, N);
+  for (int job = (threadIdx.x / 32 + kWarps - first % kWarps) % kWarps;
+       job < jobs; job += kWarps) {
+    const int m0 = (job / n_groups) * 16 * kMT;
+    const int n0 = (job - (job / n_groups) * n_groups) * 8 * kNT;
+    const float* a_row[kMT][2];
+    const float* b_col[kNT];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        a_row[i][r] = a + (m0 + 16 * i + 8 * r + g) * a_m;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      b_col[j] = b + min(n0 + 8 * j + g, N - 1) * b_n;
+    float run[kMT][kNT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[i][j][e] = 0.0f;
+    int kk = 0;
+    for (; kk + 8 <= Kd; kk += 8)
+      tc_kstep<kMT, kNT, kPairK, false, kAUnit, kBUnit>(run, a_row, b_col,
+                                                        a_k, b_k, kk, Kd);
+    if (kk < Kd)
+      tc_kstep<kMT, kNT, kPairK, true, kAUnit, kBUnit>(run, a_row, b_col,
+                                                       a_k, b_k, kk, Kd);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 16 * i + g + 8 * (e >> 1);
+          const int n = n0 + 8 * j + 2 * t + (e & 1);
+          if (m < M && n < N) epi(m, n, run[i][j][e]);
+        }
+      }
+    }
+  }
+}
+
 // Forward, likelihood and backward for the chain whose parameters are in
 // `th`; writes the likelihood gradient (without the weight prior) to `grad`
 // and the cost to s.scal[0].  Ends with a barrier.  Eight barriers at depth
 // 3: one after each layer, after the head and likelihood (warp 0), after
 // the head's gradient, after each hidden layer's backward phase (its weight
 // and bias gradient beside the previous layer's pre-activation gradient)
-// and after layer 1's gradient.
+// and after layer 1's gradient.  The hidden layers' products run on the
+// tensor cores (tc_product), in both placements.
 __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
                         float* grad, const Scratch& s) {
   const int tid = threadIdx.x;
   const int H = a.hidden, K = a.n_inputs, B = a.batch, D = a.depth;
-  const int SA = H + 1, SX = K + 1;  // row strides, with the 1 column
+  const int SA = act_stride(H), SX = K + 1;  // row strides
   const int BA = B * SA;
 
   // layer 1: tanh([x 1] [w1; b1])
@@ -352,10 +565,11 @@ __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
   for (int l = 2; l <= D; ++l) {
     const float* a_in = s.act + (l - 2) * BA;
     float* a_out = s.act + (l - 1) * BA;
-    tiled_product<2, 2>(B, H, H + 1, a_in, SA, 1, th + L.w(l, H, K), H, 1,
-                        [&](int b, int j, float z) {
-                          a_out[b * SA + j] = tanhf(z);
-                        });
+    // transposed, (j, b) = [w_l; b_l]^T [a 1]^T: the batch on the 8-wide
+    // side pads least (20 -> 24, H = 50 -> 64)
+    tc_product<1, 3, true, false, true>(
+        H, B, H + 1, th + L.w(l, H, K), 1, H, a_in, 1, SA, 0,
+        [&](int j, int b, float z) { a_out[b * SA + j] = tanhf(z); });
     __syncthreads();
   }
   const float* a_last = s.act + (D - 1) * BA;
@@ -407,20 +621,23 @@ __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
     const float* a_in = s.act + (l - 2) * BA;
     const float* w = th + L.w(l, H, K);
     float* gw = grad + L.w(l, H, K);
-    tiled_product<3, 4>(H + 1, H, B, a_in, 1, SA, dz, SA, 1,
-                        [&](int i, int j, float acc) { gw[i * H + j] = acc; });
-    tiled_product<2, 2>(B, H, H, dz, SA, 1, w, 1, H,
-                        [&](int b, int i, float acc) {
-                          const float act = a_in[b * SA + i];
-                          dz_prev[b * SA + i] = acc * (1.0f - act * act);
-                        });
+    // the backward product transposed, (i, b) = w_l dz^T, then the weight
+    // gradient on the warps after its jobs
+    tc_product<1, 3, true, true, true>(
+        H, B, H, w, H, 1, dz, 1, SA, 0, [&](int i, int b, float acc) {
+          const float act = a_in[b * SA + i];
+          dz_prev[b * SA + i] = acc * (1.0f - act * act);
+        });
+    tc_product<2, 2, false, false, false>(
+        H + 1, H, B, a_in, 1, SA, dz, SA, 1, tc_jobs(1, 3, H, B),
+        [&](int i, int j, float acc) { gw[i * H + j] = acc; });
     __syncthreads();
     float* done = dz;
     dz = dz_prev;
     dz_prev = done;
   }
-  // layer 1's weight and bias gradient
-  tiled_product<3, 4>(K + 1, H, B, s.x, 1, SX, dz, SA, 1,
+  // layer 1's weight and bias gradient: (K + 1) x H outputs, one a thread
+  tiled_product<1, 1>(K + 1, H, B, s.x, 1, SX, dz, SA, 1,
                       [&](int i, int j, float acc) {
                         grad[L.w1 + i * H + j] = acc;
                       });
@@ -462,7 +679,15 @@ __device__ __forceinline__ float noise_at(const Args& a, int t, unsigned step,
   const int c = blockIdx.x;
   if (a.noise != nullptr)
     return a.noise[(static_cast<size_t>(t) * a.n_chains + c) * a.n_params + p];
-  return philox_normal(a.seed, c, step, static_cast<unsigned>(p));
+  // philox_normal's Box-Muller, with cos(2 pi u2) taken as -cos(2 pi u2 -
+  // pi) by the fast cosine, whose argument then lies in (-pi, pi], where it
+  // is within 2^-21.4 of the cosine, and the root by sqrt_approx: the
+  // normal moves by at most 2.4e-6 (|sqrt(-2 log u1)| <= 5.8), which no
+  // check resolves
+  const uint4 r = philox_draw(a.seed, c, step, static_cast<unsigned>(p),
+                              kPurposeNoise);
+  const float u1 = bits_to_uniform(r.x), u2 = bits_to_uniform(r.y);
+  return sqrt_approx(-2.0f * logf(u1)) * -__cosf(fmaf(kTwoPi, u2, -kPi));
 }
 
 // ---- the MXU-CLT generator (kClt) -----------------------------------------
@@ -530,22 +755,24 @@ __device__ CltGroup clt_group(const Args& a, const Layout& L, int g, int s,
 // A uniform's input to the transform: u - 1/2 rounded to bf16 (to nearest
 // even), as JAX's astype(bfloat16) of the MXU operand.
 __device__ __forceinline__ float clt_input(unsigned bits) {
-  return round_bf16(bits_to_uniform(bits) - 0.5f);
+  // u - 1/2 = ((bits >> 8) + 1 - 2^23) 2^-24, exact as bits_to_uniform's
+  // u and the subtraction are, one add fewer
+  return round_bf16(
+      static_cast<float>(static_cast<int>(bits >> 8) - 8388607) *
+      (1.0f / 16777216.0f));
 }
 
-// The kN normals of group G at `step`, each handed to update(p, eta) for its
-// element p.  The warp owns the group: lane l holds lanes 32 j + l of it
-// (j < kN / 32).  The transform x H_n is a fast Walsh-Hadamard transform,
-// stages of stride 1, 2, 4, ... in that order, each (a, b) -> (a + b,
-// a - b): strides below 32 across lanes, the others in registers.
-template <int kN, class F>
-__device__ __forceinline__ void clt_group_update(const Args& a, unsigned step,
-                                                 const CltGroup& G,
-                                                 F& update) {
+// The kN normals of group G at `step`, into x: lane l holds values 32 j +
+// l (j < kN / 32).  The transform x H_n is a fast Walsh-Hadamard transform,
+// stages of stride 1, 2, 4, ... in that order, each (a, b) -> (a + b, a -
+// b): strides below 32 across lanes, the others in registers.
+template <int kN>
+__device__ __forceinline__ void clt_group_normals(const Args& a, unsigned step,
+                                                  const CltGroup& G,
+                                                  float (&x)[kN / 32]) {
   constexpr int kPer = kN / 32;
   const int lane = threadIdx.x & 31;
   const unsigned c = blockIdx.x, d0 = G.slot / 4;
-  float x[kPer];
   if constexpr (kN == 64) {  // lanes l and l + 16 share a draw
     const uint4 r = philox_draw(a.seed, c, step, d0 + (lane & 15),
                                 kPurposeClt);
@@ -576,7 +803,7 @@ __device__ __forceinline__ void clt_group_update(const Args& a, unsigned step,
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const float o = __shfl_xor_sync(0xffffffffu, x[j], h);
-      x[j] = (lane & h) ? o - x[j] : x[j] + o;
+      x[j] = fmaf((lane & h) ? -1.0f : 1.0f, x[j], o);  // o - x or x + o
     }
   }
 #pragma unroll
@@ -595,29 +822,87 @@ __device__ __forceinline__ void clt_group_update(const Args& a, unsigned step,
                            : kN == 128 ? 0.30618621784789724f
                                        : 0.21650635094610965f;
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
+  for (int j = 0; j < kPer; ++j) x[j] *= kScale;
+}
+
+// Hands each normal x of group G to update(p, eta) for its element p.
+template <int kN, class F>
+__device__ __forceinline__ void clt_group_apply(const CltGroup& G,
+                                                const float (&x)[kN / 32],
+                                                F& update) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kN / 32; ++j) {
     const int p = G.element(32 * j + lane);
-    if (p >= 0) update(p, x[j] * kScale);
+    if (p >= 0) update(p, x[j]);
   }
 }
 
+template <int kN, class F>
+__device__ __forceinline__ void clt_group_update(const Args& a, unsigned step,
+                                                 const CltGroup& G,
+                                                 F& update) {
+  float x[kN / 32];
+  clt_group_normals<kN>(a, step, G, x);
+  clt_group_apply<kN>(G, x, update);
+}
+
 // Calls update(p, eta) once for every element p of the block's chain, eta
-// its CLT normal at `step`: one group per warp in turn.
-template <class F>
+// its CLT normal at `step`: one group per warp in turn, with kPairs two at
+// a time where both are pairs of matrix slabs (their Philox draws and
+// transforms side by side, then the updates in the order of the groups).
+// The burn-in and one-step kernels take one group a warp-iteration: two
+// groups' registers made them slower, and a loop over two groups inlines
+// every group's code twice (B6's CLT kernel: 300 shuffles and 171 calls of
+// the roots' and divisions' slow paths, against 160 and 87 in the earlier
+// CUDA-core body, which took one group a warp-iteration; 5 % slower than
+// this loop on an H100).
+template <bool kPairs, class F>
 __device__ __forceinline__ void for_each_clt_eta(const Args& a,
                                                  const Layout& L,
                                                  unsigned step, F&& update) {
   const int s = a.hidden <= 50 ? 64 : 128;
   const int n_groups = clt_groups(a);
-  for (int g = threadIdx.x / 32; g < n_groups; g += kWarps) {
-    int n;
-    const CltGroup G = clt_group(a, L, g, s, n);
+  const auto one = [&](const CltGroup& G, int n) {
     if (n == 64)
       clt_group_update<64>(a, step, G, update);
     else if (n == 128)
       clt_group_update<128>(a, step, G, update);
     else
       clt_group_update<256>(a, step, G, update);
+  };
+  if constexpr (!kPairs) {
+    for (int g = threadIdx.x / 32; g < n_groups; g += kWarps) {
+      int n;
+      const CltGroup G = clt_group(a, L, g, s, n);
+      one(G, n);
+    }
+    return;
+  }
+  for (int g = threadIdx.x / 32; g < n_groups; g += 2 * kWarps) {
+    int n0, n1 = 0;
+    const CltGroup G0 = clt_group(a, L, g, s, n0);
+    const bool second = g + kWarps < n_groups;
+    CltGroup G1 = G0;
+    if (second) G1 = clt_group(a, L, g + kWarps, s, n1);
+    if (n1 == 2 * s && n0 == 2 * s) {
+      if (s == 64) {
+        float x0[4], x1[4];
+        clt_group_normals<128>(a, step, G0, x0);
+        clt_group_normals<128>(a, step, G1, x1);
+        clt_group_apply<128>(G0, x0, update);
+        clt_group_apply<128>(G1, x1, update);
+      } else {
+        float x0[8], x1[8];
+        clt_group_normals<256>(a, step, G0, x0);
+        clt_group_normals<256>(a, step, G1, x1);
+        clt_group_apply<256>(G0, x0, update);
+        clt_group_apply<256>(G1, x1, update);
+      }
+    } else {
+      one(G0, n0);
+      if (second) one(G1, n1);
+    }
   }
 }
 
@@ -655,6 +940,12 @@ __host__ __device__ constexpr int state_arrays(int rule, bool burnin) {
          (!burnin && (rule == kSghmc || rule == kSgld) ? 1 : 0);
 }
 
+// Where the scratch starts after `floats` of resident state: on a 16-byte
+// boundary, as the products' float2 loads of it need.
+__host__ __device__ constexpr size_t scratch_offset(int floats) {
+  return (static_cast<size_t>(floats) + 3) / 4 * 4;
+}
+
 // Floats of Scratch::scal.
 __host__ __device__ constexpr int scalar_slots(int rule) {
   return rule == kSgnht ? 3 + kWarps : 2;
@@ -675,7 +966,7 @@ __device__ __forceinline__ void fused_body(const Args& a) {
   constexpr bool kMinv = !kBurnin && (kRule == kSghmc || kRule == kSgld);
   constexpr int kCols = kRule == kSgld || kRule == kPsgld ? 1 : 2;
   constexpr int kState = state_arrays(kRule, kBurnin);
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int P = a.n_params;
@@ -691,7 +982,7 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     rest = smem;
   } else {
     s_theta = smem;
-    rest = smem + kState * P;
+    rest = smem + scratch_offset(kState * P);
   }
   float* s_v = s_theta + P;                       // kAux
   float* s_grad = s_theta + (kAux ? 2 : 1) * P;
@@ -700,12 +991,12 @@ __device__ __forceinline__ void fused_body(const Args& a) {
   float* s_tau = a.tau_out + base;
   float* s_g = a.g_out + base;
   float* s_vhat = a.v_hat_out + base;
-  const int SA = a.hidden + 1, SX = a.n_inputs + 1;
+  const int SA = act_stride(a.hidden), SX = a.n_inputs + 1;
   Scratch s;
   s.act = rest;
   s.dz0 = s.act + a.depth * a.batch * SA;
-  s.dz1 = s.dz0 + a.batch * SA;
-  s.x = s.dz1 + a.batch * SA;
+  s.dz1 = s.dz0 + grad_rows(a.batch) * SA;
+  s.x = s.dz1 + grad_rows(a.batch) * SA;
   s.y = s.x + a.batch * SX;
   s.dmean = s.y + a.batch;
   s.scal = s.dmean + a.batch;
@@ -720,10 +1011,11 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     }
     if constexpr (kMinv) s_minv[p] = load_state(a.minv, base + p, a.minv_bf16);
   }
-  // the 1 columns of the activations and inputs (the products never write
-  // them)
-  for (int r = tid; r < a.depth * a.batch; r += kThreads)
-    s.act[r * SA + a.hidden] = 1.0f;
+  // the 1 columns of the activations and inputs, and the zeros that pad the
+  // activations and gradients (no product writes either)
+  const int n_act = a.depth * a.batch * SA;
+  for (int i = tid; i < n_act + 2 * grad_rows(a.batch) * SA; i += kThreads)
+    s.act[i] = i < n_act && i % SA == a.hidden ? 1.0f : 0.0f;
   for (int b = tid; b < a.batch; b += kThreads) s.x[b * SX + a.n_inputs] = 1.0f;
   if constexpr (kRule == kSgnht) {
     if (tid == 0) s.scal[2] = a.xi[c];
@@ -743,13 +1035,15 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     const float prior_scale = a.prior_scale;
 // Each rule's update of element p with its normal eta (FUSED_ELEMENT),
 // written once for the two noise loops: the Box-Muller loop, one element
-// per thread in turn, and the CLT generator's groups.  A macro, not a
+// per thread in turn (two at a time were slower), and the CLT generator's
+// groups.  A macro, not a
 // lambda: called through a lambda, the Box-Muller loop took other
 // registers from ptxas (B5-sgnht 123 instead of 72, B6 in device memory
 // 110 instead of 80).
 #define FUSED_FOR_EACH_ELEMENT                                            \
   if constexpr (kVariant == kClt) {                                       \
-    for_each_clt_eta(a, L, step, [&](int p, float eta) { FUSED_ELEMENT }); \
+    for_each_clt_eta<!kBurnin && !kGathered>(                             \
+        a, L, step, [&](int p, float eta) { FUSED_ELEMENT });             \
   } else {                                                                \
     for (int p = tid; p < P; p += kThreads) {                             \
       const float eta = noise_at(a, t, step, p);                          \
@@ -772,8 +1066,8 @@ __device__ __forceinline__ void fused_body(const Args& a) {
   } else {                                                                \
     minv = s_minv[p];                                                     \
   }                                                                       \
-  const float sigma =                                                     \
-      sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));       \
+  const float var = fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f); \
+  const float sigma = kBurnin ? sqrtf(var) : sqrt_approx(var);            \
   float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;      \
   if (!kBurnin && !(minv > 0.0f)) vn = 0.0f;                              \
   s_v[p] = kVBf16 && !deferred(p, mat_lo, mat_hi) ? round_bf16(vn) : vn;  \
@@ -796,7 +1090,7 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     s_theta[p] = th + (-eps * minv * A * gg + sigma * eta);               \
   } else {                                                                \
     const float minv = s_minv[p];                                         \
-    const float sigma = sqrtf(fmaxf(2.0f * eps * minv * cdiv, 0.0f));     \
+    const float sigma = sqrt_approx(fmaxf(2.0f * eps * minv * cdiv, 0.0f)); \
     float delta = -eps * minv * A * gg + sigma * eta;                     \
     if (!(minv > 0.0f)) delta = 0.0f;                                     \
     s_theta[p] = th + delta;                                              \
@@ -919,10 +1213,10 @@ constexpr auto kernel_of() {
 size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
                   int hidden, int depth, int batch, bool resident) {
   const size_t state =
-      resident ? static_cast<size_t>(state_arrays(rule, burnin)) * n_params
-               : 0;
+      resident ? scratch_offset(state_arrays(rule, burnin) * n_params) : 0;
   const size_t scratch =
-      static_cast<size_t>(depth + 2) * batch * (hidden + 1) +
+      static_cast<size_t>(depth * batch + 2 * grad_rows(batch)) *
+          act_stride(hidden) +
       static_cast<size_t>(batch) * (n_inputs + 1) + 2 * batch +
       scalar_slots(rule);
   return (state + scratch) * sizeof(float);

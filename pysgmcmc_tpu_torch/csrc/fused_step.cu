@@ -7,6 +7,7 @@
 
 extern "C" {
 
+#if FUSED_PART_HAS(0)
 // Shared memory one block of kernel `kernel` (a KernelId) needs with the
 // chain's state resident, in bytes: the placement rule.  Above a block's
 // limit the wrapper passes a device-memory workspace instead.  The CLT and
@@ -34,6 +35,9 @@ FUSED_STEP_ENTRY(fused_bnn_multistep_launch, kSghmc, false, false)
 FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_launch, kSghmc, true, false)
 // B3: one SGHMC sampling step on each chain's gathered rows.
 FUSED_STEP_ENTRY(fused_bnn_step_launch, kSghmc, false, true)
+#endif
+
+#if FUSED_PART_HAS(1)
 // B4-sgld: one SGLD sampling step on each chain's gathered rows.
 FUSED_STEP_ENTRY(fused_bnn_step_sgld_launch, kSgld, false, true)
 // B5-sgld: k SGLD sampling steps with a frozen minv.
@@ -43,16 +47,20 @@ FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_sgld_launch, kSgld, true, false)
 // B4-psgld: one pSGLD step on each chain's gathered rows; v_out gets the new
 // accumulator.
 FUSED_STEP_ENTRY(fused_bnn_step_psgld_launch, kPsgld, false, true)
+// B5-psgld: k pSGLD steps.
+FUSED_STEP_ENTRY(fused_bnn_multistep_psgld_launch, kPsgld, false, false)
+#endif
+
+#if FUSED_PART_HAS(2)
 // B4-sgnht: one SGNHT step on each chain's gathered rows; v_out and xi_out
 // get the new momentum and thermostat.
 FUSED_STEP_ENTRY(fused_bnn_step_sgnht_launch, kSgnht, false, true)
 // B4-rsghmc: one relativistic SGHMC step on each chain's gathered rows.
 FUSED_STEP_ENTRY(fused_bnn_step_rsghmc_launch, kRsghmc, false, true)
-// B5-psgld: k pSGLD steps.
-FUSED_STEP_ENTRY(fused_bnn_multistep_psgld_launch, kPsgld, false, false)
 // B5-sgnht: k SGNHT steps, the thermostat moving after each.
 FUSED_STEP_ENTRY(fused_bnn_multistep_sgnht_launch, kSgnht, false, false)
 // B5-rsghmc: k relativistic SGHMC steps.
 FUSED_STEP_ENTRY(fused_bnn_multistep_rsghmc_launch, kRsghmc, false, false)
+#endif
 
 }  // extern "C"

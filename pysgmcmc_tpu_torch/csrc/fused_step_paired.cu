@@ -10,6 +10,7 @@
 
 extern "C" {
 
+#if FUSED_PART_HAS(0)
 const char* fused_step_paired_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -21,14 +22,21 @@ FUSED_STEP_ENTRY(fused_bnn_multistep_paired_launch, kSghmc, false, false)
 FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_paired_launch, kSghmc, true,
                  false)
 FUSED_STEP_ENTRY(fused_bnn_step_paired_launch, kSghmc, false, true)
+#endif
+
+#if FUSED_PART_HAS(1)
 FUSED_STEP_ENTRY(fused_bnn_multistep_sgld_paired_launch, kSgld, false, false)
+FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_sgld_paired_launch, kSgld, true,
+                 false)
 FUSED_STEP_ENTRY(fused_bnn_multistep_psgld_paired_launch, kPsgld, false,
                  false)
+#endif
+
+#if FUSED_PART_HAS(2)
 FUSED_STEP_ENTRY(fused_bnn_multistep_sgnht_paired_launch, kSgnht, false,
                  false)
 FUSED_STEP_ENTRY(fused_bnn_multistep_rsghmc_paired_launch, kRsghmc, false,
                  false)
-FUSED_STEP_ENTRY(fused_bnn_multistep_burnin_sgld_paired_launch, kSgld, true,
-                 false)
+#endif
 
 }  // extern "C"

@@ -25,10 +25,11 @@
 //
 // Design.  Both products run on the tensor cores (mma.sync m16n8k8 TF32)
 // at f32 accuracy: every f32 operand a is split into a TF32 high part and a
-// TF32 low part, a = a_hi + a_lo (see split), and a b is
-// taken as a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in f32 (the
-// dropped a_lo b_lo is 2^-22 of a b).  One TF32 pass would keep about three
-// digits, and the Gram's |x_i|^2 + |x_j|^2 - 2 <x_i, x_j> cancels.  On
+// TF32 low part, a = a_hi + a_lo, and a b is taken as a_lo b_hi + a_hi b_lo
+// + a_hi b_hi, accumulated in f32 (the dropped a_lo b_lo is 2^-22 of a b;
+// tf32.cuh, which the fused body's products share).  One TF32 pass would
+// keep about three digits, and the Gram's |x_i|^2 + |x_j|^2 - 2 <x_i,
+// x_j> cancels.  On
 // the diagonal it cancels to 0 exactly: the kernel takes K_ii = 1 rather
 // than the exponential of the split's rounding of 2 |x_i|^2 (K_ii, the
 // largest entry, moved by it, moved an SVGD path's samples several times
@@ -80,6 +81,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -210,32 +213,7 @@ __device__ __forceinline__ void load_rhs(float* dst, const float* v, int jc,
   }
 }
 
-// ---- 3xTF32 on the tensor cores ------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo: hi the TF32 value nearest x, lo = x - hi (exact in f32),
-// whose low 13 bits the tensor core drops (2^-22 of x; rounding lo to TF32
-// as well costs a conversion a value and gains no accuracy that the checks
-// resolve)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b on the tensor cores (no side effects: the compiler may schedule
-// it among the others)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---- 3xTF32 on the tensor cores (tf32.cuh: to_tf32, split, mma) -------
 
 // acc[mt][nt] += A B over one k-step of 8, the warp's 32 x 32 tile: A(m, k)
 // at a_s[m * a_stride + k] from the warp's first row, B(k, n) at

@@ -2,12 +2,17 @@
 
 Each source of ``csrc/`` (``fused_step.cu``, ``fused_step_clt.cu``,
 ``fused_step_paired.cu``, ``slim_update.cu``, ``svgd_streaming.cu``; the
-three fused sources share ``fused_body.cuh``) is compiled with ``nvcc`` at first use into a shared
+three fused sources share ``fused_body.cuh``, and it and
+``svgd_streaming.cu`` the tensor-core helpers of ``tf32.cuh``) is compiled
+with ``nvcc`` at first use into a shared
 library with a plain C interface, under ``pysgmcmc_tpu_torch/_build/``, and
 loaded with ``ctypes``.  A library's name carries a hash of every source and
 header of ``csrc/`` and of the flags, so an edited header rebuilds them
 all.  The sources compile in
-parallel, one ``nvcc`` each.  The compiler's report (``ptxas -v``:
+parallel, one ``nvcc`` each, but for the three fused sources: each of
+those compiles as ``PARTS`` objects at once (``-DFUSED_PART=i``, each with
+its share of the entries), which one more ``nvcc`` links into the
+library.  The compiler's report (``ptxas -v``:
 registers, shared memory and spills of every kernel) is kept beside each
 library as a ``.log`` file.  Nothing here runs at import time: the CPU test
 suite imports every module on a machine without ``nvcc``.
@@ -26,9 +31,12 @@ CSRC = os.path.join(_PKG, "csrc")
 # csrc/<name>.cu -> one library each
 SOURCES = ("fused_step", "fused_step_clt", "fused_step_paired",
            "slim_update", "svgd_streaming")
+# the fused sources' parts (csrc/fused_body.cuh, FUSED_PART): ptxas on the
+# tensor-core body takes most of a build
+PARTS = {"fused_step": 3, "fused_step_clt": 3, "fused_step_paired": 3}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # largest dynamic shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -149,6 +157,22 @@ def log_path(name):
     return os.path.splitext(library_path(name))[0] + ".log"
 
 
+def _compile(name, tmp):
+    """Starts the compiles of source ``name`` into the library ``tmp``:
+    ``(processes, their object files)``; no objects where one ``nvcc``
+    makes the library."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC]
+    if name not in PARTS:
+        return [subprocess.Popen(
+            [*cmd, "-shared", "-o", tmp, _source(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)], []
+    objects = ["{}.{}.o".format(tmp, i) for i in range(PARTS[name])]
+    return [subprocess.Popen(
+        [*cmd, "-DFUSED_PART={}".format(i), "-c", "-o", obj, _source(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, obj in enumerate(objects)], objects
+
+
 def build():
     """Compile every source that has no library yet, all at once; returns
     ``(paths by source name, seconds spent compiling)``."""
@@ -163,29 +187,38 @@ def build():
         for name in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            jobs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, _source(name)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            jobs[name] = (tmp, *_compile(name, tmp))
         failed = []
-        for name, (tmp, proc) in jobs.items():
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append("nvcc failed on {}:\n{}{}".format(
-                    _source(name), out, err))
+        for name, (tmp, procs, objects) in jobs.items():
+            outs = [proc.communicate() for proc in procs]
+            report = "".join(out + err for out, err in outs)
+            if any(proc.returncode != 0 for proc in procs):
+                failed.append("nvcc failed on {}:\n{}".format(
+                    _source(name), report))
                 continue
+            if objects:  # one library of the parts
+                link = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                     *objects], capture_output=True, text=True)
+                if link.returncode != 0:
+                    failed.append("nvcc failed to link {}:\n{}{}".format(
+                        _source(name), link.stdout, link.stderr))
+                    continue
             with open(log_path(name), "w") as f:
-                f.write(out + err)
+                f.write(report)
             # atomic: a concurrent build never loads half a file
             os.replace(tmp, paths[name])
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
-        for tmp, proc in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        for tmp, procs, objects in jobs.values():
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for path in (tmp, *objects):
+                if os.path.exists(path):
+                    os.remove(path)
     return paths, time.perf_counter() - start
 
 

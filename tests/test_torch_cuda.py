@@ -576,19 +576,21 @@ def test_fused_bnn_wide_trains_on_the_card(cuda_device):
     assert np.isfinite(mean).all() and np.isfinite(var).all()
 
 
-def _bf16_check(label, ref, args, common, got, want, ulps):
+def _bf16_check(label, ref, args, common, got, want, ulps, peaks=None):
     """``chip_smoke.py``'s bf16 check of a kernel's outputs against its
     plain version's: REL_TOL of each row's largest |value| plus ``ulps``
-    bf16 ulps of each bf16 value (for the other outputs, of the row's
-    largest bf16 value, at most of their own), and the share of bf16 values
-    that differ beside the witness, the plain version on the CPU against
-    the one on the card."""
+    bf16 ulps of each bf16 value (of its largest |value| over the steps
+    where ``peaks`` gives it; for the other outputs, of the row's largest
+    bf16 value, at most of their own), and the share of bf16 values that
+    differ beside the witness, the plain version on the CPU against the one
+    on the card."""
     cpu = ref(*[a.cpu() if torch.is_tensor(a) else a for a in args],
               **common)
     flips, total = cs._bf16_flips(torch, [w.cpu() for w in want],
                                   cpu if isinstance(cpu, tuple) else (cpu,))
     cs._compare(torch, (label, [str(i) for i in range(len(got))]), got,
-                want, ulps=ulps, witness=flips / total if total else 0.0)
+                want, ulps=ulps, witness=flips / total if total else 0.0,
+                peaks=peaks)
 
 
 # bf16 instantiation -> (wrapper, plain version, state names, which of them
@@ -812,6 +814,119 @@ def test_burnin_kernel_across_widths_and_depths(kernel, h, depth, stream,
         assert torch.isfinite(a).all()
         assert _row_rel_err(a, b) <= REL_TOL
         assert torch.equal(a, c)
+
+
+# the sampling kernels -> (wrapper, plain version, state names, rule
+# keywords, stepsize, one-step?)
+EDGE_KERNELS = {
+    "B1": (fs.fused_bnn_multistep, fs.fused_bnn_multistep_ref,
+           ("theta", "v", "minv"), dict(mdecay=0.05, scale_grad=100.0), 0.01,
+           False),
+    "B3": (fs.fused_bnn_step, fs.fused_bnn_step_ref, ("theta", "v", "minv"),
+           dict(mdecay=0.05, scale_grad=100.0), 0.01, True),
+    "B5-sgld": (fs.fused_bnn_multistep_sgld, fs.fused_bnn_multistep_sgld_ref,
+                ("theta", "minv"), dict(scale_grad=100.0), 1e-3, False),
+    "B4-sgld": (fs.fused_bnn_step_sgld, fs.fused_bnn_step_sgld_ref,
+                ("theta", "minv"), dict(scale_grad=100.0), 1e-3, True),
+    "B5-psgld": (fs.fused_bnn_multistep_psgld,
+                 fs.fused_bnn_multistep_psgld_ref, ("theta", "acc"),
+                 dict(alpha=0.99, lambda_reg=1e-5, scale_grad=100.0), 1e-4,
+                 False),
+    "B4-psgld": (fs.fused_bnn_step_psgld, fs.fused_bnn_step_psgld_ref,
+                 ("theta", "acc"),
+                 dict(alpha=0.99, lambda_reg=1e-5, scale_grad=100.0), 1e-4,
+                 True),
+    "B5-sgnht": (fs.fused_bnn_multistep_sgnht,
+                 fs.fused_bnn_multistep_sgnht_ref, ("theta", "p", "xi"),
+                 dict(a_diff=1.0, scale_grad=100.0), 3e-4, False),
+    "B4-sgnht": (fs.fused_bnn_step_sgnht, fs.fused_bnn_step_sgnht_ref,
+                 ("theta", "p", "xi"), dict(a_diff=1.0, scale_grad=100.0),
+                 3e-4, True),
+    "B5-rsghmc": (fs.fused_bnn_multistep_rsghmc,
+                  fs.fused_bnn_multistep_rsghmc_ref, ("theta", "p"),
+                  dict(mass=1.0, speed_of_light=1.0, d_coef=1.0), 1e-3,
+                  False),
+    "B4-rsghmc": (fs.fused_bnn_step_rsghmc, fs.fused_bnn_step_rsghmc_ref,
+                  ("theta", "p"),
+                  dict(mass=1.0, speed_of_light=1.0, d_coef=1.0), 1e-3,
+                  True),
+}
+# (hidden width, depth, batch): widths 13 and 50 cut the 16 x 8 output
+# tiles and the 8-deep k-steps of the tensor-core products, batches 1, 7,
+# 20 and 33 the 8-wide side (and the weight gradients' k-steps)
+EDGE_SHAPES = [(h, depth, batch) for h, depth in ((13, 2), (13, 3), (50, 2),
+                                                  (50, 3))
+               for batch in (1, 7, 20, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stream,bf16", [
+    (kernel, stream, bf16) for kernel in sorted(EDGE_KERNELS)
+    for stream in ("philox", "clt")
+    # pSGLD's accumulator is f32 (as JAX's)
+    for bf16 in ((False,) if kernel.endswith("psgld") else (False, True))])
+def test_sampling_kernel_across_tile_edges(kernel, stream, bf16, cuda_device):
+    """The sampling kernels (B1, B5-*, and B3 / B4-* one step) at shapes
+    that cut the tiles of the tensor-core products, on the Philox and CLT
+    streams, against their plain versions from the uniform test state: at
+    f32 state over 4 steps (one for B3 / B4-*) within REL_TOL of each
+    chain's row, at bf16 state (the momentum or accumulator, and SGHMC's and
+    SGLD's minv) over 3 with one bf16 ulp a step of each value's largest
+    |value| over the steps (``chip_smoke._compare``), on as many values as
+    the bf16 tests at the flagship's width hold (64 chains x 5,252), so
+    that the share of flipped values is measured as finely."""
+    fn, ref, names, rule, eps, one_step = EDGE_KERNELS[kernel]
+    x, y = _data(torch.Generator(device=cuda_device).manual_seed(3))
+    for h, depth, batch in EDGE_SHAPES:
+        n = 32
+        if bf16:
+            n = -(-64 * 5252 // fs.FusedLayout(1, h, depth).n_params)
+        lay, st, _, _, gen = _state(cuda_device, n, h=h, depth=depth)
+        st["acc"] = st["v_hat"] * 1e-3
+        st["p"] = torch.randn(st["theta"].shape, generator=gen,
+                              device=cuda_device)
+        st["xi"] = 1.0 + 0.1 * torch.randn(n, generator=gen,
+                                           device=cuda_device)
+        state = [st[name] for name in names]
+        common = dict(rule, prior_scale=1.0 / (lay.n_params * 100), h=h,
+                      batch_size=batch)
+        if stream == "clt":
+            common["noise_impl"] = "hadamard_clt"
+        if bf16:
+            state = [t.to(torch.bfloat16) if name in ("v", "minv", "p")
+                     else t for name, t in zip(names, state)]
+            if any(name in ("v", "p") for name in names):
+                common["state_dtype"] = torch.bfloat16
+        x_win, y_win = fs.data_windows(x, y, batch)
+        if one_step:
+            steps = 1
+            widx = fs.philox_windows(9, 77, n, x_win.shape[0], cuda_device)
+            args = state + [*fs.gather_batch(x_win, y_win, widx), eps, 9]
+            common["step"] = 77
+        else:
+            steps = 3 if bf16 else 4
+            args = state + [x_win, y_win, eps, 9]
+            common.update(k_steps=steps, step0=5)
+        got = fn(*args, **common)
+        want = ref(*args, **common)
+        torch.cuda.synchronize()
+        label = "{} h={} depth={} batch={}".format(kernel, h, depth, batch)
+        assert len(got) == len(want), label
+        if bf16:
+            # a value's rounding flips at the size it had then: its ulps
+            # are those of its largest |value| over the steps (as
+            # chip_smoke's bf16 checks take them)
+            outs = [ref(*args, **dict(common, k_steps=k))
+                    for k in range(1, steps)] + [want]
+            peaks = [torch.stack([o[i].float().abs() for o in outs]).amax(0)
+                     if w.dtype == torch.bfloat16 else None
+                     for i, w in enumerate(want)]
+            _bf16_check(label, ref, args, common, got, want, steps, peaks)
+            continue
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all(), label
+            assert _row_rel_err(a.reshape(len(a), -1),
+                                b.reshape(len(b), -1)) <= REL_TOL, label
 
 
 @pytest.mark.cuda
