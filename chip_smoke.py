@@ -470,17 +470,18 @@ def _product_flops(lay, batch):
 def _noise_ops(lay, variant):
     """Operations of one chain-step's normals, one per parameter, from the
     fused kernels' generator ``variant`` (:func:`_variant_of`), counted
-    from ``csrc/philox.cuh`` and ``csrc/fused_body.cuh`` as the slim
-    kernels' NOISE_OPS: Box-Muller (and the paired kernels) NOISE_OPS a
-    parameter; the CLT per group of n uniforms that holds values (the
-    plain version's geometry, ``fused_step._clt_sections``) the n / 4
+    from ``csrc/philox.cuh`` and ``csrc/fused_body.cuh``: Box-Muller (and
+    the paired kernels) DRAW_OPS for each draw, one per four parameters
+    (the last draw whole where P is not a multiple of 4); the CLT per
+    group of n uniforms that holds values (the plain version's geometry,
+    ``fused_step._clt_sections``) the n / 4
     Philox draws it needs (PHILOX_OPS each), 7 per uniform (its
     bits-to-uniform map 4, the - 1/2 and the bf16 rounding's two
     conversions), n log2 n adds of the Walsh-Hadamard transform, and one
     scaling multiply per value it hands on.  Its dead lanes count: the
     transform mixes them into every normal."""
     if variant != "hadamard_clt":
-        return NOISE_OPS * lay.n_params
+        return DRAW_OPS * -(-lay.n_params // 4)
     from pysgmcmc_tpu_torch.ops import fused_step as fs
 
     ops = 0
@@ -530,19 +531,22 @@ RULE_FLOPS = {"B1": 19, "B3": 19, "B2": 48, "B4-sgld": 15, "B5-sgld": 15,
               "B6": 45, "B4-psgld": 21, "B5-psgld": 21, "B4-rsghmc": 24,
               "B5-rsghmc": 24, "B4-sgnht": 13, "B5-sgnht": 13}
 # The slim kernels apply the same rules without the mask, and draw every
-# normal in the kernel: one Philox4x32-10 (10 rounds of 2 mulhi, 2 mul, 4
-# xor, and 2 key adds in 9 of them: 98), two bits-to-uniform maps (8) and
-# Box-Muller's log, sqrt, cos and 3 multiplies (6), 112 operations; the
-# fused kernels draw theirs the same way (:func:`_noise_ops`).  All are
-# counted against the f32 peak, an optimistic rate for the integer and
-# special-function units, so the bound stays a lower bound.
+# normal in the kernel.  A Box-Muller draw gives four normals: one
+# Philox4x32-10 (10 rounds of 2 mulhi, 2 mul, 4 xor, and 2 key adds in 9 of
+# them: 98), four bits-to-uniform maps (16) and, for each of its two pairs,
+# a log, a root, a sine, a cosine and 4 multiplies (16): 130 operations, a
+# quarter of them a normal (NOISE_OPS); the fused kernels draw theirs the
+# same way (:func:`_noise_ops`).  All are counted against the f32 peak, an
+# optimistic rate for the integer and special-function units, so the bound
+# stays a lower bound.
 # The rules without a mass matrix, counted the same way (per-chain constants
 # not counted): pSGLD the prior fold 2, the accumulator 5, the preconditioner
 # 4, the noise scale 4 and the update 6; RSGHMC the fold and its sign 3, two
 # velocities of 7, the momentum 6 and the position add 1; SGNHT the fold 2,
 # the momentum 7 and the position 2.
 PHILOX_OPS = 98
-NOISE_OPS = PHILOX_OPS + 8 + 6
+DRAW_OPS = PHILOX_OPS + 16 + 16
+NOISE_OPS = DRAW_OPS / 4
 SLIM_OPS = {"B7": NOISE_OPS + 18, "B8-sgld": NOISE_OPS + 14,
             "B8-psgld": NOISE_OPS + 21, "B8-rsghmc": NOISE_OPS + 24,
             "B8-sgnht": NOISE_OPS + 11, "B9-sghmc": NOISE_OPS + 48,

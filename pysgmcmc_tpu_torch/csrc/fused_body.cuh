@@ -42,12 +42,14 @@
 // residency.  The burn-in's tau, g and v_hat are touched once a step, by
 // the update alone, element by element: they stay in the caller's output
 // arrays in device memory (copied there from the inputs at launch; the
-// chains in flight keep their working set in L2), so that B2 needs 83,752
+// chains in flight keep their working set in L2), so that B2 needs 87,544
 // bytes of shared memory at the flagship (3x50, batch 20) instead of 146
-// KB, and two blocks of 8 warps fit an SM, as B1's 104,760.  SGNHT's
-// thermostat lives in shared memory too; its p'^T p' is a block reduction
-// each step (warp shuffles, then one partial sum per warp), summed in
-// another order than torch.sum.
+// KB, and two blocks of 8 warps fit an SM, as B1's 108,552.  SGNHT's
+// p'^T p' is a block reduction each step (warp shuffles, then one partial
+// sum per warp in shared memory), summed in another order than torch.sum;
+// no barrier of its own: every thread forms the new thermostat itself from
+// the eight partials after the next barrier that stands anyway (the next
+// step's first, or the one before the launch stores its state).
 //
 // The six batch x H x H products of a step (two forward layers, two weight
 // gradients and two backward products at depth 3) run on the tensor cores
@@ -61,14 +63,24 @@
 // forward and backward products run transposed, an (H, batch) output, so
 // that the batch sits on the 8-wide side of a tile: 20 -> 24, H = 50 ->
 // 64 rows; the weight gradients are (H + 1) x H with the batch as their
-// depth); a warp owns 16 x 24 outputs of a forward or backward product (4
-// warps at H = 50, batch 20) and 32 x 16 of a weight gradient (the other
-// 4 warps first), so each operand it splits feeds 2 or 3 tiles; the split
-// is integer arithmetic (split_finite, 3 instructions); the depth pads with
-// the zeros the activations and gradients keep past their last column and
-// row, so only the last k-step of a product clamps an index and no branch
-// guards an mma; and every k-step's three passes form one chain of
-// tensor-core sums from 0, added to f32 running sums by FADDs (chained
+// depth); a job of a forward or backward product is 16 x 24 outputs (4
+// jobs at H = 50, batch 20); in the sampling and one-step kernels a
+// forward product splits each job's depth across a pair of warps
+// (tc_product_split: each warp sums half of the
+// k-steps, 4 and 3 of 7 at H = 50, and the pair adds the two partial tiles
+// through shared memory before the epilogue), so that it runs on all 8
+// warps: on 4, with the other 4 waiting at the barrier, a forward phase was
+// bound by latency (3.9 K cycles, PERF.md §6; the burn-in kernels keep a
+// warp a job, fwd_bwd); a backward product's jobs
+// run on 4 warps beside the weight gradient's 8 jobs of 32 x 16 outputs
+// (split as the forward ones, they gained nothing measurable and needed
+// shared memory of their own); each operand a warp splits feeds 2 or 3
+// tiles; the split is integer arithmetic (split_finite, 3 instructions);
+// the depth pads with the zeros the activations and gradients keep past
+// their last column and row, so only the last k-step of a product clamps
+// an index and no branch guards an mma; and every k-step's three passes
+// form one chain of tensor-core sums from 0, added to f32 running sums by
+// FADDs (chained
 // over k-steps, the tensor core's truncating sums flipped bf16 roundings
 // of the momentum several times as often as the plain version's: PERF.md
 // §6).  The rows of the activations and gradients are act_stride(H)
@@ -84,11 +96,14 @@
 // buffers in turn), and every thread that copies the minibatch finds its
 // window itself: nine barriers a step at depth 3.  The update is
 // elementwise f32 on the CUDA cores, with cheaper forms where no check
-// resolves a difference: Box-Muller's cosine by the fast cosine of an
-// argument in (-pi, pi] (noise_at), its root and the sampling rules'
-// noise scales by sqrt_approx; and the CLT's groups run two at a time
-// where both are pairs of matrix slabs (for_each_clt_eta, multi-step
-// sampling kernels).  The
+// resolves a difference: Box-Muller's four normals of a draw
+// (philox_normal_quad, one draw a lane for four consecutive elements,
+// staged in shared memory for the warp's element loop) by the fast sine
+// and cosine of an argument in (-pi, pi] and the root by sqrt_approx
+// (philox.cuh's box_muller), the sampling rules' noise scales by
+// sqrt_approx; and the CLT's groups run two at a time where both are
+// pairs of matrix slabs (for_each_clt_eta, multi-step sampling kernels).
+// The
 // one-step kernels (B3, B4-*) load and store the whole state every step: at
 // the flagship (8192 chains x 5,252 parameters) B4-psgld, B4-sgnht and
 // B4-rsghmc read theta and one state array and write both, 0.69 GB, 0.205
@@ -126,15 +141,17 @@
 // Weight matrices are row-major (in, out).
 //
 // Randomness is the Philox4x32-10 stream of philox.cuh, keyed by the 64-bit
-// seed with the counter (chain, absolute step, element, purpose), so neither
-// the block shape nor the chunking of launches changes a trajectory; the
-// plain PyTorch version implements the same stream.
+// seed with the counter (chain, absolute step, draw, purpose), so neither
+// the block shape nor the chunking of launches changes a trajectory; a
+// Box-Muller draw gives the normals of four consecutive elements (element
+// e reads draw e / 4), and the plain PyTorch version implements the same
+// stream.
 //
 // Three variants of every kernel, one per source that includes this header
 // (FUSED_STEP_VARIANT, set before the include), each a shared library with
 // a plain C interface, one entry per TPU kernel that returns
 // cudaGetLastError() after its launch:
-//   fused_step.cu         Box-Muller normals, one per element.
+//   fused_step.cu         Box-Muller normals, four per Philox draw.
 //   fused_step_clt.cu     the MXU-CLT generator (JAX's _normal_clt, its
 //                         default on the chip): normals of groups of n
 //                         uniforms, z = bf16(u - 1/2) H_n sqrt(12 / n) with
@@ -195,7 +212,6 @@ constexpr float kLogMeanPrior = -13.815510557964274f;  // log(1e-6)
 constexpr float kVarPrior = 0.01f;
 constexpr float kHalfLogVarPrior = -2.302585092994046f;  // 0.5 * log(0.01)
 constexpr float kSmall = 1e-16f;
-constexpr float kPi = 3.14159265358979f;
 
 // The kernels, numbered as the TPU kernels they replace (ROADMAP.md queue B).
 enum KernelId {
@@ -257,18 +273,10 @@ struct Args {
                 // state_arrays, P) f32 in device memory
 };
 
-// The square root on the special-function unit (sqrt.approx.f32, within
-// about an ulp of the correctly rounded root that sqrtf spends some eight
-// instructions on) for the sampling rules' noise scales and Box-Muller's
-// root: elementwise, once a step, no check resolves the difference.  The
+// The sampling rules' noise scales take sqrt_approx (philox.cuh).  The
 // burn-in's own roots (minv and the noise scale) keep sqrtf: there a bf16
 // momentum check resolved it, and the burned-in states (the checks'
 // starting points) move with every rounding.
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float r;
-  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
 
 // bf16 storage of the aux state: values rounded to nearest even, arithmetic
 // in f32
@@ -343,11 +351,15 @@ struct Scratch {
   float* act;    // depth x batch x act_stride: post-tanh activations, 1
   float* dz0;    // grad_rows x act_stride: a layer's pre-activation gradient,
   float* dz1;    // and the next one's (the backward pass alternates them)
+  float* xchg;   // kXchgFloats from dz0 on (xchg_floats): the forward
+                 // products' partial tiles (tc_product_split), then each
+                 // warp's 128 staged Box-Muller normals in the update, while
+                 // no gradient lives there; each user leaves zeros behind
   float* x;      // batch x (n_inputs + 1): the minibatch's inputs, 1
   float* y;      // batch
   float* dmean;  // batch
-  float* scal;   // [0]: cost; SGNHT: [2] xi and [3 .. 3 + kWarps) the
-                 // per-warp partial sums of p'^T p'
+  float* scal;   // [0]: cost; SGNHT: [1 .. 1 + kWarps) the per-warp
+                 // partial sums of p'^T p'
 };
 
 // out(m, n) = sum_k A(m, k) B(k, n) for m < M, n < N, summed in order of k
@@ -470,6 +482,41 @@ __device__ __forceinline__ void tc_kstep(float (&run)[kMT][kNT][4],
       for (int e = 0; e < 4; ++e) run[i][j][e] += acc[i][j][e];
 }
 
+// The running sums `run` of the job whose tiles start at row m0 and column
+// n0, over k-steps k_lo .. k_hi - 1 of 8 (the last one the tail where Kd is
+// not a multiple of 8), each summed from 0 in f32.
+template <int kMT, int kNT, bool kPairK, bool kAUnit, bool kBUnit>
+__device__ __forceinline__ void tc_job_sum(float (&run)[kMT][kNT][4], int N,
+                                           int Kd, const float* a, int a_m,
+                                           int a_k, const float* b, int b_k,
+                                           int b_n, int m0, int n0, int k_lo,
+                                           int k_hi) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const float* a_row[kMT][2];
+  const float* b_col[kNT];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      a_row[i][r] = a + (m0 + 16 * i + 8 * r + g) * a_m;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+    b_col[j] = b + min(n0 + 8 * j + g, N - 1) * b_n;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[i][j][e] = 0.0f;
+  const int n_full = Kd / 8;
+  for (int ks = k_lo; ks < min(k_hi, n_full); ++ks)
+    tc_kstep<kMT, kNT, kPairK, false, kAUnit, kBUnit>(run, a_row, b_col, a_k,
+                                                      b_k, 8 * ks, Kd);
+  if (n_full >= k_lo && n_full < k_hi)  // the tail k-step
+    tc_kstep<kMT, kNT, kPairK, true, kAUnit, kBUnit>(run, a_row, b_col, a_k,
+                                                     b_k, 8 * n_full, Kd);
+}
+
 // out(m, n) = sum_k A(m, k) B(k, n) for m < M, n < N, at f32 accuracy on
 // the tensor cores (3xTF32 mma.sync m16n8k8, tf32.cuh), handed to epi(m, n,
 // out); A(m, k) = a[m * a_m + k * a_k], B(k, n) = b[k * b_k + n * b_n].  A
@@ -501,30 +548,9 @@ __device__ __forceinline__ void tc_product(int M, int N, int Kd,
        job < jobs; job += kWarps) {
     const int m0 = (job / n_groups) * 16 * kMT;
     const int n0 = (job - (job / n_groups) * n_groups) * 8 * kNT;
-    const float* a_row[kMT][2];
-    const float* b_col[kNT];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        a_row[i][r] = a + (m0 + 16 * i + 8 * r + g) * a_m;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      b_col[j] = b + min(n0 + 8 * j + g, N - 1) * b_n;
     float run[kMT][kNT][4];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) run[i][j][e] = 0.0f;
-    int kk = 0;
-    for (; kk + 8 <= Kd; kk += 8)
-      tc_kstep<kMT, kNT, kPairK, false, kAUnit, kBUnit>(run, a_row, b_col,
-                                                        a_k, b_k, kk, Kd);
-    if (kk < Kd)
-      tc_kstep<kMT, kNT, kPairK, true, kAUnit, kBUnit>(run, a_row, b_col,
-                                                       a_k, b_k, kk, Kd);
+    tc_job_sum<kMT, kNT, kPairK, kAUnit, kBUnit>(
+        run, N, Kd, a, a_m, a_k, b, b_k, b_n, m0, n0, 0, (Kd + 7) / 8);
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
 #pragma unroll
@@ -540,6 +566,82 @@ __device__ __forceinline__ void tc_product(int M, int N, int Kd,
   }
 }
 
+// A barrier of the two warps of pair `pair` (named barriers 1 .. kWarps / 2;
+// __syncthreads is barrier 0).
+__device__ __forceinline__ void pair_barrier(int pair) {
+  asm volatile("bar.sync %0, 64;" ::"r"(pair + 1) : "memory");
+}
+
+// Floats of Scratch::xchg: a warp's half of a split job's partial tile
+// (tc_product_split<1, 3>: 6 values a lane), or its 128 staged normals.
+constexpr int kXchgFloats = kWarps * 32 * 6;
+
+// tc_product with each job's depth split across a pair of warps, so that a
+// product of kWarps / 2 jobs runs on every warp: warps w and w + kWarps / 2
+// share job j (the jobs dealt to the pairs in turn), the first summing the
+// first half of the k-steps, the second the rest (the tail among them), each
+// from 0 in f32 as tc_product's one warp does.  Each warp finishes half of
+// the tile, rows g (first warp) or g + 8 (second) of every 16-row tile: it
+// hands the other half of its partial to the other warp through xchg
+// (kWarps x 32 x 2 kMT kNT floats), meets it at a barrier of the pair, and
+// adds the other's partial of its own half, first half + second half,
+// zeroing the slots it read.
+template <int kMT, int kNT, bool kPairK, bool kAUnit, bool kBUnit,
+          class Epi>
+__device__ __forceinline__ void tc_product_split(int M, int N, int Kd,
+                                                 const float* a, int a_m,
+                                                 int a_k, const float* b,
+                                                 int b_k, int b_n, float* xchg,
+                                                 Epi&& epi) {
+  constexpr int kPairs = kWarps / 2;
+  constexpr int kSend = 2 * kMT * kNT;  // values a lane hands on
+  static_assert(kWarps * 32 * kSend <= kXchgFloats, "xchg too small");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x / 32, pair = warp % kPairs;
+  const int half = warp / kPairs;
+  const int n_groups = (N + 8 * kNT - 1) / (8 * kNT);
+  const int jobs = tc_jobs(kMT, kNT, M, N);
+  const int n_steps = (Kd + 7) / 8;
+  const int k_lo = half ? (n_steps + 1) / 2 : 0;
+  const int k_hi = half ? n_steps : (n_steps + 1) / 2;
+  float* mine = xchg + (2 * pair + half) * 32 * kSend + lane;
+  float* theirs = xchg + (2 * pair + 1 - half) * 32 * kSend + lane;
+  for (int job = pair; job < jobs; job += kPairs) {
+    const int m0 = (job / n_groups) * 16 * kMT;
+    const int n0 = (job - (job / n_groups) * n_groups) * 8 * kNT;
+    float run[kMT][kNT][4];
+    tc_job_sum<kMT, kNT, kPairK, kAUnit, kBUnit>(
+        run, N, Kd, a, a_m, a_k, b, b_k, b_n, m0, n0, k_lo, k_hi);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          mine[32 * ((i * kNT + j) * 2 + c)] =
+              half ? run[i][j][c] : run[i][j][2 + c];
+    pair_barrier(pair);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& slot = theirs[32 * ((i * kNT + j) * 2 + c)];
+          const float other = slot;
+          slot = 0.0f;  // xchg holds zeros between its uses
+          const float own = half ? run[i][j][2 + c] : run[i][j][c];
+          const int m = m0 + 16 * i + g + 8 * half;
+          const int n = n0 + 8 * j + 2 * t + c;
+          if (m < M && n < N) epi(m, n, half ? other + own : own + other);
+        }
+      }
+    }
+    // the next job's partials overwrite xchg once both have read it
+    if (job + kPairs < jobs) pair_barrier(pair);
+  }
+}
+
 // Forward, likelihood and backward for the chain whose parameters are in
 // `th`; writes the likelihood gradient (without the weight prior) to `grad`
 // and the cost to s.scal[0].  Ends with a barrier.  Eight barriers at depth
@@ -547,7 +649,14 @@ __device__ __forceinline__ void tc_product(int M, int N, int Kd,
 // the head's gradient, after each hidden layer's backward phase (its weight
 // and bias gradient beside the previous layer's pre-activation gradient)
 // and after layer 1's gradient.  The hidden layers' products run on the
-// tensor cores (tc_product), in both placements.
+// tensor cores (tc_product), in both placements; with kSplit the forward
+// ones split each job's depth across a warp pair (tc_product_split).  The
+// burn-in kernels keep a warp a job: their outputs are the states that
+// every check of chip_smoke.py starts from, and with the split's order of
+// sums the CLT-burned SGLD state amplified a 1e-7 nudge of theta to 6.5e-4
+// of a row over 16 plain SGLD steps on the CLT stream (H100, PERF.md §6),
+// beyond what that check resolves.
+template <bool kSplit>
 __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
                         float* grad, const Scratch& s) {
   const int tid = threadIdx.x;
@@ -566,10 +675,17 @@ __device__ void fwd_bwd(const Args& a, const Layout& L, const float* th,
     const float* a_in = s.act + (l - 2) * BA;
     float* a_out = s.act + (l - 1) * BA;
     // transposed, (j, b) = [w_l; b_l]^T [a 1]^T: the batch on the 8-wide
-    // side pads least (20 -> 24, H = 50 -> 64)
-    tc_product<1, 3, true, false, true>(
-        H, B, H + 1, th + L.w(l, H, K), 1, H, a_in, 1, SA, 0,
-        [&](int j, int b, float z) { a_out[b * SA + j] = tanhf(z); });
+    // side pads least (20 -> 24, H = 50 -> 64); its 4 jobs on all 8 warps
+    // (kSplit) or on 4
+    const auto epi = [&](int j, int b, float z) {
+      a_out[b * SA + j] = tanhf(z);
+    };
+    if constexpr (kSplit)
+      tc_product_split<1, 3, true, false, true>(
+          H, B, H + 1, th + L.w(l, H, K), 1, H, a_in, 1, SA, s.xchg, epi);
+    else
+      tc_product<1, 3, true, false, true>(H, B, H + 1, th + L.w(l, H, K), 1,
+                                          H, a_in, 1, SA, 0, epi);
     __syncthreads();
   }
   const float* a_last = s.act + (D - 1) * BA;
@@ -674,20 +790,11 @@ __device__ void load_batch(const Args& a, int t, unsigned step,
   __syncthreads();
 }
 
-__device__ __forceinline__ float noise_at(const Args& a, int t, unsigned step,
-                                          int p) {
-  const int c = blockIdx.x;
-  if (a.noise != nullptr)
-    return a.noise[(static_cast<size_t>(t) * a.n_chains + c) * a.n_params + p];
-  // philox_normal's Box-Muller, with cos(2 pi u2) taken as -cos(2 pi u2 -
-  // pi) by the fast cosine, whose argument then lies in (-pi, pi], where it
-  // is within 2^-21.4 of the cosine, and the root by sqrt_approx: the
-  // normal moves by at most 2.4e-6 (|sqrt(-2 log u1)| <= 5.8), which no
-  // check resolves
-  const uint4 r = philox_draw(a.seed, c, step, static_cast<unsigned>(p),
-                              kPurposeNoise);
-  const float u1 = bits_to_uniform(r.x), u2 = bits_to_uniform(r.y);
-  return sqrt_approx(-2.0f * logf(u1)) * -__cosf(fmaf(kTwoPi, u2, -kPi));
+// Elements each warp updates in a round of the Box-Muller loop, `rest` of
+// them left: 128 (one draw a lane), and in the last round a multiple of 4
+// that spreads the rest over all the warps.
+__device__ __forceinline__ int box_muller_width(int rest) {
+  return min(128, ((rest + kWarps - 1) / kWarps + 3) / 4 * 4);
 }
 
 // ---- the MXU-CLT generator (kClt) -----------------------------------------
@@ -928,6 +1035,16 @@ __device__ __forceinline__ float adapt(float* s_tau, float* s_g, float* s_vhat,
   return minv;
 }
 
+// SGNHT's thermostat after a step of stepsize eps: xi + eps (p'^T p' / P -
+// 1), p'^T p' the sum of the kWarps partials in warp order (c2 = 1 / P).
+__device__ __forceinline__ float thermostat(float xi, float eps,
+                                            const float* partial, float c2) {
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += partial[w];
+  return xi + eps * (total * c2 - 1.0f);
+}
+
 // Number of P-long arrays a block keeps in shared memory (or its
 // workspace): theta, v (all rules but SGLD), the gradient, then minv (SGHMC
 // and SGLD sampling).  The burn-in's tau, g and v_hat are read and written
@@ -946,9 +1063,16 @@ __host__ __device__ constexpr size_t scratch_offset(int floats) {
   return (static_cast<size_t>(floats) + 3) / 4 * 4;
 }
 
+// Floats from dz0 to x: the two gradients, or Scratch::xchg where that is
+// longer (small networks; 2,688 against 1,536 at H = 50, batch 20).
+__host__ __device__ constexpr int xchg_floats(int batch, int sa) {
+  return 2 * grad_rows(batch) * sa > kXchgFloats ? 2 * grad_rows(batch) * sa
+                                                 : kXchgFloats;
+}
+
 // Floats of Scratch::scal.
 __host__ __device__ constexpr int scalar_slots(int rule) {
-  return rule == kSgnht ? 3 + kWarps : 2;
+  return rule == kSgnht ? 1 + kWarps : 2;
 }
 
 // kDevice: the P-long arrays live in the device-memory workspace Args::work
@@ -996,7 +1120,8 @@ __device__ __forceinline__ void fused_body(const Args& a) {
   s.act = rest;
   s.dz0 = s.act + a.depth * a.batch * SA;
   s.dz1 = s.dz0 + grad_rows(a.batch) * SA;
-  s.x = s.dz1 + grad_rows(a.batch) * SA;
+  s.xchg = s.dz0;
+  s.x = s.dz0 + xchg_floats(a.batch, SA);
   s.y = s.x + a.batch * SX;
   s.dmean = s.y + a.batch;
   s.scal = s.dmean + a.batch;
@@ -1012,43 +1137,77 @@ __device__ __forceinline__ void fused_body(const Args& a) {
     if constexpr (kMinv) s_minv[p] = load_state(a.minv, base + p, a.minv_bf16);
   }
   // the 1 columns of the activations and inputs, and the zeros that pad the
-  // activations and gradients (no product writes either)
+  // activations and gradients (no product writes either) and fill xchg
   const int n_act = a.depth * a.batch * SA;
-  for (int i = tid; i < n_act + 2 * grad_rows(a.batch) * SA; i += kThreads)
+  for (int i = tid; i < n_act + xchg_floats(a.batch, SA); i += kThreads)
     s.act[i] = i < n_act && i % SA == a.hidden ? 1.0f : 0.0f;
   for (int b = tid; b < a.batch; b += kThreads) s.x[b * SX + a.n_inputs] = 1.0f;
-  if constexpr (kRule == kSgnht) {
-    if (tid == 0) s.scal[2] = a.xi[c];
-  }
+  // SGNHT: the thermostat, each thread's own copy, and the stepsize that
+  // moves it next (step t forms its xi from step t - 1's partial sums)
+  float xi = 0.0f, xi_eps = 0.0f;
+  if constexpr (kRule == kSgnht) xi = a.xi[c];
   __syncthreads();
 
   // the paired kernels round the matrix slabs' momentum (the elements from
   // w2 up to the head) once, when the launch stores it
   const int mat_lo = L.b1 + a.hidden, mat_hi = L.head_w;
+  // the Box-Muller loop: each warp's 128 staged normals
+  const int lane = tid & 31;
+  float4* stage = reinterpret_cast<float4*>(s.xchg) + (tid / 32) * 32;
 
   for (int t = 0; t < a.k_steps; ++t) {
     const unsigned step = a.step0 + static_cast<unsigned>(t);
     load_batch<kGathered>(a, t, step, s);
-    fwd_bwd(a, L, s_theta, s_grad, s);
+    if constexpr (kRule == kSgnht) {
+      // the previous step's p'^T p', its partials written before
+      // load_batch's barrier, summed in warp order by every thread
+      // (fwd_bwd's barriers keep them until all have read them)
+      if (t > 0) xi = thermostat(xi, xi_eps, s.scal + 1, a.c2);
+    }
+    fwd_bwd<!kBurnin>(a, L, s_theta, s_grad, s);
+    // injected normals, if any, of this step
+    const float* injected =
+        a.noise == nullptr
+            ? nullptr
+            : a.noise + (static_cast<size_t>(t) * a.n_chains + c) * P;
     const float* row = a.tab + static_cast<size_t>(t) * kCols;
     const bool last = t == a.k_steps - 1;
     const float prior_scale = a.prior_scale;
 // Each rule's update of element p with its normal eta (FUSED_ELEMENT),
-// written once for the two noise loops: the Box-Muller loop, one element
-// per thread in turn (two at a time were slower), and the CLT generator's
-// groups.  A macro, not a
-// lambda: called through a lambda, the Box-Muller loop took other
-// registers from ptxas (B5-sgnht 123 instead of 72, B6 in device memory
-// 110 instead of 80).
+// written once for the two noise loops: the Box-Muller loop and the CLT
+// generator's groups.  The Box-Muller loop gives each warp 128 consecutive
+// elements a round (box_muller_width: fewer in the last round, shared by
+// all warps): each lane makes the one draw of its four
+// (philox_normal_quad) and stages them in shared memory (xchg, zeroed
+// after the loop), then the warp updates them, a lane per element 32
+// apart, so that the state's loads and stores stay one contiguous word a
+// lane.  A macro, not a lambda: called through a lambda, the Box-Muller
+// loop took other registers from ptxas (B5-sgnht 123 instead of 72, B6 in
+// device memory 110 instead of 80).
 #define FUSED_FOR_EACH_ELEMENT                                            \
   if constexpr (kVariant == kClt) {                                       \
     for_each_clt_eta<!kBurnin && !kGathered>(                             \
         a, L, step, [&](int p, float eta) { FUSED_ELEMENT });             \
   } else {                                                                \
-    for (int p = tid; p < P; p += kThreads) {                             \
-      const float eta = noise_at(a, t, step, p);                          \
-      FUSED_ELEMENT                                                       \
+    for (int r0 = 0; r0 < P; r0 += 4 * kThreads) {                        \
+      const int width = box_muller_width(P - r0);                         \
+      const int p0 = r0 + tid / 32 * width;                               \
+      if (injected == nullptr && 4 * lane < width)                        \
+        stage[lane] = philox_normal_quad(a.seed, c, step, (p0 >> 2) + lane); \
+      __syncwarp();                                                       \
+      _Pragma("unroll") for (int j = 0; j < 4; ++j) {                     \
+        const int i = 32 * j + lane, p = p0 + i;                          \
+        if (i < width && p < P) {                                         \
+          const float eta =                                               \
+              injected != nullptr                                         \
+                  ? injected[p]                                           \
+                  : reinterpret_cast<const float*>(stage)[i];             \
+          FUSED_ELEMENT                                                   \
+        }                                                                 \
+      }                                                                   \
+      __syncwarp();                                                       \
     }                                                                     \
+    stage[lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);                    \
   }
     if constexpr (kRule == kSghmc) {
       const float eps = row[0];
@@ -1130,10 +1289,10 @@ __device__ __forceinline__ void fused_body(const Args& a) {
 #undef FUSED_ELEMENT
     } else {
       // JAX _sgnht_rule, then the thermostat: every element reads the old
-      // xi, and xi moves once the block has summed p'^T p'
+      // xi; each warp leaves its part of p'^T p', and xi moves by it after
+      // the next barrier (the next step's first, or the launch's end)
       const float eps = row[0];
       const float sigma = row[1];
-      const float xi = s.scal[2];
       float kinetic = 0.0f;
 #define FUSED_ELEMENT                                                     \
   const float th = s_theta[p];                                            \
@@ -1146,21 +1305,19 @@ __device__ __forceinline__ void fused_body(const Args& a) {
       FUSED_FOR_EACH_ELEMENT
 #undef FUSED_ELEMENT
       kinetic = warp_sum(kinetic);
-      if (tid % 32 == 0) s.scal[3 + tid / 32] = kinetic;
-      __syncthreads();
-      if (tid == 0) {
-        float total = 0.0f;
-        for (int w = 0; w < kWarps; ++w) total += s.scal[3 + w];
-        s.scal[2] = xi + eps * (total * a.c2 - 1.0f);
-        if (last) a.xi_out[c] = s.scal[2];
-      }
+      if (lane == 0) s.scal[1 + tid / 32] = kinetic;
+      xi_eps = eps;
     }
 #undef FUSED_FOR_EACH_ELEMENT
     if (last && tid == 0) a.cost_out[c] = s.scal[0];
-    // no barrier: the next step's load_batch ends with one before any
-    // thread reads theta, and this step read x and y last in fwd_bwd
+    // no barrier: the next step opens with one before any thread reads
+    // theta
   }
   __syncthreads();
+  if constexpr (kRule == kSgnht) {
+    if (tid == 0 && a.k_steps > 0)
+      a.xi_out[c] = thermostat(xi, xi_eps, s.scal + 1, a.c2);
+  }
 
   for (int p = tid; p < P; p += kThreads) {
     a.theta_out[base + p] = s_theta[p];
@@ -1183,16 +1340,20 @@ __device__ __forceinline__ void fused_body(const Args& a) {
 // registers) run twice as fast at H = 100.
 constexpr int kMinBlocks = 2;
 
+// (kBlocks comes last: chip_smoke.py reads the others from ptxas's names)
 template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
-          bool kVBf16>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_kernel(Args a) {
+          bool kVBf16, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks) fused_kernel(Args a) {
   fused_body<kRule, kBurnin, kGathered, kDevice, kVBf16>(a);
 }
 
-// The burn-in kernels with their state in device memory keep ptxas's own
-// choice (64 registers on Box-Muller, 100-128 under the CLT): the hint gave
-// the earlier, untiled body's 114 and 128 and made them 11-27 % slower at
-// H = 100 on an H100.
+// The burn-in kernels with their state in device memory: under the CLT
+// ptxas's own choice (100-128 registers; the two-block hint gave the
+// earlier, untiled body's 114 and 128 and made them 11-27 % slower at H =
+// 100 on an H100), on Box-Muller three blocks an SM (at most 80
+// registers: ptxas chose 74 for the loop of a draw per element, 96 for the
+// loop of four normals a draw, which held B2 at H = 100 to two blocks and
+// made it 10 % slower on an H100).
 template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
           bool kVBf16>
 __global__ void __launch_bounds__(kThreads) fused_kernel_unhinted(Args a) {
@@ -1202,10 +1363,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel_unhinted(Args a) {
 template <int kRule, bool kBurnin, bool kGathered, bool kDevice,
           bool kVBf16>
 constexpr auto kernel_of() {
-  if constexpr (kDevice && kBurnin)
+  if constexpr (kDevice && kBurnin && kVariant == kClt)
     return &fused_kernel_unhinted<kRule, kBurnin, kGathered, kDevice, kVBf16>;
+  else if constexpr (kDevice && kBurnin)
+    return &fused_kernel<kRule, kBurnin, kGathered, kDevice, kVBf16, 3>;
   else
-    return &fused_kernel<kRule, kBurnin, kGathered, kDevice, kVBf16>;
+    return &fused_kernel<kRule, kBurnin, kGathered, kDevice, kVBf16,
+                         kMinBlocks>;
 }
 
 // Shared memory of one block: the scratch, plus the P-long arrays where they
@@ -1215,8 +1379,8 @@ size_t smem_bytes(int rule, bool burnin, int n_params, int n_inputs,
   const size_t state =
       resident ? scratch_offset(state_arrays(rule, burnin) * n_params) : 0;
   const size_t scratch =
-      static_cast<size_t>(depth * batch + 2 * grad_rows(batch)) *
-          act_stride(hidden) +
+      static_cast<size_t>(depth * batch) * act_stride(hidden) +
+      xchg_floats(batch, act_stride(hidden)) +
       static_cast<size_t>(batch) * (n_inputs + 1) + 2 * batch +
       scalar_slots(rule);
   return (state + scratch) * sizeof(float);

@@ -37,7 +37,11 @@
 // moves B7's 6 words, plus a bf16 copy of theta with emit_bf16.  At the
 // flagship (8192 chains x 5,252 parameters; B10 padded to 5,376, B7 mask
 // 5,888 in 128-column slots) that is 0.21-0.68 ms per launch at 3.35 TB/s.
-// Each element also pays one Philox4x32-10 draw and a log, a cos and a sqrt.
+// Each element also pays a Philox4x32-10 draw and a Box-Muller transform
+// (a log, a root, a sine and a cosine), or a quarter and a half of them
+// where its warp shares each draw among four columns: with a whole draw a
+// column, of which it took its quarter, B7 mask ran 5-7 % slower than the
+// earlier stream's draw a column (H100, PERF.md section 6).
 //
 // Design.  The lanes layout is the port's own: chain rows of P floats, leaves
 // in the network dict's order, no padding (the TPU's (rows, n_chains) layout
@@ -48,18 +52,25 @@
 // of the leaves' pointers, first columns and sizes makes their elements one
 // virtual chain row, so one launch covers every leaf whatever their number
 // (JAX launches once per leaf).  A 2-D grid: blockIdx.y
-// walks the chains, blockIdx.x and the threads the chain's parameters, so
-// neighbouring threads touch neighbouring words and no thread divides an
-// index.  What depends on the chain alone (its eps, RSGHMC's noise scale,
+// walks the chains, blockIdx.x and the warps the chain's parameters.  The
+// sampling updates (B7, B7 mask, B8-*) take 128 columns a warp a pass:
+// each lane makes one draw, the four normals of four of the columns, and
+// stages them in shared memory, then the warp updates the 128 columns a
+// lane per column 32 apart; the burn-in updates and B7' take a column a
+// thread, which draws its own (rounds_of).  Either way neighbouring threads
+// touch neighbouring words and no thread divides an index.  What depends on the chain alone (its eps, RSGHMC's noise scale,
 // SGNHT's noise scale and xi) is computed once per chain row.  The noise is
-// the stream of philox.cuh at (chain, absolute step, element, purpose),
-// which is what the fused kernels B1-B6 draw: on the dense network the lanes
-// drivers and the fused drivers see the same normals.  The packed (mask)
+// the stream of philox.cuh, element e a quarter of the draw at (chain,
+// absolute step, e / 4, purpose), which is what the fused kernels B1-B6
+// draw: on the dense network the lanes drivers and the fused drivers see
+// the same normals.  The packed (mask)
 // and stacked (tree) layouts key each normal by the element's index in the
 // chain's unpadded lanes row (the position dict's order): given per column
 // by the packed driver (noise_index), the virtual row's column in the tree's
 // order, so the packed, stacked and lanes drivers draw the same normals for
-// the same element.  A per-chain eps
+// the same element (a warp's draws are those of its first column's element
+// on; a masked column whose element lies outside them, another leaf's or
+// the padding's, draws its own).  A per-chain eps
 // vector may replace the scalar stepsize (the TracedStepsizeSchedule sweep
 // pattern), and injected noise may replace the draw (the tests).  All
 // arithmetic is f32; outputs are new buffers, not aliases of the inputs.
@@ -203,10 +214,121 @@ struct Element {
   unsigned col;
 };
 
+// Columns a lane takes in turn in a pass of its warp: 4 where the warp
+// stages the normals of its 128 columns (one draw a lane), 1 where each
+// column draws its own.  The burn-in updates (B9-*, B10) and B7' take one:
+// with four (on an H100) B9-sghmc ran 35 % and B9-sgld 29 % slower than
+// with a draw a column, the bf16 B7' 6 % (ptxas's 32 registers serialised
+// their longer bodies), where the sampling updates ran 5-30 % faster.
+template <bool kBurnin, int kLayout>
+__host__ __device__ constexpr int rounds_of() {
+  return !kBurnin && kLayout != kTree ? 4 : 1;
+}
+
+// The operands of column p of chain c (base c * P): kTree finds its leaf,
+// which only grows over a thread's columns of a chain.
+template <int kLayout>
+__device__ __forceinline__ Element element_of(const Args& a, int c,
+                                              size_t base, int p, int& leaf) {
+  if constexpr (kLayout == kTree) {
+    while (leaf + 1 < a.n_leaves && p >= a.leaves[leaf + 1].start) ++leaf;
+    const Leaf& l = a.leaves[leaf];
+    const long long j = p - l.start;
+    return {l.theta, l.v, l.grad, l.minv, l.noise, l.theta_out, l.v_out,
+            l.theta_bf16, static_cast<size_t>(c * l.size + j),
+            static_cast<unsigned>(p)};
+  } else {
+    return {a.theta, a.v, a.grad, a.minv, a.noise, a.theta_out, a.v_out,
+            nullptr, base + p,
+            kLayout == kMasked && a.noise_index != nullptr
+                ? static_cast<unsigned>(a.noise_index[p])
+                : static_cast<unsigned>(p)};
+  }
+}
+
+// Each rule's update of column p (element e) with its normal eta.
+template <int kRule, bool kBurnin, bool kMixed, int kLayout>
+__device__ __forceinline__ void update_element(const Args& a, const Element& e,
+                                               int p, float eps,
+                                               float chain_sigma, float xi,
+                                               float eta) {
+  const size_t i = e.i;
+  const float th = e.theta[i];
+  // B10 folds no prior (JAX's fused_sghmc_update has none)
+  const float gr = load<kMixed>(e.grad, i, a.grad_bf16);
+  const float gg = kRule == kFusedSghmc ? gr : gr + a.prior_scale * th;
+  if constexpr (kRule == kSghmc || kRule == kSgld ||
+                kRule == kFusedSghmc) {
+    float minv;
+    if constexpr (kBurnin) {
+      // every EMA reads the OLD tau, g and v_hat
+      const float tau = a.tau[i], gm = a.g[i], vh = a.v_hat[i];
+      const float sq = sqrtf(fmaxf(vh, 0.0f));
+      minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
+      if constexpr (kRule == kFusedSghmc) {
+        if (!a.burning_in) minv = load<kMixed>(e.minv, i, a.minv_bf16);
+      }
+      const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
+      const float r = 1.0f / (tau + 1.0f);
+      a.tau_out[i] = tau + (-gm * gm * tau) / denom + 1.0f;
+      a.g_out[i] = gm - r * gm + r * gg;
+      a.v_hat_out[i] = vh - r * vh + r * gg * gg;
+      a.minv_out[i] = minv;
+    } else {
+      minv = load<kMixed>(e.minv, i, a.minv_bf16);
+    }
+    if constexpr (kRule == kSghmc || kRule == kFusedSghmc) {
+      const float es = eps / a.sqrt_sg;
+      const float es2 = es * es;
+      const float mdecay = a.coef;
+      const float vv = load<kMixed>(e.v, i, a.v_bf16);
+      const float sigma =
+          sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
+      float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
+      if constexpr (kLayout == kMasked) vn *= a.mask[p];
+      store<kMixed>(e.v_out, i, a.v_bf16, vn);
+      e.theta_out[i] = th + vn;
+      if constexpr (kLayout == kTree) {
+        if (e.theta_bf16 != nullptr)
+          e.theta_bf16[i] = __float2bfloat16_rn(th + vn);
+      }
+    } else {
+      const float A = a.coef;
+      const float sigma =
+          kBurnin ? sqrtf(fmaxf(2.0f * eps * ((minv * A) / a.cdiv), 0.0f))
+                  : sqrtf(fmaxf(2.0f * eps * minv * a.cdiv, 0.0f));
+      e.theta_out[i] = th + (-eps * minv * A * gg + sigma * eta);
+    }
+  } else if constexpr (kRule == kPsgld) {
+    // RMSprop accumulator, then G = 1 / (lambda + sqrt(v'))
+    const float alpha = a.coef;
+    const float vn = alpha * load<kMixed>(e.v, i, a.v_bf16) +
+                     (1.0f - alpha) * gg * gg;
+    const float precond = 1.0f / (a.cdiv + sqrtf(fmaxf(vn, 0.0f)));
+    const float sigma = sqrtf(fmaxf(eps * precond * a.c2, 0.0f));
+    store<kMixed>(e.v_out, i, a.v_bf16, vn);
+    e.theta_out[i] = th + (-0.5f * eps * precond * gg + sigma * eta);
+  } else if constexpr (kRule == kRsghmc) {
+    // the dynamics use the log-likelihood gradient, -gg; the velocity is
+    // eps p / m / sqrt(p^2 / (m^2 c^2) + 1)
+    const float pv = load<kMixed>(e.v, i, a.v_bf16);
+    const float vel = eps * pv * a.c2 * rsqrtf(pv * pv * a.c3 + 1.0f);
+    const float pn = pv + eps * -gg + chain_sigma * eta - a.coef * vel;
+    store<kMixed>(e.v_out, i, a.v_bf16, pn);
+    e.theta_out[i] = th + eps * pn * a.c2 * rsqrtf(pn * pn * a.c3 + 1.0f);
+  } else {  // kSgnht
+    const float pv = load<kMixed>(e.v, i, a.v_bf16);
+    const float pn = pv - xi * eps * pv - eps * gg + chain_sigma * eta;
+    store<kMixed>(e.v_out, i, a.v_bf16, pn);
+    e.theta_out[i] = th + eps * pn;
+  }
+}
+
 // The body of every instantiation; the two entries below differ only in
 // their launch bounds.
 template <int kRule, bool kBurnin, bool kMixed, int kLayout>
 __device__ __forceinline__ void slim_body(const Args& a) {
+  constexpr int kRounds = rounds_of<kBurnin, kLayout>();
   const int P = a.n_params;
   for (int c = blockIdx.y; c < a.n_chains; c += gridDim.y) {
     const size_t base = static_cast<size_t>(c) * P;
@@ -219,97 +341,55 @@ __device__ __forceinline__ void slim_body(const Args& a) {
       chain_sigma = sqrtf(fmaxf(a.coef * eps / a.cdiv, 0.0f));
       xi = a.xi[c];
     }
-    int leaf = 0;  // kTree: the leaf of column p, which only grows below
-    for (int p = blockIdx.x * kThreads + threadIdx.x; p < P;
-         p += gridDim.x * kThreads) {
-      Element e;
-      if constexpr (kLayout == kTree) {
-        while (leaf + 1 < a.n_leaves && p >= a.leaves[leaf + 1].start) ++leaf;
-        const Leaf& l = a.leaves[leaf];
-        const long long j = p - l.start;
-        e = {l.theta, l.v, l.grad, l.minv, l.noise, l.theta_out, l.v_out,
-             l.theta_bf16, static_cast<size_t>(c * l.size + j),
-             static_cast<unsigned>(p)};
-      } else {
-        e = {a.theta, a.v, a.grad, a.minv, a.noise, a.theta_out, a.v_out,
-             nullptr, base + p,
-             kLayout == kMasked && a.noise_index != nullptr
-                 ? static_cast<unsigned>(a.noise_index[p])
-                 : static_cast<unsigned>(p)};
+    if constexpr (kRounds == 1) {
+      // a column a thread, which draws its own normal
+      int leaf = 0;  // kTree: the leaf of column p
+      for (int p = blockIdx.x * kThreads + threadIdx.x; p < P;
+           p += gridDim.x * kThreads) {
+        const Element e = element_of<kLayout>(a, c, base, p, leaf);
+        const float eta = e.noise != nullptr
+                              ? e.noise[e.i]
+                              : philox_normal(a.seed, static_cast<unsigned>(c),
+                                              a.step, e.col);
+        update_element<kRule, kBurnin, kMixed, kLayout>(a, e, p, eps,
+                                                        chain_sigma, xi, eta);
       }
-      const size_t i = e.i;
-      const float eta = e.noise != nullptr
-                            ? e.noise[i]
-                            : philox_normal(a.seed, static_cast<unsigned>(c),
-                                            a.step, e.col);
-      const float th = e.theta[i];
-      // B10 folds no prior (JAX's fused_sghmc_update has none)
-      const float gr = load<kMixed>(e.grad, i, a.grad_bf16);
-      const float gg = kRule == kFusedSghmc ? gr : gr + a.prior_scale * th;
-      if constexpr (kRule == kSghmc || kRule == kSgld ||
-                    kRule == kFusedSghmc) {
-        float minv;
-        if constexpr (kBurnin) {
-          // every EMA reads the OLD tau, g and v_hat
-          const float tau = a.tau[i], gm = a.g[i], vh = a.v_hat[i];
-          const float sq = sqrtf(fmaxf(vh, 0.0f));
-          minv = 1.0f / (sq + 2.0f * sign_of(sq) * kSmall + kSmall);
-          if constexpr (kRule == kFusedSghmc) {
-            if (!a.burning_in) minv = load<kMixed>(e.minv, i, a.minv_bf16);
-          }
-          const float denom = vh + 2.0f * sign_of(vh) * kSmall + kSmall;
-          const float r = 1.0f / (tau + 1.0f);
-          a.tau_out[i] = tau + (-gm * gm * tau) / denom + 1.0f;
-          a.g_out[i] = gm - r * gm + r * gg;
-          a.v_hat_out[i] = vh - r * vh + r * gg * gg;
-          a.minv_out[i] = minv;
-        } else {
-          minv = load<kMixed>(e.minv, i, a.minv_bf16);
+    } else {
+      // 128 columns a warp a pass: one draw a lane from the first column's
+      // element on (the stream's elements 4 q0 .. 4 q0 + 127), staged in
+      // shared memory
+      __shared__ float4 stage_all[kThreads / 32][32];
+      float4* stage = stage_all[threadIdx.x / 32];
+      const float* stage_f = reinterpret_cast<const float*>(stage);
+      const int lane = threadIdx.x & 31;
+      int leaf = 0;
+      for (int p0 = (blockIdx.x * kThreads + (threadIdx.x & ~31)) * kRounds;
+           p0 < P; p0 += gridDim.x * kThreads * kRounds) {
+        const unsigned q0 =
+            (kLayout == kMasked && a.noise_index != nullptr
+                 ? static_cast<unsigned>(a.noise_index[p0])
+                 : static_cast<unsigned>(p0)) >> 2;
+        if (a.noise == nullptr)
+          stage[lane] = philox_normal_quad(a.seed, static_cast<unsigned>(c),
+                                           a.step, q0 + lane);
+        __syncwarp();
+        for (int round = 0; round < kRounds; ++round) {
+          const int p = p0 + 32 * round + lane;
+          if (p >= P) continue;
+          const Element e = element_of<kLayout>(a, c, base, p, leaf);
+          // staged, or (a masked column whose element lies elsewhere:
+          // another leaf's, the padding's) drawn alone
+          const unsigned k = e.col - 4u * q0;
+          const float eta =
+              e.noise != nullptr
+                  ? e.noise[e.i]
+                  : k < 128u ? stage_f[k]
+                             : philox_normal(a.seed, static_cast<unsigned>(c),
+                                             a.step, e.col);
+          update_element<kRule, kBurnin, kMixed, kLayout>(
+              a, e, p, eps, chain_sigma, xi, eta);
         }
-        if constexpr (kRule == kSghmc || kRule == kFusedSghmc) {
-          const float es = eps / a.sqrt_sg;
-          const float es2 = es * es;
-          const float mdecay = a.coef;
-          const float vv = load<kMixed>(e.v, i, a.v_bf16);
-          const float sigma =
-              sqrtf(fmaxf(2.0f * es2 * mdecay * minv - es2 * es2, 1e-16f));
-          float vn = vv - eps * eps * minv * gg - mdecay * vv + sigma * eta;
-          if constexpr (kLayout == kMasked) vn *= a.mask[p];
-          store<kMixed>(e.v_out, i, a.v_bf16, vn);
-          e.theta_out[i] = th + vn;
-          if constexpr (kLayout == kTree) {
-            if (e.theta_bf16 != nullptr)
-              e.theta_bf16[i] = __float2bfloat16_rn(th + vn);
-          }
-        } else {
-          const float A = a.coef;
-          const float sigma =
-              kBurnin ? sqrtf(fmaxf(2.0f * eps * ((minv * A) / a.cdiv), 0.0f))
-                      : sqrtf(fmaxf(2.0f * eps * minv * a.cdiv, 0.0f));
-          e.theta_out[i] = th + (-eps * minv * A * gg + sigma * eta);
-        }
-      } else if constexpr (kRule == kPsgld) {
-        // RMSprop accumulator, then G = 1 / (lambda + sqrt(v'))
-        const float alpha = a.coef;
-        const float vn = alpha * load<kMixed>(e.v, i, a.v_bf16) +
-                         (1.0f - alpha) * gg * gg;
-        const float precond = 1.0f / (a.cdiv + sqrtf(fmaxf(vn, 0.0f)));
-        const float sigma = sqrtf(fmaxf(eps * precond * a.c2, 0.0f));
-        store<kMixed>(e.v_out, i, a.v_bf16, vn);
-        e.theta_out[i] = th + (-0.5f * eps * precond * gg + sigma * eta);
-      } else if constexpr (kRule == kRsghmc) {
-        // the dynamics use the log-likelihood gradient, -gg; the velocity is
-        // eps p / m / sqrt(p^2 / (m^2 c^2) + 1)
-        const float pv = load<kMixed>(e.v, i, a.v_bf16);
-        const float vel = eps * pv * a.c2 * rsqrtf(pv * pv * a.c3 + 1.0f);
-        const float pn = pv + eps * -gg + chain_sigma * eta - a.coef * vel;
-        store<kMixed>(e.v_out, i, a.v_bf16, pn);
-        e.theta_out[i] = th + eps * pn * a.c2 * rsqrtf(pn * pn * a.c3 + 1.0f);
-      } else {  // kSgnht
-        const float pv = load<kMixed>(e.v, i, a.v_bf16);
-        const float pn = pv - xi * eps * pv - eps * gg + chain_sigma * eta;
-        store<kMixed>(e.v_out, i, a.v_bf16, pn);
-        e.theta_out[i] = th + eps * pn;
+        __syncwarp();
       }
     }
   }
@@ -348,7 +428,8 @@ void start(const dim3& grid, cudaStream_t s, const Args& a) {
 template <int kRule, bool kBurnin, int kLayout = kFlat>
 int launch(const Args& a, void* stream) {
   if (a.n_chains <= 0 || a.n_params <= 0) return 0;
-  const int bx = std::min((a.n_params + kThreads - 1) / kThreads, kMaxBlocksX);
+  constexpr int kCols = kThreads * rounds_of<kBurnin, kLayout>();
+  const int bx = std::min((a.n_params + kCols - 1) / kCols, kMaxBlocksX);
   const int by = std::min(a.n_chains, kMaxBlocksY);
   const dim3 grid(bx, by);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -55,11 +55,12 @@ kernel by C entry (one per variant: Box-Muller, CLT, paired) and
 placement; :func:`variant_launches` sums a variant's.
 
 Randomness: Philox4x32-10 keyed by a 64-bit seed, counter ``(chain,
-absolute step, element, purpose)``, with uniforms ``u = ((bits >> 8) + 1) *
+absolute step, draw, purpose)``, with uniforms ``u = ((bits >> 8) + 1) *
 2**-24`` in (0, 1]; the window index is ``min(floor(u * n_windows),
 n_windows - 1)``.  Normals come from one of JAX's two generators,
-``noise_impl``: ``"box_muller"`` (the kernels' default, as JAX's) on the
-first two words of each element's draw, or ``"hadamard_clt"``, the MXU-CLT
+``noise_impl``: ``"box_muller"`` (the kernels' default, as JAX's), four
+normals from each draw (element ``e`` a quarter of draw ``e // 4``,
+:func:`philox_normals`), or ``"hadamard_clt"``, the MXU-CLT
 generator (:func:`clt_normals`: ``bf16(u - 1/2) H_n sqrt(12 / n)`` over
 groups of n uniforms in the slot geometry of JAX's ``_block_etas``), the
 default of JAX's drivers on the chip; each kernel has one instantiation per
@@ -298,17 +299,25 @@ def philox_windows(seed, step, n_chains, n_windows, device):
 def philox_normals(seed, step, n_chains, n_params, device, elements=None):
     """The ``(n_chains, n_params)`` standard normals of absolute ``step``:
     each chain's elements ``0 .. n_params - 1``, or those of the
-    ``(n_params,)`` integer tensor ``elements``."""
+    ``(n_params,)`` integer tensor ``elements``.
+
+    Element ``e`` takes a quarter of draw ``e // 4``: Box-Muller on words
+    ``(x, y)`` gives ``r cos t`` and ``r sin t`` for elements ``4q`` and
+    ``4q + 1``, on words ``(z, w)`` for ``4q + 2`` and ``4q + 3``."""
     chain = torch.arange(n_chains, dtype=torch.int64, device=device)[:, None]
     if elements is None:
         element = torch.arange(n_params, dtype=torch.int64, device=device)
     else:
         element = elements.to(device=device, dtype=torch.int64)
-    element = element[None, :]
-    r = philox4x32_10((chain, step & _MASK32, element, PURPOSE_NOISE),
-                      _seed_key(seed))
-    u1, u2 = bits_to_uniform(r[0]), bits_to_uniform(r[1])
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    draws, inverse = torch.unique(element >> 2, return_inverse=True)
+    r = [bits_to_uniform(w) for w in philox4x32_10(
+        (chain, step & _MASK32, draws[None, :], PURPOSE_NOISE),
+        _seed_key(seed))]
+    quads = []  # the (n_chains, draws) normals of each quarter of a draw
+    for u1, u2 in ((r[0], r[1]), (r[2], r[3])):
+        radius, angle = torch.sqrt(-2.0 * torch.log(u1)), 2.0 * math.pi * u2
+        quads += [radius * torch.cos(angle), radius * torch.sin(angle)]
+    return torch.stack(quads, dim=-1)[:, inverse, element & 3]
 
 
 #  The MXU-CLT generator (JAX's _normal_clt) ----------------------------------

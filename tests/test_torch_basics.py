@@ -134,6 +134,52 @@ def test_philox_normals_pass_ks_test():
     assert abs(z.mean()) < 0.01 and abs(z.std() - 1.0) < 0.01
 
 
+def test_philox_normals_take_four_from_each_draw():
+    """Elements 4q .. 4q + 3 are Box-Muller's cosine and sine of words
+    (x, y), then (z, w), of draw q, computed here from the words in f64;
+    the last draw partial (22 elements).  Tolerance: the f32 evaluation of
+    the log, root and angle, at |z| <= 5.8."""
+    seed, step, n, p = 2**35 + 3, 9, 5, 22
+    z = fs.philox_normals(seed, step, n, p, "cpu")
+    words = fs.philox4x32_10(
+        (torch.arange(n)[:, None], step, torch.arange((p + 3) // 4)[None, :],
+         fs.PURPOSE_NOISE), (seed & 0xFFFFFFFF, seed >> 32))
+    u = [fs.bits_to_uniform(w).double() for w in words]
+    want = []
+    for first, second in ((0, 1), (2, 3)):
+        radius = torch.sqrt(-2.0 * torch.log(u[first]))
+        angle = 2.0 * np.pi * u[second]
+        want += [radius * torch.cos(angle), radius * torch.sin(angle)]
+    want = torch.stack(want, dim=-1).reshape(n, -1)[:, :p]
+    assert z.shape == (n, p) and z.dtype == torch.float32
+    torch.testing.assert_close(z.double(), want, rtol=0, atol=1e-5)
+
+
+def test_philox_normals_elements_pick_from_the_full_call():
+    """``elements=`` (the packed driver's ``noise_index`` keying, int32,
+    in any order, with repeats) gives the full call's values of those
+    elements."""
+    full = fs.philox_normals(77, 3, 6, 64, "cpu")
+    index = torch.tensor([63, 0, 5, 5, 17, 40, 2, 33, 62, 1],
+                         dtype=torch.int32)
+    got = fs.philox_normals(77, 3, 6, index.numel(), "cpu", index)
+    assert torch.equal(got, full[:, index.long()])
+
+
+def test_philox_normals_of_one_draw_are_uncorrelated():
+    """The four normals that share a draw: |sample correlation| < 0.02
+    (7 standard errors) over 2**17 draws, each one's mean and variance
+    within 4 standard errors of N(0, 1)'s."""
+    z = fs.philox_normals(2**40 + 11, 7, 2**9, 2**10, "cpu")
+    quads = z.double().numpy().reshape(-1, 4)  # a row per draw
+    n = quads.shape[0]
+    assert n == 2**17
+    corr = np.corrcoef(quads, rowvar=False)
+    assert np.abs(corr[~np.eye(4, dtype=bool)]).max() < 0.02
+    assert np.abs(quads.mean(axis=0)).max() < 4.0 / np.sqrt(n)
+    assert np.abs(quads.var(axis=0) - 1.0).max() < 4.0 * np.sqrt(2.0 / n)
+
+
 def test_philox_windows_are_uniform():
     counts = np.bincount(
         np.concatenate([fs.philox_windows(11, s, 500, 81, "cpu").numpy()

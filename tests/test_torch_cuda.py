@@ -16,9 +16,10 @@ The bf16-state instantiations are held over k <= 3 steps with one bf16 ulp
 of each bf16 value per step on top (a value whose f32 result straddles a
 rounding boundary rounds one ulp apart) and the share of differing bf16
 values beside a CPU witness (``chip_smoke._compare``), and under bf16
-state two launches of k steps must equal one of 2k bit for bit; B1, B2,
-B5-sgld and B6 are also held at hidden width 100 (depth 3), whose state
-lives in device memory.  Every fused kernel's MXU-CLT instantiation
+state two launches of k steps must equal one of 2k bit for bit (B5-sgnht
+at f32 state: one launch of k steps equals k of one step, xi included);
+B1, B2, B5-sgld and B6 are also held at hidden width 100 (depth 3), whose
+state lives in device memory.  Every fused kernel's MXU-CLT instantiation
 (``noise_impl="hadamard_clt"``) is held the same way on the Philox stream,
 at f32 and bf16 state and at width 100, and must draw another stream than
 Box-Muller's; every paired instantiation (``pair_dots=True``) against its
@@ -667,6 +668,38 @@ def test_bf16_kernel_matches_plain_version(kernel, cuda_device):
     torch.cuda.synchronize()
     assert len(got) == len(want)
     _bf16_check(kernel, ref, args, common, got, want, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_impl", ["box_muller", "hadamard_clt"])
+def test_sgnht_thermostat_of_k_steps_equals_k_single_steps(noise_impl,
+                                                           cuda_device):
+    """B5-sgnht at f32 state: one launch of k steps equals k launches of
+    one step, bit for bit, xi included (each step's thermostat is formed
+    from the partial sums of p'^T p' that the step before it left)."""
+    n, k = 64, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, y = _data(gen)
+    fn, _, rule, eps = FUSED_NEW["B5-sgnht"]
+    lay, st = _burned_in(SGHMCSampler, x, y, n)
+    x_win, y_win = fs.data_windows(x, y, 20)
+    state = [st["theta"],
+             torch.randn(st["theta"].shape, generator=gen,
+                         device=cuda_device),
+             1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda_device)]
+    common = dict(prior_scale=1.0 / (lay.n_params * 100),
+                  noise_impl=noise_impl, **rule)
+    whole = fn(*state, x_win, y_win, eps, 11, k_steps=k, step0=30, **common)
+    carried = state
+    for t in range(k):
+        out = fn(*carried, x_win, y_win, eps, 11, k_steps=1, step0=30 + t,
+                 **common)
+        carried = list(out[:-1])
+    torch.cuda.synchronize()
+    assert len(whole) == len(out) == 4
+    for a, b in zip(whole, out):
+        assert torch.equal(a, b)
+    assert not torch.equal(whole[2], state[2])
 
 
 @pytest.mark.cuda

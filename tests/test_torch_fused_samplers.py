@@ -350,6 +350,29 @@ def test_chunked_launches_equal_one_launch(kind):
     assert not torch.equal(whole[0], first[0])
 
 
+def test_sgnht_thermostat_of_k_steps_equals_k_single_steps():
+    """One launch of k SGNHT steps moves xi as k launches of one step each,
+    bit for bit: each step's thermostat reads that step's p'^T p' alone."""
+    x, y, st, _, _, _ = _inputs(seed=41)
+    xw, yw = windows(x, y)
+    state = _port_args("sgnht", _state("sgnht", st, seed=42))
+    kw = dict(RULES["sgnht"][0], **COMMON)
+    seed, k = 2**36 + 5, 4
+    whole = fs.fused_bnn_multistep_sgnht(*state, xw, yw, 3e-4, seed,
+                                         k_steps=k, step0=20, **kw)
+    carried = state
+    xis = []
+    for t in range(k):
+        out = fs.fused_bnn_multistep_sgnht(*carried, xw, yw, 3e-4, seed,
+                                           k_steps=1, step0=20 + t, **kw)
+        carried = out[:-1]
+        xis.append(out[2])
+    assert torch.equal(whole[2], carried[2])
+    for a, b in zip(whole, out):
+        assert torch.equal(a, b)
+    assert len({tuple(xi.tolist()) for xi in xis}) == k  # xi moves each step
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_one_step_kernel_equals_multistep_kernel_at_one_step(kind):
     """The one-step kernels on the Philox windows of step s are the
