@@ -54,6 +54,7 @@ Examples
 2.303
 """
 
+import contextlib
 import functools
 import logging
 import time
@@ -90,6 +91,7 @@ from pysgmcmc_tpu_torch.stepsize_schedules import (
 )
 from pysgmcmc_tpu_torch.utils.numeric import safe_divide
 from pysgmcmc_tpu_torch.utils.pytree import tree_size
+from pysgmcmc_tpu_torch.utils.tracing import span, spanned
 
 def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
     """Gaussian prior (in log space) on the predicted log variance:
@@ -388,6 +390,17 @@ class BayesianNeuralNetwork(BaseModel):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @contextlib.contextmanager
+    def _phase(self, name):
+        """Time the phase ``name`` into ``phase_seconds[name]``, the device
+        synchronized at both ends, inside the span ``bnn.<name>``."""
+        self._sync()
+        start = time.perf_counter()
+        with span("bnn." + name):
+            yield
+            self._sync()
+        self.phase_seconds[name] = time.perf_counter() - start
+
     @BaseModel._check_shapes_train
     def train(self, X, y, *args, **kwargs):
         """Sample ``n_nets`` network-weight snapshots from the posterior:
@@ -395,7 +408,10 @@ class BayesianNeuralNetwork(BaseModel):
         snapshot every ``sample_steps`` steps, on the kernels of
         ``step_impl`` (SVGD: ``n_nets`` particles transported jointly for
         ``n_iters`` steps).  ``phase_seconds`` records the wall time of each
-        phase."""
+        phase, each inside the span ``bnn.<phase>`` while a profiler records
+        (:mod:`pysgmcmc_tpu_torch.utils.tracing`; ``predict`` records
+        ``bnn.predict`` and, inside it, its copies to the host,
+        ``predict.to_host``)."""
         self._check_device()
         start_time = time.time()
         self.X, self.y = X, y
@@ -483,13 +499,11 @@ class BayesianNeuralNetwork(BaseModel):
         select_batch = batch_fn(x_dev, y_dev, self.batch_size)
         window_seed = _draw_seed(keys)
         state = sampler.init(particles)
-        self._sync()
-        phase_start = time.perf_counter()
-        for step in range(self.n_iters):
-            x_batch, y_batch = select_batch(window_seed, step, 1)
-            state, _ = sampler.step(state, keys, (x_batch[0], y_batch[0]))
-        self._sync()
-        self.phase_seconds["transport"] = time.perf_counter() - phase_start
+        with self._phase("transport"):
+            for step in range(self.n_iters):
+                x_batch, y_batch = select_batch(window_seed, step, 1)
+                state, _ = sampler.step(state, keys,
+                                        (x_batch[0], y_batch[0]))
         self.samples = state.position
         self._n_collected = self.n_nets
         self.is_trained = True
@@ -645,32 +659,27 @@ class BayesianNeuralNetwork(BaseModel):
             seg_lengths = (
                 [self.burn_in_steps] if self.burn_in_steps > 0 else [])
         iteration = 0
-        self._sync()
-        phase_start = time.perf_counter()
-        for n_steps in seg_lengths:
-            states = burn(states, n_steps)
-            iteration += n_steps
-            log_point(iteration, states.position)
-        self._sync()
-        self.phase_seconds["burn_in"] = time.perf_counter() - phase_start
+        with self._phase("burn_in"):
+            for n_steps in seg_lengths:
+                states = burn(states, n_steps)
+                iteration += n_steps
+                log_point(iteration, states.position)
 
-        phase_start = time.perf_counter()
-        if self.log_every is not None:
-            # one driver call per collected sample, logged like the
-            # reference's per-sample progress line
-            chunks = []
-            for j in range(per_chain):
-                states, pos, _ = sample(states, 1)
-                chunks.append(pos)
-                iteration += self.sample_steps
-                log_point(iteration, states.position,
-                          n_samples=(j + 1) * n_chains)
-            samples = {name: torch.cat([c[name] for c in chunks], dim=1)
-                       for name in chunks[0]}
-        else:
-            states, samples, _ = sample(states, per_chain)
-        self._sync()
-        self.phase_seconds["sampling"] = time.perf_counter() - phase_start
+        with self._phase("sampling"):
+            if self.log_every is not None:
+                # one driver call per collected sample, logged like the
+                # reference's per-sample progress line
+                chunks = []
+                for j in range(per_chain):
+                    states, pos, _ = sample(states, 1)
+                    chunks.append(pos)
+                    iteration += self.sample_steps
+                    log_point(iteration, states.position,
+                              n_samples=(j + 1) * n_chains)
+                samples = {name: torch.cat([c[name] for c in chunks], dim=1)
+                           for name in chunks[0]}
+            else:
+                states, samples, _ = sample(states, per_chain)
 
         # pool: (n_chains, per_chain, ...) -> (n_chains * per_chain, ...)
         self.samples = {name: leaf.reshape((-1,) + leaf.shape[2:])
@@ -710,6 +719,7 @@ class BayesianNeuralNetwork(BaseModel):
         return ensemble
 
     @BaseModel._check_shapes_predict
+    @spanned("bnn.predict")
     def predict(self, X_test, return_individual_predictions=False,
                 compute_dtype=None, *args, **kwargs):
         """Ensemble predictive mean and variance at ``X_test``: one forward
@@ -737,8 +747,10 @@ class BayesianNeuralNetwork(BaseModel):
                                     device=self.device)
         with torch.no_grad():
             outputs = ensemble_fn(self.samples, x_dev)
-        f_out = outputs[:, :, 0].cpu().numpy()
-        theta_noise = np.exp(outputs[:, :, 1].cpu().numpy())
+        with span("predict.to_host"):
+            f_out = outputs[:, :, 0].cpu().numpy()
+            log_noise = outputs[:, :, 1].cpu().numpy()
+        theta_noise = np.exp(log_noise)
 
         if return_individual_predictions:
             if self.normalize_output:

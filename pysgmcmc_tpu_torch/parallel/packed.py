@@ -66,6 +66,13 @@ only, as JAX's, and refuse ``'hadamard_clt'``.  ``'zero'`` is the
 degenerate stream (zero noise, window 0 every step) that reproduces the JAX
 kernels' interpret-mode Box-Muller stream for parity tests, on every
 driver.
+
+Spans (:mod:`pysgmcmc_tpu_torch.utils.tracing`, recorded only while a
+profiler records): each fused driver call is ``fused.burn_in`` or
+``fused.sample``.  Its prologue, from entry to the first kernel launch
+(pack, casts, the data windows, the seed draw and the step read, which wait
+for the card, the ε table and the kernel wrapper's checks), is read off
+the trace by that launch's timestamp.
 """
 
 import math
@@ -115,6 +122,7 @@ from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
 from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler
+from pysgmcmc_tpu_torch.utils.tracing import spanned
 
 
 # The most steps one launch of a paired kernel advances: JAX's drivers cut
@@ -244,6 +252,7 @@ def _data(x, y, batch_size, device):
     return x_win, y_win, x.shape[0]
 
 
+@spanned("fused.burn_in")
 def burnin_chain_fused(sampler, states, key, n_steps, x, y, batch_size=20,
                        state_dtype=torch.bfloat16, mesh=None, pair_dots=False,
                        noise_impl="auto"):
@@ -335,6 +344,7 @@ def _fused_rule(kind, sampler, state_dtype):
     return rule
 
 
+@spanned("fused.sample")
 def sample_chain_fused(sampler, states, key, n_samples, x, y, batch_size=20,
                        keep_every=1, state_dtype=torch.bfloat16,
                        collect_positions=True, mesh=None, multistep=False,

@@ -24,6 +24,13 @@ O(n d), with the median bandwidth of all particles up to
 drawn each step from the step's generator (the JAX package folds the step
 key; the streams differ).
 
+Spans (:mod:`pysgmcmc_tpu_torch.utils.tracing`, recorded only while a
+profiler records): ``svgd.step`` holds, one after another,
+``svgd.gradient`` (the stepsize, the vmapped gradient and the ravels),
+``svgd.bandwidth`` (streaming only: the subsample, the squared distances
+and the median), ``svgd.transport`` (B11, or the dense kernel and its
+product) and ``svgd.update`` (Adagrad and the new state).
+
 Examples
 --------
 >>> import torch
@@ -50,6 +57,7 @@ from pysgmcmc_tpu_torch.ops.pairwise import (
 from pysgmcmc_tpu_torch.ops.svgd_streaming import svgd_phi_streaming
 from pysgmcmc_tpu_torch.samplers.base import MCMCSampler, SamplerInfo
 from pysgmcmc_tpu_torch.utils.pytree import tree_cast, tree_zeros_like
+from pysgmcmc_tpu_torch.utils.tracing import span, spanned
 
 
 class SVGDState(NamedTuple):
@@ -142,51 +150,56 @@ class SVGDSampler(MCMCSampler):
         """The transport direction of the kernel implementation."""
         n = flat_particles.shape[0]
         if self.kernel_impl == "streaming":
-            if n <= self.bandwidth_subsample:
-                sub = flat_particles
-            else:
-                idx = torch.randint(0, n, (self.bandwidth_subsample,),
-                                    generator=key, device=key.device)
-                sub = flat_particles[idx.to(flat_particles.device)]
-            h = median_bandwidth(squared_distance_matrix(sub), n)
-            return svgd_phi_streaming(
-                flat_particles, flat_grads, h,
-                tile=min(self.streaming_tile, n),
-                interpret=self.streaming_interpret)
-        kernel, grad_kernel = svgd_kernel(flat_particles)
-        # grad_logp = -grad_cost; repulsion per Liu & Wang (2016)
-        return (torch.matmul(kernel, -flat_grads) + grad_kernel) / n
+            with span("svgd.bandwidth"):
+                if n <= self.bandwidth_subsample:
+                    sub = flat_particles
+                else:
+                    idx = torch.randint(0, n, (self.bandwidth_subsample,),
+                                        generator=key, device=key.device)
+                    sub = flat_particles[idx.to(flat_particles.device)]
+                h = median_bandwidth(squared_distance_matrix(sub), n)
+            with span("svgd.transport"):
+                return svgd_phi_streaming(
+                    flat_particles, flat_grads, h,
+                    tile=min(self.streaming_tile, n),
+                    interpret=self.streaming_interpret)
+        with span("svgd.transport"):
+            kernel, grad_kernel = svgd_kernel(flat_particles)
+            # grad_logp = -grad_cost; repulsion per Liu & Wang (2016)
+            return (torch.matmul(kernel, -flat_grads) + grad_kernel) / n
 
+    @spanned("svgd.step")
     def step(self, state, key, batch=None, phase=None):
         """One SVGD transport step.  ``key`` is the ``torch.Generator`` of
         the bandwidth subsample (drawn only with more particles than
         ``bandwidth_subsample``); ``batch`` is shared by every particle;
         ``phase`` is accepted for driver uniformity and ignored."""
         del phase
-        eps = self._stepsize(state)
-        grad_and_value = torch.func.grad_and_value(self.cost_fn)
-        if batch is None:
-            grads, costs = torch.func.vmap(grad_and_value)(state.position)
-        else:
-            grads, costs = torch.func.vmap(grad_and_value, in_dims=(0, None))(
-                state.position, batch)
+        with span("svgd.gradient"):
+            eps = self._stepsize(state)
+            grad_and_value = torch.func.grad_and_value(self.cost_fn)
+            if batch is None:
+                grads, costs = torch.func.vmap(grad_and_value)(state.position)
+            else:
+                grads, costs = torch.func.vmap(
+                    grad_and_value, in_dims=(0, None))(state.position, batch)
+            flat_particles, unravel = _ravel_particles(state.position)
+            flat_grads, _ = _ravel_particles(grads)
 
-        flat_particles, unravel = _ravel_particles(state.position)
-        flat_grads, _ = _ravel_particles(grads)
         phi = self._phi(flat_particles, flat_grads, key)
 
-        flat_hist, _ = _ravel_particles(state.historical_grad)
-        hist_new = self.alpha * flat_hist + (1.0 - self.alpha) * phi**2
-        adjusted = phi / (self.fudge_factor + torch.sqrt(hist_new))
-        new_flat = flat_particles + eps * adjusted
-
-        new_state = SVGDState(
-            position=unravel(new_flat),
-            historical_grad=unravel(hist_new),
-            step=state.step + 1,
-            schedule_state=self.stepsize_schedule.update(
-                state.schedule_state, cost=costs),
-        )
+        with span("svgd.update"):
+            flat_hist, _ = _ravel_particles(state.historical_grad)
+            hist_new = self.alpha * flat_hist + (1.0 - self.alpha) * phi**2
+            adjusted = phi / (self.fudge_factor + torch.sqrt(hist_new))
+            new_flat = flat_particles + eps * adjusted
+            new_state = SVGDState(
+                position=unravel(new_flat),
+                historical_grad=unravel(hist_new),
+                step=state.step + 1,
+                schedule_state=self.stepsize_schedule.update(
+                    state.schedule_state, cost=costs),
+            )
         return new_state, SamplerInfo(cost=costs, stepsize=eps)
 
 

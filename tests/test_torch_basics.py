@@ -34,7 +34,7 @@ from pysgmcmc_tpu_torch import sampling, stepsize_schedules
 from pysgmcmc_tpu_torch.diagnostics import objective_functions
 from pysgmcmc_tpu_torch.models import base_model
 from pysgmcmc_tpu_torch.ops import fused_step as fs
-from pysgmcmc_tpu_torch.utils import numeric, pytree
+from pysgmcmc_tpu_torch.utils import numeric, pytree, tracing
 
 
 def _edge_inputs():
@@ -250,7 +250,7 @@ PORT_MODULES = [
     pysgmcmc_tpu_torch.samplers.psgld, pysgmcmc_tpu_torch.samplers.sgnht,
     pysgmcmc_tpu_torch.samplers.relativistic_sghmc,
     pysgmcmc_tpu_torch.samplers.svgd, pysgmcmc_tpu_torch.ops.pairwise,
-    pysgmcmc_tpu_torch.ops.svgd_streaming,
+    pysgmcmc_tpu_torch.ops.svgd_streaming, tracing,
 ]
 
 
