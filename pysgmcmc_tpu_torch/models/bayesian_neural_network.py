@@ -97,8 +97,9 @@ def log_variance_prior_log_like(log_var, mean=1e-6, var=0.01):
     """Gaussian prior (in log space) on the predicted log variance:
     ``mean(sum(-(log_var - log(mean))^2 / (2 var) - 0.5 log(var), axis=1))``."""
     dtype, device = log_var.dtype, log_var.device
-    mean = torch.as_tensor(mean, dtype=dtype, device=device)
-    var = torch.as_tensor(var, dtype=dtype, device=device)
+    # fills, not copies from pageable host memory, which wait for the card
+    mean = torch.full((), mean, dtype=dtype, device=device)
+    var = torch.full((), var, dtype=dtype, device=device)
     return torch.mean(torch.sum(
         safe_divide(-torch.square(log_var - torch.log(mean)), 2.0 * var)
         - 0.5 * torch.log(var), dim=1))
@@ -110,8 +111,8 @@ def weight_prior_log_like(params, wdecay=1.0):
     log_like = sum(torch.sum(-wdecay * 0.5 * torch.square(leaf))
                    for leaf in leaves)
     n_params = sum(leaf.numel() for leaf in leaves)
-    return safe_divide(log_like, torch.as_tensor(
-        n_params, dtype=log_like.dtype, device=log_like.device))
+    return safe_divide(log_like, torch.full(
+        (), n_params, dtype=log_like.dtype, device=log_like.device))
 
 
 def _not_ported(what, item):

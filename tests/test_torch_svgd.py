@@ -11,6 +11,8 @@
 - The slice as a whole: the BNN's SVGD training against JAX's from JAX's
   particles, with one minibatch window (the whole data) so that both sides
   are deterministic, then the predictions.
+- The BNN's prior constants, built on the device by fills, keep the bits
+  of the host copies they replace.
 
 Inputs are made with numpy seeds.  JAX runs its Pallas kernel in interpret
 mode on the CPU, with ``jax.block_until_ready`` and ``jax.effects_barrier``
@@ -36,6 +38,10 @@ from pysgmcmc_tpu.samplers.svgd import SVGDSampler as JaxSVGD
 from pysgmcmc_tpu.utils import numeric as jax_numeric
 from pysgmcmc_tpu_torch import interop
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork
+from pysgmcmc_tpu_torch.models.bayesian_neural_network import (
+    log_variance_prior_log_like,
+    weight_prior_log_like,
+)
 from pysgmcmc_tpu_torch.ops import pairwise
 from pysgmcmc_tpu_torch.ops import svgd_streaming as ss
 from pysgmcmc_tpu_torch.samplers import SVGDSampler, SVGDState
@@ -294,3 +300,29 @@ def test_svgd_bnn_constructs_with_defaults():
                                  network="dense",
                                  kernel_impl="streaming").sampler_kwargs == {
         "kernel_impl": "streaming"}
+
+
+#  The BNN's prior constants -------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prior_constants_keep_the_host_copies_bits(dtype):
+    """The priors' device scalars are fills of the same values as the host
+    copies (``torch.as_tensor``) they replace: the same bits."""
+    gen = torch.Generator().manual_seed(3)
+    log_var = torch.randn((20, 1), generator=gen, dtype=dtype) - 3.0
+    params = {"w": torch.randn((4, 5), generator=gen, dtype=dtype),
+              "b": torch.randn((5,), generator=gen, dtype=dtype)}
+    mean = torch.as_tensor(1e-6, dtype=dtype)
+    var = torch.as_tensor(0.01, dtype=dtype)
+    want_var = torch.mean(torch.sum(
+        numeric.safe_divide(-torch.square(log_var - torch.log(mean)),
+                            2.0 * var) - 0.5 * torch.log(var), dim=1))
+    log_like = sum(torch.sum(-0.5 * torch.square(leaf))
+                   for leaf in params.values())
+    want_weight = numeric.safe_divide(log_like, torch.as_tensor(
+        25, dtype=log_like.dtype))
+    got_var = log_variance_prior_log_like(log_var)
+    got_weight = weight_prior_log_like(params)
+    assert got_var.dtype == got_weight.dtype == dtype
+    assert torch.equal(got_var, want_var)
+    assert torch.equal(got_weight, want_weight)
