@@ -21,6 +21,13 @@ Examples
 True
 >>> select(None, 0, 2)[0][:, :, 0].tolist()  # seed None: window 0
 [[0.0, 1.0, 2.0, 3.0], [0.0, 1.0, 2.0, 3.0]]
+
+Token sequences stay integer, and ``y`` keeps its trailing shape:
+
+>>> tokens = torch.arange(30).reshape(10, 3)
+>>> xb, yb = batch_fn(tokens, tokens + 1, batch_size=4)(None, 0, 2)
+>>> (xb.dtype, tuple(xb.shape), tuple(yb.shape))
+(torch.int64, (2, 4, 3), (2, 4, 3))
 """
 
 import logging
@@ -55,8 +62,17 @@ def batch_fn(x, y, batch_size=20):
     :func:`~pysgmcmc_tpu_torch.ops.fused_step.philox_windows` draws for it
     at absolute ``step`` from the 64-bit ``seed``.  ``seed=None`` gives
     every chain window 0 (the degenerate stream, ``noise_impl='zero'``).
+
+    An integer ``x`` (token sequences, one a row) keeps its type, as does
+    ``y``, and ``y_batch`` is ``(n_chains, batch_size, *y.shape[1:])``:
+    the same windows of rows, gathered by index without materialising
+    every window of the data.
     """
-    x = torch.as_tensor(x, dtype=torch.float32)
+    x = torch.as_tensor(x)
+    if not (x.is_floating_point() or x.dtype == torch.bool):
+        return _token_batches(x, torch.as_tensor(y, device=x.device),
+                              batch_size)
+    x = x.to(torch.float32)
     if x.ndim == 1:
         x = x[:, None]
     n_examples = x.shape[0]
@@ -65,13 +81,31 @@ def batch_fn(x, y, batch_size=20):
     n_windows = x_win.shape[0]
 
     def select(seed, step, n_chains):
-        if seed is None:
-            widx = torch.zeros(n_chains, dtype=torch.int64, device=x.device)
-        else:
-            widx = philox_windows(seed, step, n_chains, n_windows, x.device)
+        widx = _window_index(seed, step, n_chains, n_windows, x.device)
         x_batch, y_batch = gather_batch(x_win, y_win, widx)
         return (x_batch.reshape((n_chains, batch_size) + x.shape[1:]),
                 y_batch.reshape(n_chains, batch_size, 1))
+
+    return select
+
+
+def _window_index(seed, step, n_chains, n_windows, device):
+    if seed is None:
+        return torch.zeros(n_chains, dtype=torch.int64, device=device)
+    return philox_windows(seed, step, n_chains, n_windows, device)
+
+
+def _token_batches(x, y, batch_size):
+    """:func:`batch_fn` of integer rows: chain ``c`` gets rows ``w ..
+    w + batch_size - 1`` of ``x`` and ``y``, ``w`` its window."""
+    batch_size = _effective_batch_size(x.shape[0], batch_size)
+    n_windows = x.shape[0] - batch_size + 1
+    offsets = torch.arange(batch_size, device=x.device)
+
+    def select(seed, step, n_chains):
+        rows = _window_index(seed, step, n_chains, n_windows,
+                             x.device)[:, None] + offsets
+        return x[rows], y[rows]
 
     return select
 

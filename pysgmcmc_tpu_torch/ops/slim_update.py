@@ -43,7 +43,8 @@ kernels' plain versions (:mod:`pysgmcmc_tpu_torch.ops.fused_step`).
 
 Layout: every operand is ``(n_chains, P)``, one chain per row, the leaves
 of the parameter dict in its order (``parallel.packed.pack_lanes``), or
-for B7 mask the packed driver's slots (``parallel.packed.pack_tree``).  theta,
+for B7 mask the packed driver's slots (``parallel.packed.pack_tree``), at
+most :data:`MAX_ROW` columns (wider rows raise ``ValueError``).  theta,
 tau, g and v_hat are float32; ``v`` (momentum or accumulator), ``minv`` and
 ``grad`` may be float32 or bfloat16, as JAX's slim kernels let them arrive
 (a bf16 network pass, ``state_dtype=bfloat16``): the arithmetic is float32,
@@ -96,6 +97,20 @@ from pysgmcmc_tpu_torch.ops.fused_step import (
 
 #  Validation, shared by the kernels and their plain versions -----------------
 
+# The widest row the kernels index: csrc/slim_update.cu walks a row's
+# columns with 32-bit signed counters that step by up to 2**20 (1024 blocks
+# of 256 threads, four columns a thread), so a column plus one stride must
+# stay below 2**31.
+MAX_ROW = 2**31 - 2**20
+
+
+def _check_row(name, width):
+    if width > MAX_ROW:
+        raise ValueError(
+            "{}: a row of {} parameters is wider than the kernels' 32-bit "
+            "column index covers ({} at most)".format(name, width, MAX_ROW))
+
+
 def _validate(name, theta, state, grad, mask, eps, seed, noise,
               f32_state=(), noise_index=None):
     """Check every operand; returns the stepsize as a float32 ``(1,)`` or
@@ -116,6 +131,7 @@ def _validate(name, theta, state, grad, mask, eps, seed, noise,
         raise ValueError(
             "{}: theta must be a float32 (n_chains, P) tensor; got {} "
             "{}".format(name, theta.dtype, tuple(theta.shape)))
+    _check_row(name, theta.shape[1])
     device = theta.device
     for arrs, dtypes, what in (((*state, grad), STATE_DTYPES,
                                 "float32 or bfloat16"),
@@ -423,6 +439,7 @@ def _check_tree(name, theta, v, grad, minv, eps, seed, noise):
                                    "/".join(str(d) for d in want), t.device,
                                    tuple(leaf.shape), leaf.dtype,
                                    leaf.device))
+    _check_row(name, _tree_offsets(theta)[1])
     eps_vec = torch.as_tensor(eps, dtype=torch.float32).reshape(-1)
     if eps_vec.numel() != 1:
         raise ValueError("{}: eps must be a scalar; got {} entries".format(

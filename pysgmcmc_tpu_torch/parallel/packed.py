@@ -26,7 +26,9 @@ Chains on lanes: :func:`burnin_chain_lanes` and :func:`sample_chain_lanes`
 take any network and cost function.  Each step unpacks the ``(n_chains,
 P)`` position (:func:`pack_lanes` / :func:`unpack_lanes`), takes every
 chain's gradient with ``torch.func.vmap(torch.func.grad_and_value(
-sampler.cost_fn))``, packs it, and makes one launch of a slim elementwise
+sampler.cost_fn))`` (one chain: plain autograd on its leaves, which takes a
+network whose shapes follow the data, as a dropless expert layer's do),
+packs it, and makes one launch of a slim elementwise
 kernel (:mod:`pysgmcmc_tpu_torch.ops.slim_update`): B9-sghmc / B9-sgld in
 burn-in, B7 / B8-sgld in sampling, and for pSGLD, relativistic SGHMC and
 SGNHT, which have no burn-in machinery, B8-psgld / B8-rsghmc / B8-sgnht in
@@ -72,7 +74,9 @@ profiler records): each fused driver call is ``fused.burn_in`` or
 ``fused.sample``.  Its prologue, from entry to the first kernel launch
 (pack, casts, the data windows, the seed draw and the step read, which wait
 for the card, the ε table and the kernel wrapper's checks), is read off
-the trace by that launch's timestamp.
+the trace by that launch's timestamp.  Each lanes driver call is
+``lanes.burn_in`` or ``lanes.sample``, and each of its steps a
+``lanes.gradient`` then a ``lanes.update`` (the slim kernel).
 """
 
 import math
@@ -122,7 +126,7 @@ from pysgmcmc_tpu_torch.samplers.relativistic_sghmc import (
 from pysgmcmc_tpu_torch.samplers.sghmc import SGHMCSampler, SGHMCState
 from pysgmcmc_tpu_torch.samplers.sgld import SGLDSampler, SGLDState
 from pysgmcmc_tpu_torch.samplers.sgnht import SGNHTSampler
-from pysgmcmc_tpu_torch.utils.tracing import spanned
+from pysgmcmc_tpu_torch.utils.tracing import span, spanned
 
 
 # The most steps one launch of a paired kernel advances: JAX's drivers cut
@@ -496,15 +500,52 @@ def make_lanes_spec(template):
     return LanesSpec(names, shapes, sizes, offsets, sum(sizes))
 
 
+def _in_row(leaf, width, shape):
+    """Whether ``leaf`` ``(n_chains, *shape)`` lies along the rows of a
+    ``(n_chains, width)`` buffer as :func:`unpack_lanes` lays it (the
+    strides of its dimensions longer than 1)."""
+    want, step = [], 1
+    for size in reversed(shape):
+        want.insert(0, step)
+        step *= size
+    return all(got == expect for got, expect, size in zip(
+        leaf.stride(), [width] + want, leaf.shape) if size > 1)
+
+
+def _packed_base(spec, stacked, dtype):
+    """The ``(n_chains, P)`` ``dtype`` buffer whose :func:`unpack_lanes`
+    views the leaves of ``stacked`` are, in the spec's layout, or
+    ``None``."""
+    first = stacked[spec.names[0]]
+    base = first._base
+    if base is None or base.dtype != dtype \
+            or tuple(base.shape) != (first.shape[0], spec.width) \
+            or not base.is_contiguous():
+        return None
+    for name, off, shape in zip(spec.names, spec.offsets, spec.shapes):
+        leaf = stacked[name]
+        if leaf._base is not base \
+                or leaf.storage_offset() != base.storage_offset() + off \
+                or not _in_row(leaf, spec.width, shape):
+            return None
+    return base
+
+
 def pack_lanes(spec, stacked, dtype=torch.float32):
     """Stacked dict (leaves ``(n_chains, *shape)``) -> ``(n_chains, P)``.
-    The leaves go in the spec's order, whatever the order of ``stacked``."""
+    The leaves go in the spec's order, whatever the order of ``stacked``.
+    Leaves that are :func:`unpack_lanes` views of one ``dtype`` buffer give
+    that buffer itself, uncopied (the drivers never write into their
+    inputs)."""
     n = stacked[spec.names[0]].shape[0]
     for name, shape in zip(spec.names, spec.shapes):
         if tuple(stacked[name].shape) != (n,) + shape:
             raise ValueError(
                 "pack_lanes: leaf {!r} is {}, the spec wants {}".format(
                     name, tuple(stacked[name].shape), (n,) + shape))
+    base = _packed_base(spec, stacked, dtype)
+    if base is not None:
+        return base
     return torch.cat([stacked[name].reshape(n, size).to(dtype)
                       for name, size in zip(spec.names, spec.sizes)],
                      dim=1).contiguous()
@@ -562,8 +603,14 @@ def _check_lanes(name, sampler, mesh, compute_dtype, state_dtype):
 
 def _stacked_gradient(sampler, position, batch_fn, window_seed, step):
     """Every chain's cost and stacked gradient dict at ``position`` (leaves
-    in the network's type) on the windows of ``step``."""
+    in the network's type) on the windows of ``step``: ``torch.func.vmap``
+    over the chains, or with one chain plain autograd on its leaves, which
+    takes a network whose shapes depend on the data (a dropless expert
+    layer's tokens per expert), as ``vmap`` does not."""
     n = next(iter(position.values())).shape[0]
+    if n == 1:
+        return _one_chain_gradient(sampler, position, batch_fn, window_seed,
+                                   step)
     if batch_fn is None:
         grads, cost = torch.func.vmap(torch.func.grad_and_value(
             lambda pos: sampler.cost_fn(pos)))(position)
@@ -571,6 +618,20 @@ def _stacked_gradient(sampler, position, batch_fn, window_seed, step):
         grads, cost = torch.func.vmap(torch.func.grad_and_value(
             sampler.cost_fn))(position, batch_fn(window_seed, step, n))
     return cost, grads
+
+
+def _one_chain_gradient(sampler, position, batch_fn, window_seed, step):
+    """:func:`_stacked_gradient` of one chain, without ``vmap``."""
+    params = {name: leaf[0].detach().requires_grad_()
+              for name, leaf in position.items()}
+    batch = () if batch_fn is None else (
+        tuple(b[0] for b in batch_fn(window_seed, step, 1)),)
+    with torch.enable_grad():
+        cost = sampler.cost_fn(params, *batch)
+    grads = torch.autograd.grad(cost, list(params.values()),
+                                materialize_grads=True)
+    return cost.detach()[None], {name: g[None]
+                                 for name, g in zip(params, grads)}
 
 
 def _lanes_gradient(sampler, spec, theta, batch_fn, window_seed, step,
@@ -643,6 +704,7 @@ def _lanes_start(name, sampler, states, key, compute_dtype, state_dtype,
             None if zero else seed, rule)
 
 
+@spanned("lanes.burn_in")
 def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
                        compute_dtype=torch.bfloat16,
                        state_dtype=torch.float32, mesh=None,
@@ -675,16 +737,18 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     tau, g, v_hat = (pack_lanes(spec, leaf) for leaf in states.stats[:3])
     n_steps = int(n_steps)
     for step in range(step0, step0 + n_steps):
-        _, grad = _lanes_gradient(sampler, spec, theta, batch_fn, window_seed,
-                                  step, compute_dtype)
-        if sghmc:
-            theta, v, tau, g, v_hat, minv = slim_sghmc_burnin_update(
-                theta, v, tau, g, v_hat, grad, None, eps_of(step), seed,
-                step=step, **rule)
-        else:
-            theta, tau, g, v_hat, minv = slim_sgld_burnin_update(
-                theta, tau, g, v_hat, grad, None, eps_of(step), seed,
-                step=step, **rule)
+        with span("lanes.gradient"):
+            _, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
+                                      window_seed, step, compute_dtype)
+        with span("lanes.update"):
+            if sghmc:
+                theta, v, tau, g, v_hat, minv = slim_sghmc_burnin_update(
+                    theta, v, tau, g, v_hat, grad, None, eps_of(step), seed,
+                    step=step, **rule)
+            else:
+                theta, tau, g, v_hat, minv = slim_sgld_burnin_update(
+                    theta, tau, g, v_hat, grad, None, eps_of(step), seed,
+                    step=step, **rule)
     fields = dict(
         position=unpack_lanes(spec, theta),
         stats=AdaptiveStats(
@@ -699,6 +763,36 @@ def burnin_chain_lanes(sampler, states, key, n_steps, batch_fn=None,
     return SGLDState(**fields)
 
 
+def _lanes_update(kind, spec, theta, v, grad, minv, xi, eps, seed, step,
+                  rule):
+    """One sampling step's slim kernel: ``(theta, v, xi)`` after it (``v``
+    ``None`` for SGLD, ``xi`` moved for SGNHT only)."""
+    if kind == "sghmc":
+        theta, v = slim_sghmc_update(theta, v, grad, minv, None, eps, seed,
+                                     step=step, **rule)
+    elif kind == "sgld":
+        theta = slim_sgld_update(theta, grad, minv, None, eps, seed,
+                                 step=step, **rule)
+    elif kind == "psgld":
+        theta, v = slim_psgld_update(theta, v, grad, None, eps, seed,
+                                     step=step, **rule)
+    elif kind == "rsghmc":
+        theta, v = slim_rsghmc_update(theta, v, grad, None, eps, seed,
+                                      step=step, **rule)
+    else:
+        theta, v = slim_sgnht_update(theta, v, grad, None, xi, eps, seed,
+                                     step=step, **rule)
+        # the thermostat: one reduction over every chain's row of the
+        # stored momentum (a float eps stays a host scalar: no copy, no
+        # stream wait)
+        if torch.is_tensor(eps):
+            eps = eps.to(xi.device)
+        p = v.float()
+        xi = xi + eps * (torch.sum(p * p, dim=1) / spec.width - 1.0)
+    return theta, v, xi
+
+
+@spanned("lanes.sample")
 def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
                        keep_every=1, compute_dtype=torch.bfloat16,
                        state_dtype=torch.float32, collect_positions=True,
@@ -728,31 +822,13 @@ def sample_chain_lanes(sampler, states, key, n_samples, batch_fn=None,
     positions, costs = [], []
     for _ in range(int(n_samples)):
         for _ in range(keep_every):
-            cost, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
-                                         window_seed, step, compute_dtype)
-            eps = eps_of(step)
-            if kind == "sghmc":
-                theta, v = slim_sghmc_update(theta, v, grad, minv, None, eps,
-                                             seed, step=step, **rule)
-            elif kind == "sgld":
-                theta = slim_sgld_update(theta, grad, minv, None, eps, seed,
-                                         step=step, **rule)
-            elif kind == "psgld":
-                theta, v = slim_psgld_update(theta, v, grad, None, eps, seed,
-                                             step=step, **rule)
-            elif kind == "rsghmc":
-                theta, v = slim_rsghmc_update(theta, v, grad, None, eps,
-                                              seed, step=step, **rule)
-            else:
-                theta, v = slim_sgnht_update(theta, v, grad, None, xi, eps,
-                                             seed, step=step, **rule)
-                # the thermostat: one reduction over every chain's row of
-                # the stored momentum (a float eps stays a host scalar: no
-                # copy, no stream wait)
-                if torch.is_tensor(eps):
-                    eps = eps.to(xi.device)
-                p = v.float()
-                xi = xi + eps * (torch.sum(p * p, dim=1) / spec.width - 1.0)
+            with span("lanes.gradient"):
+                cost, grad = _lanes_gradient(sampler, spec, theta, batch_fn,
+                                             window_seed, step, compute_dtype)
+            with span("lanes.update"):
+                theta, v, xi = _lanes_update(kind, spec, theta, v, grad,
+                                             minv, xi, eps_of(step), seed,
+                                             step, rule)
             step += 1
         if collect_positions:
             positions.append(unpack_lanes(spec, theta))

@@ -4,7 +4,8 @@ A schedule is ``(init, value, update)``: ``value(state, step)`` gives the
 stepsize at an absolute step, so the fused drivers can build a per-step
 table for a whole kernel launch.  The constant and traced schedules are
 ported; the polynomial-decay and cyclical schedules are listed in
-``ROADMAP.md`` (queue A).
+``ROADMAP.md`` (queue A).  :class:`WarmupStepsizeSchedule` has no JAX
+counterpart: a smaller stepsize for a chain's first steps.
 
 Examples
 --------
@@ -17,6 +18,9 @@ Examples
 >>> traced = TracedStepsizeSchedule(0.5)
 >>> float(traced.value(traced.init(), 7))
 0.5
+>>> warm = WarmupStepsizeSchedule(1e-3, 1e-6)
+>>> [warm.value(warm.init(), step) for step in (0, 1, 2)]
+[1e-06, 0.001, 0.001]
 """
 
 import torch
@@ -79,3 +83,26 @@ class TracedStepsizeSchedule(StepsizeSchedule):
 
     def __str__(self):
         return "TracedStepsizeSchedule(initial={})".format(self.initial_value)
+
+
+class WarmupStepsizeSchedule(StepsizeSchedule):
+    """``warmup_value`` for a chain's first step (absolute step 0), then
+    ``initial_value``.
+
+    The self-tuning burn-in (Springenberg et al., NIPS 2016) takes its first
+    step at ``minv = 1``, before ``v_hat`` has seen a gradient: where the
+    gradient is large (a cost scaled by a large corpus), that step moves
+    ``eps**2 * grad`` and has to be small, while every later step is
+    scaled by the adapted ``minv``.
+    """
+
+    def __init__(self, initial_value, warmup_value):
+        super().__init__(initial_value)
+        self.warmup_value = warmup_value
+
+    def value(self, state, step):
+        return self.warmup_value if step < 1 else self.initial_value
+
+    def __str__(self):
+        return "WarmupStepsizeSchedule(stepsize={}, first step {})".format(
+            self.initial_value, self.warmup_value)

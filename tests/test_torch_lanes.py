@@ -55,7 +55,10 @@ from pysgmcmc_tpu_torch.parallel import (
 )
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler, SGLDSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
-from pysgmcmc_tpu_torch.stepsize_schedules import TracedStepsizeSchedule
+from pysgmcmc_tpu_torch.stepsize_schedules import (
+    TracedStepsizeSchedule,
+    WarmupStepsizeSchedule,
+)
 
 N_CHAINS = 128  # JAX's slim kernels need a multiple of 128 chains
 P = 40
@@ -387,6 +390,26 @@ def test_per_chain_stepsizes_in_the_drivers(cls):
         assert not torch.equal(runs[0][key], runs[1][key]), key
 
 
+def test_warmup_stepsize_takes_its_first_step_smaller():
+    """A WarmupStepsizeSchedule burns in its first step at the warm-up
+    stepsize and the later ones at its stepsize: as one step at the first
+    and two at the second, constant, in two driver calls (zero noise)."""
+    def burn(sampler, states, n_steps):
+        return burnin_chain_lanes(sampler, states,
+                                  torch.Generator().manual_seed(4), n_steps,
+                                  noise_impl="zero")
+
+    warm = _small_sampler(schedule=WarmupStepsizeSchedule(EPS_A, EPS_B))
+    got = burn(warm, _small_states(warm), 3)
+    first, then = _small_sampler(schedule=EPS_B), _small_sampler(
+        schedule=EPS_A)
+    want = burn(then, burn(first, _small_states(first), 1), 2)
+    constant = burn(then, _small_states(then), 3)
+    for key, leaf in got.position.items():
+        assert torch.equal(leaf, want.position[key]), key
+        assert not torch.equal(leaf, constant.position[key]), key
+
+
 #  The lanes BNN ------------------------------------------------------------------
 
 SLICE = dict(step_impl="lanes", n_chains=2, n_nets=4, burn_in_steps=8,
@@ -478,3 +501,123 @@ def test_lanes_bnn_takes_a_user_network():
     bnn = _train(get_net=(init, apply), **SLICE)
     assert bnn.samples["w1"].shape == (4, 1, 5)
     assert bnn.predict(np.linspace(0.0, 1.0, 3)[:, None])[0].shape == (3,)
+
+
+#  One chain, without vmap ------------------------------------------------------
+
+def _bnn_lanes_sampler(n_data=40):
+    """SGHMC on the lanes BNN's cost (``negative_log_likelihood``), with its
+    windows of a small sinc set."""
+    rng = np.random.RandomState(3)
+    x = torch.as_tensor(rng.uniform(0, 1, (n_data, 1)), dtype=torch.float32)
+    y = torch.sinc(x[:, 0] * 10 - 5)
+    model = BayesianNeuralNetwork(step_impl="lanes", batch_size=8,
+                                  device="cpu")
+    _, apply = default_network(1, units=(8, 8), device="cpu")
+
+    def cost_fn(params, batch):
+        return model.negative_log_likelihood(apply, params, *batch,
+                                             n_data)[0]
+
+    sampler = SGHMCSampler(cost_fn, stepsize_schedule=0.01,
+                           scale_grad=float(n_data))
+    return sampler, batch_fn(x, y, batch_size=8)
+
+
+def test_one_chain_gradient_matches_the_vmapped_gradient():
+    from pysgmcmc_tpu_torch.parallel import packed
+
+    sampler, select = _bnn_lanes_sampler()
+    position = _small_states(sampler, n=1).position
+    cost, grads = packed._stacked_gradient(sampler, position, select, 5, 2)
+    want_grads, want_cost = torch.func.vmap(torch.func.grad_and_value(
+        sampler.cost_fn))(position, select(5, 2, 1))
+    torch.testing.assert_close(cost, want_cost, rtol=1e-6, atol=0.0)
+    assert list(grads) == list(want_grads)
+    for name, grad in grads.items():
+        assert grad.shape == want_grads[name].shape
+        torch.testing.assert_close(grad, want_grads[name], rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_one_chain_drivers_follow_chain_zero_of_many():
+    """Chain 0 of a 3-chain run (vmapped gradients) and the same chain run
+    alone (plain autograd) take the same windows and normals and agree."""
+    sampler, select = _bnn_lanes_sampler()
+    many = _small_states(sampler, n=3)
+    one = sampler.init({k: leaf[:1] for k, leaf in many.position.items()})
+    results = []
+    for states in (many, one):
+        gen = torch.Generator().manual_seed(9)
+        burned = burnin_chain_lanes(sampler, states, gen, 4, batch_fn=select,
+                                    compute_dtype=None)
+        results.append(sample_chain_lanes(sampler, burned, gen, 2,
+                                          batch_fn=select, keep_every=2,
+                                          compute_dtype=None))
+    (got, pos, costs), (want, pos1, costs1) = results[1], results[0]
+    torch.testing.assert_close(costs, costs1[:1], rtol=1e-5, atol=1e-6)
+    for name in got.position:
+        for a, b in ((got.position, want.position),
+                     (got.momentum, want.momentum), (pos, pos1)):
+            torch.testing.assert_close(a[name], b[name][:1], rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_pack_lanes_takes_its_own_views_uncopied():
+    init, _ = default_network(1, units=(6, 5), device="cpu")
+    params = init(torch.Generator().manual_seed(0), (3,))
+    spec = make_lanes_spec({k: leaf[0] for k, leaf in params.items()})
+    flat = pack_lanes(spec, params)
+    views = unpack_lanes(spec, flat)
+    assert pack_lanes(spec, views) is flat
+    assert pack_lanes(spec, dict(reversed(list(views.items())))) is flat
+    # another type, a leaf from elsewhere or a share of the rows: a copy
+    assert pack_lanes(spec, views, dtype=torch.bfloat16) is not flat
+    moved = dict(views, b1=views["b1"].clone())
+    assert pack_lanes(spec, moved) is not flat
+    assert torch.equal(pack_lanes(spec, moved), flat)
+    rows = {k: leaf[:2] for k, leaf in views.items()}
+    assert torch.equal(pack_lanes(spec, rows), flat[:2])
+
+
+def test_batch_fn_keeps_token_windows_integer():
+    tokens = torch.arange(40, dtype=torch.int32).reshape(10, 4)
+    select = batch_fn(tokens, tokens + 100, batch_size=3)
+    xb, yb = select(11, 5, 4)
+    assert xb.dtype == yb.dtype == torch.int32
+    assert xb.shape == yb.shape == (4, 3, 4)
+    widx = fs.philox_windows(11, 5, 4, 8, "cpu")
+    for c in range(4):
+        w = int(widx[c])
+        assert torch.equal(xb[c], tokens[w:w + 3])
+        assert torch.equal(yb[c], tokens[w:w + 3] + 100)
+    x0, _ = select(None, 0, 2)
+    assert torch.equal(x0, tokens[:3].expand(2, 3, 4))
+
+
+def _tree_update(row):
+    tree = {"a": row[:, :2**30], "b": row[:, 2**30:]}
+    return su.slim_sghmc_update_tree(tree, tree, tree, tree, 0.1, 0)
+
+
+WIDE_ROW_CALLS = {
+    "slim_sghmc_update": lambda row: su.slim_sghmc_update(
+        row, row, row, row, None, 0.1, 0),
+    "slim_sgld_update": lambda row: su.slim_sgld_update(
+        row, row, row, None, 0.1, 0),
+    "slim_sghmc_burnin_update": lambda row: su.slim_sghmc_burnin_update(
+        row, row, row, row, row, row, None, 0.1, 0),
+    "slim_sghmc_update_tree": _tree_update,
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(WIDE_ROW_CALLS))
+def test_slim_kernels_refuse_rows_wider_than_their_column_index(kernel):
+    """A row wider than the kernels' 32-bit column counters cover raises
+    before any launch (stride-0 views: nothing is allocated)."""
+    with pytest.raises(ValueError, match="32-bit column index"):
+        WIDE_ROW_CALLS[kernel](torch.zeros(1).expand(1, su.MAX_ROW + 1))
+    # the check itself passes the widest row it allows
+    fits = torch.zeros(1).expand(1, su.MAX_ROW)
+    su._validate("slim_sghmc_update", fits, [fits], fits, None, 0.1, 0,
+                 None)

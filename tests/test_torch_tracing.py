@@ -12,7 +12,13 @@ import pytest
 import torch
 
 from pysgmcmc_tpu_torch.models import BayesianNeuralNetwork, dense_network
-from pysgmcmc_tpu_torch.parallel import burnin_chain_fused, sample_chain_fused
+from pysgmcmc_tpu_torch.data_batches import batch_fn
+from pysgmcmc_tpu_torch.parallel import (
+    burnin_chain_fused,
+    burnin_chain_lanes,
+    sample_chain_fused,
+    sample_chain_lanes,
+)
 from pysgmcmc_tpu_torch.samplers import SGHMCSampler
 from pysgmcmc_tpu_torch.samplers.svgd import SVGDSampler
 from pysgmcmc_tpu_torch.sampling import Sampler
@@ -53,6 +59,22 @@ def _svgd_step(kernel_impl):
     return run
 
 
+def _lanes_drivers():
+    init, apply = dense_network(1, units=(6, 6), device="cpu")
+    sampler = SGHMCSampler(
+        lambda p, b: torch.sum((apply(p, b[0])[:, 0] - b[1][:, 0]) ** 2),
+        stepsize_schedule=0.01, scale_grad=40.0)
+    x, y = _data()
+    select = batch_fn(x, y, 8)
+    gen = torch.Generator().manual_seed(0)
+    for n_chains in (2, 1):  # vmapped, and one chain's plain autograd
+        burned = burnin_chain_lanes(
+            sampler, sampler.init(init(gen, (n_chains,))), gen, 2,
+            batch_fn=select, compute_dtype=None)
+        sample_chain_lanes(sampler, burned, gen, 1, batch_fn=select,
+                           keep_every=2, compute_dtype=None)
+
+
 def _bnn_fused():
     x, y = _data()
     model = BayesianNeuralNetwork(step_impl="fused", seed=3, **BNN)
@@ -71,6 +93,11 @@ def _bnn_svgd():
 CASES = {
     "fused_drivers": (_fused_drivers, [
         ("fused.burn_in", None), ("fused.sample", None)]),
+    "lanes_drivers": (_lanes_drivers, [
+        ("lanes.burn_in", None), ("lanes.sample", None),
+        ("lanes.gradient", "lanes.burn_in"),
+        ("lanes.gradient", "lanes.sample"),
+        ("lanes.update", "lanes.burn_in"), ("lanes.update", "lanes.sample")]),
     "svgd_streaming": (_svgd_step("streaming"), [
         ("svgd.step", None), ("svgd.gradient", "svgd.step"),
         ("svgd.bandwidth", "svgd.step"), ("svgd.transport", "svgd.step"),
@@ -156,3 +183,32 @@ def test_svgd_phases_tile_the_step(case):
         assert [name for _, _, name in inside] == phases
         for (_, end, _), (start, _, _) in zip(inside, inside[1:]):
             assert end <= start
+
+
+def test_traced_spans_both_passes_and_counts_only_while_recording():
+    """``traced`` gives the plain call's value and gradient, and under a
+    profiler a span of its name in the forward and in the backward pass;
+    ``count`` adds only while a profiler records."""
+    w = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(5, 4, generator=torch.Generator().manual_seed(1))
+
+    def fn(x, w):
+        return torch.tanh(x @ w), (x @ w).argmax(-1)
+
+    def run():
+        leaf = w.clone().requires_grad_()
+        y, idx = tracing.traced("example", fn, x, leaf)
+        tracing.count("example", 3)
+        (y.sum() + 0 * idx.sum()).backward()
+        return y.detach(), leaf.grad
+
+    tracing.counts.clear()
+    plain_y, plain_grad = run()
+    assert tracing.counts == {}
+    traced = []
+    spans = _recorded(lambda: traced.append(run()))
+    assert len(spans["example"]) == 2  # forward, then backward
+    assert spans["example"][0][1] <= spans["example"][1][0]
+    assert tracing.counts == {"example": 3}
+    assert torch.equal(traced[0][0], plain_y)
+    assert torch.equal(traced[0][1], plain_grad)
